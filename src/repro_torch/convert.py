@@ -1,0 +1,53 @@
+"""Carry the reference package's sweep inputs and state into the port.
+
+The sweep has no weights: its parameters are the grid's arrays and its
+state is the histogram and batch-means accumulators.  Both cross as
+numpy arrays, so this module needs nothing of the reference package.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.grid import SweepGrid
+
+__all__ = ["BASE_FIELDS", "grid_from_arrays", "hist_state_from_arrays"]
+
+# the reference SweepGrid's base fields; its loss and failure fields
+# are optional and default to their neutral values
+BASE_FIELDS = ("lam", "alpha", "tau0", "b_max", "dist", "cv", "wait_max",
+               "wait_target")
+
+
+def grid_from_arrays(d: Dict[str, np.ndarray]) -> SweepGrid:
+    """A port ``SweepGrid`` from the reference grid's field arrays (e.g.
+    ``{f: getattr(ref_grid, f) for f in ref_grid.__dataclass_fields__}``).
+    The eight base fields are required; loss and failure fields that are
+    missing take their neutral values, and an unknown field raises."""
+    missing = [f for f in BASE_FIELDS if f not in d]
+    if missing:
+        raise KeyError(f"grid fields {missing} are required")
+    kw = {k: np.asarray(v) for k, v in d.items()}
+    return SweepGrid.from_points(kw.pop("lam"), kw.pop("alpha"),
+                                 kw.pop("tau0"), **kw)
+
+
+def hist_state_from_arrays(counts: np.ndarray,
+                           sums: Optional[np.ndarray] = None,
+                           device="cuda") -> Tuple[torch.Tensor, ...]:
+    """The port's ``hist_update`` accumulators from a reference histogram
+    state: ``(counts,)`` or ``(counts, sums)`` as contiguous ``(P,
+    n_bins)`` int32 / float32 tensors on ``device``."""
+    c = np.atleast_2d(np.asarray(counts))
+    if not np.issubdtype(c.dtype, np.integer):
+        raise TypeError(f"counts must be integers, got {c.dtype}")
+    out = (torch.as_tensor(c.astype(np.int32), device=device)
+           .contiguous(),)
+    if sums is not None:
+        s = np.atleast_2d(np.asarray(sums, dtype=np.float32))
+        if s.shape != c.shape:
+            raise ValueError(f"sums {s.shape} and counts {c.shape} differ")
+        out = out + (torch.as_tensor(s, device=device).contiguous(),)
+    return out

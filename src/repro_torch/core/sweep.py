@@ -1,0 +1,392 @@
+"""The single-server Monte Carlo sweep in PyTorch.
+
+Port of the reference package's ``repro.core.sweep.sweep`` for grids
+without loss regimes or failures.  The dynamics are the reference's
+regenerative batch-by-batch law (see its module docstring and
+docs/theory.md): one step per service completion — an idle gap when
+the queue is empty, the optional TimeoutBatch delay, batch formation
+``min(q, b_max)``, a det / exp / gamma service time, the popped jobs'
+latencies, and the Poisson arrivals of the service window appended to a
+linear FIFO buffer whose clock is rebased to the departure.
+
+Where the reference ``vmap``s one point's ``lax.scan`` over the grid,
+this runs every point at once: the carry is a set of ``(P, …)``
+tensors and the scan is a Python loop, 32 steps (one superstep) at a
+time.  Per superstep it draws all of the block's random words in one
+Threefry call (``core.prng``), stacks the 32 steps' latencies into a
+``(P, 32, q_cap)`` block, adds that block into the histograms with one
+``kernels.superstep.hist_update`` (the CUDA kernel on the card), and
+makes one batch-means update.  Dtypes are the reference's: float32
+clocks and sums, int32 counts.
+
+A point's result depends only on its parameters, the seed and its
+global index, so ``key_offset`` chunks with pinned caps reproduce the
+whole-grid dispatch bit for bit.
+
+Not in this slice — each raises ``NotImplementedError`` naming the
+ROADMAP item that adds it: loss grids (Queue A 3c), failure grids (3d),
+``metrics_tap`` (3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine, prng, variance
+from repro_torch.core.grid import DIST_CODE, SweepGrid, SweepResult
+from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
+                                   sketch_edges)
+from repro_torch.kernels import superstep as _ss
+
+__all__ = ["sweep", "sweep_caps", "resolve_device"]
+
+# steps per superstep: the histogram update and the batch-means sample
+# are taken once per block of this many steps
+_REBASE_EVERY = 32
+
+# Marsaglia–Tsang tries materialized per gamma draw (fixed-shape RNG).
+# Each try accepts with probability > 0.95 for shape ≥ 1 (the k < 1
+# case samples shape k + 1 and boosts by U^{1/k}), so all 8 fail with
+# probability < 0.05**8 ≈ 4e-11; the draw then falls back to d = k − 1/3,
+# a truncation far below Monte Carlo noise.
+_GAMMA_TRIES = 8
+
+# named random streams of one step (``prng.draw_words``); the misc
+# stream holds the idle gap (word 0), the gamma boost uniform (1), the
+# gamma accept uniforms (2 … 9) and the Box–Muller words (10 … 17)
+_S_MISC, _S_SERVICE, _S_TIMEOUT = 0, 1, 2
+_MISC_WORDS = 2 + 2 * _GAMMA_TRIES
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for the CPU.  Raises when CUDA is asked for (or defaulted to) and
+    none is present — there is no quiet CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on CUDA by default and no "
+                           "CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _require_supported(grid: SweepGrid) -> None:
+    if grid.has_loss:
+        raise NotImplementedError(
+            "loss regimes (q_max / deadline / retry_rate) are not ported "
+            "yet: ROADMAP Queue A item 3c")
+    if grid.has_fail:
+        raise NotImplementedError(
+            "failure regimes (mtbf / mttr) are not ported yet: ROADMAP "
+            "Queue A item 3d")
+
+
+def _require_pinned_caps(key_offset: int, **pinned) -> None:
+    """``key_offset != 0`` marks a chunk of a larger dispatch; every cap
+    the defaults would size from this chunk's own grid must be pinned
+    from the full grid, or the chunks would run other shapes than the
+    whole-grid dispatch."""
+    missing = [k for k, ok in pinned.items() if not ok]
+    if missing:
+        raise ValueError(
+            f"sweep(key_offset={key_offset}) dispatches a chunk of a "
+            f"split campaign, but {', '.join(missing)} would be sized "
+            f"adaptively from this chunk's own grid — chunks would run "
+            f"different shapes than the whole-grid dispatch. Pin them "
+            f"from the FULL grid, e.g. **sweep_caps(full_grid).")
+
+
+def _window_sized(grid: SweepGrid) -> bool:
+    """Whether ``a_cap`` is sized from the grid (deterministic service,
+    no timeout, every b_max finite), rather than coupled to q_cap."""
+    return (bool(np.all(grid.dist == DIST_CODE["det"]))
+            and not bool(np.any(grid.wait_max > 0.0))
+            and not bool(np.any(grid.b_max == 0)))
+
+
+def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
+    """The capacities ``sweep`` would derive from ``grid`` — compute them
+    once on the FULL grid and splat into every chunk of a split
+    dispatch (``sweep(chunk, key_offset=..., **sweep_caps(full))``).
+    Pass ``q_cap`` to mirror a pinned queue capacity.  Returns
+    ``q_cap``/``a_cap``."""
+    _require_supported(grid)
+    if q_cap is None:
+        q_cap = engine.queue_capacity(grid.lam, grid.alpha, grid.tau0,
+                                      grid.b_max, grid.wait_max)
+    if _window_sized(grid):
+        # deterministic service with a finite cap bounds the service
+        # window at α·b_max + τ0, so the per-window draw can be sized
+        # to it; otherwise a queue excursion can stretch the window
+        # toward τ(q_cap), and a_cap stays coupled to q_cap
+        window = grid.alpha * grid.b_max + grid.tau0
+        a_cap = min(int(q_cap), engine.window_capacity(grid.lam, window))
+    else:
+        a_cap = int(q_cap)
+    return dict(q_cap=int(q_cap), a_cap=int(a_cap))
+
+
+def _gamma(misc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Gamma(k) draws for a superstep, Marsaglia–Tsang with
+    ``_GAMMA_TRIES`` fixed tries: ``misc`` is the ``(S, _MISC_WORDS, P)``
+    word block, ``k`` the per-point shape; returns ``(S, P)``."""
+    boost = k < 1.0
+    ka = torch.where(boost, k + 1.0, k)
+    d = ka - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(d * 9.0)
+    x = prng.normal_pairs(misc[:, 2 + _GAMMA_TRIES:])
+    u = prng.uniform(misc[:, 2:2 + _GAMMA_TRIES])
+    t = x * c + 1.0
+    v = t * t * t
+    pos = v > 0.0
+    logv = torch.log(torch.where(pos, v, 1.0))
+    ok = pos & (torch.log(u) < x * x * 0.5 + d - d * v + d * logv)
+    first = ok.to(torch.uint8).argmax(dim=1, keepdim=True)
+    g = torch.gather(v, 1, first).squeeze(1) * d
+    g = torch.where(ok.any(dim=1), g, d.expand_as(g))
+    ub = prng.uniform(misc[:, 1])
+    return torch.where(boost, g * torch.exp(torch.log(ub) / k), g)
+
+
+def sweep(grid: SweepGrid, *, n_batches: int = 3000,
+          warmup: Optional[int] = None, q_cap: Optional[int] = None,
+          a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+          n_bins: int = 512, seed: int = 0, key_offset: int = 0,
+          shard=None, sketch: bool = False,
+          superstep_backend: Optional[str] = None,
+          metrics_tap=None, device=None) -> SweepResult:
+    """Simulate every grid point for ``n_batches`` service completions
+    (rounded up to a multiple of 32) on ``device`` — CUDA unless
+    ``device="cpu"`` is asked for.
+
+    ``q_cap`` bounds the waiting room and ``a_cap`` the per-window
+    arrival draw; points whose dynamics exceed them report the clamped
+    arrivals in ``buffer_dropped`` (0 in a correct run).  ``None`` sizes
+    them from the grid (``sweep_caps``).  Split dispatches
+    (``key_offset != 0``) must pin them from the full grid.
+    ``sketch=True`` keeps the 64-bin sketch and its per-bin latency sums
+    instead of the 512-bin histogram.  ``superstep_backend`` picks the
+    histogram update (``"cuda"``/``"torch"``/``"auto"`` — see
+    ``repro_torch.kernels.superstep``).  ``r_cap`` is accepted for
+    signature parity and unused: it only sizes the loss kernel's retry
+    orbit."""
+    if len(grid) == 0:
+        raise ValueError("empty grid")
+    if warmup is not None and not 0 <= warmup < int(n_batches):
+        raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
+    _require_supported(grid)
+    if metrics_tap is not None:
+        raise NotImplementedError(
+            "metrics_tap is not ported yet: ROADMAP Queue A item 3e")
+    if shard not in (None, True, False) and int(shard) != 1:
+        if int(shard) < 1:
+            raise ValueError(f"shard must be >= 1 (got {shard})")
+        raise NotImplementedError(
+            "multi-GPU dispatch (shard > 1) is not ported yet: ROADMAP "
+            "Queue A item 3f")
+    dev = resolve_device(device)
+    n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
+    if warmup is None:
+        warmup = max(1, n_batches // 10)
+    if key_offset:
+        _require_pinned_caps(
+            key_offset, q_cap=q_cap is not None,
+            a_cap=a_cap is not None or not _window_sized(grid))
+    if q_cap is None or a_cap is None:
+        caps = sweep_caps(grid, q_cap=q_cap)
+        q_cap = caps["q_cap"] if q_cap is None else q_cap
+        a_cap = caps["a_cap"] if a_cap is None else a_cap
+    q_cap, a_cap = int(q_cap), int(a_cap)
+    if a_cap > q_cap:
+        raise ValueError("a_cap must be <= q_cap (ring-buffer invariant)")
+    if np.any(grid.b_max > q_cap):
+        raise ValueError("b_max exceeds q_cap; raise q_cap")
+    if sketch:
+        n_bins = SKETCH_BINS
+    n_bins = int(n_bins)
+    ss_backend = _ss.resolve_backend(superstep_backend, dev)
+    out = _run(grid, n_batches=n_batches, warmup=int(warmup), q_cap=q_cap,
+               a_cap=a_cap, n_bins=n_bins, seed=int(seed),
+               key_offset=int(key_offset), sketch=bool(sketch),
+               ss_backend=ss_backend, device=dev)
+    return _to_result(grid, out, sketch=bool(sketch))
+
+
+def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
+         a_cap: int, n_bins: int, seed: int, key_offset: int,
+         sketch: bool, ss_backend: str, device: torch.device) -> dict:
+    """The superstep loop over every point at once; returns the
+    per-point outputs as numpy arrays."""
+    f32, i32 = torch.float32, torch.int32
+    n = len(grid)
+    has_timeout = bool(np.any(grid.wait_max > 0.0))
+    all_det = bool(np.all(grid.dist == DIST_CODE["det"]))
+
+    def param(a, dt):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    lam, alpha, tau0 = (param(grid.lam, f32), param(grid.alpha, f32),
+                        param(grid.tau0, f32))
+    b_cap = param(np.where(grid.b_max > 0, grid.b_max, q_cap), i32)
+    dist = param(grid.dist, i32)
+    wait_max = param(grid.wait_max, f32)
+    wait_target = param(grid.wait_target, i32)
+    cv = param(grid.cv, f32)
+    kshape = torch.where(dist == DIST_CODE["exp"],
+                         torch.ones_like(cv), 1.0 / (cv * cv))
+    keys = prng.point_keys(seed, key_offset, n, device)
+    streams = [(_S_MISC, _MISC_WORDS), (_S_SERVICE, a_cap + 1)]
+    if has_timeout:
+        streams.append((_S_TIMEOUT, a_cap + 1))
+
+    # state: the FIFO buffer holds arrival times relative to the last
+    # departure; buf[:, :q] are the waiting jobs, oldest first
+    q = torch.zeros(n, dtype=i32, device=device)
+    buf = torch.zeros(n, q_cap + a_cap, dtype=f32, device=device)
+    def zeros(dt):
+        return torch.zeros(n, dtype=dt, device=device)
+
+    lat_sum, sum_b, sum_b2, sum_bs, busy, span = (zeros(f32)
+                                                  for _ in range(6))
+    lat_n, q_max, dropped = zeros(i32), zeros(i32), zeros(i32)
+    bm = (zeros(f32), zeros(f32), zeros(i32))
+    hists = (torch.zeros(n, n_bins, dtype=i32, device=device),)
+    if sketch:
+        hists = hists + (torch.zeros(n, n_bins, dtype=f32, device=device),)
+    lat_blk = torch.zeros(n, _REBASE_EVERY, q_cap, dtype=f32, device=device)
+    inc_blk = torch.zeros(n, _REBASE_EVERY, q_cap, dtype=torch.bool,
+                          device=device)
+    slots = torch.arange(q_cap, device=device)
+    n_meas = 0
+
+    for i_base in range(0, n_batches, _REBASE_EVERY):
+        words = prng.draw_words(keys, i_base, _REBASE_EVERY, streams)
+        misc = words[0]
+        gap = prng.exponential(misc[:, 0]) / lam
+        offs_s = engine.exp_offsets(prng.exponential(words[1]), lam)
+        if has_timeout:
+            offs_t = engine.exp_offsets(prng.exponential(words[2]), lam)
+        if not all_det:
+            g = _gamma(misc, kshape) / kshape
+        del words, misc
+        s0, n0 = lat_sum, lat_n
+
+        for t in range(_REBASE_EVERY):
+            meas = i_base + t >= warmup
+            # idle period: the step begins when a job arrives to an
+            # empty system; the queue is empty, so the slot is 0
+            empty = q == 0
+            now = torch.where(empty, gap[t], 0.0)
+            buf[:, 0] = torch.where(empty, now, buf[:, 0])
+            q = q + empty.to(i32)
+
+            if has_timeout:
+                # delay service until oldest + wait_max while fewer than
+                # wait_target wait; arrivals meanwhile join the queue
+                do_wait = (wait_max > 0.0) & (q < wait_target)
+                release = torch.where(
+                    do_wait, torch.maximum(now, buf[:, 0] + wait_max), now)
+                buf, q, dropped = engine.push_poisson_window(
+                    buf, q, dropped, offs_t[t], now, release - now,
+                    q_cap=q_cap)
+            else:
+                release = now
+
+            # form the batch: take min(waiting, cap), FIFO
+            b = torch.minimum(q, b_cap)
+            mean_s = alpha * b.to(f32) + tau0
+            s = mean_s if all_det else torch.where(
+                dist == DIST_CODE["det"], mean_s, mean_s * g[t])
+            depart = release + s
+
+            # pop the b oldest jobs; their latency ends at `depart`
+            popmask = slots < b.unsqueeze(1)
+            lats = torch.where(popmask,
+                               depart.unsqueeze(1) - buf[:, :q_cap], 0.0)
+            buf = engine.fifo_pop_shift(buf, b, q_cap)
+            q = q - b
+
+            # arrivals during the service period join the queue
+            buf, q, dropped = engine.push_poisson_window(
+                buf, q, dropped, offs_s[t], release, s, q_cap=q_cap)
+            # rebase the clock: the departure becomes the next origin
+            buf.sub_(depart.unsqueeze(1))
+
+            lat_blk[:, t] = lats
+            if meas:
+                inc_blk[:, t] = popmask
+                lat_sum = lat_sum + engine.row_sum(lats)
+                lat_n = lat_n + b
+                bf = b.to(f32)
+                sum_b = sum_b + bf
+                sum_b2 = sum_b2 + bf * bf
+                sum_bs = sum_bs + bf * s
+                busy = busy + s
+                span = span + depart
+                n_meas += 1
+            else:
+                inc_blk[:, t] = False
+            q_max = torch.maximum(q_max, q)
+
+        _ss.hist_update(hists, lat_blk, inc_blk, n_bins=n_bins,
+                        backend=ss_backend, sketch=sketch)
+        # one batch-means sample per superstep: the mean latency of the
+        # jobs that completed inside this block
+        bm = engine.welford_block(bm, lat_sum - s0, lat_n - n0)
+
+    jobs = torch.clamp(lat_n, min=1).to(f32)
+    nb = float(max(n_meas, 1))
+    out = {
+        "mean_latency": lat_sum / jobs,
+        "mean_batch": sum_b / nb,
+        "batch_m2": sum_b2 / nb,
+        "mean_service": sum_bs / torch.clamp(sum_b, min=1e-30),
+        "utilization": busy / torch.clamp(span, min=1e-30),
+        "n_jobs": lat_n,
+        "max_queue": q_max,
+        "dropped": dropped,
+        "lat_bm_m2": bm[1],
+        "lat_bm_n": bm[2],
+        "hist": hists[0],
+    }
+    if sketch:
+        out["hist_sums"] = hists[1]
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["n_batches"] = np.full(n, n_meas, dtype=np.int32)
+    return out
+
+
+def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
+    n_jobs = out["n_jobs"]
+    p50, p95, p99 = hist_percentiles(
+        out["hist"], (50, 95, 99), edges=sketch_edges() if sketch else None)
+    stderr, ci = variance.batch_means_stats(out["lat_bm_m2"],
+                                            out["lat_bm_n"])
+    f64 = np.float64
+    return SweepResult(
+        grid=grid,
+        mean_latency=out["mean_latency"].astype(f64),
+        latency_p50=p50, latency_p95=p95, latency_p99=p99,
+        mean_batch=out["mean_batch"].astype(f64),
+        batch_m2=out["batch_m2"].astype(f64),
+        mean_service=out["mean_service"].astype(f64),
+        utilization=np.clip(out["utilization"].astype(f64), 0.0, 1.0),
+        n_jobs=n_jobs,
+        n_batches=out["n_batches"],
+        max_queue=out["max_queue"],
+        buffer_dropped=out["dropped"],
+        # a loss-free grid completes every measured arrival in SLO
+        overflow_dropped=np.zeros_like(n_jobs),
+        abandoned=np.zeros_like(n_jobs),
+        n_in_slo=n_jobs.copy(),
+        n_fresh=n_jobs.copy(),
+        n_retry=np.zeros_like(n_jobs),
+        hist=out["hist"],
+        hist_sums=out["hist_sums"].astype(f64) if sketch else None,
+        stderr=stderr, ci_halfwidth=ci,
+        n_blocks=out["lat_bm_n"],
+    )

@@ -1,0 +1,65 @@
+"""The port stands alone: no module of repro_torch, nor chip_smoke.py,
+imports JAX or anything of the reference package ``repro``."""
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, {str(ROOT / 'src')!r})
+        sys.path.insert(0, {str(ROOT)!r})
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke   # its import block; main() runs only as a script
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    """Without CUDA the script exits non-zero and prints no result."""
+    code = textwrap.dedent(f"""
+        import runpy, sys, torch
+        torch.cuda.is_available = lambda: False
+        sys.argv = [{str(ROOT / 'chip_smoke.py')!r}]
+        runpy.run_path(sys.argv[0], run_name="__main__")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
