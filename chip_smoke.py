@@ -1,32 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc`` and
-runs, in order, printing one JSON line per phase:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, started together) and runs, in order,
+printing one JSON line per phase:
 
-1. build     — compile ``hist_update.cu`` with nvcc; the card's name and
-               power limit from nvidia-smi.
-2. kernel    — the CUDA ``hist_update`` against its plain torch version
-               at the sweep's user-size shapes (8,160 points, 32 × 768
-               block; full 512-bin and 64-bin sketch modes): counts bit
-               for bit, sums within rtol 1e-6; kernel, plain, library
-               (one ``scatter_add_`` over precomputed bins) and bound
-               times.
-3. contracts — Threefry known-answer vectors on the card, and a split
-               dispatch bitwise equal to the whole one.
-4. main      — ``evaluate(SweepGrid.from_rhos([.1 … .9], V100),
-               backend="sweep", n_batches=4000, q_cap=1024, seed=7)``:
-               no buffer drops, mean latency at φ (ρ ≥ 0.3), Remark 5,
-               one kernel launch per superstep.
-5. user_size — the examples/sweep_grid.py grid at 8,192 requested
-               points (8,160 run), n_batches=3000, q_cap=768, seed=0:
-               no drops, the example's Theorem 2 / Remark 5 checks,
-               wall time (first call and warm), jobs/s, peak memory,
-               kernel launches.
+1. build         — compile ``hist_update.cu`` and ``fifo_compact.cu``;
+                   the card's name and power limit from nvidia-smi.
+2. kernel        — the CUDA ``hist_update`` against its plain torch
+                   version at each path's user-size shape: the sweep's
+                   (8,160 points, 32 × 768 block; full 512-bin and
+                   64-bin sketch modes) and the generate sweep's (8,192
+                   points, 16 × 64), and on a thinned generate block
+                   whose size is not a multiple of 16 (8,192 × 5 × 63):
+                   counts bit for bit, sums within rtol 1e-6; kernel,
+                   plain, library (one ``scatter_add_`` over precomputed
+                   bins) and bound times.
+3. fifo_compact  — the CUDA ``fifo_compact`` against its plain version
+                   at the generate sweep's user-size shape (8,192 ×
+                   1,409, random k and now): bit for bit; kernel,
+                   plain, library (one ``torch.gather`` with its index
+                   built beforehand) and bound times.
+4. contracts     — Threefry known-answer vectors on the card, and a
+                   split sweep dispatch bitwise equal to the whole one.
+5. main          — ``evaluate(SweepGrid.from_rhos([.1 … .9], V100),
+                   backend="sweep", n_batches=4000, q_cap=1024,
+                   seed=7)``: no buffer drops, mean latency at φ
+                   (ρ ≥ 0.3), Remark 5, one kernel launch per superstep.
+6. user_size     — the examples/sweep_grid.py grid at 8,192 requested
+                   points (8,160 run), n_batches=3000, q_cap=768,
+                   seed=0: no drops, the example's Theorem 2 / Remark 5
+                   checks, wall time (first call and warm), jobs/s, peak
+                   memory, kernel launches.
+7. gen_contracts — the generate sweep on the card: split dispatch
+                   bitwise equal to the whole one, the two disciplines
+                   bitwise equal at max_active = 1, and a hist_every=3
+                   run whose blocks are 5 × 31 (no multiple of 16)
+                   without drops, each of its hist_update calls held
+                   bit for bit against the plain version.
+8. gen_user_size — ``gen_sweep`` on the benchmarks/continuous.py grid
+                   (16 ρ × gen_tokens 8/32/64/256 × max_active
+                   8/16/32/64 × both disciplines, prompt 128) tiled 16
+                   times into 8,192 points, n_steps=4096, adaptive caps:
+                   no drops, every static point within max(3·CI, 4%) of
+                   the port's ``sweep`` at its equivalent request-level
+                   law, two continuous points against the port's exact
+                   numpy loop (3σ over 3 seeds), wall time (first and
+                   warm), requests/s, peak memory, launches of both
+                   kernels (one each per 16-step superstep).
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and the last
+Then a ``{"kernels": [...]}`` line (one row per kernel and path: the
+launches of that path's user-size run beside the times at that path's
+shape), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -46,18 +73,39 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import SweepGrid, evaluate, sweep, sweep_caps  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    GenGrid, GenServiceModel, SweepGrid, evaluate, gen_caps, gen_sweep,
+    sweep, sweep_caps)
 from repro_torch.core.analytic import (mean_batch_lower, phi,  # noqa: E402
                                        stability_limit)
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.core.hist import bit_bins  # noqa: E402
+from repro_torch.core.continuous_sim import (  # noqa: E402
+    simulate_continuous_numpy)
+from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
+from repro_torch.core.hist import bit_bins, thinned_rows  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import superstep as ss  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 V100 = (0.1438, 1.8874)            # README's V100 (α, τ0)
-SOURCE = "src/repro_torch/kernels/csrc/hist_update.cu"
-REPLACES = "src/repro/kernels/superstep.py:105"
+# name: (source, TPU kernel it replaces as file:line and as function)
+KERNELS = {
+    "hist_update": ("src/repro_torch/kernels/csrc/hist_update.cu",
+                    "src/repro/kernels/superstep.py:105",
+                    "src/repro/kernels/superstep.py:_hist_body"),
+    "fifo_compact": ("src/repro_torch/kernels/csrc/fifo_compact.cu",
+                     "src/repro/kernels/superstep.py:180",
+                     "src/repro/kernels/superstep.py:_compact_body"),
+}
+# benchmarks/continuous.py's token-level V100-like constants (ms) and
+# grid axes
+GEN_MODEL = GenServiceModel(alpha_decode=0.14, tau0_decode=1.9,
+                            alpha_prefill=0.035, tau0_prefill=1.9)
+GEN_PROMPT = 128
+GEN_RHOS = [round(r, 4) for r in np.linspace(0.15, 0.85, 16)]
+GEN_GENS = (8, 32, 64, 256)
+GEN_CAPS = (8, 16, 32, 64)
+GEN_DISCS = ("static", "continuous")
 
 
 def emit(phase: str, **fields) -> None:
@@ -93,19 +141,23 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 
 def phase_build() -> str:
+    """Build every kernel source at once, one nvcc each, and load it."""
     t0 = time.perf_counter()
-    _build.library("hist_update")
+    _build.build(*KERNELS)
+    for name in KERNELS:
+        _build.library(name)
     smi = nvidia_smi()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=_build.build_seconds.get("hist_update"),
+         nvcc_seconds={k: _build.build_seconds.get(k) for k in KERNELS},
          flags=" ".join(_build.NVCC_FLAGS), nvidia_smi=smi)
     print(smi, flush=True)
     return smi
 
 
 def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
-                 width: int = 768) -> dict:
-    """The CUDA kernel against its plain version on the same inputs."""
+                 width: int = 768, block: str = "sweep") -> dict:
+    """The CUDA hist_update against its plain version on the same
+    inputs."""
     n_bins = 64 if sketch else 512
     gen = torch.Generator(device=dev).manual_seed(1234 + sketch)
     lats = torch.empty(p, rows, width, device=dev).log_normal_(
@@ -123,7 +175,7 @@ def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
     ss.hist_update_plain(want, lats, inc, n_bins=n_bins, sketch=sketch)
     torch.cuda.synchronize()
     check(torch.equal(got[0], want[0]),
-          f"hist_update counts bitwise equal (sketch={sketch})")
+          f"hist_update counts bitwise equal (sketch={sketch}, {block})")
     err = float((got[0] - want[0]).abs().max())
     if sketch:
         check(torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0),
@@ -144,13 +196,55 @@ def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
     n_inc = int(inc.sum())
     acc_bytes = 2 * p * n_bins * 4 * (2 if sketch else 1)
     bytes_moved = inc.numel() + 4 * n_inc + acc_bytes
-    out = dict(sketch=sketch, points=p, block=[rows, width], n_bins=n_bins,
-               included=n_inc, bytes=bytes_moved, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+    out = dict(block=block, sketch=sketch, points=p, rows=rows,
+               width=width, n_bins=n_bins, included=n_inc,
+               bytes=bytes_moved, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
                library_note="scatter_add_ of counts over precomputed bins",
                bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
                max_abs_err=err, matches_plain=True)
     emit("kernel", **out)
+    return out
+
+
+def phase_fifo_compact(dev, p: int = 8192, n: int = 1409) -> dict:
+    """The CUDA fifo_compact against its plain version on the generate
+    sweep's user-size shape (``buffer_length(256, 112, 64)``)."""
+    gen = torch.Generator(device=dev).manual_seed(99)
+    buf = torch.randn(p, n, device=dev, generator=gen) * 50.0
+    k = torch.randint(0, n + 1, (p,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    k[:4] = torch.tensor([0, 1, n - 1, n], dtype=torch.int32)
+    now = torch.rand(p, device=dev, generator=gen) * 500.0
+    now[0] = 0.0
+    got = ss.fifo_compact(buf, k, now, backend="cuda",
+                          out=torch.empty_like(buf))
+    want = ss.fifo_compact_plain(buf, k, now, out=torch.empty_like(buf))
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "fifo_compact bitwise equal to its plain version")
+    err = float((got - want).abs().max())
+    out_buf = torch.empty_like(buf)
+    kernel_ms = time_ms(lambda: ss.fifo_compact(
+        buf, k, now, backend="cuda", out=out_buf))
+    plain_ms = time_ms(lambda: ss.fifo_compact_plain(buf, k, now,
+                                                     out=out_buf))
+    # library yardstick: the gather alone, its index built beforehand
+    # (the subtraction of now and the fill past the end are left out)
+    idx = (k.unsqueeze(1).long()
+           + torch.arange(n, device=dev)).clamp_(max=n - 1)
+    library_ms = time_ms(lambda: torch.gather(buf, 1, idx, out=out_buf))
+    del idx
+    survivors = int((n - k.long()).sum())
+    bytes_moved = 4 * survivors + 4 * p * n + 8 * p
+    out = dict(points=p, n=n, survivors=survivors, bytes=bytes_moved,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library_note="torch.gather with a prebuilt index; the "
+                            "subtraction and the tail fill left out",
+               bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+               max_abs_err=err, matches_plain=True)
+    emit("fifo_compact", **out)
     return out
 
 
@@ -285,6 +379,221 @@ def phase_user_size(dev, target_points: int = 8192, n_batches: int = 3000,
     return launches
 
 
+def gen_grid(tiles: int = 16) -> GenGrid:
+    """benchmarks/continuous.py's grid (16 ρ × gen_tokens × max_active
+    × discipline = 512 points, λ normalized by the cap-limited
+    capacity), tiled ``tiles`` times: the copies of a point differ only
+    in their global index, so they form a seed ladder."""
+    lam, gens, caps, discs = [], [], [], []
+    for rho in GEN_RHOS:
+        for g in GEN_GENS:
+            for c in GEN_CAPS:
+                for d in GEN_DISCS:
+                    lam.append(rho * GEN_MODEL.capped_capacity(
+                        GEN_PROMPT, g, c))
+                    gens.append(g)
+                    caps.append(c)
+                    discs.append(d)
+    m = GEN_MODEL
+    return GenGrid.from_points(
+        np.tile(lam, tiles), m.alpha_decode, m.tau0_decode,
+        m.alpha_prefill, m.tau0_prefill, prompt_len=GEN_PROMPT,
+        gen_tokens=np.tile(gens, tiles), max_active=np.tile(caps, tiles),
+        discipline=[d for _ in range(tiles) for d in discs])
+
+
+def gen_index(rho: float, gen: int, cap: int, disc: str) -> int:
+    """Index of a point in the first tile of ``gen_grid``."""
+    return (((GEN_RHOS.index(rho) * len(GEN_GENS) + GEN_GENS.index(gen))
+             * len(GEN_CAPS) + GEN_CAPS.index(cap))
+            * len(GEN_DISCS) + GEN_DISCS.index(disc))
+
+
+def phase_gen_contracts(dev) -> None:
+    """The generate sweep's bitwise contracts and a thinned run whose
+    histogram blocks are no multiple of 16 bytes, on the card."""
+    m = GEN_MODEL
+    # s_cap = max(max_active) = 31 is odd: with hist_every = 3 each
+    # point bins 5 × 31 = 155 mask bytes per superstep, so the CUDA
+    # hist_update runs its scalar head and tail on the real path
+    g = GenGrid.from_points(
+        [0.02, 0.012, 0.02, 0.015], m.alpha_decode, m.tau0_decode,
+        m.alpha_prefill, m.tau0_prefill, prompt_len=GEN_PROMPT,
+        gen_tokens=[8, 16, 8, 32], max_active=[15, 31, 15, 7],
+        discipline=["continuous", "static", "static", "continuous"])
+    block = len(thinned_rows(16, 3)) * int(g.max_active.max())
+    check(block % 16 != 0, f"thinned block of {block} entries is odd")
+    kw = dict(n_steps=2048, seed=13, device=dev, **gen_caps(g))
+    for extra in ({}, dict(sketch=True, hist_every=3)):
+        whole = gen_sweep(g, **kw, **extra)
+        a = gen_sweep(g.take(slice(0, 2)), **kw, **extra)
+        b = gen_sweep(g.take(slice(2, None)), key_offset=2, **kw, **extra)
+        for f in ("mean_latency", "mean_batch", "utilization", "n_jobs",
+                  "hist", "max_queue", "stderr"):
+            split = np.concatenate([getattr(a, f), getattr(b, f)])
+            check(np.array_equal(getattr(whole, f), split, equal_nan=True),
+                  f"gen split dispatch bitwise equal to whole on {f} "
+                  f"({extra})")
+    alpha_eq = GEN_PROMPT * m.alpha_prefill + 32 * m.alpha_decode
+    tau0_eq = m.tau0_prefill + 32 * m.tau0_decode
+    one = {}
+    for disc in GEN_DISCS:
+        g1 = GenGrid.from_points([0.4 / (alpha_eq + tau0_eq)],
+                                 m.alpha_decode, m.tau0_decode,
+                                 m.alpha_prefill, m.tau0_prefill,
+                                 prompt_len=GEN_PROMPT, gen_tokens=32,
+                                 max_active=1, discipline=disc)
+        one[disc] = gen_sweep(g1, n_steps=2048, q_cap=128, seed=3,
+                              device=dev)
+    for f in ("mean_latency", "mean_batch", "utilization", "n_jobs",
+              "hist"):
+        check(np.array_equal(getattr(one["static"], f),
+                             getattr(one["continuous"], f)),
+              f"max_active=1 disciplines bitwise equal on {f}")
+    # every histogram update of the thinned run is held against the
+    # plain version on the same block, on the real path: the counts
+    # must agree bit for bit (the plain calls launch nothing)
+    kernel = ss.hist_update
+    same = []
+
+    def checked(hists, lats, inc, *, n_bins, backend, sketch=False):
+        want = tuple(h.clone() for h in hists)
+        ss.hist_update_plain(want, lats, inc, n_bins=n_bins, sketch=sketch)
+        got = kernel(hists, lats, inc, n_bins=n_bins, backend=backend,
+                     sketch=sketch)
+        same.append(torch.equal(got[0], want[0]))
+        return got
+
+    # the wrapper counts its launches on the module's name, which is
+    # `checked` during the run: carry the count over and back
+    before = checked.launches = kernel.launches
+    ss.hist_update = checked
+    try:
+        th = gen_sweep(g, n_steps=4096, seed=5, hist_every=3, device=dev)
+    finally:
+        ss.hist_update = kernel
+        kernel.launches = checked.launches
+    th_launches = kernel.launches - before
+    check(th_launches == 4096 // 16,
+          f"thinned run launched hist_update {th_launches} times")
+    check(len(same) == th_launches and all(same),
+          f"thinned run: {same.count(False)} of {len(same)} CUDA "
+          f"hist_update calls differ from the plain version")
+    check(int(th.buffer_dropped.sum()) == 0,
+          f"hist_every=3 run ({block} entries per block) without drops")
+    check(bool(np.all(th.hist.sum(1) > 0)), "thinned histograms filled")
+    emit("gen_contracts", split_bitwise=True, max_active_1_bitwise=True,
+         thinned_block=block, thinned_launches=th_launches,
+         thinned_matches_plain=True, thinned_jobs=th.n_jobs.tolist(),
+         thinned_binned=th.hist.sum(1).tolist())
+
+
+def _ladder_se(a, b, floor_frac: float = 0.015) -> float:
+    """tests/test_gen_sweep.py's combined standard error of two seed
+    ladders' means, floored at 1.5% of the reference mean."""
+    se = math.sqrt(np.var(a, ddof=1) / len(a) + np.var(b, ddof=1) / len(b))
+    return max(se, floor_frac * float(np.mean(b)))
+
+
+def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
+                        sweep_batches: int = 4000) -> dict:
+    caps = gen_caps(grid)
+    kw = dict(n_steps=n_steps, seed=29, device=dev)
+    ss.hist_update.launches = 0
+    ss.fifo_compact.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = gen_sweep(grid, **kw)
+    first_s = time.perf_counter() - t0
+    launches = {"hist_update": ss.hist_update.launches,
+                "fifo_compact": ss.fifo_compact.launches}
+    supersteps = n_steps // 16
+    for name, n in launches.items():
+        check(n == supersteps, f"gen user-size sweep launched {name} {n} "
+              f"times, expected one per superstep ({supersteps})")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = gen_sweep(grid, **kw)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(np.array_equal(r.hist, r2.hist)
+          and np.array_equal(r.mean_latency, r2.mean_latency),
+          "two gen user-size runs give the same bits")
+    check(int(r.buffer_dropped.sum()) == 0,
+          "gen user-size buffer_dropped == 0")
+    check(bool(np.all(np.isfinite(r.mean_latency)) and np.all(r.n_jobs > 0)),
+          "gen user-size results finite, every point completed jobs")
+
+    # the static discipline is the paper's batch queue at the
+    # equivalent request-level law: hold every static point against the
+    # port's request-level sweep there
+    st = np.flatnonzero(grid.discipline == 0)
+    sg = SweepGrid.from_points(grid.lam[st], grid.equivalent_alpha[st],
+                               grid.equivalent_tau0[st],
+                               b_max=grid.max_active[st])
+    rs = sweep(sg, n_batches=sweep_batches, seed=31, device=dev)
+    check(int(rs.buffer_dropped.sum()) == 0,
+          "equivalent-law sweep buffer_dropped == 0")
+    gap = np.abs(r.mean_latency[st] - rs.mean_latency)
+    tol = np.maximum(3.0 * np.hypot(r.ci_halfwidth[st], rs.ci_halfwidth),
+                     0.04 * rs.mean_latency)
+    worst = int(np.argmax(gap / tol))
+    check(bool(np.all(gap <= tol)),
+          f"{int((gap > tol).sum())} of {len(st)} static points outside "
+          f"max(3·CI, 4%) of the equivalent-law sweep (worst: point "
+          f"{int(st[worst])}, {r.mean_latency[st[worst]]} vs "
+          f"{rs.mean_latency[worst]})")
+
+    # two continuous points against the exact numpy loop; the tiles of
+    # a point are its seed ladder.  The loop runs 60,000 jobs: at 12,000
+    # its start-up transient still lifts the mean by ≈ 2% at ρ ≈ 0.76
+    # (103.6 against 101.3 at 60,000, six seeds each, on the CPU),
+    # which is more than the kernels' standard error
+    cont = []
+    n_base = len(GEN_RHOS) * len(GEN_GENS) * len(GEN_CAPS) * len(GEN_DISCS)
+    for rho, gen, cap in ((GEN_RHOS[7], 32, 64), (GEN_RHOS[13], 8, 16)):
+        i = gen_index(rho, gen, cap, "continuous")
+        ladder = r.mean_latency[i::n_base]
+        ref = np.array([simulate_continuous_numpy(
+            float(grid.lam[i]), GEN_MODEL, prompt_len=GEN_PROMPT,
+            gen_tokens=gen, max_active=cap, n_jobs=60_000,
+            seed=s).mean_latency for s in range(3)])
+        se = _ladder_se(ladder, ref)
+        check(abs(ladder.mean() - ref.mean()) < 3.0 * se,
+              f"continuous rho={rho} gen={gen} cap={cap}: "
+              f"{ladder.mean()} vs numpy {ref.mean()} (3se={3 * se})")
+        cont.append(dict(rho=rho, gen=gen, cap=cap,
+                         kernel=float(ladder.mean()),
+                         numpy=float(ref.mean()), se=se))
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(grid), n_steps=n_steps, caps=caps,
+               buffer_length=buffer_length(caps["q_cap"], caps["a_cap"],
+                                           int(grid.max_active.max())),
+               first_call_s=first_s, warm_s=warm_s, requests=jobs,
+               requests_per_s_warm=jobs / warm_s, peak_mem_bytes=peak,
+               launches=launches, supersteps=supersteps,
+               static_points=len(st),
+               static_worst_gap_over_tol=float(gap[worst] / tol[worst]),
+               static_median_rel_gap=float(np.median(
+                   gap / rs.mean_latency)),
+               continuous_vs_numpy=cont)
+    emit("gen_user_size", **out)
+    return out
+
+
+def _kernel_row(name: str, path: str, launches: int, k: dict,
+                **extra) -> dict:
+    source, replaces, tpu_ref = KERNELS[name]
+    return {"name": name, "path": path, "route": "cuda", "source": source,
+            "replaces": replaces, "tpu_ref": tpu_ref, "impl": "cuda",
+            "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": "bytes", "library_ms": k["library_ms"],
+            "matches_plain": True, **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -292,21 +601,39 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     smi = phase_build()
+    grid = gen_grid()
+    # each path's own hist_update block: the sweep's 32 × 768 and the
+    # generate sweep's 16 × s_cap (one 16-step superstep, hist_every=1)
     full = phase_kernel(dev, sketch=False)
     sketch = phase_kernel(dev, sketch=True)
+    gen_block = phase_kernel(dev, sketch=False, p=len(grid), rows=16,
+                             width=int(grid.max_active.max()), block="gen")
+    thin = phase_kernel(dev, sketch=False, p=len(grid),
+                        rows=len(thinned_rows(16, 3)), width=63,
+                        block="gen_thinned")
+    compact = phase_fifo_compact(dev)
     phase_contracts(dev)
     phase_main(dev)
-    launches = phase_user_size(dev)
-    print(json.dumps({"kernels": [{
-        "name": "hist_update", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES,
-        "tpu_ref": "src/repro/kernels/superstep.py:_hist_body",
-        "impl": "cuda", "launches": launches,
-        "max_abs_err": max(full["max_abs_err"], sketch["max_abs_err"]),
-        "ms": full["kernel_ms"], "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"], "bound_by": "bytes",
-        "library_ms": full["library_ms"], "matches_plain": True}]}),
-        flush=True)
+    sweep_launches = phase_user_size(dev)
+    phase_gen_contracts(dev)
+    gen = phase_gen_user_size(dev, grid)
+    print(json.dumps({"kernels": [
+        _kernel_row(
+            "hist_update", "gen_user_size", gen["launches"]["hist_update"],
+            gen_block,
+            max_abs_err=max(gen_block["max_abs_err"], thin["max_abs_err"]),
+            thinned_ms=thin["kernel_ms"], thinned_plain_ms=thin["plain_ms"],
+            thinned_bound_ms=thin["bound_ms"],
+            thinned_library_ms=thin["library_ms"]),
+        _kernel_row(
+            "hist_update", "sweep_user_size", sweep_launches, full,
+            max_abs_err=max(full["max_abs_err"], sketch["max_abs_err"]),
+            sketch_ms=sketch["kernel_ms"], sketch_plain_ms=sketch["plain_ms"],
+            sketch_bound_ms=sketch["bound_ms"],
+            sketch_library_ms=sketch["library_ms"]),
+        _kernel_row("fifo_compact", "gen_user_size",
+                    gen["launches"]["fifo_compact"], compact),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

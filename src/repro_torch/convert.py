@@ -1,8 +1,8 @@
 """Carry the reference package's sweep inputs and state into the port.
 
-The sweep has no weights: its parameters are the grid's arrays and its
-state is the histogram and batch-means accumulators.  Both cross as
-numpy arrays, so this module needs nothing of the reference package.
+The sweeps have no weights: their parameters are the grids' arrays and
+their state is the histogram and batch-means accumulators.  Both cross
+as numpy arrays, so this module needs nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -11,9 +11,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.grid import SweepGrid
+from repro_torch.core.grid import GenGrid, SweepGrid
 
-__all__ = ["BASE_FIELDS", "grid_from_arrays", "hist_state_from_arrays"]
+__all__ = ["BASE_FIELDS", "GEN_BASE_FIELDS", "grid_from_arrays",
+           "gen_grid_from_arrays", "hist_state_from_arrays"]
 
 # the reference SweepGrid's base fields; its loss and failure fields
 # are optional and default to their neutral values
@@ -32,6 +33,27 @@ def grid_from_arrays(d: Dict[str, np.ndarray]) -> SweepGrid:
     kw = {k: np.asarray(v) for k, v in d.items()}
     return SweepGrid.from_points(kw.pop("lam"), kw.pop("alpha"),
                                  kw.pop("tau0"), **kw)
+
+
+# the reference GenGrid's token-level fields; its loss and failure
+# fields are optional as for SweepGrid
+GEN_BASE_FIELDS = ("lam", "alpha_decode", "tau0_decode", "alpha_prefill",
+                   "tau0_prefill", "prompt_len", "gen_tokens",
+                   "max_active", "discipline")
+
+
+def gen_grid_from_arrays(d: Dict[str, np.ndarray]) -> GenGrid:
+    """A port ``GenGrid`` from the reference ``GenGrid``'s field arrays
+    (e.g. ``{f: getattr(g, f) for f in g.__dataclass_fields__}``), with
+    the same arrays bit for bit.  The nine token-level fields are
+    required; loss and failure fields that are missing take their
+    neutral values, and an unknown field raises."""
+    missing = [f for f in GEN_BASE_FIELDS if f not in d]
+    if missing:
+        raise KeyError(f"gen grid fields {missing} are required")
+    kw = {k: np.asarray(v) for k, v in d.items()}
+    rates = [kw.pop(f) for f in GEN_BASE_FIELDS[:5]]
+    return GenGrid.from_points(*rates, **kw)
 
 
 def hist_state_from_arrays(counts: np.ndarray,

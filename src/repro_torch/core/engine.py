@@ -35,7 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["exp_offsets", "fifo_append", "fifo_pop_shift",
+__all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
            "accept_window", "push_poisson_window", "welford_block",
            "row_sum", "scatter_hist", "scatter_hist_sums",
            "queue_capacity", "window_capacity"]
@@ -58,6 +58,17 @@ def fifo_append(buf: torch.Tensor, pos: torch.Tensor,
     idx = pos.unsqueeze(1).long() + torch.arange(
         block.shape[1], device=buf.device)
     return buf.scatter_(1, idx, block)
+
+
+def fifo_gather(buf: torch.Tensor, head: torch.Tensor,
+                rank: torch.Tensor) -> torch.Tensor:
+    """Per-point gather ``buf[p, head[p] + rank[p, j]]`` of a ``(P, S)``
+    rank block.  The index is clamped into the row, as the reference's
+    ``jnp.take(buf, clip(head + rank, 0, n - 1))``: slots whose rank
+    the caller masks out may point past the live range (or past the
+    buffer, where torch's ``gather`` would fail) and read some entry."""
+    idx = (head.unsqueeze(1) + rank).clamp_(0, buf.shape[1] - 1)
+    return torch.gather(buf, 1, idx.long())
 
 
 def fifo_pop_shift(buf: torch.Tensor, k: torch.Tensor,

@@ -10,6 +10,9 @@
 - ``"sweep"`` — the PyTorch Monte Carlo sweep (``repro_torch.core
   .sweep``), on CUDA unless ``device="cpu"``; keyword arguments pass
   through to it.
+- ``"gen"`` — the token-level generate sweep (``repro_torch.core
+  .gen_sweep``), likewise.  It takes a ``GenGrid``, and the
+  request-level backends refuse one.
 
 Every other backend of the reference raises ``NotImplementedError``
 naming the ROADMAP item that ports it.  Each call returns one
@@ -22,19 +25,18 @@ from typing import List
 import numpy as np
 
 from repro_torch.core import analytic as an
-from repro_torch.core.grid import DIST_CODE, SweepGrid
+from repro_torch.core.grid import DIST_CODE, GenGrid, SweepGrid
 from repro_torch.core.results import SimResult
 
 __all__ = ["evaluate", "BACKENDS"]
 
-BACKENDS = ("analytic", "sweep")
+BACKENDS = ("analytic", "sweep", "gen")
 
 # the reference's other backends and the ROADMAP items that port them
 _NOT_PORTED = {
     "markov": "ROADMAP Queue A item 6 (chain solver)",
     "sim": "ROADMAP Queue A item 3a (scalar simulator reference)",
     "fleet": "ROADMAP Queue A item 4 (fleet_sweep)",
-    "gen": "ROADMAP Queue A item 5 (gen_sweep)",
 }
 
 
@@ -78,6 +80,17 @@ def evaluate(grid: SweepGrid, backend: str = "sweep",
     docstring); returns one ``SimResult`` per point.  The sweep fills
     each result's ``stderr``/``ci_halfwidth`` (batch means, nominal
     95%); the analytic backend leaves them NaN."""
+    if backend == "gen":
+        from repro_torch.core.gen_sweep import gen_sweep
+        if not isinstance(grid, GenGrid):
+            raise ValueError("backend 'gen' needs a GenGrid (token-level "
+                             "axes); request-level grids have no "
+                             "prompt/gen_tokens to promote")
+        return gen_sweep(grid, **kw).to_results()
+    if isinstance(grid, GenGrid):
+        # request-level backends would misread the token-level axes
+        raise ValueError(f"backend {backend!r} is request-level; this is "
+                         "a GenGrid — use backend='gen'")
     if backend == "analytic":
         if kw:
             raise ValueError("backend 'analytic' accepts no keyword "

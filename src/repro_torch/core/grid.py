@@ -1,13 +1,14 @@
 """Parameter grid and result record of the port's single-server sweep.
 
 Own copy of the part of the reference package's ``repro.core.grid`` that
-the sweep needs: the integer codes, ``SweepGrid`` (every axis, the loss
-and failure axes included — the port stores them so a reference grid
-carries across whole, and its sweep refuses grids that set them), the
-``_LossAccounting`` mixin and ``SweepResult`` (without the failure
-accounting fields, which come with the failure slice).  The fleet, generate and
-Markov grids come with the slices that port those kernels.  Plain numpy,
-no torch.
+the ported kernels need: the integer codes, ``SweepGrid`` (every axis,
+the loss and failure axes included — the port stores them so a
+reference grid carries across whole, and its sweep refuses grids that
+set them), the ``_LossAccounting`` mixin, ``SweepResult`` (without the
+failure accounting fields, which come with the failure slice), and the
+token-level ``GenGrid`` / ``GenResult`` of the generate sweep.  The
+fleet and Markov grids come with the slices that port those kernels.
+Plain numpy, no torch.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from repro_torch.core.hist import hist_edges, sketch_edges
 from repro_torch.core.results import SimResult
 
 __all__ = ["DIST_CODE", "DIST_NAME", "OVERFLOW_CODE", "OVERFLOW_NAME",
-           "FAIL_DISC_CODE", "FAIL_DISC_NAME", "SweepGrid",
-           "SweepResult"]
+           "DISC_CODE", "DISC_NAME", "FAIL_DISC_CODE", "FAIL_DISC_NAME",
+           "SweepGrid", "SweepResult", "GenGrid", "GenResult"]
 
 DIST_CODE = {"det": 0, "exp": 1, "gamma": 2}
 DIST_NAME = {v: k for k, v in DIST_CODE.items()}
@@ -33,6 +34,13 @@ DIST_NAME = {v: k for k, v in DIST_CODE.items()}
 # count in ``overflow_dropped``; ``q_max = 0`` means an infinite room.
 OVERFLOW_CODE = {"reject": 0, "drop": 1}
 OVERFLOW_NAME = {v: k for k, v in OVERFLOW_CODE.items()}
+
+# Scheduling disciplines for the token-level generate kernel: "static" is
+# the paper's batch-held-to-completion policy applied to whole generate
+# requests; "continuous" is iteration-level (Orca/vLLM-style) scheduling
+# where waiting requests join the running batch between decode steps.
+DISC_CODE = {"static": 0, "continuous": 1}
+DISC_NAME = {v: k for k, v in DISC_CODE.items()}
 
 # Server-failure interruption disciplines (what happens to the work in
 # flight when a replica breaks down mid-batch): "resume" carries the
@@ -94,6 +102,12 @@ def _as_fail_disc_codes(fail_disc) -> List[int]:
             else list(np.atleast_1d(fail_disc)))
     return [FAIL_DISC_CODE[d] if isinstance(d, str) else int(d)
             for d in vals]
+
+
+def _as_disc_codes(discipline) -> List[int]:
+    vals = ([discipline] if isinstance(discipline, str)
+            else list(np.atleast_1d(discipline)))
+    return [DISC_CODE[d] if isinstance(d, str) else int(d) for d in vals]
 
 
 @dataclass(frozen=True)
@@ -247,6 +261,164 @@ class SweepGrid(_GridOps):
                 self.cv, self.wait_max, self.wait_target, self.q_max,
                 self.deadline, self.overflow, self.retry_rate,
                 self.mtbf, self.mttr, self.fail_disc, self.throttle)
+
+
+@dataclass(frozen=True)
+class GenGrid(_GridOps):
+    """Parameter grid for the token-level generate kernel.
+
+    A request is a prefill of ``prompt_len`` tokens followed by
+    ``gen_tokens`` decode steps; service is linear at token granularity
+    (one decode step over b active sequences costs α_d·b + τ0_d, a
+    batched prefill of t tokens costs α_p·t + τ0_p).  ``max_active``
+    bounds the concurrent sequences (the static discipline's b_max);
+    ``discipline`` holds ``DISC_CODE`` integers.  The loss and failure
+    axes are stored so a reference grid carries across whole; the
+    port's ``gen_sweep`` refuses grids that set them."""
+
+    lam: np.ndarray
+    alpha_decode: np.ndarray
+    tau0_decode: np.ndarray
+    alpha_prefill: np.ndarray
+    tau0_prefill: np.ndarray
+    prompt_len: np.ndarray
+    gen_tokens: np.ndarray
+    max_active: np.ndarray
+    discipline: np.ndarray
+    q_max: np.ndarray
+    deadline: np.ndarray
+    overflow: np.ndarray
+    retry_rate: np.ndarray
+    mtbf: np.ndarray
+    mttr: np.ndarray
+    fail_disc: np.ndarray
+    throttle: np.ndarray
+
+    @property
+    def has_loss(self) -> bool:
+        """True when any point enables an admission-control regime
+        (fail-drop failure points need the loss machinery too)."""
+        return bool(np.any(self.q_max > 0) or np.any(self.deadline > 0)
+                    or np.any(self.retry_rate > 0)
+                    or np.any((self.mtbf > 0)
+                              & (self.fail_disc
+                                 == FAIL_DISC_CODE["drop"])))
+
+    @property
+    def has_fail(self) -> bool:
+        """True when any point enables the breakdown/repair regime."""
+        return bool(np.any(self.mtbf > 0))
+
+    @property
+    def rho(self) -> np.ndarray:
+        """Decode-capacity-normalized load: λ per request over the b→∞
+        per-request service rate 1/(gen·α_d + prompt·α_p)."""
+        return self.lam * (self.gen_tokens * self.alpha_decode
+                           + self.prompt_len * self.alpha_prefill)
+
+    @property
+    def discipline_names(self) -> List[str]:
+        return [DISC_NAME[int(d)] for d in self.discipline]
+
+    @property
+    def equivalent_alpha(self) -> np.ndarray:
+        """Per-request marginal of the *static* discipline's batch law:
+        a batch of b requests costs prefill(b·prompt) + gen·decode(b) =
+        equivalent_alpha·b + equivalent_tau0 — the paper's Assumption 4
+        at request granularity (see docs/theory.md)."""
+        return (self.prompt_len * self.alpha_prefill
+                + self.gen_tokens * self.alpha_decode)
+
+    @property
+    def equivalent_tau0(self) -> np.ndarray:
+        return self.tau0_prefill + self.gen_tokens * self.tau0_decode
+
+    @classmethod
+    def from_points(cls, lam, alpha_decode, tau0_decode, alpha_prefill,
+                    tau0_prefill, *, prompt_len=128, gen_tokens=32,
+                    max_active=64, discipline="continuous", q_max=0,
+                    deadline=0.0, overflow="reject",
+                    retry_rate=0.0, mtbf=0.0, mttr=0.0,
+                    fail_disc="resume", throttle=1.0) -> "GenGrid":
+        arrays = [_as_f32(lam), _as_f32(alpha_decode), _as_f32(tau0_decode),
+                  _as_f32(alpha_prefill), _as_f32(tau0_prefill),
+                  _as_i32(prompt_len), _as_i32(gen_tokens),
+                  _as_i32(max_active),
+                  _as_i32(_as_disc_codes(discipline)),
+                  _as_i32(q_max), _as_f32(deadline),
+                  _as_i32(_as_overflow_codes(overflow)),
+                  _as_f32(retry_rate), _as_f32(mtbf), _as_f32(mttr),
+                  _as_i32(_as_fail_disc_codes(fail_disc)),
+                  _as_f32(throttle)]
+        n = max(a.shape[0] for a in arrays)
+        arrays = [np.broadcast_to(a, (n,)).copy() if a.shape[0] == 1 else a
+                  for a in arrays]
+        if any(a.shape[0] != n for a in arrays):
+            raise ValueError("per-point sequences have mismatched lengths")
+        if np.any(arrays[7] < 1):
+            raise ValueError("max_active must be >= 1")
+        if np.any(arrays[6] < 1):
+            raise ValueError("gen_tokens must be >= 1")
+        if np.any((arrays[13] > 0) & (arrays[14] <= 0)):
+            raise ValueError("failure points (mtbf > 0) need mttr > 0")
+        return cls(*arrays)
+
+    @classmethod
+    def from_product(cls, lams: Sequence[float], model, *,
+                     prompt_lens: Sequence[int] = (128,),
+                     gen_tokens: Sequence[int] = (32,),
+                     max_actives: Sequence[int] = (64,),
+                     disciplines: Sequence[str] = ("continuous",),
+                     q_maxes: Sequence[int] = (0,),
+                     deadlines: Sequence[float] = (0.0,),
+                     overflows: Sequence[str] = ("reject",),
+                     retry_rates: Sequence[float] = (0.0,),
+                     mtbfs: Sequence[float] = (0.0,),
+                     mttrs: Sequence[float] = (0.0,),
+                     fail_discs: Sequence[str] = ("resume",),
+                     throttles: Sequence[float] = (1.0,)
+                     ) -> "GenGrid":
+        """Cartesian product of the sweep axes for one token-level
+        service model (a ``GenServiceModel`` or anything with its four
+        constants)."""
+        disc = _as_i32(_as_disc_codes(list(disciplines)))
+        mesh = np.meshgrid(_as_f32(lams), _as_i32(prompt_lens),
+                           _as_i32(gen_tokens), _as_i32(max_actives),
+                           disc, _as_i32(q_maxes), _as_f32(deadlines),
+                           _as_i32(_as_overflow_codes(list(overflows))),
+                           _as_f32(retry_rates), _as_f32(mtbfs),
+                           _as_f32(mttrs),
+                           _as_i32(_as_fail_disc_codes(list(fail_discs))),
+                           _as_f32(throttles), indexing="ij")
+        flat = [m.reshape(-1) for m in mesh]
+        return cls.from_points(
+            flat[0].astype(np.float32), model.alpha_decode,
+            model.tau0_decode, model.alpha_prefill, model.tau0_prefill,
+            prompt_len=flat[1], gen_tokens=flat[2], max_active=flat[3],
+            discipline=flat[4], q_max=flat[5], deadline=flat[6],
+            overflow=flat[7], retry_rate=flat[8], mtbf=flat[9],
+            mttr=flat[10], fail_disc=flat[11], throttle=flat[12])
+
+    @classmethod
+    def from_rhos(cls, rhos: Sequence[float], model, **axes) -> "GenGrid":
+        """Product grid over decode-capacity-normalized loads ρ: each
+        (ρ, prompt, gen, ...) point gets λ = ρ/(gen·α_d + prompt·α_p),
+        so points at different token counts face the same relative
+        load.  ``axes`` are ``from_product``'s keyword axes."""
+        grid = cls.from_product([1.0] * len(rhos), model, **axes)
+        reps = len(grid) // len(rhos)
+        rho_pts = np.repeat(_as_f32(list(rhos)), reps)
+        lam = rho_pts / (grid.gen_tokens * grid.alpha_decode
+                         + grid.prompt_len * grid.alpha_prefill)
+        return cls(lam.astype(np.float32), *grid._arrays()[1:])
+
+    def _arrays(self) -> Tuple[np.ndarray, ...]:
+        return (self.lam, self.alpha_decode, self.tau0_decode,
+                self.alpha_prefill, self.tau0_prefill, self.prompt_len,
+                self.gen_tokens, self.max_active, self.discipline,
+                self.q_max, self.deadline, self.overflow,
+                self.retry_rate, self.mtbf, self.mttr, self.fail_disc,
+                self.throttle)
 
 
 
@@ -410,3 +582,84 @@ class SweepResult(_LossAccounting):
     def to_results(self) -> List[SimResult]:
         return [self.point(i) for i in range(len(self))]
 
+
+@dataclass
+class GenResult(_LossAccounting):
+    """Token-level sweep output (one entry per ``GenGrid`` point).
+
+    ``mean_batch``/``batch_m2`` are moments of the *active batch size
+    per decode step* (for the static discipline, with per-point-constant
+    ``gen_tokens``, these equal the per-request-batch moments, since
+    every batch contributes ``gen_tokens`` equal steps).  ``n_steps``
+    counts measured decode steps; ``n_jobs`` counts requests that
+    *finished* inside the measured window (their latencies feed
+    ``mean_latency`` and the histogram percentiles).  The loss counters
+    follow the ``SweepResult`` split: ``buffer_dropped`` is the capacity
+    witness (must stay 0), ``overflow_dropped``/``abandoned`` the
+    measured admission-control losses (0 until the loss slice)."""
+
+    grid: GenGrid
+    mean_latency: np.ndarray
+    latency_p50: np.ndarray
+    latency_p95: np.ndarray
+    latency_p99: np.ndarray
+    mean_batch: np.ndarray
+    batch_m2: np.ndarray
+    utilization: np.ndarray
+    n_jobs: np.ndarray
+    n_steps: np.ndarray
+    max_queue: np.ndarray
+    buffer_dropped: np.ndarray        # arrivals lost to capacity clamps
+    overflow_dropped: np.ndarray      # finite-q_max losses (both modes)
+    abandoned: np.ndarray             # deadline reneges in queue
+    n_in_slo: np.ndarray              # completions within deadline
+    n_fresh: np.ndarray               # measured first-time arrivals
+    n_retry: np.ndarray               # measured orbit re-arrivals
+    hist: np.ndarray = field(repr=False)           # (N, n_bins) counts
+    hist_sums: np.ndarray = field(default=None, repr=False)
+    # regenerative batch-means error bars — see SweepResult
+    stderr: np.ndarray = field(default=None, repr=False)
+    ci_halfwidth: np.ndarray = field(default=None, repr=False)
+    n_blocks: np.ndarray = field(default=None, repr=False)
+
+    @property
+    def hist_bin_edges(self) -> np.ndarray:
+        if self.hist_sums is not None:
+            return sketch_edges()
+        return hist_edges(self.hist.shape[1])
+
+    def __len__(self) -> int:
+        return len(self.grid)
+
+    @property
+    def mean_active(self) -> np.ndarray:
+        """Readable alias: mean active sequences per decode step."""
+        return self.mean_batch
+
+    def point(self, i: int) -> SimResult:
+        return SimResult(
+            lam=float(self.grid.lam[i]),
+            n_jobs=int(self.n_jobs[i]),
+            mean_latency=float(self.mean_latency[i]),
+            mean_batch=float(self.mean_batch[i]),
+            batch_m2=float(self.batch_m2[i]),
+            utilization=float(self.utilization[i]),
+            latency_p50=float(self.latency_p50[i]),
+            latency_p95=float(self.latency_p95[i]),
+            latency_p99=float(self.latency_p99[i]),
+            n_batches=int(self.n_steps[i]),
+            backend="gen",
+            stderr=(float(self.stderr[i]) if self.stderr is not None
+                    else float("nan")),
+            ci_halfwidth=(float(self.ci_halfwidth[i])
+                          if self.ci_halfwidth is not None
+                          else float("nan")),
+            discipline=DISC_NAME[int(self.grid.discipline[i])],
+            goodput_frac=float(self.goodput_frac[i]),
+            reject_frac=float(self.reject_frac[i]),
+            abandon_frac=float(self.abandon_frac[i]),
+            retry_inflation=float(self.retry_inflation[i]),
+        )
+
+    def to_results(self) -> List[SimResult]:
+        return [self.point(i) for i in range(len(self))]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["hist_edges", "hist_percentiles", "bit_bins", "bin_params",
+           "thinned_rows",
            "sketch_edges", "sketch_percentiles", "SKETCH_BINS",
            "SKETCH_MANT", "SKETCH_EXP_MIN", "SKETCH_REL_ERR"]
 
@@ -89,6 +90,17 @@ def bit_bins(lats: torch.Tensor, n_bins: int,
     shift, base, _ = bin_params(sketch)
     bits = lats.contiguous().view(torch.int32)
     return ((bits >> shift) - base).clamp_(0, n_bins - 1)
+
+
+def thinned_rows(rebase_every: int, hist_every: int) -> np.ndarray:
+    """The fixed scrambled 1-in-N step subsample the superstep kernels
+    feed to the percentile histogram when ``hist_every > 1`` (a fixed
+    scrambled offset pattern per superstep — not a lattice, which could
+    resonate with the event-parity structure of idle cycles).  Sorted,
+    deterministic, and the reference's rows bit for bit: both draw the
+    permutation from numpy's ``default_rng(0)``."""
+    return np.sort(np.random.default_rng(0).permutation(
+        rebase_every)[:max(1, rebase_every // hist_every)])
 
 
 def hist_percentiles(hist: np.ndarray, qs: Iterable[float],

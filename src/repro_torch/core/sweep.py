@@ -85,19 +85,33 @@ def _require_supported(grid: SweepGrid) -> None:
             "Queue A item 3d")
 
 
-def _require_pinned_caps(key_offset: int, **pinned) -> None:
+def _require_ported_options(shard, metrics_tap) -> None:
+    if metrics_tap is not None:
+        raise NotImplementedError(
+            "metrics_tap is not ported yet: ROADMAP Queue A item 3e")
+    if shard not in (None, True, False) and int(shard) != 1:
+        if int(shard) < 1:
+            raise ValueError(f"shard must be >= 1 (got {shard})")
+        raise NotImplementedError(
+            "multi-GPU dispatch (shard > 1) is not ported yet: ROADMAP "
+            "Queue A item 3f")
+
+
+def _require_pinned_caps(entry: str, key_offset: int, **pinned) -> None:
     """``key_offset != 0`` marks a chunk of a larger dispatch; every cap
     the defaults would size from this chunk's own grid must be pinned
     from the full grid, or the chunks would run other shapes than the
-    whole-grid dispatch."""
+    whole-grid dispatch.  ``entry`` names the caller (``"sweep"`` or
+    ``"gen_sweep"``); its caps helper is ``sweep_caps`` / ``gen_caps``."""
     missing = [k for k, ok in pinned.items() if not ok]
     if missing:
+        caps = entry.replace("_sweep", "") + "_caps"
         raise ValueError(
-            f"sweep(key_offset={key_offset}) dispatches a chunk of a "
+            f"{entry}(key_offset={key_offset}) dispatches a chunk of a "
             f"split campaign, but {', '.join(missing)} would be sized "
             f"adaptively from this chunk's own grid — chunks would run "
             f"different shapes than the whole-grid dispatch. Pin them "
-            f"from the FULL grid, e.g. **sweep_caps(full_grid).")
+            f"from the FULL grid, e.g. **{caps}(full_grid).")
 
 
 def _window_sized(grid: SweepGrid) -> bool:
@@ -179,22 +193,14 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
     if warmup is not None and not 0 <= warmup < int(n_batches):
         raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
     _require_supported(grid)
-    if metrics_tap is not None:
-        raise NotImplementedError(
-            "metrics_tap is not ported yet: ROADMAP Queue A item 3e")
-    if shard not in (None, True, False) and int(shard) != 1:
-        if int(shard) < 1:
-            raise ValueError(f"shard must be >= 1 (got {shard})")
-        raise NotImplementedError(
-            "multi-GPU dispatch (shard > 1) is not ported yet: ROADMAP "
-            "Queue A item 3f")
+    _require_ported_options(shard, metrics_tap)
     dev = resolve_device(device)
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
         warmup = max(1, n_batches // 10)
     if key_offset:
         _require_pinned_caps(
-            key_offset, q_cap=q_cap is not None,
+            "sweep", key_offset, q_cap=q_cap is not None,
             a_cap=a_cap is not None or not _window_sized(grid))
     if q_cap is None or a_cap is None:
         caps = sweep_caps(grid, q_cap=q_cap)

@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build",
            "build_seconds"]
@@ -30,8 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# wall seconds each library's build took in this process (0 when the
-# .so was already on disk)
+# wall seconds from the start of a build() call to the end of each
+# library's nvcc, in this process (0 when the .so was already on disk)
 build_seconds: Dict[str, float] = {}
 
 
@@ -47,27 +47,41 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its current build exists;
-    returns the shared library's path."""
+def _out_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(*names: str) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose current build is missing,
+    one ``nvcc`` per source, all started together; returns the shared
+    libraries' paths in the order of ``names``."""
+    outs = [_out_path(name) for name in names]
+    procs = []
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+    for name, out in zip(names, outs):
+        if out.exists():
+            build_seconds.setdefault(name, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu "
+                          f"(exit {proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, out)
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -75,6 +89,6 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name)[0]))
             _LOADED[name] = lib
         return lib

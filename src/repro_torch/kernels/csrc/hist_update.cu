@@ -17,7 +17,11 @@
 // plus n_bins float64 partial sums in sketch mode), its threads stride
 // over the point's R*W entries reading the mask 16 bytes at a time
 // (neighbouring threads on neighbouring addresses), load a latency only
-// where the mask is set, and add with shared-memory atomics.  The block
+// where the mask is set, and add with shared-memory atomics.  R*W may
+// be any size and a point's mask row may start at any byte (the
+// generate sweep's thinned blocks are len(rows) x s_cap, e.g. 5 x 7):
+// the vector loop covers the row's 16-byte aligned middle, and one
+// scalar pass covers the unaligned head and the tail.  The block
 // then adds its shared histogram into the point's row; no other block
 // touches that row, so no global atomics are needed.  All P points go
 // in one launch per superstep.
@@ -41,6 +45,15 @@
 
 namespace {
 
+__device__ __forceinline__ void add_one(float x, int* s_hist,
+                                        double* s_sums, int n_bins,
+                                        int shift, int base) {
+  int b = (__float_as_int(x) >> shift) - base;
+  b = min(max(b, 0), n_bins - 1);
+  atomicAdd(&s_hist[b], 1);
+  if (s_sums != nullptr) atomicAdd(&s_sums[b], static_cast<double>(x));
+}
+
 __global__ void hist_update_kernel(const float* __restrict__ lats,
                                    const uint8_t* __restrict__ inc,
                                    int32_t* __restrict__ hist,
@@ -48,20 +61,28 @@ __global__ void hist_update_kernel(const float* __restrict__ lats,
                                    int64_t per_point, int n_bins,
                                    int shift, int base) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* s_sums = reinterpret_cast<double*>(smem);
+  double* s_sums = sums != nullptr ? reinterpret_cast<double*>(smem)
+                                   : nullptr;
   int* s_hist = reinterpret_cast<int*>(
       smem + (sums != nullptr ? n_bins * sizeof(double) : 0));
 
   for (int j = threadIdx.x; j < n_bins; j += blockDim.x) {
     s_hist[j] = 0;
-    if (sums != nullptr) s_sums[j] = 0.0;
+    if (s_sums != nullptr) s_sums[j] = 0.0;
   }
   __syncthreads();
 
   const int64_t p = blockIdx.x;
   const float* row = lats + p * per_point;
-  const uint4* mask = reinterpret_cast<const uint4*>(inc + p * per_point);
-  const int64_t n_vec = per_point / 16;
+  const uint8_t* mrow = inc + p * per_point;
+  // the aligned middle [head, head + 16 * n_vec) of the mask row
+  const int64_t mis = static_cast<int64_t>(
+      reinterpret_cast<uintptr_t>(mrow) & 15u);
+  const int64_t lead = mis == 0 ? 0 : 16 - mis;
+  const int64_t head = lead < per_point ? lead : per_point;
+  const int64_t n_vec = (per_point - head) / 16;
+  const int64_t tail = head + 16 * n_vec;
+  const uint4* mask = reinterpret_cast<const uint4*>(mrow + head);
   for (int64_t v = threadIdx.x; v < n_vec; v += blockDim.x) {
     const uint4 m = mask[v];
     if ((m.x | m.y | m.z | m.w) == 0u) continue;
@@ -69,13 +90,17 @@ __global__ void hist_update_kernel(const float* __restrict__ lats,
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
       if ((words[k >> 2] >> (8 * (k & 3))) & 0xffu) {
-        const float x = row[v * 16 + k];
-        int b = (__float_as_int(x) >> shift) - base;
-        b = min(max(b, 0), n_bins - 1);
-        atomicAdd(&s_hist[b], 1);
-        if (sums != nullptr) atomicAdd(&s_sums[b], static_cast<double>(x));
+        add_one(row[head + v * 16 + k], s_hist, s_sums, n_bins, shift,
+                base);
       }
     }
+  }
+  // the scalar rest: the head before the aligned middle (< 16 bytes)
+  // and the tail after it (< 16 bytes)
+  const int64_t n_rest = head + (per_point - tail);
+  for (int64_t j = threadIdx.x; j < n_rest; j += blockDim.x) {
+    const int64_t e = j < head ? j : tail + (j - head);
+    if (mrow[e]) add_one(row[e], s_hist, s_sums, n_bins, shift, base);
   }
   __syncthreads();
 
@@ -92,8 +117,8 @@ __global__ void hist_update_kernel(const float* __restrict__ lats,
 }  // namespace
 
 // Launch over n_points blocks on `stream`; `sums` may be null (full
-// mode).  Requires per_point % 16 == 0 and a 16-byte aligned mask (the
-// wrapper checks both).  Returns cudaGetLastError() after the launch.
+// mode).  Any per_point and any mask alignment.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int hist_update_launch(const void* lats, const void* inc,
                                   void* hist, void* sums,
                                   int64_t n_points, int64_t per_point,

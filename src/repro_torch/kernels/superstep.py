@@ -1,31 +1,41 @@
-"""Superstep histogram update of the port's sweep: a CUDA kernel and its
-plain torch version.
+"""Superstep kernels of the port's Monte Carlo sweeps: two CUDA kernels
+and their plain torch versions.
 
-The sweep bins the job latencies of each 32-step block once per block.
-``hist_update`` takes the stacked block of every point at once —
-``lats``/``inc`` of shape ``(P, R, W)`` — and adds it into the
-``(P, n_bins)`` histogram rows (and, in sketch mode, the per-bin
-latency sums), in place.  It replaces the reference's
-``repro.kernels.superstep.hist_update`` (Pallas ``_hist_body``), which
-runs per point under ``vmap``.
+The sweeps amortise their whole-block work to one call per superstep:
 
-Backends:
+- ``hist_update`` bins the job latencies of a superstep block once per
+  block.  It takes the stacked block of every point at once —
+  ``lats``/``inc`` of shape ``(P, R, W)``, any ``R*W`` — and adds it
+  into the ``(P, n_bins)`` histogram rows (and, in sketch mode, the
+  per-bin latency sums), in place.  It replaces the reference's
+  ``repro.kernels.superstep.hist_update`` (Pallas ``_hist_body``),
+  which runs per point under ``vmap``.
+- ``fifo_compact`` re-compacts the generate sweep's tail-pointer FIFO
+  buffers to ``head = 0`` with the clock rebase folded in:
+  ``out[p, i] = buf[p, k[p] + i] - now[p]``, and ``0 - now[p]`` past
+  the end.  It replaces the reference's ``fifo_compact`` (Pallas
+  ``_compact_body``) and writes out of place, into a second buffer the
+  caller allocates once and swaps with ``buf``.
 
-- ``"cuda"``: the hand-written kernel ``csrc/hist_update.cu``, one
-  launch over all points, on the current stream, no synchronisation.
-  It takes CUDA tensors only.
-- ``"torch"``: ``hist_update_plain`` — ``bit_bins`` plus
-  ``scatter_add_`` — for CPU tensors only.
+Backends (the same for both):
+
+- ``"cuda"``: the hand-written kernels ``csrc/hist_update.cu`` and
+  ``csrc/fifo_compact.cu``, one launch over all points, on the current
+  stream, no synchronisation.  They take CUDA tensors only.
+- ``"torch"``: ``hist_update_plain`` (``bit_bins`` plus
+  ``scatter_add_``) and ``fifo_compact_plain`` (``engine.fifo_pop_shift``
+  minus ``now``), for CPU tensors only.
 
 ``"auto"`` (or ``None``) reads ``REPRO_TORCH_SUPERSTEP_BACKEND`` and
-otherwise picks by the tensors' device.  A CUDA tensor never reaches the
-plain version through the wrapper, and a failed build or launch raises.
-``hist_update_plain`` is public so that a check on the card can hold the
-kernel against it on the same inputs.
+otherwise picks by the tensors' device.  A CUDA tensor never reaches a
+plain version through a wrapper, and a failed build or launch raises.
+The plain versions are public so that a check on the card can hold each
+kernel against its plain version on the same inputs.
 
-Counts are integer adds, so the two backends agree bit for bit; the
-sketch sums agree to within a float32 rounding (see ``engine
-.scatter_hist_sums``).
+Counts are integer adds and the compaction is one float32 subtraction
+per element, so the two backends agree bit for bit; the sketch sums
+agree to within a float32 rounding (see ``engine.scatter_hist_sums``).
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from repro_torch.core import engine
 from repro_torch.core import hist as hist_mod
 
 __all__ = ["BACKENDS", "ENV_VAR", "resolve_backend", "hist_update",
-           "hist_update_plain"]
+           "hist_update_plain", "fifo_compact", "fifo_compact_plain"]
 
 BACKENDS = ("auto", "torch", "cuda")
 ENV_VAR = "REPRO_TORCH_SUPERSTEP_BACKEND"
@@ -121,10 +131,6 @@ def _launch_cuda(hists, lats, inc, n_bins: int, sketch: bool) -> None:
                              "tensors")
     p, r, w = lats.shape
     per_point = r * w
-    if per_point % 16 or inc.data_ptr() % 16:
-        raise ValueError(f"the CUDA hist_update reads the mask 16 bytes "
-                         f"at a time: R*W must be a multiple of 16 (got "
-                         f"{per_point}) and the mask 16-byte aligned")
     if p >= 1 << 31:
         raise ValueError(f"too many points for one launch: {p}")
     if n_bins * (4 + (8 if sketch else 0)) > _SMEM_LIMIT:
@@ -168,3 +174,85 @@ def hist_update(hists: Sequence[torch.Tensor], lats: torch.Tensor,
 
 
 hist_update.launches = 0
+
+
+def _check_compact(buf: torch.Tensor, k: torch.Tensor, now: torch.Tensor,
+                   out: torch.Tensor) -> None:
+    if buf.dim() != 2 or buf.dtype != torch.float32:
+        raise ValueError(f"buf must be float32 (P, n), got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    p = buf.shape[0]
+    if tuple(k.shape) != (p,) or k.dtype != torch.int32:
+        raise ValueError(f"k must be int32 ({p},), got {k.dtype} "
+                         f"{tuple(k.shape)}")
+    if tuple(now.shape) != (p,) or now.dtype != torch.float32:
+        raise ValueError(f"now must be float32 ({p},), got {now.dtype} "
+                         f"{tuple(now.shape)}")
+    if out.shape != buf.shape or out.dtype != buf.dtype:
+        raise ValueError(f"out must be float32 {tuple(buf.shape)}, "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    # in place is a race on the card: one thread reads buf[i + k] while
+    # another writes buf[i + k] as its own output
+    if out.data_ptr() == buf.data_ptr():
+        raise ValueError("fifo_compact writes out of place: out must "
+                         "not be buf")
+    devices = {t.device for t in (buf, k, now, out)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+
+
+def fifo_compact_plain(buf: torch.Tensor, k: torch.Tensor,
+                       now: torch.Tensor, *,
+                       out: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of the compaction kernel, on any device:
+    ``engine.fifo_pop_shift(buf, k, n) - now[:, None]`` (``0 <= k <=
+    n``), written into ``out``.  Returns ``out``."""
+    _check_compact(buf, k, now, out)
+    vals = engine.fifo_pop_shift(buf, k, buf.shape[1])
+    return torch.sub(vals, now.unsqueeze(1), out=out)
+
+
+def _launch_compact(buf, k, now, out) -> None:
+    from repro_torch.kernels._build import library
+
+    for t in (buf, k, now, out):
+        if not t.is_contiguous():
+            raise ValueError("the CUDA fifo_compact takes contiguous "
+                             "tensors")
+    p, n = buf.shape
+    if p >= 1 << 31 or n >= 1 << 31:
+        raise ValueError(f"buffer too large for one launch: {p} x {n}")
+    lib = library("fifo_compact")
+    fn = lib.fifo_compact_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    with torch.cuda.device(buf.device):
+        err = fn(buf.data_ptr(), k.data_ptr(), now.data_ptr(),
+                 out.data_ptr(), p, n, stream)
+    if err != 0:
+        raise RuntimeError(f"fifo_compact kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def fifo_compact(buf: torch.Tensor, k: torch.Tensor, now: torch.Tensor, *,
+                 backend: str, out: torch.Tensor) -> torch.Tensor:
+    """Per-superstep FIFO re-compaction with the clock rebase folded in,
+    for every point at once: ``out[p, i] = buf[p, k[p] + i] - now[p]``
+    (``0 - now[p]`` where ``k[p] + i >= n``), for ``buf`` float32
+    ``(P, n)``, ``k`` int32 ``(P,)`` in ``[0, n]`` and ``now`` float32
+    ``(P,)``.  Out of place: into ``out``, never ``buf`` itself.
+    ``backend`` is resolved by ``resolve_backend`` against the tensors'
+    device.  Returns ``out``; ``fifo_compact.launches`` counts the
+    kernel launches."""
+    if resolve_backend(backend, buf.device) == "torch":
+        return fifo_compact_plain(buf, k, now, out=out)
+    _check_compact(buf, k, now, out)
+    _launch_compact(buf, k, now, out)
+    fifo_compact.launches += 1
+    return out
+
+
+fifo_compact.launches = 0
