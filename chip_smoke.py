@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, started together) and runs, in order,
 printing one JSON line per phase:
 
-1. build         — compile ``hist_update.cu`` and ``fifo_compact.cu``;
+1. build         — compile ``hist_update.cu``, ``fifo_compact.cu``,
+                   ``flash_attention.cu`` and ``decode_attention.cu``;
                    the card's name and power limit from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version at each path's user-size shape: the sweep's
@@ -51,6 +52,34 @@ printing one JSON line per phase:
                    warm), requests/s, peak memory, launches of both
                    kernels (one each per 16-step superstep).
 
+9. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
+                   against their plain versions (float32 matmuls, TF32
+                   off): at the serve path's shapes (batch 1…32, prompt
+                   32, cache 37, 16 heads of 64, bf16), at the long
+                   serve shapes (32 × 1,024, cache 1,057), at
+                   phi4-mini's GQA heads (24 over 8, hd 128), with a
+                   window, ragged lengths, and in float32: bf16 within
+                   2e-2 and float32 within 2e-5 max abs; kernel, plain,
+                   library (``scaled_dot_product_attention``) and bound
+                   times at the serve and long shapes.
+10. serve        — ``python -m repro_torch.launch.serve --arch
+                   qwen1.5-0.5b --full --workload generate --rho 0.5
+                   --jobs 300 --max-batch 32`` through its ``run``: all
+                   jobs served with finite latencies, τ^[b] per bucket,
+                   α, τ0, R², E[W] against φ, p99, utilisation, peak
+                   memory, and exactly 24 ``flash_attention`` and 24 × 4
+                   ``decode_attention`` launches per batch.
+11. serve_long   — the same model generating 32 tokens after a 1,024-
+                   token prompt, ``calibrate(samples=3)`` on batches
+                   1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
+                   α, τ0, R², E[W] against φ, p99, peak memory, exact
+                   launch counts.
+12. model_consistency — qwen1.5-0.5b at full width in float32 from the
+                   port's seeded init, batch 2: prefill(32) and three
+                   decode steps against the forward logits of all 35
+                   tokens, within 3e-4 (abs + rel): the two kernels held
+                   against each other through the whole model.
+
 Then a ``{"kernels": [...]}`` line (one row per kernel and path: the
 launches of that path's user-size run beside the times at that path's
 shape), the nvidia-smi line, and the last
@@ -60,6 +89,7 @@ any phase.  Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -83,10 +113,23 @@ from repro_torch.core.continuous_sim import (  # noqa: E402
     simulate_continuous_numpy)
 from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
 from repro_torch.core.hist import bit_bins, thinned_rows  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import superstep as ss  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.serving import InferenceEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
+# H100 SXM dense peaks: bf16 on the tensor cores, float32 on the CUDA
+# cores (the float32 kernels must not round through TF32)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 V100 = (0.1438, 1.8874)            # README's V100 (α, τ0)
 # name: (source, TPU kernel it replaces as file:line and as function)
 KERNELS = {
@@ -96,7 +139,21 @@ KERNELS = {
     "fifo_compact": ("src/repro_torch/kernels/csrc/fifo_compact.cu",
                      "src/repro/kernels/superstep.py:180",
                      "src/repro/kernels/superstep.py:_compact_body"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:30",
+                        "src/repro/kernels/flash_attention.py:_kernel"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:27",
+                         "src/repro/kernels/decode_attention.py:_kernel"),
 }
+# the served model and the serve path's shapes (launch.serve: prompt 32,
+# 4 generated tokens, a cache of 32 + 4 + 1 slots, batches 1…32)
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_ARGS = ["--arch", SERVE_ARCH, "--full", "--workload", "generate",
+              "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+SERVE_PROMPT, SERVE_GEN = 32, 4
+LONG_PROMPT, LONG_GEN = 1024, 32
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # benchmarks/continuous.py's token-level V100-like constants (ms) and
 # grid axes
 GEN_MODEL = GenServiceModel(alpha_decode=0.14, tau0_decode=1.9,
@@ -126,12 +183,16 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events.
+    The calls are queued behind a device sleep of ≈ 20 ms, so that a
+    short kernel is timed at the card's pace and not at the host's rate
+    of launching it."""
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -582,6 +643,317 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
     return out
 
 
+def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qshape = (b, h, hd) if decode else (b, s, h, hd)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+               for shape in (qshape, (b, s, kv, hd), (b, s, kv, hd)))
+    return q, k, v
+
+
+def _attn_bound(dtype, io_elems: int, pairs: int, hd: int) -> dict:
+    """Least time for attention over ``pairs`` admitted (query head,
+    key) pairs: ``io_elems`` elements read once or written once, and
+    2·hd multiply-adds (q·k and p·v) per admitted pair."""
+    elt = torch.finfo(dtype).bits // 8
+    bytes_moved = elt * io_elems
+    flops = 4 * hd * pairs
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bytes=bytes_moved, flops=flops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
+                 seed=0, timed=False) -> dict:
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    case = dict(kernel="flash_attention", dtype=str(dtype), batch=b, seq=s,
+                heads=h, kv_heads=kv, head_dim=hd, causal=causal,
+                window=window, max_abs_err=err)
+    check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
+          f"flash_attention vs plain: {case}")
+    if timed:
+        pos = torch.arange(s)
+        adm = torch.ones(s, s, dtype=torch.bool)
+        if causal:
+            adm &= pos[None, :] <= pos[:, None]
+        if window:
+            adm &= pos[:, None] - pos[None, :] < window
+        case.update(_attn_bound(dtype, 2 * q.numel() + 2 * k.numel(),
+                                b * h * int(adm.sum()), hd))
+        case["kernel_ms"] = time_ms(lambda: flash_attention(
+            q, k, v, causal=causal, window=window))
+        case["plain_ms"] = time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal, window=window), reps=3, warm=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        case["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        case["library_note"] = ("scaled_dot_product_attention(is_causal) "
+                                "on (B, H, S, hd) copies made beforehand")
+    return case
+
+
+def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
+                  seed=0, timed=False) -> dict:
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=True)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lens, window=window)
+    want = decode_attention_plain(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    case = dict(kernel="decode_attention", dtype=str(dtype), batch=b,
+                cache=s, heads=h, kv_heads=kv, head_dim=hd, window=window,
+                lengths=[min(lengths), max(lengths)], max_abs_err=err)
+    check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
+          f"decode_attention vs plain: {case}")
+    if timed:
+        admitted = [max(0, min(s, n + 1) - (max(0, n - window + 1)
+                                            if window else 0))
+                    for n in lengths]
+        cache_elems = 2 * sum(admitted) * kv * hd
+        case.update(_attn_bound(dtype, 2 * q.numel() + cache_elems,
+                                sum(admitted) * h, hd))
+        case["bytes"] += 4 * b
+        case["kernel_ms"] = time_ms(lambda: decode_attention(
+            q, k, v, lens, window=window))
+        case["plain_ms"] = time_ms(lambda: decode_attention_plain(
+            q, k, v, lens, window=window))
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
+        qt = q[:, :, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        case["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        case["library_note"] = ("scaled_dot_product_attention with a "
+                                "boolean length mask on (B, KV, S, hd) "
+                                "copies made beforehand")
+    return case
+
+
+def phase_attn_kernel(dev) -> dict:
+    """B3 and B4 against their plain versions on the card, at the serve
+    path's shapes and the long serve shapes (timed), at phi4-mini's GQA
+    heads, with a window, ragged lengths and in float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(SERVE_ARCH)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = SERVE_PROMPT + SERVE_GEN + 1
+    long_cache = LONG_PROMPT + LONG_GEN + 1
+    cases = []
+    for b in (1, 2, 4, 8, 16):
+        cases.append(_check_flash(dev, bf16, b, SERVE_PROMPT, h, kv, hd,
+                                  seed=b))
+        cases.append(_check_decode(dev, bf16, b, cache, h, kv, hd,
+                                   [SERVE_PROMPT + i % SERVE_GEN
+                                    for i in range(b)], seed=b))
+    out = {}
+    # timed: the serve path's largest batch at its last decode step, and
+    # the long shapes at theirs
+    out["flash_serve"] = _check_flash(dev, bf16, 32, SERVE_PROMPT, h, kv, hd,
+                                      seed=32, timed=True)
+    out["decode_serve"] = _check_decode(
+        dev, bf16, 32, cache, h, kv, hd, [SERVE_PROMPT + SERVE_GEN - 1] * 32,
+        seed=32, timed=True)
+    out["flash_long"] = _check_flash(dev, bf16, 32, LONG_PROMPT, h, kv, hd,
+                                     seed=33, timed=True)
+    out["decode_long"] = _check_decode(
+        dev, bf16, 32, long_cache, h, kv, hd,
+        [LONG_PROMPT + LONG_GEN - 1] * 32, seed=33, timed=True)
+    cases += list(out.values())
+    phi4 = get_config("phi4-mini-3.8b")
+    gh, gkv, ghd = phi4.num_heads, phi4.num_kv_heads, phi4.head_dim
+    ragged = [0, 1, 250, 299, 511, 300, 17, 400]
+    for dt in (bf16, f32):
+        cases.append(_check_flash(dev, dt, 3, 300, gh, gkv, ghd, seed=40))
+        cases.append(_check_decode(dev, dt, 8, 523, gh, gkv, ghd, ragged,
+                                   seed=41))
+        cases.append(_check_flash(dev, dt, 2, 200, h, kv, hd, window=64,
+                                  seed=42))
+        cases.append(_check_flash(dev, dt, 2, 77, h, kv, hd, causal=False,
+                                  window=9, seed=43))
+        cases.append(_check_decode(dev, dt, 8, 523, h, kv, hd, ragged,
+                                   window=100, seed=44))
+    cases.append(_check_flash(dev, f32, 32, SERVE_PROMPT, h, kv, hd,
+                              seed=45))
+    cases.append(_check_decode(dev, f32, 32, cache, h, kv, hd,
+                               list(range(SERVE_PROMPT, SERVE_PROMPT + 32)),
+                               seed=46))
+    # a row whose length admits no position gives 0
+    q, k, v = _attn_inputs(dev, bf16, 2, cache, h, kv, hd, 47, decode=True)
+    lens = torch.tensor([-1, 5], dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    check(bool((got[0] == 0).all()), "decode_attention: no admitted "
+          "position gives 0")
+    emit("attn_kernel", cases=cases,
+         worst_bf16=max(c["max_abs_err"] for c in cases
+                        if c["dtype"] == str(bf16)),
+         worst_f32=max(c["max_abs_err"] for c in cases
+                       if c["dtype"] == str(f32)))
+    return out
+
+
+def _attn_launches() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def _reset_attn_launches() -> None:
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+
+
+def _check_per_batch(n_layers: int, gen_tokens: int, batches: int,
+                     launches: dict, what: str) -> None:
+    want = {"flash_attention": n_layers * batches,
+            "decode_attention": n_layers * gen_tokens * batches}
+    check(launches == want, f"{what}: {batches} batches launched "
+          f"{launches}, expected {want}")
+
+
+def phase_serve(dev) -> dict:
+    """The port's launch.serve path as a user runs it."""
+    cfg = get_config(SERVE_ARCH)
+    args = serve_cli.parse_args(SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_attn_launches()
+    t0 = time.perf_counter()
+    out = serve_cli.run(args)
+    seconds = time.perf_counter() - t0
+    launches = _attn_launches()
+    eng, res = out["engine"], out["result"]
+    batches = eng.batches_run
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_per_batch(cfg.num_layers, SERVE_GEN, batches, launches, "serve")
+    check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
+          and int(res.batch_sizes.sum()) >= args.jobs,
+          f"serve: {len(res.latencies)} of {args.jobs} jobs served")
+    check(bool(np.all(np.isfinite(res.latencies))
+               and np.all(res.latencies > 0)), "serve: finite latencies")
+    check(all(t > 0 for t in out["tau_s"]), "serve: positive τ^[b]")
+    # one more batch, outside the counted run: exactly 24 and 24 × 4
+    before = _attn_launches()
+    eng.run_batch(eng.max_batch)
+    one = {k: n - before[k] for k, n in _attn_launches().items()}
+    _check_per_batch(cfg.num_layers, SERVE_GEN, 1, one, "one batch")
+    batch = eng._make_batch(eng.max_batch)
+    toks = eng._fns[eng.max_batch](eng.params, batch)
+    check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve: generated tokens in the vocabulary")
+    with torch.inference_mode():
+        logits, _ = eng.bundle.forward(eng.params, batch)
+    check(bool(torch.isfinite(logits).all()), "serve: finite bf16 logits")
+    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, args=SERVE_ARGS,
+                seconds=seconds, buckets=out["buckets"],
+                tau_ms=[t * 1e3 for t in out["tau_s"]],
+                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
+                r2=out["r2"], lam_per_s=out["lam"],
+                mean_latency_ms=res.mean_latency * 1e3,
+                phi_ms=out["phi_s"] * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_batch=res.mean_batch, utilization=res.utilization,
+                jobs=res.n_jobs, served_batches=len(res.batch_sizes),
+                batches_run=batches, launches=launches,
+                peak_mem_bytes=peak)
+    emit("serve", **info)
+    del eng, out, batch, logits
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_serve_long(dev, jobs: int = 300) -> dict:
+    """The served model on a 1,024-token prompt and 32 generated tokens:
+    calibrated on batches 1…32, then serving ``jobs`` Poisson requests
+    at ρ = 0.5 of the fit, as ``launch.serve`` does."""
+    cfg = get_config(SERVE_ARCH)
+    eng = InferenceEngine(cfg, workload="generate", seq_len=LONG_PROMPT,
+                          gen_tokens=LONG_GEN, max_batch=32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_attn_launches()
+    t0 = time.perf_counter()
+    b, tau = eng.calibrate(samples=3)
+    model, r2 = fit_service_model(b, tau)
+    lam = 0.5 / model.alpha
+    res = eng.serve_poisson(lam, n_jobs=jobs, seed=0, warmup=False)
+    seconds = time.perf_counter() - t0
+    launches = _attn_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_per_batch(cfg.num_layers, LONG_GEN, eng.batches_run, launches,
+                     "serve_long")
+    check(bool(np.all(np.isfinite(tau)) and np.all(tau > 0)),
+          "serve_long: positive τ^[b]")
+    check(len(res.latencies) == jobs
+          and bool(np.all(np.isfinite(res.latencies))),
+          "serve_long: every job served, finite latencies")
+    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, prompt=LONG_PROMPT,
+                gen_tokens=LONG_GEN, seconds=seconds, buckets=b.tolist(),
+                tau_ms=(tau * 1e3).tolist(), alpha_ms=model.alpha * 1e3,
+                tau0_ms=model.tau0 * 1e3, r2=r2, lam_per_s=lam,
+                mean_latency_ms=res.mean_latency * 1e3,
+                phi_ms=float(phi(lam, model.alpha, model.tau0)) * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_batch=res.mean_batch, utilization=res.utilization,
+                served_batches=len(res.batch_sizes),
+                batches_run=eng.batches_run, launches=launches,
+                peak_mem_bytes=peak)
+    emit("serve_long", **info)
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_model_consistency(dev, extra: int = 3) -> dict:
+    """qwen1.5-0.5b at full width in float32: prefill + decode logits
+    against the forward logits of the whole sequence."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(5))
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, SERVE_PROMPT + extra)), device=dev)
+    with torch.inference_mode():
+        ref, _ = bundle.forward(params, {"tokens": toks})
+        lg, cache = bundle.prefill(params, {"tokens": toks[:, :SERVE_PROMPT]},
+                                   SERVE_PROMPT + extra)
+        got = [lg[:, 0]]
+        lengths = torch.full((2,), SERVE_PROMPT, dtype=torch.int32,
+                             device=dev)
+        for t in range(extra):
+            lg, cache = bundle.decode_step(
+                params, toks[:, SERVE_PROMPT + t:SERVE_PROMPT + t + 1],
+                cache, lengths)
+            got.append(lg[:, 0])
+            lengths = lengths + 1
+    want = ref[:, SERVE_PROMPT - 1:]
+    got = torch.stack(got, dim=1)
+    diff = (got - want).abs()
+    tol = 3e-4
+    worst = float((diff / (tol + tol * want.abs())).max())
+    info = dict(arch=SERVE_ARCH, dtype="float32", batch=2,
+                prompt=SERVE_PROMPT, decode_steps=extra,
+                max_abs_diff=float(diff.max()),
+                max_abs_logit=float(want.abs().max()),
+                tolerance=f"|diff| <= {tol} + {tol}*|forward|",
+                worst_over_tol=worst)
+    check(bool(torch.isfinite(got).all()) and worst <= 1.0,
+          f"model_consistency: {info}")
+    emit("model_consistency", **info)
+    del params, cache, ref
+    torch.cuda.empty_cache()
+    return info
+
+
 def _kernel_row(name: str, path: str, launches: int, k: dict,
                 **extra) -> dict:
     source, replaces, tpu_ref = KERNELS[name]
@@ -590,7 +962,8 @@ def _kernel_row(name: str, path: str, launches: int, k: dict,
             "launches": launches,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": "bytes", "library_ms": k["library_ms"],
+            "bound_by": k.get("bound_by", "bytes"),
+            "library_ms": k["library_ms"],
             "matches_plain": True, **extra}
 
 
@@ -617,6 +990,12 @@ def main() -> int:
     sweep_launches = phase_user_size(dev)
     phase_gen_contracts(dev)
     gen = phase_gen_user_size(dev, grid)
+    attn = phase_attn_kernel(dev)
+    served = phase_serve(dev)
+    phase_serve_long(dev)
+    phase_model_consistency(dev)
+    long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                 "max_abs_err")
     print(json.dumps({"kernels": [
         _kernel_row(
             "hist_update", "gen_user_size", gen["launches"]["hist_update"],
@@ -633,6 +1012,12 @@ def main() -> int:
             sketch_library_ms=sketch["library_ms"]),
         _kernel_row("fifo_compact", "gen_user_size",
                     gen["launches"]["fifo_compact"], compact),
+        *(_kernel_row(
+            name, "serve", served["launches"][name], attn[f"{short}_serve"],
+            **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},
+            long_bound_by=attn[f"{short}_long"]["bound_by"])
+          for name, short in (("flash_attention", "flash"),
+                              ("decode_attention", "decode"))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

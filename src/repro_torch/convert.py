@@ -1,8 +1,9 @@
-"""Carry the reference package's sweep inputs and state into the port.
+"""Carry the reference package's inputs, state and weights into the port.
 
 The sweeps have no weights: their parameters are the grids' arrays and
-their state is the histogram and batch-means accumulators.  Both cross
-as numpy arrays, so this module needs nothing of the reference package.
+their state is the histogram and batch-means accumulators.  The models'
+parameters are the reference's pytree of arrays.  All of them cross as
+numpy arrays, so this module needs nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -10,11 +11,17 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.grid import GenGrid, SweepGrid
+from repro_torch.models.layers import param
+from repro_torch.models.transformer import (Transformer, require_supported,
+                                            split_pattern)
 
 __all__ = ["BASE_FIELDS", "GEN_BASE_FIELDS", "grid_from_arrays",
-           "gen_grid_from_arrays", "hist_state_from_arrays"]
+           "gen_grid_from_arrays", "hist_state_from_arrays",
+           "model_params_from_jax"]
 
 # the reference SweepGrid's base fields; its loss and failure fields
 # are optional and default to their neutral values
@@ -73,3 +80,44 @@ def hist_state_from_arrays(counts: np.ndarray,
             raise ValueError(f"sums {s.shape} and counts {c.shape} differ")
         out = out + (torch.as_tensor(s, device=device).contiguous(),)
     return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor of ``a``'s values and dtype (bfloat16 numpy arrays, which
+    torch cannot read directly, go through float32 exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _params(tree: Dict, device, index=None) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: param(_tensor(v if index is None else np.asarray(v)[index],
+                         device))
+        for k, v in tree.items()})
+
+
+def model_params_from_jax(cfg: ModelConfig, params: Dict,
+                          device="cuda") -> Transformer:
+    """The port's ``Transformer`` from the reference ``init_params``
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), the
+    same values in the same dtypes, on ``device``.  Repeat ``i`` of the
+    stacked ``params["stack"][j]`` leaves is layer ``lead + i·p + j``,
+    with the ``(d, h, hd)`` and ``(h, hd, d)`` projection layouts kept."""
+    require_supported(cfg)
+    lead, p, r = split_pattern(cfg)
+    layers = [nn.ModuleDict({name: _params(sub, device)
+                             for name, sub in blk.items()})
+              for blk in params["lead"]]
+    layers += [None] * (cfg.num_layers - lead)
+    for j, stack in enumerate(params["stack"]):
+        for i in range(r):
+            layers[lead + i * p + j] = nn.ModuleDict(
+                {name: _params(sub, device, i)
+                 for name, sub in stack.items()})
+    unembed = (param(_tensor(params["unembed"], device))
+               if "unembed" in params else None)
+    return Transformer(param(_tensor(params["embed"], device)),
+                       _params(params["norm_f"], device), layers, unembed)

@@ -1,7 +1,8 @@
 """The port's queueing core: the paper's closed forms, the grid and
 result records, the PyTorch Monte Carlo sweep behind
-``evaluate(grid, backend="sweep")`` and the token-level generate sweep
-behind ``evaluate(grid, backend="gen")``."""
+``evaluate(grid, backend="sweep")``, the token-level generate sweep
+behind ``evaluate(grid, backend="gen")``, and the batching policies and
+linear-fit calibration of the serving engine."""
 from repro_torch.core.analytic import (  # noqa: F401
     LinearServiceModel,
     is_stable,
@@ -14,6 +15,11 @@ from repro_torch.core.analytic import (  # noqa: F401
     rho,
     stability_limit,
     utilization_upper,
+)
+from repro_torch.core.calibrate import (  # noqa: F401
+    LinearFit,
+    fit_linear,
+    fit_service_model,
 )
 from repro_torch.core.energy import (  # noqa: F401
     LinearEnergyModel,
@@ -35,6 +41,12 @@ from repro_torch.core.grid import (  # noqa: F401
     GenResult,
     SweepGrid,
     SweepResult,
+)
+from repro_torch.core.policy import (  # noqa: F401
+    BatchAllWaiting,
+    BatchPolicy,
+    CappedBatch,
+    TimeoutBatch,
 )
 from repro_torch.core.results import SimResult  # noqa: F401
 from repro_torch.core.sweep import sweep, sweep_caps  # noqa: F401

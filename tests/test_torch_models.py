@@ -1,0 +1,265 @@
+"""The port's dense transformer against the reference's, on the same
+weights.
+
+Each reduced config's weights come from the reference ``init_params``
+and cross through ``convert.model_params_from_jax``; both models then
+run the same tokens in float32 on the CPU, where the port's attention
+takes its kernels' plain versions.  ``forward``, ``prefill`` (logits
+and KV cache) and three ``decode_step``s (logits and caches) agree to
+1e-4 absolute (measured: ≤ 1.6e-6 on logits of magnitude ≤ 1.6, ≤ 5e-6
+on the caches).  The port's own prefill + decode is held against its
+forward at the reference's 3e-4 (tests/test_arch_smoke.py).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.models import build as ref_build
+from repro.models import layers as ref_layers
+from repro.models import rope as ref_rope
+from repro_torch.configs import get_config as pt_get_config
+from repro_torch.configs import list_archs as pt_list_archs
+from repro_torch.configs import reduced as pt_reduced
+from repro_torch.convert import model_params_from_jax
+from repro_torch.models import build
+from repro_torch.models import layers as pt_layers
+from repro_torch.models import rope as pt_rope
+from repro_torch.models import transformer as tfm
+
+ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b"]   # MHA + QKV bias; GQA + 0.75 rope
+ATOL = 1e-4
+B, S, EXTRA = 2, 32, 3
+
+
+@pytest.fixture(scope="module")
+def rigs():
+    out = {}
+    for arch in ARCHS:
+        cfg = reduced(get_config(arch))
+        ref = ref_build(cfg)
+        params = ref.init(jax.random.PRNGKey(0))
+        pcfg = pt_reduced(pt_get_config(arch))
+        port = build(pcfg)
+        pparams = model_params_from_jax(
+            pcfg, jax.tree.map(np.asarray, params), device="cpu")
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(B, S + EXTRA)).astype(np.int32)
+        out[arch] = (ref, params, port, pparams, toks)
+    return out
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a)).long()
+
+
+def _ref_cache(cache, layer, name):
+    return np.asarray(cache["stack"][0][name][layer])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_config_is_the_reference_config(arch):
+    a, b = get_config(arch), pt_get_config(arch)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert dataclasses.asdict(reduced(a)) == dataclasses.asdict(
+        pt_reduced(b))
+
+
+def test_port_registry_lists_the_reference_archs():
+    from repro.configs import list_archs
+    assert pt_list_archs() == list_archs()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_converted_weights_are_the_reference_weights(arch, rigs):
+    _, params, _, pparams, _ = rigs[arch]
+    np.testing.assert_array_equal(pparams.embed.numpy(), params["embed"])
+    stack = params["stack"][0]
+    for i, blk in enumerate(pparams.layers):
+        for name, sub in blk.items():
+            for key, w in sub.items():
+                np.testing.assert_array_equal(
+                    w.numpy(), np.asarray(stack[name][key][i]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch, rigs):
+    ref, params, port, pparams, toks = rigs[arch]
+    want, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    with torch.inference_mode():
+        got, aux = port.forward(pparams, {"tokens": _t(toks)})
+    assert got.shape == want.shape and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(arch, rigs):
+    ref, params, port, pparams, toks = rigs[arch]
+    cfg = port.cfg
+    want, rc = ref.prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
+                           S + EXTRA)
+    with torch.inference_mode():
+        got, pc = port.prefill(pparams, {"tokens": _t(toks[:, :S])},
+                               S + EXTRA)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    assert len(pc) == cfg.num_layers
+    for i in range(cfg.num_layers):
+        for name in ("k", "v"):
+            assert pc[i][name].shape == (B, S + EXTRA, cfg.num_kv_heads,
+                                         cfg.head_dim)
+            np.testing.assert_allclose(pc[i][name].numpy(),
+                                       _ref_cache(rc, i, name), rtol=0,
+                                       atol=ATOL)
+    lens = jnp.full((B,), S, jnp.int32)
+    plens = torch.full((B,), S, dtype=torch.int32)
+    for t in range(EXTRA):
+        tok = toks[:, S + t:S + t + 1]
+        want, rc = ref.decode_step(params, jnp.asarray(tok), rc, lens)
+        with torch.inference_mode():
+            got, pc = port.decode_step(pparams, _t(tok), pc, plens)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+        for i in range(cfg.num_layers):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(pc[i][name].numpy(),
+                                           _ref_cache(rc, i, name), rtol=0,
+                                           atol=ATOL)
+        lens, plens = lens + 1, plens + 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_prefill_decode_matches_its_forward(arch, rigs):
+    _, _, port, pparams, toks = rigs[arch]
+    with torch.inference_mode():
+        full, _ = port.forward(pparams, {"tokens": _t(toks)})
+        lg, cache = port.prefill(pparams, {"tokens": _t(toks[:, :S])},
+                                 S + EXTRA)
+        np.testing.assert_allclose(lg[:, 0].numpy(), full[:, S - 1].numpy(),
+                                   rtol=3e-4, atol=3e-4)
+        lens = torch.full((B,), S, dtype=torch.int32)
+        for t in range(EXTRA):
+            lg, cache = port.decode_step(
+                pparams, _t(toks[:, S + t:S + t + 1]), cache, lens)
+            np.testing.assert_allclose(lg[:, 0].numpy(),
+                                       full[:, S + t].numpy(), rtol=3e-4,
+                                       atol=3e-4)
+            lens = lens + 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sliding_window_decode_differs(arch, rigs):
+    _, _, port, pparams, toks = rigs[arch]
+    with torch.inference_mode():
+        _, cache = port.prefill(pparams, {"tokens": _t(toks[:, :S])},
+                                S + 2)
+        lens = torch.full((B,), S, dtype=torch.int32)
+        tok = _t(toks[:, S - 1:S])
+        # both steps write the same K/V into slot S of the (in-place)
+        # cache, so the second one sees what the first one saw
+        full, _ = port.decode_step(pparams, tok, cache, lens)
+        win, _ = port.decode_step(pparams, tok, cache, lens, window=8)
+    assert bool(torch.isfinite(win).all())
+    assert float((win - full).abs().max()) > 1e-6
+
+
+def test_seeded_init_is_deterministic_and_shaped_like_the_reference():
+    cfg = pt_reduced(pt_get_config("phi4-mini-3.8b"))
+    a = build(cfg).init(torch.Generator().manual_seed(7))
+    b = build(cfg).init(torch.Generator().manual_seed(7))
+    for (na, pa), (nb, pb) in zip(a.named_parameters(),
+                                  b.named_parameters()):
+        assert na == nb and torch.equal(pa, pb)
+    ref = jax.eval_shape(lambda: ref_build(reduced(get_config(
+        "phi4-mini-3.8b"))).init(jax.random.PRNGKey(0)))
+    assert a.embed.shape == ref["embed"].shape
+    for name, sub in a.layers[0].items():
+        for key, w in sub.items():
+            assert w.shape == ref["stack"][0][name][key].shape[1:]
+            assert not w.requires_grad
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b", "whisper-medium",
+                                  "internvl2-1b", "jamba-v0.1-52b"])
+def test_unported_families_raise_and_name_their_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(pt_reduced(pt_get_config(arch)))
+
+
+def test_int8_kv_cache_raises(monkeypatch):
+    monkeypatch.setenv("REPRO_KV_INT8", "1")
+    cfg = pt_reduced(pt_get_config("qwen1.5-0.5b"))
+    with pytest.raises(NotImplementedError, match="int8"):
+        tfm.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_apply_norm_matches_reference(kind):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 5, 16)).astype(np.float32) * 3
+    scale = rng.standard_normal(16).astype(np.float32)
+    bias = rng.standard_normal(16).astype(np.float32)
+    p = {"scale": scale, "bias": bias}
+    want = ref_layers.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                                 jnp.asarray(x), kind)
+    got = pt_layers.apply_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                               torch.from_numpy(x), kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_apply_mlp_matches_reference(activation):
+    params = ref_layers.init_mlp(jax.random.PRNGKey(3), 16, 40, activation,
+                                 jnp.float32)
+    if activation == "gelu":
+        params = {k: v + 0.1 for k, v in params.items()}
+    x = np.random.default_rng(3).standard_normal((2, 7, 16)).astype(
+        np.float32)
+    want = ref_layers.apply_mlp(params, jnp.asarray(x), activation)
+    got = pt_layers.apply_mlp(
+        {k: torch.from_numpy(np.array(v)) for k, v in params.items()},
+        torch.from_numpy(x), activation)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-6)
+
+
+def test_embed_and_tied_unembed_match_reference():
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((50, 16)).astype(np.float32)
+    toks = rng.integers(0, 50, size=(2, 9))
+    got = pt_layers.embed(torch.from_numpy(table), torch.from_numpy(toks))
+    want = ref_layers.embed(jnp.asarray(table), jnp.asarray(toks))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for tied, w in ((True, table), (False, table.T.copy())):
+        got = pt_layers.unembed(torch.from_numpy(w), torch.from_numpy(
+            np.array(want)), tied)
+        ref = ref_layers.unembed(jnp.asarray(w), want, tied)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("partial", [1.0, 0.75])
+@pytest.mark.parametrize("decode", [False, True],
+                         ids=["positions-S", "positions-B1"])
+def test_rope_matches_reference(partial, decode):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 1 if decode else 40, 4, 32)).astype(
+        np.float32)
+    pos = (np.array([[0], [17], [39]], np.int32) if decode
+           else np.arange(40, dtype=np.int32))
+    for theta in (10_000.0, 1_000_000.0):
+        want = ref_rope.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta,
+                                   partial)
+        got = pt_rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                                 theta, partial)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=2e-5)
+        np.testing.assert_array_equal(got.numpy()[..., int(32 * partial):],
+                                      x[..., int(32 * partial):])
