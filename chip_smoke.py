@@ -8,8 +8,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 printing one JSON line per phase:
 
 1. build         — compile ``hist_update.cu``, ``fifo_compact.cu``,
-                   ``flash_attention.cu`` and ``decode_attention.cu``;
-                   the card's name and power limit from nvidia-smi.
+                   ``flash_attention.cu``, ``decode_attention.cu`` and
+                   ``ssd_scan.cu``; the card's name and power limit
+                   from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version at each path's user-size shape: the sweep's
                    (8,160 points, 32 × 768 block; full 512-bin and
@@ -79,6 +80,31 @@ printing one JSON line per phase:
                    decode steps against the forward logits of all 35
                    tokens, within 3e-4 (abs + rel): the two kernels held
                    against each other through the whole model.
+13. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
+                   (float32 matmuls) at mamba2-2.7b's heads (80 × 64,
+                   d_state 128, one group, B and C strided slices of
+                   one activation as in the model): the serve shape
+                   (B 32, S 32, bf16), the long shape (B 32, S 1,024),
+                   a ragged length (S 1,000), batch 1 at S 1,024, one
+                   float32 case and one with two groups: y and the
+                   final state within 2e-3 (bf16) and 1e-4 (float32)
+                   max abs, and the reference API's y bit for bit the
+                   model call's rounded to x's dtype; kernel, plain and
+                   bound times (no single PyTorch call computes the
+                   SSD, so no library time).
+14. serve_ssm    — ``python -m repro_torch.launch.serve --arch
+                   mamba2-2.7b --full --workload generate --rho 0.5
+                   --jobs 300 --max-batch 32`` through its ``run``: all
+                   jobs served with finite latencies, τ^[b], α, τ0, R²,
+                   E[W] against φ, p99, utilisation, peak memory, and
+                   exactly 64 ``ssd_scan`` launches and no attention
+                   launch per batch.
+15. ssm_consistency — mamba2-2.7b at full width in float32 from the
+                   port's seeded init, batch 2: prefill(300), which
+                   crosses a 256-token chunk, and three decode steps
+                   against the forward logits of all 303 tokens, within
+                   3e-4 (abs + rel): the kernel's final state held
+                   against the eager recurrence.
 
 Then a ``{"kernels": [...]}`` line (one row per kernel and path: the
 launches of that path's user-size run beside the times at that path's
@@ -121,6 +147,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_chunked, ssd_scan, ssd_scan_plain)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
@@ -145,6 +173,9 @@ KERNELS = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:27",
                          "src/repro/kernels/decode_attention.py:_kernel"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:28",
+                 "src/repro/kernels/ssd_scan.py:_kernel"),
 }
 # the served model and the serve path's shapes (launch.serve: prompt 32,
 # 4 generated tokens, a cache of 32 + 4 + 1 slots, batches 1…32)
@@ -154,6 +185,13 @@ SERVE_ARGS = ["--arch", SERVE_ARCH, "--full", "--workload", "generate",
 SERVE_PROMPT, SERVE_GEN = 32, 4
 LONG_PROMPT, LONG_GEN = 1024, 32
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the Mamba2 serve path: launch.serve's arguments on mamba2-2.7b, one
+# ssd_scan launch per layer per batch (in the prefill)
+SSM_ARCH = "mamba2-2.7b"
+SSM_ARGS = ["--arch", SSM_ARCH, "--full", "--workload", "generate",
+            "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+SSM_PROMPT, SSM_LONG = 32, 1024
+SSD_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 # benchmarks/continuous.py's token-level V100-like constants (ms) and
 # grid axes
 GEN_MODEL = GenServiceModel(alpha_decode=0.14, tau0_decode=1.9,
@@ -912,45 +950,205 @@ def phase_serve_long(dev, jobs: int = 300) -> dict:
     return info
 
 
-def phase_model_consistency(dev, extra: int = 3) -> dict:
-    """qwen1.5-0.5b at full width in float32: prefill + decode logits
-    against the forward logits of the whole sequence."""
+def _consistency(dev, arch: str, prompt: int, extra: int = 3) -> dict:
+    """``arch`` at full width in float32 from the port's seeded init,
+    batch 2: the logits of prefill(prompt) and ``extra`` decode steps
+    against the forward logits of the whole sequence, within 3e-4 (abs
+    + rel)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     bundle = build_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(5))
     toks = torch.as_tensor(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, size=(2, SERVE_PROMPT + extra)), device=dev)
+        0, cfg.vocab_size, size=(2, prompt + extra)), device=dev)
     with torch.inference_mode():
         ref, _ = bundle.forward(params, {"tokens": toks})
-        lg, cache = bundle.prefill(params, {"tokens": toks[:, :SERVE_PROMPT]},
-                                   SERVE_PROMPT + extra)
+        lg, cache = bundle.prefill(params, {"tokens": toks[:, :prompt]},
+                                   prompt + extra)
         got = [lg[:, 0]]
-        lengths = torch.full((2,), SERVE_PROMPT, dtype=torch.int32,
-                             device=dev)
+        lengths = torch.full((2,), prompt, dtype=torch.int32, device=dev)
         for t in range(extra):
             lg, cache = bundle.decode_step(
-                params, toks[:, SERVE_PROMPT + t:SERVE_PROMPT + t + 1],
-                cache, lengths)
+                params, toks[:, prompt + t:prompt + t + 1], cache, lengths)
             got.append(lg[:, 0])
             lengths = lengths + 1
-    want = ref[:, SERVE_PROMPT - 1:]
+    want = ref[:, prompt - 1:]
     got = torch.stack(got, dim=1)
     diff = (got - want).abs()
     tol = 3e-4
     worst = float((diff / (tol + tol * want.abs())).max())
-    info = dict(arch=SERVE_ARCH, dtype="float32", batch=2,
-                prompt=SERVE_PROMPT, decode_steps=extra,
-                max_abs_diff=float(diff.max()),
+    info = dict(arch=arch, dtype="float32", batch=2, prompt=prompt,
+                decode_steps=extra, max_abs_diff=float(diff.max()),
                 max_abs_logit=float(want.abs().max()),
                 tolerance=f"|diff| <= {tol} + {tol}*|forward|",
                 worst_over_tol=worst)
     check(bool(torch.isfinite(got).all()) and worst <= 1.0,
-          f"model_consistency: {info}")
-    emit("model_consistency", **info)
+          f"consistency of {arch}: {info}")
     del params, cache, ref
     torch.cuda.empty_cache()
+    return info
+
+
+def phase_model_consistency(dev) -> dict:
+    """qwen1.5-0.5b at full width in float32: prefill + decode logits
+    against the forward logits of the whole sequence."""
+    info = _consistency(dev, SERVE_ARCH, SERVE_PROMPT)
+    emit("model_consistency", **info)
+    return info
+
+
+def _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed):
+    """tests/test_kernels.py's distributions; B and C are strided slices
+    of one (b, s, 2·g·ds) activation, as the model passes them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, s, nh, hd, device=dev, generator=gen) * 0.5
+         ).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, nh, device=dev, generator=gen))
+    a = -torch.exp(torch.randn(nh, device=dev, generator=gen) * 0.3)
+    bc = (torch.randn(b, s, 2 * g * ds, device=dev, generator=gen) * 0.3
+          ).to(dtype)
+    return (x, dt, a, bc[..., :g * ds].reshape(b, s, g, ds),
+            bc[..., g * ds:].reshape(b, s, g, ds))
+
+
+def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False) -> dict:
+    model = get_config(SSM_ARCH)
+    cfg = model.ssm
+    nh, hd, ds = cfg.n_heads(model.d_model), cfg.head_dim, cfg.d_state
+    args = _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed)
+    y, h = ssd_chunked(*args, cfg.chunk_size)
+    want_y, want_h = ssd_scan_plain(*args, cfg.chunk_size)
+    api = ssd_scan(*args, chunk=cfg.chunk_size)
+    torch.cuda.synchronize()
+    err = max(float((y - want_y).abs().max()),
+              float((h - want_h).abs().max()))
+    case = dict(kernel="ssd_scan", dtype=str(dtype), batch=b, seq=s,
+                heads=nh, groups=g, head_dim=hd, d_state=ds,
+                max_abs_err=err, max_abs_y=float(want_y.abs().max()),
+                max_abs_state=float(want_h.abs().max()))
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+          and err <= SSD_TOL[dtype], f"ssd_scan vs plain: {case}")
+    check(torch.equal(api, y.to(dtype)),
+          f"ssd_scan's y is the model call's, rounded: {case}")
+    if timed:
+        elt = torch.finfo(dtype).bits // 8
+        x, dt, a, bm, cm = args
+        bytes_moved = (elt * (x.numel() + bm.numel() + cm.numel())
+                       + 4 * (dt.numel() + a.numel() + y.numel()
+                              + h.numel()))
+        # the recurrence's two products per step and head: x ⊗ B into
+        # the state, and the state against C
+        flops = 4 * b * s * nh * hd * ds
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        case.update(bytes=bytes_moved, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["kernel_ms"] = time_ms(lambda: ssd_chunked(*args,
+                                                        cfg.chunk_size))
+        case["plain_ms"] = time_ms(lambda: ssd_scan_plain(
+            *args, cfg.chunk_size), reps=3, warm=1)
+        case["library_ms"] = None
+        case["library_note"] = ("no single PyTorch call computes the SSD "
+                                "scan")
+    del args, y, h, want_y, want_h, api
+    torch.cuda.empty_cache()
+    return case
+
+
+def phase_ssd_kernel(dev) -> dict:
+    """B5 against its plain version on the card at the Mamba2 serve
+    path's shapes (timed), a ragged length, batch 1, float32 and two
+    groups."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"serve": _check_ssd(dev, bf16, 32, SSM_PROMPT, seed=1,
+                               timed=True),
+           "long": _check_ssd(dev, bf16, 32, SSM_LONG, seed=2, timed=True),
+           "batch1": _check_ssd(dev, bf16, 1, SSM_LONG, seed=3, timed=True)}
+    cases = list(out.values()) + [
+        _check_ssd(dev, bf16, 32, 1000, seed=4),
+        _check_ssd(dev, f32, 4, 300, seed=5),
+        _check_ssd(dev, bf16, 4, 1000, g=2, seed=6)]
+    emit("ssd_kernel", cases=cases,
+         worst_bf16=max(c["max_abs_err"] for c in cases
+                        if c["dtype"] == str(bf16)),
+         worst_f32=max(c["max_abs_err"] for c in cases
+                       if c["dtype"] == str(f32)))
+    return out
+
+
+def _all_launches() -> dict:
+    return {**_attn_launches(), "ssd_scan": ssd_scan.launches}
+
+
+def phase_serve_ssm(dev) -> dict:
+    """The port's launch.serve path on mamba2-2.7b as a user runs it."""
+    cfg = get_config(SSM_ARCH)
+    args = serve_cli.parse_args(SSM_ARGS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_attn_launches()
+    ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    out = serve_cli.run(args)
+    seconds = time.perf_counter() - t0
+    launches = _all_launches()
+    eng, res = out["engine"], out["result"]
+    batches = eng.batches_run
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "ssd_scan": cfg.num_layers * batches}
+    check(launches == want, f"serve_ssm: {batches} batches launched "
+          f"{launches}, expected {want}")
+    check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
+          and int(res.batch_sizes.sum()) >= args.jobs,
+          f"serve_ssm: {len(res.latencies)} of {args.jobs} jobs served")
+    check(bool(np.all(np.isfinite(res.latencies))
+               and np.all(res.latencies > 0)),
+          "serve_ssm: finite latencies")
+    check(all(t > 0 for t in out["tau_s"]), "serve_ssm: positive τ^[b]")
+    # one more batch, outside the counted run: exactly 64 launches
+    before = _all_launches()
+    eng.run_batch(eng.max_batch)
+    one = {k: n - before[k] for k, n in _all_launches().items()}
+    want_one = dict(want, ssd_scan=cfg.num_layers)
+    check(one == want_one, f"serve_ssm: one batch launched {one}, "
+          f"expected {want_one}")
+    batch = eng._make_batch(eng.max_batch)
+    toks = eng._fns[eng.max_batch](eng.params, batch)
+    check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve_ssm: generated tokens in the vocabulary")
+    with torch.inference_mode():
+        logits, _ = eng.bundle.forward(eng.params, batch)
+    check(bool(torch.isfinite(logits).all()),
+          "serve_ssm: finite bf16 logits")
+    info = dict(arch=SSM_ARCH, dtype=cfg.dtype, args=SSM_ARGS,
+                seconds=seconds, buckets=out["buckets"],
+                tau_ms=[t * 1e3 for t in out["tau_s"]],
+                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
+                r2=out["r2"], lam_per_s=out["lam"],
+                mean_latency_ms=res.mean_latency * 1e3,
+                phi_ms=out["phi_s"] * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_batch=res.mean_batch, utilization=res.utilization,
+                jobs=res.n_jobs, served_batches=len(res.batch_sizes),
+                batches_run=batches, launches=launches,
+                peak_mem_bytes=peak)
+    emit("serve_ssm", **info)
+    del eng, out, batch, logits
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_ssm_consistency(dev) -> dict:
+    """mamba2-2.7b in float32: prefill(300) crosses the 256-token chunk,
+    so the kernel's final state carries into the decode steps."""
+    info = _consistency(dev, SSM_ARCH, 300)
+    emit("ssm_consistency", **info)
     return info
 
 
@@ -994,6 +1192,9 @@ def main() -> int:
     served = phase_serve(dev)
     phase_serve_long(dev)
     phase_model_consistency(dev)
+    ssd = phase_ssd_kernel(dev)
+    served_ssm = phase_serve_ssm(dev)
+    phase_ssm_consistency(dev)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
     print(json.dumps({"kernels": [
@@ -1018,6 +1219,13 @@ def main() -> int:
             long_bound_by=attn[f"{short}_long"]["bound_by"])
           for name, short in (("flash_attention", "flash"),
                               ("decode_attention", "decode"))),
+        _kernel_row(
+            "ssd_scan", "serve_ssm", served_ssm["launches"]["ssd_scan"],
+            ssd["serve"], library_note=ssd["serve"]["library_note"],
+            **{f"long_{k}": ssd["long"][k] for k in long_keys},
+            long_bound_by=ssd["long"]["bound_by"],
+            batch1_ms=ssd["batch1"]["kernel_ms"],
+            batch1_bound_ms=ssd["batch1"]["bound_ms"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

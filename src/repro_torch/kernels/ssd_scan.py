@@ -1,0 +1,217 @@
+"""The Mamba2 SSD scan of the port: the CUDA kernel ``csrc/ssd_scan.cu``
+and its plain torch version.
+
+For x ``(B, S, nh, hd)``, dt ``(B, S, nh)`` float32 (post-softplus),
+A ``(nh,)`` float32 (negative) and B, C ``(B, S, g, ds)`` with head h
+reading group ``h // (nh // g)``, the scan runs the diagonal SSM
+recurrence ``h_t = exp(dt_t·A)·h_{t-1} + dt_t·x_t ⊗ B_t``,
+``y_t = h_t·C_t`` from ``h_0 = 0``.  There is no D skip term: the model
+adds it.  It replaces the reference's Pallas kernel
+``repro.kernels.ssd_scan`` (``_kernel``) and computes what the
+reference model's ``_ssd_chunked`` computes.
+
+- ``ssd_chunked(x, dt, A, B, C, chunk)`` is the model's call: y in
+  float32 and the final state ``(B, nh, hd, ds)`` in float32, the
+  prefill cache's ``ssm`` entry.
+- ``ssd_scan(x, dt, a, bmat, cmat, chunk=256)`` keeps the reference
+  kernel's name and keywords and returns y in x's dtype.
+- ``ssd_scan_plain`` is the plain version: the chunked dual form of
+  ``_ssd_chunked``, with the sequence padded to the chunk by dt = 0
+  identity steps and the causal mask applied before ``exp``.
+
+Both wrappers launch the kernel for CUDA tensors and take the plain
+version for CPU tensors; they raise on any other device, on a dtype
+other than float32 / bfloat16 for x, B, C (one dtype) or float32 for
+dt, A, on ``nh % g != 0``, and, on the card, on a non-contiguous x, dt
+or A, on B or C whose two inner axes are not packed, and on head and
+state widths the kernel is not built for (``WIDTHS``: mamba2-2.7b's
+and its reduced config's).  B and C may be slices of one activation:
+the kernel takes their batch and time strides.  The kernel walks the
+time axis in tiles of 64 steps whatever ``chunk`` is (SSD is the same
+function for every chunk size, up to rounding), and a length that is
+no multiple of the tile is masked in the kernel.  A failed build or
+launch raises: there is no fallback.  ``ssd_scan.launches`` counts
+the kernel launches of both wrappers.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import DTYPE_CODE, kernel_device
+
+__all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
+           "ssd_scan_plain"]
+
+# (head_dim, d_state) pairs the CUDA kernel is compiled for:
+# mamba2-2.7b's and its reduced config's
+WIDTHS = ((64, 128), (32, 16))
+
+
+def _check(x, dt, A, B, C, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4:
+        raise ValueError(f"ssd_scan takes x (B,S,nh,hd), dt (B,S,nh), A "
+                         f"(nh,), B and C (B,S,g,ds); got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}, {tuple(B.shape)}")
+    b, s, nh, _ = x.shape
+    g = B.shape[2]
+    if (tuple(dt.shape) != (b, s, nh) or tuple(A.shape) != (nh,)
+            or B.shape[:2] != (b, s) or B.shape != C.shape):
+        raise ValueError(f"shapes do not match: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if g == 0 or nh % g:
+        raise ValueError(f"{nh} heads do not group evenly over {g} groups")
+    if x.dtype not in DTYPE_CODE or len({x.dtype, B.dtype, C.dtype}) != 1:
+        raise ValueError(f"x, B and C must share a dtype, float32 or "
+                         f"bfloat16; got {x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype}, "
+                         f"{A.dtype}")
+    if len({t.device for t in (x, dt, A, B, C)}) != 1:
+        raise ValueError(f"tensors on several devices: "
+                         f"{[t.device for t in (x, dt, A, B, C)]}")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, chunk: int = 256
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version, on any device: the reference's
+    ``_ssd_chunked`` in float32.  Returns y ``(B, S, nh, hd)`` and the
+    final state ``(B, nh, hd, ds)``, both float32."""
+    _check(x, dt, A, B, C, chunk)
+    b, s0, nh, hd = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    rep = nh // g
+    pad = (-s0) % chunk
+    if pad:
+        # identity steps: dt = 0 means no decay and no input
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    nc = (s0 + pad) // chunk
+    xc = x.reshape(b, nc, chunk, g, rep, hd).float()
+    dtc = dt.reshape(b, nc, chunk, nh).float()
+    Bc = B.reshape(b, nc, chunk, g, ds).float()
+    Cc = C.reshape(b, nc, chunk, g, ds).float()
+
+    cum = torch.cumsum(dtc * A, dim=2)                  # (b,nc,cs,nh)
+    total = cum[:, :, -1]                               # (b,nc,nh)
+
+    # intra-chunk dual form; the mask comes before exp, where j > i
+    # would give exp of a positive number
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,i,j,nh)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=x.device).tril()
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              -torch.inf))
+    sc = torch.einsum("bnigd,bnjgd->bnijg", Cc, Bc)     # per group
+    M = (sc[..., None] * L.reshape(b, nc, chunk, chunk, g, rep)
+         * dtc.reshape(b, nc, 1, chunk, g, rep))
+    y = torch.einsum("bnijgr,bnjgrd->bnigrd", M, xc)
+
+    # each chunk's own state, then the recurrence over the chunks
+    w = (dtc * torch.exp(total[:, :, None, :] - cum)).reshape(
+        b, nc, chunk, g, rep, 1)
+    states = torch.einsum("bncgs,bncgrd->bngrds", Bc, xc * w)
+    h = torch.zeros(b, g, rep, hd, ds, dtype=torch.float32,
+                    device=x.device)
+    decay = torch.exp(total).reshape(b, nc, g, rep, 1, 1)
+    h_prev = []
+    for n in range(nc):
+        h_prev.append(h)
+        h = h * decay[:, n] + states[:, n]
+    h_prev = torch.stack(h_prev, dim=1)                 # (b,nc,g,r,hd,ds)
+    y = y + (torch.einsum("bncgs,bngrds->bncgrd", Cc, h_prev)
+             * torch.exp(cum).reshape(b, nc, chunk, g, rep, 1))
+    y = y.reshape(b, nc * chunk, nh, hd)[:, :s0]
+    return y, h.reshape(b, nh, hd, ds)
+
+
+def launchable(x, dt, A, B, C) -> None:
+    """Raise unless the CUDA kernel takes these (checked) inputs: head
+    and state widths it is built for, contiguous x, dt and A, and B and
+    C in one layout whose (g, ds) axes are packed."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[3]
+    if (hd, ds) not in WIDTHS:
+        raise ValueError(f"the CUDA ssd_scan is built for (head_dim, "
+                         f"d_state) in {WIDTHS}, got {(hd, ds)}")
+    if not (x.is_contiguous() and dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("the CUDA ssd_scan takes contiguous x, dt and A")
+    # the kernel reads B and C at b·stride(0) + t·stride(1) + grp·ds + s
+    # (a stride of an axis of size 1 is never used)
+    want = [B.stride(0), B.stride(1), ds, 1]
+    for t in (B, C):
+        if any(n > 1 and st != w
+               for n, st, w in zip(t.shape, t.stride(), want)):
+            raise ValueError(f"the CUDA ssd_scan takes B and C with one "
+                             f"layout and packed (g, ds) axes, got "
+                             f"strides {B.stride()} and {C.stride()}")
+    if max(b, nh) > 65535 or s >= 1 << 31:
+        raise ValueError(f"shape {tuple(x.shape)} too large for one launch")
+
+
+def _launch(x, dt, A, B, C, y, h_out) -> None:
+    from repro_torch.kernels._build import library
+
+    launchable(x, dt, A, B, C)
+    b, s, nh, hd = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    fn = library("ssd_scan").ssd_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), y.data_ptr(), int(y.dtype == torch.float32),
+                 None if h_out is None else h_out.data_ptr(), b, s, nh, g,
+                 hd, ds, DTYPE_CODE[x.dtype], B.stride(0), B.stride(1),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's SSD: y ``(B, S, nh, hd)`` and the final state ``(B,
+    nh, hd, ds)``, both float32.  The CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check(x, dt, A, B, C, chunk)
+    if not kernel_device(x, "ssd_scan"):
+        return ssd_scan_plain(x, dt, A, B, C, chunk)
+    b, _, nh, hd = x.shape
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    h = torch.empty(b, nh, hd, B.shape[3], dtype=torch.float32,
+                    device=x.device)
+    _launch(x, dt, A, B, C, y, h)
+    ssd_scan.launches += 1
+    return y, h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, *,
+             chunk: int = 256) -> torch.Tensor:
+    """The reference kernel's API: y ``(B, S, nh, hd)`` in x's dtype,
+    without the final state."""
+    _check(x, dt, a, bmat, cmat, chunk)
+    if not kernel_device(x, "ssd_scan"):
+        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _launch(x, dt, a, bmat, cmat, y, None)
+    ssd_scan.launches += 1
+    return y
+
+
+ssd_scan.launches = 0

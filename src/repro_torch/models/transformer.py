@@ -1,14 +1,17 @@
-"""The port's dense decoder transformer.
+"""The port's decoder stack: dense transformers and Mamba2 SSMs.
 
-Port of the dense family of the reference package's
+Port of the dense and SSM families of the reference package's
 ``repro.models.transformer``.  The parameters are ``nn.Module``s: a
 ``Transformer`` holds the embedding table, the final norm and one
-``nn.ModuleDict`` block per layer, keyed as the reference's pytree is
-(``norm1``, ``attn``, ``norm2``, ``ffn``).  The reference stacks the
-layers and runs them under ``lax.scan``; here the stack is a Python
-loop over the blocks.  The KV cache is a list with one ``{"k", "v"}``
-dict of ``(B, cache_len, KV, hd)`` tensors per layer, and
-``decode_step`` updates it in place.
+``nn.ModuleDict`` block per layer, keyed as the reference's pytree is:
+``norm1``, ``attn`` or ``ssm`` by the layer's kind
+(``cfg.layer_kinds()``), and ``norm2``, ``ffn`` when the config has an
+FFN.  The reference stacks the layers and runs them under
+``lax.scan``; here the stack is a Python loop over the blocks.  The
+cache is a list with one dict per layer: ``{"k", "v"}`` of ``(B,
+cache_len, KV, hd)`` tensors for an attention layer, ``{"conv_x",
+"conv_bc", "ssm"}`` for a Mamba2 layer (which ignores ``cache_len`` and
+``lengths``); ``decode_step`` updates it in place.
 
 Public API (used by registry / serving):
     init_params(cfg, generator)                -> Transformer
@@ -18,11 +21,12 @@ Public API (used by registry / serving):
                                                -> (logits, cache)
     init_cache(cfg, batch, cache_len, device)  -> cache
 
-Only the dense family with rotary positions is ported.  MoE, SSM,
-hybrid, MLA, enc-dec and VLM configurations, learned positions, q/k
-norms and the int8 KV cache raise ``NotImplementedError`` (from
-``build``, ``init_params``, ``init_cache`` and the weight conversion)
-naming the ROADMAP item that adds them.
+The dense family with rotary positions and the attention-free SSM
+family are ported.  MoE, hybrid, MLA, enc-dec and VLM configurations,
+learned positions, q/k norms and the int8 KV cache raise
+``NotImplementedError`` (from ``build``, ``init_params``,
+``init_cache`` and the weight conversion) naming the ROADMAP item that
+adds them.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as ssm
 from repro_torch.models.layers import (_dtype, _init_w, apply_mlp,
                                        apply_norm, embed, init_embedding,
                                        init_mlp, init_norm, unembed)
@@ -50,13 +55,13 @@ def require_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port,
     naming its ROADMAP item."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         missing.append(f"the {cfg.family} family")
     if cfg.moe is not None:
         missing.append("MoE layers (ROADMAP Queue A 8b)")
-    if cfg.ssm is not None or cfg.attn_layer_period:
-        missing.append("Mamba2 / hybrid layers (ROADMAP Queue A 8d, "
-                       "kernel B5)")
+    if cfg.attn_layer_period:
+        missing.append("the hybrid Mamba2 / attention interleave "
+                       "(ROADMAP Queue A 8b, with Jamba's MoE)")
     if cfg.mla is not None:
         missing.append("MLA attention (ROADMAP Queue A 8c)")
     if cfg.encoder is not None:
@@ -107,9 +112,9 @@ def split_pattern(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 class Transformer(nn.Module):
-    """A dense decoder's weights: ``embed`` (V, d), ``norm_f``, an
-    optional untied ``unembed`` (d, V) and ``layers``, one
-    ``ModuleDict(norm1, attn, norm2, ffn)`` per layer."""
+    """A decoder's weights: ``embed`` (V, d), ``norm_f``, an optional
+    untied ``unembed`` (d, V) and ``layers``, one ``ModuleDict(norm1,
+    attn | ssm[, norm2, ffn])`` per layer."""
 
     def __init__(self, embed_table: nn.Parameter, norm_f: nn.ParameterDict,
                  layers: List[nn.ModuleDict],
@@ -121,10 +126,13 @@ class Transformer(nn.Module):
         self.unembed = unembed_w
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig,
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype: torch.dtype) -> nn.ModuleDict:
-    blk = {"norm1": init_norm(gen, cfg.d_model, cfg.norm, dtype),
-           "attn": attn.init_gqa(gen, cfg, dtype)}
+    blk = {"norm1": init_norm(gen, cfg.d_model, cfg.norm, dtype)}
+    if kind == "attn":
+        blk["attn"] = attn.init_gqa(gen, cfg, dtype)
+    else:
+        blk["ssm"] = ssm.init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)
     if cfg.d_ff:
         blk["norm2"] = init_norm(gen, cfg.d_model, cfg.norm, dtype)
         blk["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
@@ -141,18 +149,35 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     norm_f = init_norm(gen, cfg.d_model, cfg.norm, dtype)
     unembed_w = (None if cfg.tie_embeddings else
                  _init_w(gen, (cfg.d_model, cfg.vocab_size), dtype))
-    layers = [init_block(gen, cfg, dtype) for _ in range(cfg.num_layers)]
+    layers = [init_block(gen, cfg, kind, dtype)
+              for kind in cfg.layer_kinds()]
     return Transformer(table, norm_f, layers, unembed_w)
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    if kind == "attn":
+        shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    s = cfg.ssm
+    return {"conv_x": torch.zeros(batch, s.d_conv - 1,
+                                  s.d_inner(cfg.d_model), dtype=dtype,
+                                  device=device),
+            "conv_bc": torch.zeros(batch, s.d_conv - 1,
+                                   2 * s.n_groups * s.d_state, dtype=dtype,
+                                   device=device),
+            "ssm": torch.zeros(batch, s.n_heads(cfg.d_model), s.head_dim,
+                               s.d_state, dtype=torch.float32,
+                               device=device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> Cache:
     require_supported(cfg)
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     dtype = _dtype(cfg.dtype)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    return [_block_cache(cfg, kind, batch, cache_len, dtype, device)
+            for kind in cfg.layer_kinds()]
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +191,8 @@ def _pad_time(x: torch.Tensor, target: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, 0, 0, target - x.shape[1]))
 
 
-def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, x: torch.Tensor, *,
+def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
+                x: torch.Tensor, *,
                 mode: str, positions: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -175,7 +201,15 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, x: torch.Tensor, *,
     """Apply one block. mode: 'full' | 'prefill' | 'decode'."""
     new_cache = None
     h = apply_norm(bp["norm1"], x, cfg.norm)
-    if mode == "decode":
+    if kind == "ssm":
+        if mode == "decode":
+            a, new_cache = ssm.mamba2_decode(bp["ssm"], cfg.d_model,
+                                             cfg.ssm, h, cache)
+        else:
+            a, sc = ssm.mamba2_forward(bp["ssm"], cfg.d_model, cfg.ssm, h)
+            if mode == "prefill":
+                new_cache = sc
+    elif mode == "decode":
         a, new_cache = attn.gqa_decode(bp["attn"], cfg, h, cache, lengths,
                                        window=window)
     else:
@@ -196,8 +230,8 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                cache: Optional[Cache] = None, cache_len: int = 0,
                window: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
     new_cache: Cache = []
-    for i, bp in enumerate(params.layers):
-        x, nc = apply_block(cfg, bp, x, mode=mode, positions=positions,
+    for i, (kind, bp) in enumerate(zip(cfg.layer_kinds(), params.layers)):
+        x, nc = apply_block(cfg, bp, kind, x, mode=mode, positions=positions,
                             lengths=lengths,
                             cache=cache[i] if cache is not None else None,
                             cache_len=cache_len, window=window)

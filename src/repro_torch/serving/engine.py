@@ -1,9 +1,9 @@
 """Dynamic-batching inference engine — the system the paper characterizes.
 
 Port of the reference package's ``repro.serving.engine``.  The engine
-executes a real torch model (a dense GQA transformer; on the card its
-attention runs through the hand-written CUDA kernels) under the paper's
-batch-service discipline:
+executes a real torch model (a dense GQA transformer or a Mamba2 SSM;
+on the card their attention and SSD scan run through the hand-written
+CUDA kernels) under the paper's batch-service discipline:
 
 - requests arrive (Poisson load generator, MLPerf-Server-Scenario style),
 - whenever the server is free, a batching policy (default: the paper's

@@ -1,14 +1,18 @@
-"""The port's dense transformer against the reference's, on the same
-weights.
+"""The port's models against the reference's, on the same weights: two
+dense transformers and the Mamba2 SSM.
 
 Each reduced config's weights come from the reference ``init_params``
 and cross through ``convert.model_params_from_jax``; both models then
 run the same tokens in float32 on the CPU, where the port's attention
-takes its kernels' plain versions.  ``forward``, ``prefill`` (logits
-and KV cache) and three ``decode_step``s (logits and caches) agree to
-1e-4 absolute (measured: ≤ 1.6e-6 on logits of magnitude ≤ 1.6, ≤ 5e-6
-on the caches).  The port's own prefill + decode is held against its
-forward at the reference's 3e-4 (tests/test_arch_smoke.py).
+and SSD scan take their kernels' plain versions.  ``forward``,
+``prefill`` (logits and caches: KV, or Mamba2's conv windows and state)
+and three ``decode_step``s (logits and caches) agree to 1e-4 absolute
+(measured: ≤ 1.6e-6 on the dense models' logits of magnitude ≤ 1.6,
+≤ 5e-6 on their caches; ≤ 7e-6 on Mamba2's logits of magnitude ≤ 5.1,
+≤ 5e-6 on its caches).  Mamba2's prompt is 70 tokens, so that the scan
+carries its state across chunks of 32.  The port's own prefill + decode
+is held against its forward at the reference's 3e-4
+(tests/test_arch_smoke.py).
 """
 import dataclasses
 
@@ -31,9 +35,13 @@ from repro_torch.models import layers as pt_layers
 from repro_torch.models import rope as pt_rope
 from repro_torch.models import transformer as tfm
 
-ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b"]   # MHA + QKV bias; GQA + 0.75 rope
+# MHA + QKV bias; GQA + 0.75 rope; attention-free SSD
+ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b", "mamba2-2.7b"]
+ATTN_ARCHS = ARCHS[:2]
 ATOL = 1e-4
-B, S, EXTRA = 2, 32, 3
+B, EXTRA = 2, 3
+# prompt length per arch: Mamba2's crosses its reduced chunk of 32
+PROMPT = {"mamba2-2.7b": 70}
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +56,8 @@ def rigs():
         pparams = model_params_from_jax(
             pcfg, jax.tree.map(np.asarray, params), device="cpu")
         toks = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, size=(B, S + EXTRA)).astype(np.int32)
+            0, cfg.vocab_size, size=(B, PROMPT.get(arch, 32) + EXTRA)
+        ).astype(np.int32)
         out[arch] = (ref, params, port, pparams, toks)
     return out
 
@@ -59,6 +68,17 @@ def _t(a):
 
 def _ref_cache(cache, layer, name):
     return np.asarray(cache["stack"][0][name][layer])
+
+
+def _check_caches(pc, rc, n_layers):
+    assert len(pc) == n_layers
+    for i in range(n_layers):
+        assert set(pc[i]) == set(rc["stack"][0])
+        for name, got in pc[i].items():
+            want = _ref_cache(rc, i, name)
+            assert got.shape == want.shape, name
+            assert got.numpy().dtype == want.dtype, name
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -101,6 +121,7 @@ def test_forward_matches_reference(arch, rigs):
 def test_prefill_and_decode_match_reference(arch, rigs):
     ref, params, port, pparams, toks = rigs[arch]
     cfg = port.cfg
+    S = toks.shape[1] - EXTRA
     want, rc = ref.prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
                            S + EXTRA)
     with torch.inference_mode():
@@ -108,14 +129,10 @@ def test_prefill_and_decode_match_reference(arch, rigs):
                                S + EXTRA)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL)
-    assert len(pc) == cfg.num_layers
-    for i in range(cfg.num_layers):
-        for name in ("k", "v"):
-            assert pc[i][name].shape == (B, S + EXTRA, cfg.num_kv_heads,
-                                         cfg.head_dim)
-            np.testing.assert_allclose(pc[i][name].numpy(),
-                                       _ref_cache(rc, i, name), rtol=0,
-                                       atol=ATOL)
+    _check_caches(pc, rc, cfg.num_layers)
+    if arch in ATTN_ARCHS:
+        assert pc[0]["k"].shape == (B, S + EXTRA, cfg.num_kv_heads,
+                                    cfg.head_dim)
     lens = jnp.full((B,), S, jnp.int32)
     plens = torch.full((B,), S, dtype=torch.int32)
     for t in range(EXTRA):
@@ -125,17 +142,14 @@ def test_prefill_and_decode_match_reference(arch, rigs):
             got, pc = port.decode_step(pparams, _t(tok), pc, plens)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL)
-        for i in range(cfg.num_layers):
-            for name in ("k", "v"):
-                np.testing.assert_allclose(pc[i][name].numpy(),
-                                           _ref_cache(rc, i, name), rtol=0,
-                                           atol=ATOL)
+        _check_caches(pc, rc, cfg.num_layers)
         lens, plens = lens + 1, plens + 1
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_prefill_decode_matches_its_forward(arch, rigs):
     _, _, port, pparams, toks = rigs[arch]
+    S = toks.shape[1] - EXTRA
     with torch.inference_mode():
         full, _ = port.forward(pparams, {"tokens": _t(toks)})
         lg, cache = port.prefill(pparams, {"tokens": _t(toks[:, :S])},
@@ -152,9 +166,10 @@ def test_port_prefill_decode_matches_its_forward(arch, rigs):
             lens = lens + 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_sliding_window_decode_differs(arch, rigs):
     _, _, port, pparams, toks = rigs[arch]
+    S = toks.shape[1] - EXTRA
     with torch.inference_mode():
         _, cache = port.prefill(pparams, {"tokens": _t(toks[:, :S])},
                                 S + 2)
@@ -184,12 +199,20 @@ def test_seeded_init_is_deterministic_and_shaped_like_the_reference():
             assert not w.requires_grad
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "olmoe-1b-7b",
+def _hybrid_without_moe():
+    """Jamba's Mamba2 / attention interleave alone (its MoE taken out)."""
+    return dataclasses.replace(pt_reduced(pt_get_config("jamba-v0.1-52b")),
+                               moe=None)
+
+
+@pytest.mark.parametrize("arch", ["jamba-interleave", "olmoe-1b-7b",
                                   "deepseek-v2-lite-16b", "whisper-medium",
                                   "internvl2-1b", "jamba-v0.1-52b"])
 def test_unported_families_raise_and_name_their_item(arch):
+    cfg = (_hybrid_without_moe() if arch == "jamba-interleave"
+           else pt_reduced(pt_get_config(arch)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(pt_reduced(pt_get_config(arch)))
+        build(cfg)
 
 
 def test_int8_kv_cache_raises(monkeypatch):

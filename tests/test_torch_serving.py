@@ -5,10 +5,11 @@
   does) gives bitwise the reference's latencies and batch sizes under
   all three policies.
 - Fit: ``fit_service_model`` is bitwise the reference's.
-- Real model: on reduced qwen1.5-0.5b (float32, CPU), with the
-  reference engine's weights converted, the generate workload's greedy
-  tokens and the forward workload's argmax tokens equal the reference
-  engine's jitted ``run`` on the same seed and batch.
+- Real model: on reduced qwen1.5-0.5b and reduced mamba2-2.7b
+  (float32, CPU), with the reference engine's weights converted, the
+  generate workload's greedy tokens and the forward workload's argmax
+  tokens equal the reference engine's jitted ``run`` on the same seed
+  and batch.
 """
 import jax
 import numpy as np
@@ -94,14 +95,20 @@ def test_buckets_are_the_references():
         assert _buckets(mb) == ref_buckets(mb)
 
 
-@pytest.fixture(scope="module", params=["generate", "forward"])
+@pytest.fixture(scope="module",
+                params=[("qwen1.5-0.5b", "generate"),
+                        ("qwen1.5-0.5b", "forward"),
+                        ("mamba2-2.7b", "generate"),
+                        ("mamba2-2.7b", "forward")],
+                ids=["generate", "forward", "mamba2-generate",
+                     "mamba2-forward"])
 def engines(request):
     """The reference engine and the port's on the same weights."""
-    cfg = reduced(get_config("qwen1.5-0.5b"))
-    ref = RefEngine(cfg, workload=request.param, seq_len=32, max_batch=8,
-                    seed=3)
-    port = InferenceEngine(pt_reduced(pt_get_config("qwen1.5-0.5b")),
-                           workload=request.param, seq_len=32, max_batch=8,
+    arch, workload = request.param
+    ref = RefEngine(reduced(get_config(arch)), workload=workload,
+                    seq_len=32, max_batch=8, seed=3)
+    port = InferenceEngine(pt_reduced(pt_get_config(arch)),
+                           workload=workload, seq_len=32, max_batch=8,
                            seed=3, device="cpu")
     port.params = model_params_from_jax(
         port.cfg, jax.tree.map(np.asarray, ref.params), device="cpu")
@@ -141,6 +148,17 @@ def test_serve_cli_runs_the_reduced_model_on_the_cpu():
     assert res.batch_sizes.max() <= 4
     assert len(out["tau_s"]) == len(out["buckets"]) == 3
     assert out["alpha_s"] > 0 and np.isfinite(out["phi_s"])
+
+
+def test_serve_cli_runs_reduced_mamba2_on_the_cpu():
+    args = serve.parse_args(["--arch", "mamba2-2.7b", "--workload",
+                             "generate", "--jobs", "20", "--max-batch", "2"])
+    out = serve.run(args, device="cpu")
+    res = out["result"]
+    assert out["engine"].cfg.name == "mamba2-2.7b-reduced"
+    assert res.n_jobs == 20 and len(res.latencies) == 20
+    assert bool(np.all(np.isfinite(res.latencies)))
+    assert len(out["tau_s"]) == 2 and all(t > 0 for t in out["tau_s"])
 
 
 def test_engine_defaults_to_cuda_and_raises_without_a_gpu():

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's inference server spends a batch's time on the GPU.
 
-    python3 tools/profile_torch_serve.py [--out DIR]
+    python3 tools/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
-Builds ``InferenceEngine(qwen1.5-0.5b, workload="generate")`` at full
-width (bf16, the port's seeded init) at two sizes — ``serve``
+Builds ``InferenceEngine(ARCH, workload="generate")`` (default
+qwen1.5-0.5b; mamba2-2.7b for the SSM serve path) at full width (bf16,
+the port's seeded init) at two sizes — ``serve``
 (``launch.serve``'s prompt of 32 and 4 generated tokens) and
 ``serve_long`` (a 1,024-token prompt and 32 tokens) — and, for batch 1
 and batch 32 of each, runs one batch to warm up, three on the host
@@ -19,9 +20,9 @@ per (size, batch):
   the batch the card waits on the host;
 - ``kernels`` — kernel launches per batch;
 - ``top_kernels`` — device time by kernel name;
-- ``flash_attention_ms`` / ``decode_attention_ms`` — the two attention
-  kernels' time in the batch, their launches, and their share of the
-  kernel time.
+- ``flash_attention_ms`` / ``decode_attention_ms`` / ``ssd_scan_ms``
+  — the port's model kernels' time in the batch, their launches, and
+  their share of the kernel time.
 
 With ``--out`` it also writes the Chrome traces there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
@@ -43,7 +44,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import nvidia_smi  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
 
 SIZES = {"serve": (32, 4), "serve_long": (1024, 32)}
@@ -83,7 +84,7 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
            "kernels": sum(e.count for e in kernels),
            "top_kernels": [{"name": e.key[:80], "count": e.count,
                             "ms": _device_us(e) / 1e3} for e in top]}
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
         ms, n = _kernel_sum(kernels, f"{name}_kernel")
         out[f"{name}_ms"] = ms
         out[f"{name}_launches"] = n
@@ -93,6 +94,7 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -100,7 +102,7 @@ def main() -> int:
         return 1
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(args.arch)
     rows = {}
     t0 = time.perf_counter()
     for label, (prompt, gen) in SIZES.items():
@@ -108,7 +110,7 @@ def main() -> int:
                               gen_tokens=gen, max_batch=32)
         for b in (1, 32):
             trace = (None if args.out is None
-                     else args.out / f"{label}_b{b}_trace.json")
+                     else args.out / f"{cfg.name}_{label}_b{b}_trace.json")
             rows[f"{label}/b{b}"] = profile_batch(eng, b, trace)
         del eng
         torch.cuda.empty_cache()
