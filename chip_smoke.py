@@ -57,12 +57,16 @@ printing one JSON line per phase:
                    against their plain versions (float32 matmuls, TF32
                    off): at the serve path's shapes (batch 1…32, prompt
                    32, cache 37, 16 heads of 64, bf16), at the long
-                   serve shapes (32 × 1,024, cache 1,057), at
+                   serve shapes (32 × 1,024, cache 1,057) and at batch
+                   1 on them (B4 splits the cache there), at
                    phi4-mini's GQA heads (24 over 8, hd 128), with a
-                   window, ragged lengths, and in float32: bf16 within
-                   2e-2 and float32 within 2e-5 max abs; kernel, plain,
-                   library (``scaled_dot_product_attention``) and bound
-                   times at the serve and long shapes.
+                   window, ragged lengths (at batch 1 on the long cache
+                   lengths that leave splits empty, and -1), and in
+                   float32: bf16 within 2e-2 and float32 within 2e-5
+                   max abs, a row of length -1 exactly 0, and every case
+                   launched twice with bitwise equal outputs; kernel,
+                   plain, library (``scaled_dot_product_attention``) and
+                   bound times at the serve, long and batch-1 shapes.
 10. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
@@ -144,7 +148,7 @@ from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import superstep as ss  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -707,6 +711,7 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
                  seed=0, timed=False) -> dict:
     q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed)
     got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -715,6 +720,7 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
                 window=window, max_abs_err=err)
     check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
           f"flash_attention vs plain: {case}")
+    check(torch.equal(got, again), f"flash_attention repeats bitwise: {case}")
     if timed:
         pos = torch.arange(s)
         adm = torch.ones(s, s, dtype=torch.bool)
@@ -742,14 +748,23 @@ def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
     q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=True)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     got = decode_attention(q, k, v, lens, window=window)
+    again = decode_attention(q, k, v, lens, window=window)
     want = decode_attention_plain(q, k, v, lens, window=window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    splits = decode_splits(b, kv, s, hd, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0]
     case = dict(kernel="decode_attention", dtype=str(dtype), batch=b,
                 cache=s, heads=h, kv_heads=kv, head_dim=hd, window=window,
-                lengths=[min(lengths), max(lengths)], max_abs_err=err)
+                lengths=[min(lengths), max(lengths)], splits=splits,
+                max_abs_err=err)
     check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
           f"decode_attention vs plain: {case}")
+    check(torch.equal(got, again),
+          f"decode_attention repeats bitwise (split merge): {case}")
+    empty = [i for i, n in enumerate(lengths) if n < 0]
+    check(bool((got[empty] == 0).all()),
+          f"decode_attention: a row of length -1 gives 0: {case}")
     if timed:
         admitted = [max(0, min(s, n + 1) - (max(0, n - window + 1)
                                             if window else 0))
@@ -806,7 +821,21 @@ def phase_attn_kernel(dev) -> dict:
     out["decode_long"] = _check_decode(
         dev, bf16, 32, long_cache, h, kv, hd,
         [LONG_PROMPT + LONG_GEN - 1] * 32, seed=33, timed=True)
+    # batch 1 at the long shapes: one request's prefill, and its decode
+    # over the cache split across blocks
+    out["flash_batch1"] = _check_flash(dev, bf16, 1, LONG_PROMPT, h, kv, hd,
+                                       seed=34, timed=True)
+    out["decode_batch1"] = _check_decode(
+        dev, bf16, 1, long_cache, h, kv, hd, [LONG_PROMPT + LONG_GEN - 1],
+        seed=34, timed=True)
     cases += list(out.values())
+    # batch 1 on the long cache with lengths that leave all, all but one
+    # or some of the splits empty, and four ragged rows
+    for i, n in enumerate((-1, 0, 63, 64, 500)):
+        cases.append(_check_decode(dev, bf16, 1, long_cache, h, kv, hd, [n],
+                                   seed=35 + i))
+    cases.append(_check_decode(dev, bf16, 4, long_cache, h, kv, hd,
+                               [-1, 5, 600, long_cache - 1], seed=40))
     phi4 = get_config("phi4-mini-3.8b")
     gh, gkv, ghd = phi4.num_heads, phi4.num_kv_heads, phi4.head_dim
     ragged = [0, 1, 250, 299, 511, 300, 17, 400]
@@ -1216,9 +1245,17 @@ def main() -> int:
         *(_kernel_row(
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},
-            long_bound_by=attn[f"{short}_long"]["bound_by"])
-          for name, short in (("flash_attention", "flash"),
-                              ("decode_attention", "decode"))),
+            long_bound_by=attn[f"{short}_long"]["bound_by"],
+            **{f"batch1_{k}": attn[f"{short}_batch1"][key] for k, key in (
+                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                ("bound_ms", "bound_ms"), ("library_ms", "library_ms"),
+                ("max_abs_err", "max_abs_err"))},
+            batch1_bound_by=attn[f"{short}_batch1"]["bound_by"], **extra)
+          for name, short, extra in (
+              ("flash_attention", "flash", {}),
+              ("decode_attention", "decode",
+               {"splits": {k: attn[f"decode_{k}"]["splits"]
+                           for k in ("serve", "long", "batch1")}}))),
         _kernel_row(
             "ssd_scan", "serve_ssm", served_ssm["launches"]["ssd_scan"],
             ssd["serve"], library_note=ssd["serve"]["library_note"],

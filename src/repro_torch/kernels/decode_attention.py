@@ -15,12 +15,19 @@ caveat as ``flash_attention``.
 The wrapper launches the kernel for CUDA tensors and takes
 ``decode_attention_plain`` for CPU tensors, and raises on anything else
 (device, dtype, layout, ``H % KV``, more than 8 query heads per kv head
-on the card).  ``decode_attention.launches`` counts the kernel
-launches.
+on the card).  On the card the cache axis is split across blocks
+(flash-decoding): ``decode_splits`` picks the split from the shapes and
+the card's SM count, never from ``lengths``, and the kernel merges the
+splits' partials in the same launch, through a workspace and ticket
+counters the wrapper keeps per device.  ``decode_partials_plain`` and
+``merge_partials_plain`` are that split-and-merge algebra in plain
+torch, for the tests.  ``decode_attention.launches`` counts the kernel
+launches, one per call.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,10 +35,21 @@ from repro_torch.kernels.flash_attention import (DTYPE_CODE, NEG_INF,
                                                  check_attention_inputs,
                                                  kernel_device, launchable)
 
-__all__ = ["decode_attention", "decode_attention_plain", "MAX_GROUP"]
+__all__ = ["decode_attention", "decode_attention_plain", "MAX_GROUP",
+           "decode_splits", "decode_partials_plain", "merge_partials_plain"]
 
 # query heads per kv head the CUDA kernel serves in one block
 MAX_GROUP = 8
+# cache positions per tile of the CUDA kernel: TILE_ELEMS / head_dim
+TILE_ELEMS = 4096
+# the grid aims at this many blocks per SM
+BLOCKS_PER_SM = 2
+# the CUDA merge holds at most this many splits' statistics
+MAX_SPLITS = 64
+
+# per device: the SM count, and the split workspace and ticket counters
+_SMS: Dict[torch.device, int] = {}
+_WORK: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _check(q, k, v, lengths) -> None:
@@ -76,6 +94,93 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (acc / (l + 1e-30)).reshape(b, h, hd).to(q.dtype)
 
 
+def decode_splits(b: int, kv: int, s: int, hd: int,
+                  sms: int) -> Tuple[int, int]:
+    """``(splits, chunk)`` for a ``(b, s, kv, hd)`` cache on a card with
+    ``sms`` SMs: enough splits that the ``(splits, kv, b)`` grid gives
+    every SM ``BLOCKS_PER_SM`` blocks, but no more than the cache has
+    tiles nor ``MAX_SPLITS``; ``chunk`` is a whole number of tiles and
+    ``splits`` slices of it cover the cache, none of them wholly past its
+    end."""
+    tile = TILE_ELEMS // hd
+    tiles = max(1, -(-s // tile))
+    want = -(-BLOCKS_PER_SM * sms // max(1, b * kv))
+    splits = max(1, min(want, tiles, MAX_SPLITS))
+    chunk = -(-tiles // splits) * tile
+    return max(1, -(-s // chunk)), chunk
+
+
+def decode_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: torch.Tensor, splits: int, chunk: int, *,
+                          window: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """What each split block of the CUDA kernel computes, in plain
+    torch: for split s, the float32 softmax statistics over the
+    admitted positions in ``[s * chunk, (s + 1) * chunk)`` — ``m`` and
+    ``l`` of shape ``(B, KV, splits, G)`` and ``acc`` ``(B, KV, splits,
+    G, hd)``; an empty split has ``m = NEG_INF``, ``l = 0``, ``acc =
+    0``."""
+    _check(q, k, v, lengths)
+    b, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    sc = torch.einsum("bkgh,btkh->bkgt", q.float().reshape(b, kv, g, hd),
+                      k.float()) * (hd ** -0.5)
+    pos = torch.arange(s, device=q.device)
+    length = lengths.long()[:, None]
+    mask = pos[None, :] <= length
+    if window:
+        mask &= length - pos[None, :] < window
+    part = (pos[None, :] // chunk
+            == torch.arange(splits, device=q.device)[:, None])
+    # (B, 1, splits, 1, S): admitted and in the split
+    mask = (mask[:, None, :] & part[None])[:, None, :, None, :]
+    sc = torch.where(mask, sc[:, :, None], NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bksgt,btkh->bksgh", p, v.float())
+    return m, l, acc
+
+
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's merge of ``decode_partials_plain``'s statistics:
+    rescale each split by ``exp(m_s - max m)`` and divide the summed
+    accumulator by the summed ``l + 1e-30``; ``(B, H, hd)`` in
+    ``dtype``."""
+    b, kv, _, g, hd = acc.shape
+    top = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - top)
+    lsum = (l * w).sum(dim=2)
+    asum = (acc * w[..., None]).sum(dim=2)
+    return (asum / (lsum[..., None] + 1e-30)).reshape(b, kv * g,
+                                                       hd).to(dtype)
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _workspace(dev: torch.device, floats: int,
+               counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's split workspace and ticket counters, grown (and
+    zeroed) when a launch needs more; never allocated per call."""
+    have = _WORK.get(dev)
+    if (have is None or have[0].numel() < floats
+            or have[1].numel() < counters):
+        floats = max(floats, 0 if have is None else have[0].numel())
+        counters = max(counters, 0 if have is None else have[1].numel())
+        _WORK[dev] = (torch.zeros(floats, dtype=torch.float32, device=dev),
+                      torch.zeros(counters, dtype=torch.int32, device=dev))
+    return _WORK[dev]
+
+
 def _launch(q, k, v, lengths, out, window: int) -> None:
     from repro_torch.kernels._build import library
 
@@ -86,18 +191,26 @@ def _launch(q, k, v, lengths, out, window: int) -> None:
         raise ValueError(f"the CUDA decode_attention serves at most "
                          f"{MAX_GROUP} query heads per kv head, got "
                          f"{h // kv}")
-    if b > 65535 or s >= 1 << 31 or abs(window) >= 1 << 31:
+    if max(b, kv) > 65535 or s >= 1 << 30 or abs(window) >= 1 << 31:
         raise ValueError(f"shape {tuple(k.shape)} / window {window} too "
                          f"large for one launch")
+    splits, chunk = decode_splits(b, kv, s, hd, _sm_count(q.device))
+    ws = tickets = 0
+    if splits > 1:
+        # m, l and acc[hd] for each (row, kv head, split, query head)
+        work, count = _workspace(q.device, b * splits * h * (hd + 2),
+                                 b * kv)
+        ws, tickets = work.data_ptr(), count.data_ptr()
     fn = library("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, s, h, kv, hd,
-                 DTYPE_CODE[q.dtype], hd ** -0.5, int(window), stream)
+                 lengths.data_ptr(), out.data_ptr(), ws, tickets, b, s, h,
+                 kv, hd, DTYPE_CODE[q.dtype], hd ** -0.5, int(window),
+                 splits, chunk, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -9,15 +9,20 @@ runs in float32 with masked scores ``NEG_INF = -0.7 * f32max`` and
 output has q's dtype.  It replaces the reference's Pallas kernel
 ``repro.kernels.flash_attention`` (``_kernel``) and computes what the
 reference model's ``sdpa`` computes, except that the reference rounds
-the probabilities to bf16 before P·V on bf16 inputs while the kernel,
-like the Pallas kernel, keeps them in float32.
+the probabilities to one bf16 before P·V on bf16 inputs, where the
+Pallas kernel and the plain version keep them in float32 and the bf16
+CUDA kernel carries them as two bf16 terms (about 16 bits).
 
-The wrapper launches the kernel for CUDA tensors and takes
+The wrapper launches a kernel for CUDA tensors and takes
 ``flash_attention_plain`` for CPU tensors; it raises on any other
 device, on a dtype other than float32 / bfloat16, on non-contiguous or
-misaligned inputs and on ``H % KV != 0``.  A failed build or launch
-raises: there is no fallback.  ``flash_attention.launches`` counts the
-kernel launches.
+misaligned inputs and on ``H % KV != 0``.  On the card the dtype picks
+the kernel: bfloat16 runs ``flash_attention_kernel_bf16`` (tensor-core
+tiles, P carried as two bf16 terms), float32 runs
+``flash_attention_kernel`` (CUDA cores, no TF32 rounding).  A failed
+build or launch raises: there is no fallback.
+``flash_attention.launches`` counts the kernel launches, one per call
+whichever kernel it runs.
 """
 from __future__ import annotations
 
@@ -133,7 +138,9 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
     b, s, h, hd = q.shape
     kv = k.shape[2]
     launchable("flash_attention", hd, q, k, v, out)
-    if max(b, h) > 65535 or s >= 1 << 31 or abs(window) >= 1 << 31:
+    # grid limits: (B*H, ceil(S/64)) in bf16, (ceil(S/32), H, B) in f32
+    if (max(b, h) > 65535 or -(-s // 64) > 65535
+            or abs(window) >= 1 << 31):
         raise ValueError(f"shape {tuple(q.shape)} / window {window} too "
                          f"large for one launch")
     fn = library("flash_attention").flash_attention_launch

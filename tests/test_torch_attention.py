@@ -252,9 +252,14 @@ def test_cuda_flash_matches_plain(dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1)
+    # ragged S (77, 300: no multiple of the 64-row bf16 tiles) and
+    # phi4-mini's GQA heads (24 over 8, hd 128)
     for b, s, h, kv, hd, causal, window in [(3, 37, 16, 16, 64, True, 0),
                                             (2, 100, 24, 8, 128, True, 16),
-                                            (2, 70, 6, 2, 32, False, 9)]:
+                                            (2, 70, 6, 2, 32, False, 9),
+                                            (2, 77, 16, 16, 64, True, 0),
+                                            (2, 300, 16, 16, 64, True, 0),
+                                            (2, 300, 24, 8, 128, True, 0)]:
         q = torch.randn(b, s, h, hd, device="cuda", generator=g).to(dtype)
         k = torch.randn(b, s, kv, hd, device="cuda", generator=g).to(dtype)
         v = torch.randn(b, s, kv, hd, device="cuda", generator=g).to(dtype)
@@ -275,8 +280,11 @@ def test_cuda_decode_matches_plain(dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
+    # batch 1 on the long cache splits it across blocks (splits > 1)
     for b, s, h, kv, hd, window in [(4, 37, 16, 16, 64, 0),
-                                    (5, 300, 24, 8, 128, 20)]:
+                                    (5, 300, 24, 8, 128, 20),
+                                    (1, 1057, 16, 16, 64, 0),
+                                    (2, 1057, 24, 8, 128, 300)]:
         q = torch.randn(b, h, hd, device="cuda", generator=g).to(dtype)
         k = torch.randn(b, s, kv, hd, device="cuda", generator=g).to(dtype)
         v = torch.randn(b, s, kv, hd, device="cuda", generator=g).to(dtype)
