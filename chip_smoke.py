@@ -89,11 +89,15 @@ printing one JSON line per phase:
                    d_state 128, one group, B and C strided slices of
                    one activation as in the model): the serve shape
                    (B 32, S 32, bf16), the long shape (B 32, S 1,024),
-                   a ragged length (S 1,000), batch 1 at S 1,024, one
+                   ragged lengths (S 1,000 at B 32 and at B 1, where
+                   the time axis is split), batch 1, 2 and 4 at S
+                   1,024 (4, 2 and 1 pieces), batch 1 at S 32, one
                    float32 case and one with two groups: y and the
-                   final state within 2e-3 (bf16) and 1e-4 (float32)
-                   max abs, and the reference API's y bit for bit the
-                   model call's rounded to x's dtype; kernel, plain and
+                   final state each within 2e-3 (bf16) and 1e-4
+                   (float32) max abs, the reference API's y bit for bit
+                   the model call's rounded to x's dtype, and every
+                   bf16 case launched twice with bitwise equal y and
+                   state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
                    SSD, so no library time).
 14. serve_ssm    — ``python -m repro_torch.launch.serve --arch
@@ -152,7 +156,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_chunked, ssd_scan, ssd_scan_plain)
+    ssd_chunked, ssd_scan, ssd_scan_plain, ssd_splits)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
@@ -1048,19 +1052,28 @@ def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False) -> dict:
     nh, hd, ds = cfg.n_heads(model.d_model), cfg.head_dim, cfg.d_state
     args = _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed)
     y, h = ssd_chunked(*args, cfg.chunk_size)
+    again = ssd_chunked(*args, cfg.chunk_size)
     want_y, want_h = ssd_scan_plain(*args, cfg.chunk_size)
     api = ssd_scan(*args, chunk=cfg.chunk_size)
     torch.cuda.synchronize()
-    err = max(float((y - want_y).abs().max()),
-              float((h - want_h).abs().max()))
+    err_y = float((y - want_y).abs().max())
+    err_state = float((h - want_h).abs().max())
+    # the bf16 route splits the time axis at small batch; float32 never
+    splits = (ssd_splits(b, s, nh, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0] if dtype == torch.bfloat16 else 1)
     case = dict(kernel="ssd_scan", dtype=str(dtype), batch=b, seq=s,
-                heads=nh, groups=g, head_dim=hd, d_state=ds,
-                max_abs_err=err, max_abs_y=float(want_y.abs().max()),
+                heads=nh, groups=g, head_dim=hd, d_state=ds, splits=splits,
+                max_abs_err=max(err_y, err_state), err_y=err_y,
+                err_state=err_state, max_abs_y=float(want_y.abs().max()),
                 max_abs_state=float(want_h.abs().max()))
     check(bool(torch.isfinite(y).all() and torch.isfinite(h).all())
-          and err <= SSD_TOL[dtype], f"ssd_scan vs plain: {case}")
+          and case["max_abs_err"] <= SSD_TOL[dtype],
+          f"ssd_scan vs plain: {case}")
     check(torch.equal(api, y.to(dtype)),
           f"ssd_scan's y is the model call's, rounded: {case}")
+    check(dtype != torch.bfloat16
+          or (torch.equal(y, again[0]) and torch.equal(h, again[1])),
+          f"ssd_scan repeats bitwise (split combine included): {case}")
     if timed:
         elt = torch.finfo(dtype).bits // 8
         x, dt, a, bm, cm = args
@@ -1082,15 +1095,17 @@ def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False) -> dict:
         case["library_ms"] = None
         case["library_note"] = ("no single PyTorch call computes the SSD "
                                 "scan")
-    del args, y, h, want_y, want_h, api
+    del args, y, h, again, want_y, want_h, api
     torch.cuda.empty_cache()
     return case
 
 
 def phase_ssd_kernel(dev) -> dict:
     """B5 against its plain version on the card at the Mamba2 serve
-    path's shapes (timed), a ragged length, batch 1, float32 and two
-    groups."""
+    path's shapes (timed), the batches around the split rule's steps
+    (B 1, 2, 4 at S 1,024), ragged lengths split and unsplit, batch 1
+    at the serve prompt, float32 and two groups; every bf16 case twice,
+    bitwise."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1101,12 +1116,18 @@ def phase_ssd_kernel(dev) -> dict:
     cases = list(out.values()) + [
         _check_ssd(dev, bf16, 32, 1000, seed=4),
         _check_ssd(dev, f32, 4, 300, seed=5),
-        _check_ssd(dev, bf16, 4, 1000, g=2, seed=6)]
+        _check_ssd(dev, bf16, 4, 1000, g=2, seed=6),
+        _check_ssd(dev, bf16, 2, SSM_LONG, seed=7),
+        _check_ssd(dev, bf16, 4, SSM_LONG, seed=8),
+        _check_ssd(dev, bf16, 1, 1000, seed=9),
+        _check_ssd(dev, bf16, 1, SSM_PROMPT, seed=10)]
     emit("ssd_kernel", cases=cases,
          worst_bf16=max(c["max_abs_err"] for c in cases
                         if c["dtype"] == str(bf16)),
          worst_f32=max(c["max_abs_err"] for c in cases
-                       if c["dtype"] == str(f32)))
+                       if c["dtype"] == str(f32)),
+         splits={f"{c['batch']}x{c['seq']}": c["splits"] for c in cases
+                 if c["dtype"] == str(bf16)})
     return out
 
 
@@ -1226,6 +1247,9 @@ def main() -> int:
     phase_ssm_consistency(dev)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
+    batch1_keys = (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                   ("bound_ms", "bound_ms"), ("library_ms", "library_ms"),
+                   ("max_abs_err", "max_abs_err"))
     print(json.dumps({"kernels": [
         _kernel_row(
             "hist_update", "gen_user_size", gen["launches"]["hist_update"],
@@ -1246,10 +1270,8 @@ def main() -> int:
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},
             long_bound_by=attn[f"{short}_long"]["bound_by"],
-            **{f"batch1_{k}": attn[f"{short}_batch1"][key] for k, key in (
-                ("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-                ("bound_ms", "bound_ms"), ("library_ms", "library_ms"),
-                ("max_abs_err", "max_abs_err"))},
+            **{f"batch1_{k}": attn[f"{short}_batch1"][key]
+               for k, key in batch1_keys},
             batch1_bound_by=attn[f"{short}_batch1"]["bound_by"], **extra)
           for name, short, extra in (
               ("flash_attention", "flash", {}),
@@ -1261,8 +1283,10 @@ def main() -> int:
             ssd["serve"], library_note=ssd["serve"]["library_note"],
             **{f"long_{k}": ssd["long"][k] for k in long_keys},
             long_bound_by=ssd["long"]["bound_by"],
-            batch1_ms=ssd["batch1"]["kernel_ms"],
-            batch1_bound_ms=ssd["batch1"]["bound_ms"]),
+            **{f"batch1_{k}": ssd["batch1"][key] for k, key in batch1_keys},
+            batch1_bound_by=ssd["batch1"]["bound_by"],
+            splits={k: ssd[k]["splits"] for k in ("serve", "long",
+                                                   "batch1")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,32 +23,52 @@ Both wrappers launch the kernel for CUDA tensors and take the plain
 version for CPU tensors; they raise on any other device, on a dtype
 other than float32 / bfloat16 for x, B, C (one dtype) or float32 for
 dt, A, on ``nh % g != 0``, and, on the card, on a non-contiguous x, dt
-or A, on B or C whose two inner axes are not packed, and on head and
-state widths the kernel is not built for (``WIDTHS``: mamba2-2.7b's
-and its reduced config's).  B and C may be slices of one activation:
-the kernel takes their batch and time strides.  The kernel walks the
-time axis in tiles of 64 steps whatever ``chunk`` is (SSD is the same
-function for every chunk size, up to rounding), and a length that is
-no multiple of the tile is masked in the kernel.  A failed build or
-launch raises: there is no fallback.  ``ssd_scan.launches`` counts
-the kernel launches of both wrappers.
+or A, on B or C whose two inner axes are not packed, on bf16 rows that
+do not start 16-byte aligned, and on head and state widths the kernel
+is not built for (``WIDTHS``: mamba2-2.7b's and its reduced config's).
+B and C may be slices of one activation: the kernel takes their batch
+and time strides.  bfloat16 inputs run the tensor-core kernel
+``ssd_scan_kernel_bf16`` and float32 inputs the CUDA-core
+``ssd_scan_kernel``; both walk the time axis in tiles (64 steps, 32 for
+a row of at most 32) whatever ``chunk`` is (SSD is the same function
+for every chunk size, up to rounding), and a length that is no multiple
+of the tile is masked in the kernel.  At small batch the bf16 route
+cuts each row into ``ssd_splits`` pieces: a state pass over the pieces
+and a second pass that combines their states in piece order, through a
+workspace kept per device (``ssd_piece_states_plain``,
+``ssd_combine_plain`` and ``ssd_piece_plain`` are that algebra in plain
+torch, for the tests).  A failed build or launch raises: there is no
+fallback.  ``ssd_scan.launches`` counts the wrapper calls that launch
+the kernel, one per call of either wrapper, however many kernel
+launches a split call issues.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention import _sm_count
 from repro_torch.kernels.flash_attention import DTYPE_CODE, kernel_device
 
 __all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
-           "ssd_scan_plain"]
+           "ssd_scan_plain", "ssd_splits", "ssd_piece_states_plain",
+           "ssd_combine_plain", "ssd_piece_plain"]
 
 # (head_dim, d_state) pairs the CUDA kernel is compiled for:
 # mamba2-2.7b's and its reduced config's
 WIDTHS = ((64, 128), (32, 16))
+# time steps per tile of the bf16 kernel on a row longer than 32; a
+# piece of a split row is a whole number of them
+TILE = 64
+# the split aims at this many blocks per SM
+BLOCKS_PER_SM = 2
+MAX_SPLITS = 16
+
+# per device: the split workspace (piece states and totals)
+_WORK: Dict[torch.device, torch.Tensor] = {}
 
 
 def _check(x, dt, A, B, C, chunk: int) -> None:
@@ -86,6 +106,13 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``_ssd_chunked`` in float32.  Returns y ``(B, S, nh, hd)`` and the
     final state ``(B, nh, hd, ds)``, both float32."""
     _check(x, dt, A, B, C, chunk)
+    return _plain(x, dt, A, B, C, chunk, None)
+
+
+def _plain(x, dt, A, B, C, chunk: int, h0: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_scan_plain`` from the state ``h0 (B, nh, hd, ds)`` (None:
+    zero) instead of 0."""
     b, s0, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]
     rep = nh // g
@@ -121,8 +148,9 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     w = (dtc * torch.exp(total[:, :, None, :] - cum)).reshape(
         b, nc, chunk, g, rep, 1)
     states = torch.einsum("bncgs,bncgrd->bngrds", Bc, xc * w)
-    h = torch.zeros(b, g, rep, hd, ds, dtype=torch.float32,
-                    device=x.device)
+    h = (torch.zeros(b, g, rep, hd, ds, dtype=torch.float32,
+                     device=x.device) if h0 is None
+         else h0.float().reshape(b, g, rep, hd, ds))
     decay = torch.exp(total).reshape(b, nc, g, rep, 1, 1)
     h_prev = []
     for n in range(nc):
@@ -135,10 +163,68 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h.reshape(b, nh, hd, ds)
 
 
+def ssd_splits(b: int, s: int, nh: int, sms: int) -> Tuple[int, int]:
+    """``(splits, piece)`` for the bf16 kernel on ``b`` rows of ``s``
+    steps and ``nh`` heads on a card with ``sms`` SMs: enough pieces that
+    the ``(nh, b, splits)`` grid gives every SM about ``BLOCKS_PER_SM``
+    blocks, but no more than the row has tiles nor ``MAX_SPLITS``;
+    ``piece`` is a whole number of ``TILE``-step tiles, and ``splits``
+    pieces of it cover the row, none of them wholly past its end.  From
+    the shapes only: no device read."""
+    tiles = max(1, -(-s // TILE))
+    want = -(-BLOCKS_PER_SM * sms // max(1, b * nh))
+    splits = max(1, min(want, tiles, MAX_SPLITS))
+    piece = -(-tiles // splits) * TILE
+    return max(1, -(-s // piece)), piece
+
+
+def ssd_piece_states_plain(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           piece: int, chunk: int = 256
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the split kernel's state pass computes, in plain torch: for
+    each piece of ``piece`` steps (the last one cut at S), its own final
+    state from zero, ``(splits, B, nh, hd, ds)``, and its total sum of
+    dt·A, ``(splits, B, nh)``; float32."""
+    _check(x, dt, A, B, C, chunk)
+    s = x.shape[1]
+    states, totals = [], []
+    for k in range(0, max(s, 1), piece):
+        sl = slice(k, min(s, k + piece))
+        states.append(_plain(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl],
+                             chunk, None)[1])
+        totals.append((dt[:, sl].float() * A).sum(dim=1))
+    return torch.stack(states), torch.stack(totals)
+
+
+def ssd_combine_plain(states: torch.Tensor,
+                      totals: torch.Tensor) -> torch.Tensor:
+    """The kernel's combine, in piece order: the state each piece starts
+    from, ``h_in[0] = 0`` and ``h_in[k] = h_in[k-1]·exp(total[k-1]) +
+    local[k-1]``; ``(splits, B, nh, hd, ds)``."""
+    h = torch.zeros_like(states[0])
+    h_in = []
+    for local, total in zip(states, totals):
+        h_in.append(h)
+        h = h * torch.exp(total)[..., None, None] + local
+    return torch.stack(h_in)
+
+
+def ssd_piece_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor,
+                    chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the split kernel's second pass computes for one piece (x,
+    dt, B and C cut to its steps), in plain torch: its y and its final
+    state, from the state ``h_in (B, nh, hd, ds)``; float32."""
+    _check(x, dt, A, B, C, chunk)
+    return _plain(x, dt, A, B, C, chunk, h_in)
+
+
 def launchable(x, dt, A, B, C) -> None:
     """Raise unless the CUDA kernel takes these (checked) inputs: head
-    and state widths it is built for, contiguous x, dt and A, and B and
-    C in one layout whose (g, ds) axes are packed."""
+    and state widths it is built for, contiguous x, dt and A, B and C in
+    one layout whose (g, ds) axes are packed, and, in bf16, rows of x, B
+    and C that start 16-byte aligned."""
     b, s, nh, hd = x.shape
     ds = B.shape[3]
     if (hd, ds) not in WIDTHS:
@@ -155,8 +241,23 @@ def launchable(x, dt, A, B, C) -> None:
             raise ValueError(f"the CUDA ssd_scan takes B and C with one "
                              f"layout and packed (g, ds) axes, got "
                              f"strides {B.stride()} and {C.stride()}")
+    if x.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(n > 1 and st % 8 for n, st in zip(
+                t.shape[:2], t.stride()[:2])) for t in (x, B, C)):
+        raise ValueError("the bf16 CUDA ssd_scan copies rows of x, B and C "
+                         "16 bytes at a time: their data and their batch "
+                         "and time strides must be 16-byte aligned")
     if max(b, nh) > 65535 or s >= 1 << 31:
         raise ValueError(f"shape {tuple(x.shape)} too large for one launch")
+
+
+def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
+    """The device's split workspace, grown when a launch needs more;
+    never allocated per call (the kernel writes every float it reads)."""
+    have = _WORK.get(dev)
+    if have is None or have.numel() < floats:
+        _WORK[dev] = torch.empty(floats, dtype=torch.float32, device=dev)
+    return _WORK[dev]
 
 
 def _launch(x, dt, A, B, C, y, h_out) -> None:
@@ -165,18 +266,26 @@ def _launch(x, dt, A, B, C, y, h_out) -> None:
     launchable(x, dt, A, B, C)
     b, s, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]
+    splits, piece, ws = 1, max(s, 1), None
+    if x.dtype == torch.bfloat16:
+        splits, piece = ssd_splits(b, s, nh, _sm_count(x.device))
+        if splits > 1:
+            # each piece's state and total, but the last one's
+            ws = _workspace(x.device,
+                            (splits - 1) * b * nh * (hd * ds + 1)).data_ptr()
     fn = library("ssd_scan").ssd_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                  C.data_ptr(), y.data_ptr(), int(y.dtype == torch.float32),
-                 None if h_out is None else h_out.data_ptr(), b, s, nh, g,
-                 hd, ds, DTYPE_CODE[x.dtype], B.stride(0), B.stride(1),
-                 stream)
+                 None if h_out is None else h_out.data_ptr(), ws, b, s, nh,
+                 g, hd, ds, DTYPE_CODE[x.dtype], B.stride(0), B.stride(1),
+                 piece, splits, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")
