@@ -12,37 +12,58 @@ printing one JSON line per phase:
                    ``ssd_scan.cu``; the card's name and power limit
                    from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
-                   version at each path's user-size shape: the sweep's
-                   (8,160 points, 32 × 768 block; full 512-bin and
-                   64-bin sketch modes) and the generate sweep's (8,192
-                   points, 16 × 64), and on a thinned generate block
-                   whose size is not a multiple of 16 (8,192 × 5 × 63):
-                   counts bit for bit, sums within rtol 1e-6; kernel,
-                   plain, library (one ``scatter_add_`` over precomputed
-                   bins) and bound times.
+                   version on random blocks (lognormal latencies, an
+                   i.i.d. 50% mask) of each path's user-size shape: the
+                   sweep's (8,160 points, 32 × 768 block; full 512-bin
+                   and 64-bin sketch modes) and the generate sweep's
+                   (8,192 points, 16 × 64), and on a thinned generate
+                   block whose size is not a multiple of 16 (8,192 × 5
+                   × 63): counts bit for bit, sums within rtol 1e-6;
+                   kernel, plain, library (one ``scatter_add_`` over
+                   precomputed bins) and bound times.  The bound is
+                   ``hist_update_min_bytes`` (32-byte sectors counted
+                   on the block) over 3.35 TB/s; ``bound_ms_bytes4`` is
+                   the earlier count (every included latency at 4
+                   bytes, every row whole), kept for comparison.
 3. fifo_compact  — the CUDA ``fifo_compact`` against its plain version
                    at the generate sweep's user-size shape (8,192 ×
                    1,409, random k and now): bit for bit; kernel,
                    plain, library (one ``torch.gather`` with its index
                    built beforehand) and bound times.
-4. contracts     — Threefry known-answer vectors on the card, and a
+4. hist_cases    — the CUDA ``hist_update`` bit for bit against its
+                   plain version, launched twice, on blocks random
+                   inputs never give: ``bit_bins``' special values (±0,
+                   denormals, ±inf, ±NaN, negatives, every bin edge),
+                   all entries in one bin, the sweep's prefix masks,
+                   n_bins 100 and 101, odd sizes (4,100 × 5 × 63, 33 ×
+                   5 × 7, 37 × 7 × 1,001) and misaligned bases, in full
+                   and sketch mode, covering one warp and one block a
+                   point, the vector and the scalar loop and both
+                   flushes; and ``fifo_compact`` at k ∈ {0, 1, n − 1,
+                   n}, small k, an odd row of 77 and a misaligned
+                   buffer.
+5. contracts     — Threefry known-answer vectors on the card, and a
                    split sweep dispatch bitwise equal to the whole one.
-5. main          — ``evaluate(SweepGrid.from_rhos([.1 … .9], V100),
+6. main          — ``evaluate(SweepGrid.from_rhos([.1 … .9], V100),
                    backend="sweep", n_batches=4000, q_cap=1024,
                    seed=7)``: no buffer drops, mean latency at φ
                    (ρ ≥ 0.3), Remark 5, one kernel launch per superstep.
-6. user_size     — the examples/sweep_grid.py grid at 8,192 requested
+7. user_size     — the examples/sweep_grid.py grid at 8,192 requested
                    points (8,160 run), n_batches=3000, q_cap=768,
                    seed=0: no drops, the example's Theorem 2 / Remark 5
                    checks, wall time (first call and warm), jobs/s, peak
-                   memory, kernel launches.
-7. gen_contracts — the generate sweep on the card: split dispatch
+                   memory, kernel launches.  A third run, not timed,
+                   stops after superstep 60 of 94, whose block is cloned
+                   as the kernel received it, and a ``path_kernel``
+                   line times ``hist_update`` on that block as
+                   ``kernel`` does on random ones.
+8. gen_contracts — the generate sweep on the card: split dispatch
                    bitwise equal to the whole one, the two disciplines
                    bitwise equal at max_active = 1, and a hist_every=3
                    run whose blocks are 5 × 31 (no multiple of 16)
                    without drops, each of its hist_update calls held
                    bit for bit against the plain version.
-8. gen_user_size — ``gen_sweep`` on the benchmarks/continuous.py grid
+9. gen_user_size — ``gen_sweep`` on the benchmarks/continuous.py grid
                    (16 ρ × gen_tokens 8/32/64/256 × max_active
                    8/16/32/64 × both disciplines, prompt 128) tiled 16
                    times into 8,192 points, n_steps=4096, adaptive caps:
@@ -51,9 +72,12 @@ printing one JSON line per phase:
                    law, two continuous points against the port's exact
                    numpy loop (3σ over 3 seeds), wall time (first and
                    warm), requests/s, peak memory, launches of both
-                   kernels (one each per 16-step superstep).
+                   kernels (one each per 16-step superstep).  Both
+                   kernels' inputs at superstep 160 of 256 are cloned
+                   from a third run as in ``user_size``, and timed in
+                   two ``path_kernel`` lines.
 
-9. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
+10. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
                    against their plain versions (float32 matmuls, TF32
                    off): at the serve path's shapes (batch 1…32, prompt
                    32, cache 37, 16 heads of 64, bf16), at the long
@@ -67,24 +91,24 @@ printing one JSON line per phase:
                    launched twice with bitwise equal outputs; kernel,
                    plain, library (``scaled_dot_product_attention``) and
                    bound times at the serve, long and batch-1 shapes.
-10. serve        — ``python -m repro_torch.launch.serve --arch
+11. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b] per bucket,
                    α, τ0, R², E[W] against φ, p99, utilisation, peak
                    memory, and exactly 24 ``flash_attention`` and 24 × 4
                    ``decode_attention`` launches per batch.
-11. serve_long   — the same model generating 32 tokens after a 1,024-
+12. serve_long   — the same model generating 32 tokens after a 1,024-
                    token prompt, ``calibrate(samples=3)`` on batches
                    1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
                    α, τ0, R², E[W] against φ, p99, peak memory, exact
                    launch counts.
-12. model_consistency — qwen1.5-0.5b at full width in float32 from the
+13. model_consistency — qwen1.5-0.5b at full width in float32 from the
                    port's seeded init, batch 2: prefill(32) and three
                    decode steps against the forward logits of all 35
                    tokens, within 3e-4 (abs + rel): the two kernels held
                    against each other through the whole model.
-13. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
+14. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
                    (float32 matmuls) at mamba2-2.7b's heads (80 × 64,
                    d_state 128, one group, B and C strided slices of
                    one activation as in the model): the serve shape
@@ -100,14 +124,14 @@ printing one JSON line per phase:
                    state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
                    SSD, so no library time).
-14. serve_ssm    — ``python -m repro_torch.launch.serve --arch
+15. serve_ssm    — ``python -m repro_torch.launch.serve --arch
                    mamba2-2.7b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b], α, τ0, R²,
                    E[W] against φ, p99, utilisation, peak memory, and
                    exactly 64 ``ssd_scan`` launches and no attention
                    launch per batch.
-15. ssm_consistency — mamba2-2.7b at full width in float32 from the
+16. ssm_consistency — mamba2-2.7b at full width in float32 from the
                    port's seeded init, batch 2: prefill(300), which
                    crosses a 256-token chunk, and three decode steps
                    against the forward logits of all 303 tokens, within
@@ -116,7 +140,10 @@ printing one JSON line per phase:
 
 Then a ``{"kernels": [...]}`` line (one row per kernel and path: the
 launches of that path's user-size run beside the times at that path's
-shape), the nvidia-smi line, and the last
+shape; the ``hist_update`` and ``fifo_compact`` rows add ``path_ms``,
+``path_plain_ms``, ``path_bound_ms`` and ``path_library_ms`` from the
+path's own block, and ``bound_ms_bytes4`` beside each recounted
+bound), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -146,7 +173,8 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.continuous_sim import (  # noqa: E402
     simulate_continuous_numpy)
 from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
-from repro_torch.core.hist import bit_bins, thinned_rows  # noqa: E402
+from repro_torch.core.hist import (bit_bins, hist_edges,  # noqa: E402
+                                   sketch_edges, thinned_rows)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -261,20 +289,12 @@ def phase_build() -> str:
     return smi
 
 
-def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
-                 width: int = 768, block: str = "sweep") -> dict:
-    """The CUDA hist_update against its plain version on the same
-    inputs."""
-    n_bins = 64 if sketch else 512
-    gen = torch.Generator(device=dev).manual_seed(1234 + sketch)
-    lats = torch.empty(p, rows, width, device=dev).log_normal_(
-        1.0, 1.5, generator=gen)
-    inc = torch.rand(p, rows, width, device=dev, generator=gen) < 0.5
-    counts0 = torch.randint(0, 1000, (p, n_bins), dtype=torch.int32,
-                            device=dev, generator=gen)
-    start = (counts0,)
-    if sketch:
-        start += (torch.rand(p, n_bins, device=dev, generator=gen) * 100,)
+def hist_report(dev, start, lats, inc, *, n_bins: int, sketch: bool,
+                block: str, emit_as: str = "kernel") -> dict:
+    """The CUDA hist_update against its plain version on one block
+    (``start`` the rows before the update): counts bit for bit, sums
+    within rtol 1e-6; kernel, plain, library and bound times."""
+    p = lats.shape[0]
     got = tuple(t.clone() for t in start)
     want = tuple(t.clone() for t in start)
     ss.hist_update(got, lats, inc, n_bins=n_bins, backend="cuda",
@@ -286,10 +306,12 @@ def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
     err = float((got[0] - want[0]).abs().max())
     if sketch:
         check(torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0),
-              "hist_update sums within rtol 1e-6")
+              f"hist_update sums within rtol 1e-6 ({block})")
         err = max(err, float((got[1] - want[1]).abs().max()))
-
-    scratch = tuple(t.clone() for t in start)
+    # the bound's row sectors are those of the rows the path updates
+    min_bytes = ss.hist_update_min_bytes(got, lats, inc, n_bins=n_bins,
+                                         sketch=sketch)
+    scratch = got
     kernel_ms = time_ms(lambda: ss.hist_update(
         scratch, lats, inc, n_bins=n_bins, backend="cuda", sketch=sketch))
     plain_ms = time_ms(lambda: ss.hist_update_plain(
@@ -301,35 +323,243 @@ def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
     library_ms = time_ms(lambda: scratch[0].scatter_add_(1, bins, ones))
     del bins, ones
     n_inc = int(inc.sum())
-    acc_bytes = 2 * p * n_bins * 4 * (2 if sketch else 1)
-    bytes_moved = inc.numel() + 4 * n_inc + acc_bytes
-    out = dict(block=block, sketch=sketch, points=p, rows=rows,
-               width=width, n_bins=n_bins, included=n_inc,
-               bytes=bytes_moved, kernel_ms=kernel_ms, plain_ms=plain_ms,
+    # the earlier bound: every latency read at 4 bytes, every row whole
+    bytes4 = inc.numel() + 4 * n_inc + 2 * p * n_bins * 4 * len(start)
+    plan = ss.hist_update_plan(p, lats[0].numel(), n_bins, sketch=sketch,
+                               lats_ptr=lats.data_ptr(),
+                               inc_ptr=inc.data_ptr(),
+                               row_ptrs=[h.data_ptr() for h in got])
+    out = dict(block=block, sketch=sketch, shape=list(lats.shape),
+               n_bins=n_bins, included=n_inc, bytes=min_bytes,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms,
                library_note="scatter_add_ of counts over precomputed bins",
-               bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
-               max_abs_err=err, matches_plain=True)
-    emit("kernel", **out)
+               bound_ms=min_bytes / HBM_BYTES_PER_S * 1e3,
+               bytes4=bytes4,
+               bound_ms_bytes4=bytes4 / HBM_BYTES_PER_S * 1e3,
+               plan=plan._asdict(), max_abs_err=err, matches_plain=True)
+    emit(emit_as, **out)
     return out
 
 
-def phase_fifo_compact(dev, p: int = 8192, n: int = 1409) -> dict:
-    """The CUDA fifo_compact against its plain version on the generate
-    sweep's user-size shape (``buffer_length(256, 112, 64)``)."""
-    gen = torch.Generator(device=dev).manual_seed(99)
-    buf = torch.randn(p, n, device=dev, generator=gen) * 50.0
-    k = torch.randint(0, n + 1, (p,), dtype=torch.int32, device=dev,
-                      generator=gen)
-    k[:4] = torch.tensor([0, 1, n - 1, n], dtype=torch.int32)
-    now = torch.rand(p, device=dev, generator=gen) * 500.0
-    now[0] = 0.0
+def random_hist_block(dev, p: int, rows: int, width: int, n_bins: int,
+                      sketch: bool, seed: int):
+    """Lognormal(1, 1.5) latencies, an i.i.d. 50% mask and random rows:
+    the random blocks every PR has timed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lats = torch.empty(p, rows, width, device=dev).log_normal_(
+        1.0, 1.5, generator=gen)
+    inc = torch.rand(p, rows, width, device=dev, generator=gen) < 0.5
+    start = (torch.randint(0, 1000, (p, n_bins), dtype=torch.int32,
+                           device=dev, generator=gen),)
+    if sketch:
+        start += (torch.rand(p, n_bins, device=dev, generator=gen) * 100,)
+    return start, lats, inc
+
+
+def phase_kernel(dev, sketch: bool, p: int = 8160, rows: int = 32,
+                 width: int = 768, block: str = "sweep") -> dict:
+    """The CUDA hist_update against its plain version on a random
+    block of a path's shape."""
+    n_bins = 64 if sketch else 512
+    start, lats, inc = random_hist_block(dev, p, rows, width, n_bins,
+                                         sketch, 1234 + sketch)
+    return hist_report(dev, start, lats, inc, n_bins=n_bins, sketch=sketch,
+                       block=block)
+
+
+def _hist_case(dev, name: str, lats, inc, n_bins: int, sketch: bool,
+               seed: int) -> dict:
+    """One block held bit for bit against the plain version, twice."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = lats.shape[0]
+    start = (torch.randint(0, 1000, (p, n_bins), dtype=torch.int32,
+                           device=dev, generator=gen),)
+    if sketch:
+        start += (torch.rand(p, n_bins, device=dev, generator=gen) * 100,)
+    want = tuple(t.clone() for t in start)
+    ss.hist_update_plain(want, lats, inc, n_bins=n_bins, sketch=sketch)
+    for rep in range(2):
+        got = tuple(t.clone() for t in start)
+        ss.hist_update(got, lats, inc, n_bins=n_bins, backend="cuda",
+                       sketch=sketch)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]),
+              f"hist_update case {name}: counts differ (launch {rep})")
+        if sketch:
+            # the special values' sums are ±inf and NaN where they are
+            # the plain version's
+            check(torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0,
+                                 equal_nan=True),
+                  f"hist_update case {name}: sums outside rtol 1e-6")
+    plan = ss.hist_update_plan(p, lats[0].numel(), n_bins, sketch=sketch,
+                               lats_ptr=lats.data_ptr(),
+                               inc_ptr=inc.data_ptr(),
+                               row_ptrs=[h.data_ptr() for h in got])
+    return dict(shape=list(lats.shape), n_bins=n_bins, sketch=sketch,
+                included=int(inc.sum()), warps_per_point=plan.warps_per_point,
+                vec_loads=plan.vec_loads, vec_rows=plan.vec_rows)
+
+
+def _special_values(dev) -> torch.Tensor:
+    """bit_bins' edge cases: ±0.0, denormals, ±inf, ±NaN, negatives,
+    every bin edge of both modes and the floats beside each."""
+    edges = np.concatenate([hist_edges(512), sketch_edges()])
+    special = [0.0, -0.0, 1e-45, 1e-40, 2.0 ** -149, 2.0 ** 40, -1.0,
+               -2.0 ** 40, np.inf, -np.inf, np.nan, 1.0,
+               np.finfo(np.float32).max]
+    vals = np.concatenate([edges, special]).astype(np.float32)
+    with np.errstate(over="ignore"):
+        vals = np.concatenate([vals, np.nextafter(vals, np.float32(-np.inf)),
+                               np.nextafter(vals, np.float32(np.inf))])
+    vals = np.append(vals, np.array([0xFFC00000], np.uint32)
+                     .view(np.float32))             # a negative NaN
+    return torch.from_numpy(vals).to(dev)
+
+
+def phase_hist_cases(dev) -> None:
+    """The CUDA hist_update bit for bit against its plain version on the
+    blocks random inputs never give: special values, one bin, prefix
+    masks, n_bins = 100 and 101 (a row flushed element by element), odd
+    sizes and misaligned bases; then
+    fifo_compact at k in {0, n} and small k, an odd row and a misaligned
+    buffer."""
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    cases = {}
+    vals = _special_values(dev)
+    for name, (p, r, w) in {"special_warp": (4096, 16, 64),
+                            "special_block": (16, 8, 1024)}.items():
+        idx = torch.randint(0, len(vals), (p, r, w), device=dev,
+                            generator=gen)
+        lats = vals[idx]
+        inc = torch.rand(p, r, w, device=dev, generator=gen) < 0.7
+        for n_bins, sk in ((512, False), (100, False), (64, True)):
+            cases[f"{name}_{n_bins}"] = _hist_case(dev, name, lats, inc,
+                                                   n_bins, sk, 1)
+    for name, (p, r, w) in {"one_bin_gen": (8192, 16, 64),
+                            "one_bin_sweep": (256, 32, 768)}.items():
+        # [3.0, 3.25) is one bin of the full histogram and of the sketch
+        lats = 3.0 + 0.25 * torch.rand(p, r, w, device=dev, generator=gen)
+        inc = torch.rand(p, r, w, device=dev, generator=gen) < 0.5
+        for n_bins, sk in ((512, False), (64, True)):
+            cases[f"{name}_{n_bins}"] = _hist_case(dev, name, lats, inc,
+                                                   n_bins, sk, 2)
+    # the sweep's prefix masks: each row includes its first b slots
+    p, r, w = 512, 32, 768
+    b = torch.randint(0, 40, (p, r, 1), device=dev, generator=gen)
+    inc = torch.arange(w, device=dev) < b
+    lats = 2.0 + torch.rand(p, r, w, device=dev, generator=gen)
+    for n_bins, sk in ((512, False), (100, False), (101, False), (64, True)):
+        cases[f"prefix_{n_bins}"] = _hist_case(dev, "prefix", lats, inc,
+                                               n_bins, sk, 3)
+    # odd sizes: rows start off every alignment (head and tail steps)
+    for name, (p, r, w) in {"odd_warp": (4100, 5, 63),
+                            "odd_tiny": (33, 5, 7),
+                            "odd_block": (37, 7, 1001)}.items():
+        _, lats, inc = random_hist_block(dev, p, r, w, 512, False, 5)
+        for n_bins, sk in ((512, False), (101, False), (64, True)):
+            cases[f"{name}_{n_bins}"] = _hist_case(dev, name, lats, inc,
+                                                   n_bins, sk, 4)
+    # misaligned bases: a mask one byte off (scalar loop), and latencies
+    # and mask off together by one entry (vector loop, every row a head)
+    for name, (lat_off, inc_off) in {"mask_off1": (0, 1),
+                                     "both_off1": (1, 1)}.items():
+        for p, r, w in ((4096, 16, 64), (16, 8, 1024)):
+            n = p * r * w
+            lats = torch.empty(n + 4, device=dev).log_normal_(
+                1.0, 1.5, generator=gen)[lat_off:lat_off + n].view(p, r, w)
+            inc = (torch.rand(n + 4, device=dev, generator=gen) < 0.5)[
+                inc_off:inc_off + n].view(p, r, w)
+            for n_bins, sk in ((512, False), (64, True)):
+                cases[f"{name}_{w}_{n_bins}"] = _hist_case(
+                    dev, name, lats, inc, n_bins, sk, 6)
+    check(any(not c["vec_loads"] for c in cases.values())
+          and any(c["vec_loads"] for c in cases.values())
+          and {c["warps_per_point"] for c in cases.values()} == {1, 8}
+          and any(not c["vec_rows"] for c in cases.values()),
+          "hist cases cover both loops, both groupings and both flushes")
+
+    compact = {}
+    for name, (p, n, kmax, off) in {"small_k": (512, 1409, 8, 0),
+                                    "random_k": (512, 1409, 1409, 0),
+                                    "odd_row": (300, 77, 77, 0),
+                                    "buf_off1": (300, 1409, 1409, 1)}.items():
+        buf = (torch.randn(p * n + 4, device=dev, generator=gen)
+               * 50.0)[off:off + p * n].view(p, n)
+        k = torch.randint(0, kmax + 1, (p,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        k[:4] = torch.tensor([0, n, 1, n - 1], dtype=torch.int32)
+        now = torch.rand(p, device=dev, generator=gen) * 500.0
+        want = ss.fifo_compact_plain(buf, k, now, out=torch.empty_like(buf))
+        for rep in range(2):
+            got = ss.fifo_compact(buf, k, now, backend="cuda",
+                                  out=torch.empty_like(buf))
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"fifo_compact case {name} bitwise (launch {rep})")
+        compact[name] = ss.fifo_compact_plan(
+            p, n, buf_ptr=buf.data_ptr(), out_ptr=got.data_ptr())._asdict()
+    check(any(not c["vec"] for c in compact.values()),
+          "compact cases cover the scalar loop")
+    emit("hist_cases", hist=cases, compact=compact, matches_plain=True)
+
+
+CAPTURED = ("hist_update", "fifo_compact")
+
+
+class _Stop(Exception):
+    """Ends a capture run at the captured call."""
+
+
+def capture_blocks(run, at: int, stop_after: str) -> dict:
+    """Run ``run()`` with ``ss.hist_update`` and ``ss.fifo_compact``
+    wrapped: each clones the inputs of its ``at``-th call (the histogram
+    rows as they were before it) into the returned dict, as ``(args,
+    kwargs)`` under its name, and passes every call on to the kernel.
+    The run ends right after the ``at``-th call of ``stop_after``.  The
+    kernels count their launches on the module's names, which are the
+    wrappers meanwhile: the counts carry over and back."""
+    blocks, kernels = {}, {}
+    for name in CAPTURED:
+        kernel = kernels[name] = getattr(ss, name)
+        calls = [0]
+
+        def wrapped(*args, _kernel=kernel, _name=name, _calls=calls, **kw):
+            _calls[0] += 1
+            if _calls[0] == at:
+                first = (tuple(h.clone() for h in args[0])
+                         if _name == "hist_update" else args[0].clone())
+                blocks[_name] = ((first, *(a.clone() for a in args[1:])),
+                                 kw)
+            out = _kernel(*args, **kw)
+            if _calls[0] == at and _name == stop_after:
+                raise _Stop
+            return out
+        wrapped.launches = kernel.launches
+        setattr(ss, name, wrapped)
+    try:
+        run()
+    except _Stop:
+        pass
+    finally:
+        for name, kernel in kernels.items():
+            kernel.launches = getattr(ss, name).launches
+            setattr(ss, name, kernel)
+    check(stop_after in blocks, f"the run made no {at}-th {stop_after} call")
+    return blocks
+
+
+def compact_report(dev, buf, k, now, block: str,
+                   emit_as: str = "fifo_compact") -> dict:
+    """The CUDA fifo_compact against its plain version on one block:
+    bit for bit; kernel, plain, library and bound times."""
+    p, n = buf.shape
     got = ss.fifo_compact(buf, k, now, backend="cuda",
                           out=torch.empty_like(buf))
     want = ss.fifo_compact_plain(buf, k, now, out=torch.empty_like(buf))
     torch.cuda.synchronize()
     check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-          "fifo_compact bitwise equal to its plain version")
+          f"fifo_compact bitwise equal to its plain version ({block})")
     err = float((got - want).abs().max())
     out_buf = torch.empty_like(buf)
     kernel_ms = time_ms(lambda: ss.fifo_compact(
@@ -344,15 +574,33 @@ def phase_fifo_compact(dev, p: int = 8192, n: int = 1409) -> dict:
     del idx
     survivors = int((n - k.long()).sum())
     bytes_moved = 4 * survivors + 4 * p * n + 8 * p
-    out = dict(points=p, n=n, survivors=survivors, bytes=bytes_moved,
+    out = dict(block=block, points=p, n=n, survivors=survivors,
+               mean_k=float(k.float().mean()), bytes=bytes_moved,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms,
                library_note="torch.gather with a prebuilt index; the "
                             "subtraction and the tail fill left out",
                bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+               plan=ss.fifo_compact_plan(
+                   p, n, buf_ptr=buf.data_ptr(),
+                   out_ptr=out_buf.data_ptr())._asdict(),
                max_abs_err=err, matches_plain=True)
-    emit("fifo_compact", **out)
+    emit(emit_as, **out)
     return out
+
+
+def phase_fifo_compact(dev, p: int = 8192, n: int = 1409) -> dict:
+    """The CUDA fifo_compact against its plain version on the generate
+    sweep's user-size shape (``buffer_length(256, 112, 64)``), random k
+    and now."""
+    gen = torch.Generator(device=dev).manual_seed(99)
+    buf = torch.randn(p, n, device=dev, generator=gen) * 50.0
+    k = torch.randint(0, n + 1, (p,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    k[:4] = torch.tensor([0, 1, n - 1, n], dtype=torch.int32)
+    now = torch.rand(p, device=dev, generator=gen) * 500.0
+    now[0] = 0.0
+    return compact_report(dev, buf, k, now, "random")
 
 
 def phase_contracts(dev) -> None:
@@ -441,7 +689,10 @@ def build_grid(target_points: int) -> SweepGrid:
 
 
 def phase_user_size(dev, target_points: int = 8192, n_batches: int = 3000,
-                    q_cap: int = 768) -> int:
+                    q_cap: int = 768, capture_at: int = 60) -> tuple:
+    """Returns the run's hist_update launches and the path block: the
+    inputs of superstep ``capture_at`` (past the warm-up), cloned as the
+    kernel received them in a third run that is not timed."""
     grid = build_grid(target_points)
     kw = dict(n_batches=n_batches, q_cap=q_cap, seed=0, device=dev)
     ss.hist_update.launches = 0
@@ -483,7 +734,9 @@ def phase_user_size(dev, target_points: int = 8192, n_batches: int = 3000,
          launches=launches, supersteps=supersteps,
          theorem2_mean_excess=float(excess.mean()),
          theorem2_frac_within=frac_ok, remark5_min_def=eb_def)
-    return launches
+    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
+                            "hist_update")
+    return launches, blocks["hist_update"]
 
 
 def gen_grid(tiles: int = 16) -> GenGrid:
@@ -603,7 +856,11 @@ def _ladder_se(a, b, floor_frac: float = 0.015) -> float:
 
 
 def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
-                        sweep_batches: int = 4000) -> dict:
+                        sweep_batches: int = 4000,
+                        capture_at: int = 160) -> tuple:
+    """Returns the phase's record and the path blocks of both kernels:
+    their inputs at superstep ``capture_at``, cloned in a third run that
+    is not timed."""
     caps = gen_caps(grid)
     kw = dict(n_steps=n_steps, seed=29, device=dev)
     ss.hist_update.launches = 0
@@ -686,7 +943,8 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
                    gap / rs.mean_latency)),
                continuous_vs_numpy=cont)
     emit("gen_user_size", **out)
-    return out
+    return out, capture_blocks(lambda: gen_sweep(grid, **kw), capture_at,
+                               "fifo_compact")
 
 
 def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False):
@@ -1215,6 +1473,16 @@ def _kernel_row(name: str, path: str, launches: int, k: dict,
             "matches_plain": True, **extra}
 
 
+def _path_keys(k: dict) -> dict:
+    """A path block's numbers for the ``kernels`` line."""
+    keys = {"path_ms": k["kernel_ms"], "path_plain_ms": k["plain_ms"],
+            "path_bound_ms": k["bound_ms"],
+            "path_library_ms": k["library_ms"]}
+    if "bound_ms_bytes4" in k:
+        keys["path_bound_ms_bytes4"] = k["bound_ms_bytes4"]
+    return keys
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -1233,11 +1501,26 @@ def main() -> int:
                         rows=len(thinned_rows(16, 3)), width=63,
                         block="gen_thinned")
     compact = phase_fifo_compact(dev)
+    phase_hist_cases(dev)
     phase_contracts(dev)
     phase_main(dev)
-    sweep_launches = phase_user_size(dev)
+    sweep_launches, (args, kw) = phase_user_size(dev)
+    # the sweep's own block, captured mid-run: the kernel on the data
+    # the path hands it
+    sweep_path = hist_report(dev, *args, n_bins=kw["n_bins"],
+                             sketch=kw.get("sketch", False),
+                             block="sweep_path", emit_as="path_kernel")
+    del args, kw
     phase_gen_contracts(dev)
-    gen = phase_gen_user_size(dev, grid)
+    gen, blocks = phase_gen_user_size(dev, grid)
+    args, kw = blocks["hist_update"]
+    gen_path = hist_report(dev, *args, n_bins=kw["n_bins"],
+                           sketch=kw.get("sketch", False), block="gen_path",
+                           emit_as="path_kernel")
+    compact_path = compact_report(dev, *blocks["fifo_compact"][0],
+                                  "gen_path", emit_as="path_kernel")
+    del args, kw, blocks
+    torch.cuda.empty_cache()
     attn = phase_attn_kernel(dev)
     served = phase_serve(dev)
     phase_serve_long(dev)
@@ -1254,18 +1537,29 @@ def main() -> int:
         _kernel_row(
             "hist_update", "gen_user_size", gen["launches"]["hist_update"],
             gen_block,
-            max_abs_err=max(gen_block["max_abs_err"], thin["max_abs_err"]),
+            max_abs_err=max(gen_block["max_abs_err"], thin["max_abs_err"],
+                            gen_path["max_abs_err"]),
+            bound_ms_bytes4=gen_block["bound_ms_bytes4"],
             thinned_ms=thin["kernel_ms"], thinned_plain_ms=thin["plain_ms"],
             thinned_bound_ms=thin["bound_ms"],
-            thinned_library_ms=thin["library_ms"]),
+            thinned_bound_ms_bytes4=thin["bound_ms_bytes4"],
+            thinned_library_ms=thin["library_ms"],
+            **_path_keys(gen_path)),
         _kernel_row(
             "hist_update", "sweep_user_size", sweep_launches, full,
-            max_abs_err=max(full["max_abs_err"], sketch["max_abs_err"]),
+            max_abs_err=max(full["max_abs_err"], sketch["max_abs_err"],
+                            sweep_path["max_abs_err"]),
+            bound_ms_bytes4=full["bound_ms_bytes4"],
             sketch_ms=sketch["kernel_ms"], sketch_plain_ms=sketch["plain_ms"],
             sketch_bound_ms=sketch["bound_ms"],
-            sketch_library_ms=sketch["library_ms"]),
+            sketch_bound_ms_bytes4=sketch["bound_ms_bytes4"],
+            sketch_library_ms=sketch["library_ms"],
+            **_path_keys(sweep_path)),
         _kernel_row("fifo_compact", "gen_user_size",
-                    gen["launches"]["fifo_compact"], compact),
+                    gen["launches"]["fifo_compact"], compact,
+                    max_abs_err=max(compact["max_abs_err"],
+                                    compact_path["max_abs_err"]),
+                    **_path_keys(compact_path)),
         *(_kernel_row(
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},
