@@ -76,8 +76,38 @@ printing one JSON line per phase:
                    kernels' inputs at superstep 160 of 256 are cloned
                    from a third run as in ``user_size``, and timed in
                    two ``path_kernel`` lines.
+10. loss_contracts — the loss paths on the card: the neutral points of a
+                   mixed loss grid bitwise equal to the loss-free path
+                   (both sweeps), split dispatch with loss bitwise (caps,
+                   r_cap included, pinned from the full grid), and
+                   tests/test_backpressure.py's seed ladders (3 sweep and
+                   2 generate configurations, 6 copies each) against the
+                   port's own ``loss_ref`` mirrors on 3 seeds, 3σ with
+                   floors of 1.5% and 0.004; the exact accounting laws;
+                   one hist_update (and fifo_compact) launch per
+                   superstep of every loss run.
+11. loss_user_size — the benchmarks/backpressure.py grid (V100 law,
+                   b_max 8, 4 ρ × 4 rooms × 3 deadlines × 2 overflow
+                   modes × 2 retry rates = 192 points) tiled 43 times
+                   into 8,256, n_batches=3000, a_cap 64, r_cap 96, seed
+                   29: two runs bitwise equal, no buffer drops, the
+                   accounting laws, reject_frac falling as q_max grows;
+                   the benchmark's frontier and retry tax as tile means
+                   with standard errors; wall time (first and warm),
+                   jobs/s, peak memory.  Superstep 60's hist_update
+                   block, from a third untimed run, timed as a
+                   ``path_kernel`` line.
+12. gen_loss_user_size — ``gen_user_size``'s grid with loss tiles (0–3
+                   neutral, 4–7 reject at q_max 20, 8–11 drop at q_max 20
+                   with retries, 12–15 reject with retries and a deadline
+                   of twice the unloaded latency), its caps pinned and
+                   r_cap from the loss grid: tiles 0–3 bitwise equal to
+                   ``gen_user_size``'s points, no drops, the accounting
+                   laws, launch counts; superstep 160's hist_update and
+                   fifo_compact inputs (rows of the loss buffer length)
+                   timed as ``path_kernel`` lines.
 
-10. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
+13. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
                    against their plain versions (float32 matmuls, TF32
                    off): at the serve path's shapes (batch 1…32, prompt
                    32, cache 37, 16 heads of 64, bf16), at the long
@@ -91,24 +121,24 @@ printing one JSON line per phase:
                    launched twice with bitwise equal outputs; kernel,
                    plain, library (``scaled_dot_product_attention``) and
                    bound times at the serve, long and batch-1 shapes.
-11. serve        — ``python -m repro_torch.launch.serve --arch
+14. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b] per bucket,
                    α, τ0, R², E[W] against φ, p99, utilisation, peak
                    memory, and exactly 24 ``flash_attention`` and 24 × 4
                    ``decode_attention`` launches per batch.
-12. serve_long   — the same model generating 32 tokens after a 1,024-
+15. serve_long   — the same model generating 32 tokens after a 1,024-
                    token prompt, ``calibrate(samples=3)`` on batches
                    1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
                    α, τ0, R², E[W] against φ, p99, peak memory, exact
                    launch counts.
-13. model_consistency — qwen1.5-0.5b at full width in float32 from the
+16. model_consistency — qwen1.5-0.5b at full width in float32 from the
                    port's seeded init, batch 2: prefill(32) and three
                    decode steps against the forward logits of all 35
                    tokens, within 3e-4 (abs + rel): the two kernels held
                    against each other through the whole model.
-14. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
+17. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
                    (float32 matmuls) at mamba2-2.7b's heads (80 × 64,
                    d_state 128, one group, B and C strided slices of
                    one activation as in the model): the serve shape
@@ -124,26 +154,28 @@ printing one JSON line per phase:
                    state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
                    SSD, so no library time).
-15. serve_ssm    — ``python -m repro_torch.launch.serve --arch
+18. serve_ssm    — ``python -m repro_torch.launch.serve --arch
                    mamba2-2.7b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b], α, τ0, R²,
                    E[W] against φ, p99, utilisation, peak memory, and
                    exactly 64 ``ssd_scan`` launches and no attention
                    launch per batch.
-16. ssm_consistency — mamba2-2.7b at full width in float32 from the
+19. ssm_consistency — mamba2-2.7b at full width in float32 from the
                    port's seeded init, batch 2: prefill(300), which
                    crosses a 256-token chunk, and three decode steps
                    against the forward logits of all 303 tokens, within
                    3e-4 (abs + rel): the kernel's final state held
                    against the eager recurrence.
 
-Then a ``{"kernels": [...]}`` line (one row per kernel and path: the
+Then a ``phase_seconds`` line (each phase's wall seconds), a
+``{"kernels": [...]}`` line (one row per kernel and path: the
 launches of that path's user-size run beside the times at that path's
 shape; the ``hist_update`` and ``fifo_compact`` rows add ``path_ms``,
 ``path_plain_ms``, ``path_bound_ms`` and ``path_library_ms`` from the
 path's own block, and ``bound_ms_bytes4`` beside each recounted
-bound), the nvidia-smi line, and the last
+bound; the loss paths' rows time B1 and B2 on their captured blocks
+only), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -167,14 +199,17 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import (  # noqa: E402
     GenGrid, GenServiceModel, SweepGrid, evaluate, gen_caps, gen_sweep,
     sweep, sweep_caps)
-from repro_torch.core.analytic import (mean_batch_lower, phi,  # noqa: E402
-                                       stability_limit)
+from repro_torch.core.analytic import (  # noqa: E402
+    LinearServiceModel, mean_batch_lower, phi, stability_limit)
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.continuous_sim import (  # noqa: E402
     simulate_continuous_numpy)
 from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
+from repro_torch.core.grid import OVERFLOW_CODE  # noqa: E402
 from repro_torch.core.hist import (bit_bins, hist_edges,  # noqa: E402
                                    sketch_edges, thinned_rows)
+from repro_torch.core.loss_ref import (  # noqa: E402
+    simulate_gen_loss_numpy, simulate_loss_numpy)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -944,6 +979,364 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
                continuous_vs_numpy=cont)
     emit("gen_user_size", **out)
     return out, capture_blocks(lambda: gen_sweep(grid, **kw), capture_at,
+                               "fifo_compact"), r
+
+
+# tests/test_backpressure.py's seed ladders: (q_max, deadline, overflow,
+# retry_rate, lam) on MODEL_BP, and (discipline, overflow, q_max,
+# deadline, retry_rate) at GEN_BP_LAM on GEN_MODEL
+MODEL_BP = LinearServiceModel(alpha=0.05, tau0=1.0)
+SW_CFG = [(10, 6.0, "reject", 0.5, 6.0),
+          (10, 6.0, "drop", 0.5, 6.0),
+          (24, 3.0, "reject", 0.3, 7.5)]
+GEN_CFG = [("continuous", "reject", 20, 40.0, 0.05),
+           ("static", "drop", 20, 40.0, 0.05)]
+GEN_BP_LAM = 1.08 / (GEN_MODEL.alpha_decode * 32
+                     + GEN_MODEL.alpha_prefill * GEN_PROMPT)
+LADDER_FIELDS = ("goodput_frac", "reject_frac", "abandon_frac",
+                 "retry_inflation", "mean_latency")
+# benchmarks/backpressure.py's grid on the V100 law: 4 ρ × 4 rooms × 3
+# deadlines (ms) × 2 overflow modes × 2 retry rates (per ms) = 192 points
+BP_B_MAX = 8
+BP_RHOS = [0.7, 0.9, 1.1, 1.3]
+BP_Q_MAXES = [4, 8, 16, 32]
+BP_DEADLINES = [0.0, 6.0, 12.0]
+BP_OVERFLOWS = ("reject", "drop")
+BP_RETRY = [0.0, 0.2]
+
+
+def check_accounting(r, what: str) -> None:
+    """tests/test_backpressure.py's exact accounting laws on one run."""
+    check(int(r.buffer_dropped.sum()) == 0, f"{what}: buffer_dropped == 0")
+    offered = r.n_jobs + r.overflow_dropped + r.abandoned
+    check(np.array_equal(r.offered, offered),
+          f"{what}: offered = jobs + overflow + abandoned")
+    total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+    check(bool(np.allclose(total[offered > 0], 1.0, atol=1e-6)),
+          f"{what}: the four fractions sum to 1")
+    check(bool(np.all(r.n_in_slo <= r.n_jobs)), f"{what}: n_in_slo <= n_jobs")
+    check(bool(np.all(r.retry_inflation >= 1.0 - 1e-6)),
+          f"{what}: retry_inflation >= 1")
+
+
+def _gate_ladder(kernel_vals, ref_vals, label) -> dict:
+    """tests/test_backpressure.py's 3σ gate (floors 1.5% relative and
+    0.004 absolute)."""
+    se = max(_ladder_se(kernel_vals, ref_vals), 0.004)
+    gap = abs(float(np.mean(kernel_vals)) - float(np.mean(ref_vals)))
+    check(gap < 3.0 * se, f"{label}: {np.mean(kernel_vals)} vs loss_ref "
+          f"{np.mean(ref_vals)} (3se={3 * se})")
+    return dict(kernel=float(np.mean(kernel_vals)),
+                loss_ref=float(np.mean(ref_vals)), se=se)
+
+
+def _counted(run, supersteps: int, what: str, compact: bool = False):
+    """Run ``run()`` with the launch counts at 0; check one hist_update
+    (and one fifo_compact) launch per superstep."""
+    ss.hist_update.launches = 0
+    ss.fifo_compact.launches = 0
+    r = run()
+    names = ("hist_update", "fifo_compact") if compact else ("hist_update",)
+    for name in names:
+        n = getattr(ss, name).launches
+        check(n == supersteps, f"{what} launched {name} {n} times, expected "
+              f"one per superstep ({supersteps})")
+    return r
+
+
+def phase_loss_contracts(dev) -> None:
+    """The loss paths' bitwise contracts and seed ladders on the card."""
+    m = GEN_MODEL
+    # neutral reduction: the q_max = deadline = retry = 0 points of a
+    # loss grid give the loss-free path's bits (tests/test_backpressure.py
+    # shapes, pinned q_cap / a_cap, the same global indices)
+    g = SweepGrid.from_points([6.0, 4.0, 5.0], MODEL_BP.alpha, MODEL_BP.tau0,
+                              b_max=8, q_max=[10, 0, 0],
+                              deadline=[6.0, 0.0, 0.0],
+                              retry_rate=[0.5, 0.0, 0.0])
+    kw = dict(n_batches=1024, q_cap=64, a_cap=64, seed=11, device=dev)
+    mixed = sweep(g, r_cap=32, **kw)
+    base = sweep(g.take(slice(1, None)), key_offset=1, **kw)
+    gg = GenGrid.from_points(
+        [GEN_BP_LAM, 0.6 * GEN_BP_LAM, 0.4 * GEN_BP_LAM], m.alpha_decode,
+        m.tau0_decode, m.alpha_prefill, m.tau0_prefill,
+        prompt_len=GEN_PROMPT, gen_tokens=32, max_active=[32, 32, 16],
+        discipline=["continuous", "continuous", "static"],
+        q_max=[20, 0, 0], deadline=[40.0, 0.0, 0.0],
+        retry_rate=[0.05, 0.0, 0.0])
+    gkw = dict(n_steps=1024, q_cap=64, a_cap=64, seed=13, device=dev)
+    gmixed = gen_sweep(gg, r_cap=32, **gkw)
+    gbase = gen_sweep(gg.take(slice(1, None)), key_offset=1, **gkw)
+    for name, (mx, bs) in {"sweep": (mixed, base),
+                           "gen": (gmixed, gbase)}.items():
+        for f in ("mean_latency", "mean_batch", "batch_m2", "utilization",
+                  "n_jobs", "hist", "latency_p50", "latency_p99"):
+            check(np.array_equal(getattr(mx, f)[1:], getattr(bs, f)),
+                  f"{name} neutral points bitwise equal to the base path "
+                  f"on {f}")
+        check(int(mx.overflow_dropped[0] + mx.abandoned[0]) > 0
+              and int(mx.overflow_dropped[1:].sum()
+                      + mx.abandoned[1:].sum()) == 0,
+              f"{name}: losses on the loss point only")
+
+    # split dispatch with loss: chunks with key_offset and every cap,
+    # r_cap included, pinned from the full grid
+    g = SweepGrid.from_points(
+        [6.0, 7.0, 6.0, 5.0], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
+        q_max=[10, 12, 0, 8], deadline=[6.0, 0.0, 0.0, 3.0],
+        overflow=["reject", "drop", "reject", "reject"],
+        retry_rate=[0.5, 0.0, 0.0, 1.0], dist=["det", "gamma"] * 2)
+    gg = GenGrid.from_points(
+        [GEN_BP_LAM] * 4, m.alpha_decode, m.tau0_decode, m.alpha_prefill,
+        m.tau0_prefill, prompt_len=GEN_PROMPT, gen_tokens=32,
+        max_active=[16, 32, 16, 8],
+        discipline=["continuous", "static", "static", "continuous"],
+        q_max=[20, 0, 12, 20], deadline=[40.0, 30.0, 0.0, 0.0],
+        overflow=["reject", "drop", "drop", "reject"],
+        retry_rate=[0.05, 0.0, 0.1, 0.0])
+    for name, run, grid, kw in (
+            ("sweep", sweep, g, dict(n_batches=512, seed=11,
+                                     **sweep_caps(g))),
+            ("gen", gen_sweep, gg, dict(n_steps=1024, seed=13,
+                                        **gen_caps(gg)))):
+        whole = run(grid, device=dev, **kw)
+        a = run(grid.take(slice(0, 2)), device=dev, **kw)
+        b = run(grid.take(slice(2, None)), key_offset=2, device=dev, **kw)
+        for f in ("mean_latency", "mean_batch", "n_jobs", "hist",
+                  "overflow_dropped", "abandoned", "n_in_slo", "n_fresh",
+                  "n_retry", "max_queue"):
+            split = np.concatenate([getattr(a, f), getattr(b, f)])
+            check(np.array_equal(getattr(whole, f), split),
+                  f"{name} split dispatch with loss bitwise on {f}")
+
+    # the seed ladders against the port's own numpy mirrors; each loss
+    # run launches hist_update (and fifo_compact) once per superstep
+    cfg = [c for c in SW_CFG for _ in range(6)]
+    g = SweepGrid.from_points(
+        [c[4] for c in cfg], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
+        q_max=[c[0] for c in cfg], deadline=[c[1] for c in cfg],
+        overflow=[c[2] for c in cfg], retry_rate=[c[3] for c in cfg])
+    r = _counted(lambda: sweep(g, n_batches=6000, q_cap=64, a_cap=64,
+                               r_cap=64, seed=11, device=dev),
+                 -(-6000 // 32), "sweep ladder")
+    check_accounting(r, "sweep ladder")
+    check(bool(np.all(r.retry_inflation > 1.01)),
+          "sweep ladder: retries inflate every point's arrivals")
+    ladders = {}
+    for ci, (qm, dl, ov, rate, lam) in enumerate(SW_CFG):
+        refs = [simulate_loss_numpy(lam, MODEL_BP, 8, q_max=qm, deadline=dl,
+                                    overflow=ov, retry_rate=rate, q_cap=64,
+                                    r_cap=64, n_batches=20_000, seed=s)
+                for s in range(3)]
+        sl = slice(ci * 6, (ci + 1) * 6)
+        ladders[f"sweep_{ci}"] = {f: _gate_ladder(
+            np.asarray(getattr(r, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"sweep cfg {ci} {f}")
+            for f in LADDER_FIELDS}
+    cfg = [c for c in GEN_CFG for _ in range(6)]
+    gg = GenGrid.from_points(
+        [GEN_BP_LAM] * len(cfg), m.alpha_decode, m.tau0_decode,
+        m.alpha_prefill, m.tau0_prefill, prompt_len=GEN_PROMPT,
+        gen_tokens=32, max_active=64, discipline=[c[0] for c in cfg],
+        q_max=[c[2] for c in cfg], deadline=[c[3] for c in cfg],
+        overflow=[c[1] for c in cfg], retry_rate=[c[4] for c in cfg])
+    # a_cap sized so the arrival chain always covers its windows: the
+    # run-structured numpy mirror has no coverage splits
+    r = _counted(lambda: gen_sweep(gg, n_steps=6000, q_cap=64, a_cap=96,
+                                   r_cap=64, seed=5, device=dev),
+                 -(-6000 // 2048) * 2048 // 16, "gen ladder", compact=True)
+    check_accounting(r, "gen ladder")
+    for ci, (disc, ov, qm, dl, rate) in enumerate(GEN_CFG):
+        refs = [simulate_gen_loss_numpy(
+            GEN_BP_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
+            max_active=64, discipline=disc, q_max=qm, deadline=dl,
+            overflow=ov, retry_rate=rate, q_cap=64, r_cap=64,
+            n_steps=20_000, seed=s) for s in range(3)]
+        sl = slice(ci * 6, (ci + 1) * 6)
+        ladders[f"gen_{ci}"] = {f: _gate_ladder(
+            np.asarray(getattr(r, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"gen cfg {ci} {f}")
+            for f in LADDER_FIELDS}
+    emit("loss_contracts", neutral_bitwise=True, split_bitwise=True,
+         accounting=True, launches_per_superstep=True, ladders=ladders)
+
+
+def loss_grid(tiles: int = 43) -> SweepGrid:
+    """benchmarks/backpressure.py's 192-point grid tiled ``tiles`` times:
+    the copies of a point differ only in their global index, so they
+    form a seed ladder."""
+    cap = BP_B_MAX / (V100[0] * BP_B_MAX + V100[1])
+    base = SweepGrid.from_product([r * cap for r in BP_RHOS], [V100[0]],
+                                  [V100[1]], b_maxes=[BP_B_MAX],
+                                  q_maxes=BP_Q_MAXES, deadlines=BP_DEADLINES,
+                                  overflows=BP_OVERFLOWS,
+                                  retry_rates=BP_RETRY)
+    return base.take(np.tile(np.arange(len(base)), tiles))
+
+
+def _tile_stats(vals: np.ndarray, n_base: int, i: int) -> dict:
+    """Mean and standard error of point ``i``'s copies across tiles."""
+    x = np.asarray(vals, float)[i::n_base]
+    return {"mean": float(x.mean()),
+            "se": float(x.std(ddof=1) / math.sqrt(len(x)))}
+
+
+def phase_loss_user_size(dev, tiles: int = 43, n_batches: int = 3000,
+                         capture_at: int = 60) -> tuple:
+    """The backpressure benchmark's grid at 8,256 points, its run
+    (a_cap 64, r_cap 96, seed 29); returns the record, the hist_update
+    launches and the path block of superstep ``capture_at``."""
+    grid = loss_grid(tiles)
+    n_base = len(grid) // tiles
+    kw = dict(n_batches=n_batches, a_cap=64, r_cap=96, seed=29, device=dev)
+    supersteps = -(-n_batches // 32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: sweep(grid, **kw), supersteps, "loss user-size sweep")
+    first_s = time.perf_counter() - t0
+    launches = ss.hist_update.launches
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r2 = sweep(grid, **kw)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for f in ("hist", "mean_latency", "overflow_dropped", "abandoned",
+              "n_in_slo", "n_retry"):
+        check(np.array_equal(getattr(r, f), getattr(r2, f)),
+              f"two loss user-size runs give the same bits on {f}")
+    check_accounting(r, "loss user-size")
+    cap = BP_B_MAX / (V100[0] * BP_B_MAX + V100[1])
+
+    def index(rho, q_max, deadline, overflow, retry) -> int:
+        m = (np.isclose(grid.lam[:n_base], np.float32(rho * cap))
+             & (grid.q_max[:n_base] == q_max)
+             & (grid.deadline[:n_base] == np.float32(deadline))
+             & (grid.overflow[:n_base] == OVERFLOW_CODE[overflow])
+             & (grid.retry_rate[:n_base] == np.float32(retry)))
+        (i,) = np.flatnonzero(m)
+        return int(i)
+
+    # a larger room turns fewer arrivals away (reject, no deadline, no
+    # retry), at every load
+    rooms = {}
+    for rho in BP_RHOS:
+        fr = [_tile_stats(r.reject_frac, n_base,
+                          index(rho, q, 0.0, "reject", 0.0))["mean"]
+              for q in BP_Q_MAXES]
+        check(all(a >= b for a, b in zip(fr, fr[1:])) and fr[0] > fr[-1],
+              f"rho={rho}: reject_frac {fr} falls as q_max grows")
+        rooms[str(rho)] = fr
+    frontier = {}
+    for q in BP_Q_MAXES:
+        i = index(1.1, q, 12.0, "reject", 0.0)
+        frontier[str(q)] = {f: _tile_stats(getattr(r, f), n_base, i)
+                            for f in ("mean_latency", "goodput_frac",
+                                      "reject_frac")}
+    i0 = index(1.3, 8, 12.0, "reject", 0.0)
+    i1 = index(1.3, 8, 12.0, "reject", 0.2)
+    tax = {"retry_inflation": _tile_stats(r.retry_inflation, n_base, i1),
+           "goodput_frac_no_retry": _tile_stats(r.goodput_frac, n_base, i0),
+           "goodput_frac_retry": _tile_stats(r.goodput_frac, n_base, i1),
+           "EW_no_retry": _tile_stats(r.mean_latency, n_base, i0),
+           "EW_retry": _tile_stats(r.mean_latency, n_base, i1)}
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(grid), tiles=tiles, n_batches=n_batches,
+               caps=dict(sweep_caps(grid), a_cap=64, r_cap=96),
+               first_call_s=first_s, warm_s=warm_s, jobs=jobs,
+               jobs_per_s_warm=jobs / warm_s, peak_mem_bytes=peak,
+               launches=launches, supersteps=supersteps,
+               reject_frac_by_room=rooms, frontier_rho_1_1=frontier,
+               retry_tax_rho_1_3_q8=tax,
+               goodput_frac_mean=float(r.goodput_frac.mean()),
+               retry_inflation_max=float(r.retry_inflation.max()))
+    emit("loss_user_size", **out)
+    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
+                            "hist_update")
+    return out, launches, blocks["hist_update"]
+
+
+def gen_loss_grid(grid: GenGrid, tiles: int = 16) -> GenGrid:
+    """``gen_grid``'s points with loss axes by tile: tiles 0–3 neutral,
+    4–7 reject at q_max 20, 8–11 drop at q_max 20 with retries at 0.05,
+    12–15 reject at q_max 20 with retries at 0.05 and a deadline of
+    twice the point's unloaded latency (prefill + gen decode steps)."""
+    n = len(grid)
+    tile = np.arange(n) // (n // tiles)
+    band = tile // (tiles // 4)
+    unloaded = (grid.alpha_prefill * grid.prompt_len + grid.tau0_prefill
+                + grid.gen_tokens * (grid.alpha_decode + grid.tau0_decode))
+    return dataclasses.replace(
+        grid, q_max=np.where(band > 0, 20, 0).astype(np.int32),
+        overflow=np.where(band == 2, OVERFLOW_CODE["drop"],
+                          OVERFLOW_CODE["reject"]).astype(np.int32),
+        retry_rate=np.where(band >= 2, 0.05, 0.0).astype(np.float32),
+        deadline=np.where(band == 3, 2.0 * unloaded, 0.0).astype(np.float32))
+
+
+def phase_gen_loss_user_size(dev, grid: GenGrid, base, n_steps: int = 4096,
+                             capture_at: int = 160) -> tuple:
+    """The generate sweep's loss path at full width: ``gen_grid`` with
+    loss tiles, caps pinned to the base run's; tiles 0–3 bitwise equal
+    to ``base`` (``gen_user_size``'s run: same seed, same indices).
+    Returns the record and the path blocks of superstep
+    ``capture_at``."""
+    lgrid = gen_loss_grid(grid)
+    caps = gen_caps(grid)
+    caps["r_cap"] = gen_caps(lgrid)["r_cap"]
+    kw = dict(n_steps=n_steps, seed=29, device=dev, **caps)
+    supersteps = n_steps // 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: gen_sweep(lgrid, **kw), supersteps,
+                 "gen loss user-size sweep", compact=True)
+    first_s = time.perf_counter() - t0
+    launches = {"hist_update": ss.hist_update.launches,
+                "fifo_compact": ss.fifo_compact.launches}
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = gen_sweep(lgrid, **kw)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(np.array_equal(r.hist, r2.hist)
+          and np.array_equal(r.n_in_slo, r2.n_in_slo),
+          "two gen loss user-size runs give the same bits")
+    check_accounting(r, "gen loss user-size")
+    neutral = np.arange(4 * len(grid) // 16)
+    check(bool(np.all(lgrid.q_max[neutral] == 0)
+               and np.all(lgrid.retry_rate[neutral] == 0)
+               and np.all(lgrid.deadline[neutral] == 0)), "tiles 0-3 neutral")
+    for f in ("mean_latency", "mean_batch", "batch_m2", "utilization",
+              "n_jobs", "n_steps", "max_queue", "hist", "stderr"):
+        check(np.array_equal(getattr(r, f)[neutral],
+                             getattr(base, f)[neutral], equal_nan=True),
+              f"gen loss tiles 0-3 bitwise equal to gen_user_size on {f}")
+    bands = {}
+    per = len(grid) // 4
+    for bi, name in enumerate(("neutral", "reject", "drop_retry",
+                               "reject_deadline_retry")):
+        sl = slice(bi * per, (bi + 1) * per)
+        bands[name] = {f: float(np.mean(getattr(r, f)[sl])) for f in (
+            "goodput_frac", "reject_frac", "abandon_frac", "retry_inflation",
+            "mean_latency")}
+    # each loss band shows its regime at work: turned-away arrivals,
+    # re-arrivals from the orbit, completions past the deadline
+    check(bands["reject"]["reject_frac"] > 0
+          and bands["drop_retry"]["retry_inflation"] > 1
+          and bands["reject_deadline_retry"]["retry_inflation"] > 1
+          and bands["reject_deadline_retry"]["goodput_frac"] < 1,
+          f"the loss bands show their regimes: {bands}")
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(lgrid), n_steps=n_steps, caps=caps,
+               buffer_length=buffer_length(caps["q_cap"], caps["a_cap"],
+                                           int(grid.max_active.max()),
+                                           caps["r_cap"]),
+               first_call_s=first_s, warm_s=warm_s, requests=jobs,
+               requests_per_s_warm=jobs / warm_s, peak_mem_bytes=peak,
+               launches=launches, supersteps=supersteps,
+               neutral_tiles_bitwise=True, bands=bands)
+    emit("gen_loss_user_size", **out)
+    return out, capture_blocks(lambda: gen_sweep(lgrid, **kw), capture_at,
                                "fifo_compact")
 
 
@@ -1483,51 +1876,76 @@ def _path_keys(k: dict) -> dict:
     return keys
 
 
+def path_hist(dev, captured, block: str) -> dict:
+    """hist_update on a path block from ``capture_blocks``."""
+    args, kw = captured
+    return hist_report(dev, *args, n_bins=kw["n_bins"],
+                       sketch=kw.get("sketch", False), block=block,
+                       emit_as="path_kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = phase_build()
+    seconds = {}
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    smi = phase("build", phase_build)
     grid = gen_grid()
     # each path's own hist_update block: the sweep's 32 × 768 and the
     # generate sweep's 16 × s_cap (one 16-step superstep, hist_every=1)
-    full = phase_kernel(dev, sketch=False)
-    sketch = phase_kernel(dev, sketch=True)
-    gen_block = phase_kernel(dev, sketch=False, p=len(grid), rows=16,
-                             width=int(grid.max_active.max()), block="gen")
-    thin = phase_kernel(dev, sketch=False, p=len(grid),
-                        rows=len(thinned_rows(16, 3)), width=63,
-                        block="gen_thinned")
-    compact = phase_fifo_compact(dev)
-    phase_hist_cases(dev)
-    phase_contracts(dev)
-    phase_main(dev)
-    sweep_launches, (args, kw) = phase_user_size(dev)
+    full = phase("kernel", phase_kernel, dev, sketch=False)
+    sketch = phase("kernel_sketch", phase_kernel, dev, sketch=True)
+    gen_block = phase("kernel_gen", phase_kernel, dev, sketch=False,
+                      p=len(grid), rows=16,
+                      width=int(grid.max_active.max()), block="gen")
+    thin = phase("kernel_thinned", phase_kernel, dev, sketch=False,
+                 p=len(grid), rows=len(thinned_rows(16, 3)), width=63,
+                 block="gen_thinned")
+    compact = phase("fifo_compact", phase_fifo_compact, dev)
+    phase("hist_cases", phase_hist_cases, dev)
+    phase("contracts", phase_contracts, dev)
+    phase("main", phase_main, dev)
+    sweep_launches, captured = phase("user_size", phase_user_size, dev)
     # the sweep's own block, captured mid-run: the kernel on the data
     # the path hands it
-    sweep_path = hist_report(dev, *args, n_bins=kw["n_bins"],
-                             sketch=kw.get("sketch", False),
-                             block="sweep_path", emit_as="path_kernel")
-    del args, kw
-    phase_gen_contracts(dev)
-    gen, blocks = phase_gen_user_size(dev, grid)
-    args, kw = blocks["hist_update"]
-    gen_path = hist_report(dev, *args, n_bins=kw["n_bins"],
-                           sketch=kw.get("sketch", False), block="gen_path",
-                           emit_as="path_kernel")
+    sweep_path = path_hist(dev, captured, "sweep_path")
+    phase("gen_contracts", phase_gen_contracts, dev)
+    gen, blocks, gen_base = phase("gen_user_size", phase_gen_user_size,
+                                  dev, grid)
+    gen_path = path_hist(dev, blocks["hist_update"], "gen_path")
     compact_path = compact_report(dev, *blocks["fifo_compact"][0],
                                   "gen_path", emit_as="path_kernel")
-    del args, kw, blocks
+    del captured, blocks
     torch.cuda.empty_cache()
-    attn = phase_attn_kernel(dev)
-    served = phase_serve(dev)
-    phase_serve_long(dev)
-    phase_model_consistency(dev)
-    ssd = phase_ssd_kernel(dev)
-    served_ssm = phase_serve_ssm(dev)
-    phase_ssm_consistency(dev)
+    phase("loss_contracts", phase_loss_contracts, dev)
+    _, loss_launches, captured = phase("loss_user_size",
+                                       phase_loss_user_size, dev)
+    loss_path = path_hist(dev, captured, "sweep_loss_path")
+    gen_loss, blocks = phase("gen_loss_user_size", phase_gen_loss_user_size,
+                             dev, grid, gen_base)
+    gen_loss_path = path_hist(dev, blocks["hist_update"], "gen_loss_path")
+    compact_loss_path = compact_report(dev, *blocks["fifo_compact"][0],
+                                       "gen_loss_path",
+                                       emit_as="path_kernel")
+    del captured, blocks, gen_base
+    torch.cuda.empty_cache()
+    attn = phase("attn_kernel", phase_attn_kernel, dev)
+    served = phase("serve", phase_serve, dev)
+    phase("serve_long", phase_serve_long, dev)
+    phase("model_consistency", phase_model_consistency, dev)
+    ssd = phase("ssd_kernel", phase_ssd_kernel, dev)
+    served_ssm = phase("serve_ssm", phase_serve_ssm, dev)
+    phase("ssm_consistency", phase_ssm_consistency, dev)
+    emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
     batch1_keys = (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
@@ -1560,6 +1978,17 @@ def main() -> int:
                     max_abs_err=max(compact["max_abs_err"],
                                     compact_path["max_abs_err"]),
                     **_path_keys(compact_path)),
+        # the loss paths, timed on their own captured blocks
+        _kernel_row("hist_update", "sweep_loss_user_size", loss_launches,
+                    loss_path, bound_ms_bytes4=loss_path["bound_ms_bytes4"],
+                    **_path_keys(loss_path)),
+        _kernel_row("hist_update", "gen_loss_user_size",
+                    gen_loss["launches"]["hist_update"], gen_loss_path,
+                    bound_ms_bytes4=gen_loss_path["bound_ms_bytes4"],
+                    **_path_keys(gen_loss_path)),
+        _kernel_row("fifo_compact", "gen_loss_user_size",
+                    gen_loss["launches"]["fifo_compact"], compact_loss_path,
+                    **_path_keys(compact_loss_path)),
         *(_kernel_row(
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},

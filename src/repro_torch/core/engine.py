@@ -22,8 +22,15 @@ dispatch):
 ``fifo_append`` is a scatter at ``q + arange(a_cap)``: where the
 reference's ``lax.dynamic_update_slice`` silently clamps its start
 index, an index past the buffer raises here (a device assert on CUDA).
-The sizing ``buf_len = q_cap + a_cap`` with ``q <= q_cap`` (kept by
-``accept_window``) means it never does.
+The sizing ``buf_len = q_cap + a_cap`` (``+ r_cap`` with the retry
+orbit) with ``q <= q_cap`` (kept by ``accept_window``) means it never
+does.
+
+The loss helpers (``push_poisson_window_loss``, ``renege_prefix``,
+``orbit_draws``, ``orbit_file``) take the step's pre-drawn random block
+where the reference takes a key, so a point draws the same words
+whatever its state; their integer results equal the reference's on the
+same inputs.
 
 The capacity helpers are numpy copies of the reference's, so both
 packages size their buffers alike.
@@ -36,9 +43,11 @@ import numpy as np
 import torch
 
 __all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
-           "accept_window", "push_poisson_window", "welford_block",
-           "row_sum", "scatter_hist", "scatter_hist_sums",
-           "queue_capacity", "window_capacity"]
+           "accept_window", "push_poisson_window",
+           "push_poisson_window_loss", "renege_prefix", "orbit_draws",
+           "orbit_file", "welford_block", "row_sum", "scatter_hist",
+           "scatter_hist_sums", "queue_capacity", "window_capacity",
+           "orbit_capacity"]
 
 
 def exp_offsets(exps: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
@@ -106,6 +115,58 @@ def push_poisson_window(buf, q, dropped, offs, t0, win, *, q_cap: int):
     a, over = accept_window(count, q, q_cap)
     fifo_append(buf, q, (t0 + cand).t())
     return buf, q + a, dropped + over
+
+
+def push_poisson_window_loss(buf, q, dropped, offs, t0, win, *, q_cap: int,
+                             room):
+    """``push_poisson_window`` with a per-point admission bound ``room``
+    (``(P,)`` int32), tested by each arrival at its own epoch — the
+    immediate "reject" regime; the "drop" regime passes ``room = q_cap``
+    and trims at formation instead.  Occupancy only grows inside a
+    window, so exactly the first ``(room − q)⁺`` arrivals enter.
+    Returns ``(buf, q, dropped, accepted, rejected)``: ``rejected`` is a
+    measured loss (``overflow_dropped``), ``dropped`` still counts only
+    the sentinel and the buffer clamp."""
+    a_cap = offs.shape[0] - 1
+    cand = offs[:a_cap]
+    count = (cand <= win).sum(0, dtype=torch.int32)
+    dropped = dropped + (offs[a_cap] <= win).to(torch.int32)
+    admit = torch.minimum(count, torch.clamp(room - q, min=0))
+    a, over = accept_window(admit, q, q_cap)
+    fifo_append(buf, q, (t0 + cand).t())
+    return buf, q + a, dropped + over, a, count - admit
+
+
+def renege_prefix(buf, q, now, deadline, max_pop: int):
+    """Pop each row's deadline-expired jobs (age ``now − buf > deadline``)
+    from the compacted FIFO: arrival times ascend, so they are a prefix,
+    counted and removed by one ``fifo_pop_shift``.  ``deadline <= 0``
+    disables reneging.  Returns ``(buf, q, n_expired)``."""
+    idx = torch.arange(buf.shape[1], device=buf.device)
+    expired = (idx < q.unsqueeze(1)) & (buf < (now - deadline).unsqueeze(1))
+    n_exp = torch.where(deadline > 0, expired.sum(1, dtype=torch.int32), 0)
+    return fifo_pop_shift(buf, n_exp, max_pop), q - n_exp, n_exp
+
+
+def orbit_draws(u: torch.Tensor, R: torch.Tensor,
+                p: torch.Tensor) -> torch.Tensor:
+    """Retry-orbit jobs re-arriving this step: an exact Binomial(R, p)
+    thinning — orbit job j < R fires when its uniform ``u[j] < p``.
+    ``u`` is the step's ``(r_cap, P)`` uniform block, drawn whole
+    whatever the orbit holds."""
+    j = torch.arange(u.shape[0], device=u.device).unsqueeze(1)
+    return ((j < R) & (u < p)).sum(0, dtype=torch.int32)
+
+
+def orbit_file(R, lost_a, lost_b, r_cap: int, enabled):
+    """File this step's losses into the bounded retry orbit, ``lost_a``
+    (abandoned) before ``lost_b`` (overflow).  What does not fit — or
+    all of it where ``enabled`` is false (``retry_rate == 0``) — stays a
+    terminal loss in its class.  Returns ``(R, final_a, final_b)``."""
+    room = torch.where(enabled, torch.clamp(r_cap - R, min=0), 0)
+    take_a = torch.minimum(lost_a, room)
+    take_b = torch.minimum(lost_b, room - take_a)
+    return R + take_a + take_b, lost_a - take_a, lost_b - take_b
 
 
 def welford_block(bm, d_sum: torch.Tensor, d_n: torch.Tensor):
@@ -182,12 +243,27 @@ def _occupancy_scale(lam, alpha, tau0, b_max, wait_max=0.0):
 
 
 def queue_capacity(lam, alpha, tau0, b_max, wait_max=0.0, *,
-                   floor: int = 64, ceil: int = 8192) -> int:
-    """Adaptive ``q_cap`` for a loss-free, failure-free grid: the
-    occupancy scale plus a ~10σ margin, power-of-two bucketed, at least
-    twice the largest finite b_max."""
+                   q_max=None, floor: int = 64, ceil: int = 8192) -> int:
+    """Adaptive ``q_cap`` for a failure-free grid: the occupancy scale
+    plus a ~10σ margin, power-of-two bucketed, at least twice the
+    largest finite b_max.  With ``q_max`` given, a ``q_max > 0`` point
+    needs at most its room plus one window's worth of pre-trim ("drop")
+    arrivals, whatever its load — but never less than the room itself."""
+    lam64 = np.asarray(lam, dtype=np.float64)
     m, sd = _occupancy_scale(lam, alpha, tau0, b_max, wait_max)
-    need = float(np.max(np.maximum(m + 10.0 * sd, 0.0) + 32.0))
+    need = np.maximum(m + 10.0 * sd, 0.0) + 32.0
+    if q_max is not None:
+        qm = np.asarray(q_max, dtype=np.float64) * np.ones_like(lam64)
+        cap = np.where(np.asarray(b_max) > 0, np.asarray(b_max), np.inf)
+        b_eff = np.minimum(np.maximum(qm, 1.0), cap)
+        w_mu = lam64 * (np.asarray(alpha, dtype=np.float64) * b_eff
+                        + np.asarray(tau0, dtype=np.float64)
+                        + np.asarray(wait_max))
+        room_need = qm + w_mu + 10.0 * np.sqrt(w_mu + 1.0) + 32.0
+        need = np.where(qm > 0,
+                        np.minimum(np.maximum(need, qm + 1.0), room_need),
+                        need)
+    need = float(np.max(need))
     b_top = float(np.max(np.where(np.asarray(b_max) > 0, b_max, 0)))
     return int(min(ceil, max(floor, _pow2ceil(max(need, 2.0 * b_top)))))
 
@@ -202,3 +278,17 @@ def window_capacity(lam, window, *, slack: float = 8.0, floor: int = 16,
     need = mu + slack * np.sqrt(mu + 1.0) + slack
     return int(min(ceil, max(floor, -(-int(np.ceil(need)) // bucket)
                              * bucket)))
+
+
+def orbit_capacity(lam, retry_rate, *, floor: int = 16,
+                   ceil: int = 1024) -> int:
+    """Adaptive ``r_cap``, the retry orbit's bound: the orbit's drift
+    balances at ``R* = λ/retry_rate`` even when every arrival is lost,
+    so ``R* + 10·√R*`` bounds its excursions; power-of-two bucketed.
+    Reaching ``r_cap`` is modelled (the excess loss is terminal), not a
+    silent clamp."""
+    lam64 = np.asarray(lam, dtype=np.float64)
+    rr = np.asarray(retry_rate, dtype=np.float64) * np.ones_like(lam64)
+    r_star = np.where(rr > 0, lam64 / np.maximum(rr, 1e-12), 0.0)
+    need = float(np.max(r_star + 10.0 * np.sqrt(r_star + 1.0))) + 8.0
+    return int(min(ceil, max(floor, _pow2ceil(need))))

@@ -14,6 +14,10 @@
   .gen_sweep``), likewise.  It takes a ``GenGrid``, and the
   request-level backends refuse one.
 
+Both sweeps take loss grids (``q_max``, ``deadline``, ``overflow``,
+``retry_rate``); their results carry ``goodput_frac``, ``reject_frac``,
+``abandon_frac`` and ``retry_inflation``.  ``"analytic"`` refuses them.
+
 Every other backend of the reference raises ``NotImplementedError``
 naming the ROADMAP item that ports it.  Each call returns one
 ``SimResult`` per point, with the reference's field names.

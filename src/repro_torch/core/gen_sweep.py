@@ -1,7 +1,7 @@
 """The token-level (generate) Monte Carlo sweep in PyTorch.
 
 Port of the reference package's ``repro.core.gen_sweep.gen_sweep`` for
-grids without loss regimes or failures.  A request is a prefill of
+grids without failures.  A request is a prefill of
 ``prompt_len`` tokens plus ``gen_tokens`` decode steps; one step of the
 simulation is one cycle of the scheduler:
 
@@ -35,13 +35,23 @@ to ``head = 0`` with the clock rebase folded in, out of place into a
 second buffer that the loop swaps with the first.  Dtypes are the
 reference's: float32 clocks and sums, int32 counts.
 
+Loss grids take the loss path, in the reference's order: deadline
+reneging at the scheduler epoch as a head advance over the live prefix
+(a step whose queue it empties forms no batch and advances no time),
+the "drop" trim to ``q_max`` after admission, the window arrivals
+admitted against the point's room ("reject"), and the bounded retry
+orbit at the run end, whose re-arrivals join the tail at ``t_end``.
+Every loss op sits behind the grid's ``has_loss``, so loss-free grids
+run the code they ran before, and a neutral point of a loss grid gives
+the base path's bits at the same ``q_cap``/``a_cap``.
+
 A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
 Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: loss grids (Queue A 3c), failure grids (3d),
-``metrics_tap`` (3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
+ROADMAP item that adds it: failure grids (Queue A 3d), ``metrics_tap``
+(3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
 """
 from __future__ import annotations
 
@@ -55,9 +65,10 @@ from repro_torch.core.grid import (DISC_CODE, DISC_NAME, GenGrid,  # noqa: F401
                                    GenResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges, thinned_rows)
-from repro_torch.core.sweep import (_require_pinned_caps,
+from repro_torch.core.sweep import (LossParams, _require_pinned_caps,
                                     _require_ported_options,
-                                    _require_supported, resolve_device)
+                                    _require_supported, loss_fields,
+                                    resolve_device)
 from repro_torch.kernels import superstep as _ss
 
 __all__ = ["DISC_CODE", "DISC_NAME", "GenGrid", "GenResult", "gen_sweep",
@@ -72,17 +83,20 @@ _STEP_BUCKET = 2048
 
 # named random streams (``prng.draw_words``), keyed by (seed, global
 # point index) with counter (step, stream + word): the superstep's
-# arrival gaps, and the first arrival epoch (drawn once, at step 0).
-# The two are disjoint, and a point draws the same words per superstep
-# whatever its state, so its bits never depend on the other points
-_S_GAPS, _S_INIT = 0, 1
+# arrival gaps, the first arrival epoch (drawn once, at step 0) and, on
+# loss grids, the retry orbit's r_cap uniforms a step.  They are
+# disjoint, and a point draws the same words per superstep whatever its
+# state, so its bits never depend on the other points
+_S_GAPS, _S_INIT, _S_ORBIT = 0, 1, 2
 
 _BIG = 2 ** 24
 _INF = 3.0e38
 
 
-def buffer_length(q_cap: int, a_cap: int, s_cap: int) -> int:
-    """Length of a point's FIFO row between two compactions.
+def buffer_length(q_cap: int, a_cap: int, s_cap: int,
+                  r_cap: Optional[int] = None) -> int:
+    """Length of a point's FIFO row between two compactions (``r_cap``
+    given: a loss grid's).
 
     The waiting room holds at most ``q_cap`` jobs, and within one
     superstep the tail moves past it by at most the tighter of (a) the
@@ -91,7 +105,13 @@ def buffer_length(q_cap: int, a_cap: int, s_cap: int) -> int:
     and the head advances by ≤ s_cap joiners per step, ≤ (s_cap + 1)·R.
     An append writes a whole (a_cap + 1) block at the tail.  So
     ``tail + a_cap + 1 <= buffer_length`` holds at every write (the
-    reference's sizing, ``gen_sweep.py``'s ``_build_gen_kernel``)."""
+    reference's sizing, ``gen_sweep.py``'s ``_build_gen_kernel``).
+    Under loss, retries append ≤ r_cap more a step (an r_cap block
+    write) and reneging breaks the conservation bound, so only the
+    append bound holds."""
+    if r_cap is not None:
+        return (q_cap + (a_cap + 2 + r_cap) * _REBASE_EVERY
+                + a_cap + 1 + r_cap)
     return (q_cap + min((a_cap + 2) * _REBASE_EVERY,
                         (s_cap + 1) * _REBASE_EVERY) + a_cap + 1)
 
@@ -100,14 +120,14 @@ def gen_caps(grid: GenGrid, *, q_cap: Optional[int] = None) -> dict:
     """The capacities ``gen_sweep`` would derive from ``grid`` — compute
     once on the FULL grid and splat into every chunk of a split
     dispatch (``gen_sweep(chunk, key_offset=..., **gen_caps(full))``).
-    Returns ``q_cap``/``a_cap``, the reference's integers on the same
-    grid."""
+    Returns ``q_cap``/``a_cap`` (and ``r_cap`` on loss grids), the
+    reference's integers on the same grid."""
     _require_supported(grid)
     if q_cap is None:
         # sized from the static-equivalent request-level law
         q_cap = engine.queue_capacity(
             grid.lam, grid.equivalent_alpha, grid.equivalent_tau0,
-            grid.max_active)
+            grid.max_active, q_max=grid.q_max if grid.has_loss else None)
     # the densest indivisible window: the batched prefill of a full
     # batch plus the decode step it precedes
     window = (grid.alpha_prefill * grid.prompt_len * grid.max_active
@@ -115,7 +135,10 @@ def gen_caps(grid: GenGrid, *, q_cap: Optional[int] = None) -> dict:
               + grid.alpha_decode * grid.max_active
               + grid.tau0_decode)
     a_cap = int(engine.window_capacity(grid.lam, window))
-    return dict(q_cap=int(q_cap), a_cap=a_cap)
+    caps = dict(q_cap=int(q_cap), a_cap=a_cap)
+    if grid.has_loss:
+        caps["r_cap"] = engine.orbit_capacity(grid.lam, grid.retry_rate)
+    return caps
 
 
 def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
@@ -139,8 +162,8 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
     each superstep's steps to the percentile histogram
     (``hist.thinned_rows``); means and counters use every step.
     ``sketch``/``superstep_backend`` behave as in ``sweep``.
-    ``r_cap`` is accepted for signature parity and unused: it only
-    sizes the loss kernel's retry orbit."""
+    ``r_cap`` bounds a loss grid's retry orbit (``None``:
+    ``engine.orbit_capacity``); a loss-free grid ignores it."""
     if not isinstance(grid, GenGrid):
         raise TypeError("gen_sweep needs a GenGrid "
                         "(see GenGrid.from_points/from_product)")
@@ -157,17 +180,24 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
     if int(hist_every) < 1:
         raise ValueError(f"hist_every must be >= 1 (got {hist_every})")
     s_cap = int(grid.max_active.max())
+    has_loss = grid.has_loss
     if key_offset:
         _require_pinned_caps("gen_sweep", key_offset,
                              q_cap=q_cap is not None,
-                             a_cap=a_cap is not None)
-    if q_cap is None or a_cap is None:
+                             a_cap=a_cap is not None,
+                             r_cap=not has_loss or r_cap is not None)
+    if q_cap is None or a_cap is None or (has_loss and r_cap is None):
         caps = gen_caps(grid, q_cap=q_cap)
         q_cap = caps["q_cap"] if q_cap is None else q_cap
         a_cap = caps["a_cap"] if a_cap is None else a_cap
+        if has_loss and r_cap is None:
+            r_cap = caps["r_cap"]
     q_cap, a_cap = int(q_cap), int(a_cap)
+    r_cap = int(r_cap) if has_loss else None
     if s_cap > q_cap:
         raise ValueError("max_active exceeds q_cap; raise q_cap")
+    if has_loss and np.any(grid.q_max > q_cap):
+        raise ValueError("q_max exceeds q_cap; raise q_cap")
     if not set(np.unique(grid.discipline)) <= set(DISC_CODE.values()):
         raise ValueError(f"unknown discipline code in grid "
                          f"(valid: {DISC_CODE})")
@@ -175,7 +205,7 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
         n_bins = SKETCH_BINS
     ss_backend = _ss.resolve_backend(superstep_backend, dev)
     out = _run(grid, n_steps=n_steps, warmup=int(warmup), s_cap=s_cap,
-               q_cap=q_cap, a_cap=a_cap, n_bins=int(n_bins),
+               q_cap=q_cap, a_cap=a_cap, r_cap=r_cap, n_bins=int(n_bins),
                seed=int(seed), key_offset=int(key_offset),
                hist_every=int(hist_every), sketch=bool(sketch),
                ss_backend=ss_backend, device=dev)
@@ -193,15 +223,17 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
-         q_cap: int, a_cap: int, n_bins: int, seed: int, key_offset: int,
-         hist_every: int, sketch: bool, ss_backend: str,
-         device: torch.device) -> dict:
+         q_cap: int, a_cap: int, r_cap: Optional[int], n_bins: int,
+         seed: int, key_offset: int, hist_every: int, sketch: bool,
+         ss_backend: str, device: torch.device) -> dict:
     """The superstep loop over every point at once; returns the
-    per-point outputs as numpy arrays."""
+    per-point outputs as numpy arrays.  ``r_cap`` is None on a
+    loss-free grid."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     R = _REBASE_EVERY
-    buf_len = buffer_length(q_cap, a_cap, s_cap)
+    has_loss = r_cap is not None
+    buf_len = buffer_length(q_cap, a_cap, s_cap, r_cap)
     width = a_cap + 1
 
     def param(a, dt):
@@ -216,6 +248,11 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     cap = param(np.clip(grid.max_active, 1, s_cap), i32)
     is_cont = param(grid.discipline == DISC_CODE["continuous"], torch.bool)
     keys = prng.point_keys(seed, key_offset, n, device)
+    streams = ((_S_GAPS, width),)
+    if has_loss:
+        streams += ((_S_ORBIT, r_cap),)
+        lp = LossParams(grid, q_cap, device)
+        ranks = torch.arange(q_cap, device=device)
 
     def zeros(*shape, dt=f32):
         return torch.zeros(n, *shape, dtype=dt, device=device)
@@ -231,7 +268,13 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     next_arr = prng.exponential(init[0, 0]) / lam
     lat_sum, sum_b, sum_b2, busy, span = (zeros() for _ in range(5))
     lat_n, n_meas, q_max, dropped = (zeros(dt=i32) for _ in range(4))
-    tail_hi = zeros(dt=i32)
+    if has_loss:
+        # the orbit, then the measured overflow and abandonment losses,
+        # completions in SLO, fresh arrivals and orbit re-arrivals
+        orbit, ov_n, ab_n, slo_n, fresh_n, retry_n = (zeros(dt=i32)
+                                                      for _ in range(6))
+    # the furthest any block write reached, checked after the loop
+    reach = zeros(dt=i32)
     bm = (zeros(), zeros(), zeros(dt=i32))
     hists = (zeros(n_bins, dt=i32),)
     if sketch:
@@ -243,13 +286,15 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     inc_blk = zeros(len(rows), s_cap, dt=torch.bool)
 
     for i_base in range(0, n_steps, R):
-        gaps = prng.draw_words(keys, i_base, R, ((_S_GAPS, width),))[0]
+        words = prng.draw_words(keys, i_base, R, streams)
         # epochs of the pre-drawn arrival chain past next_arr, per step:
         # partial sums of the gaps over an outer dimension (points
         # innermost), so a point's sum does not depend on P
-        offs = engine.exp_offsets(prng.exponential(gaps), lam)
+        offs = engine.exp_offsets(prng.exponential(words[0]), lam)
         offs = offs.permute(0, 2, 1).contiguous()         # (R, P, width)
-        del gaps
+        if has_loss:
+            u_orb = prng.uniform(words[1])                # (R, r_cap, P)
+        del words
         s0, n0 = lat_sum, lat_n
 
         for t in range(R):
@@ -274,6 +319,22 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             tail = tail + due.to(i32)
             q = q + due.to(i32)
 
+            if has_loss:
+                # deadline reneging at the scheduler epoch: the live
+                # range is FIFO-sorted epochs, so the expired jobs are a
+                # prefix and leave by a head advance.  A point never
+                # holds more than q_cap waiting jobs (every admission is
+                # bounded by a room <= q_cap), so the live range lies in
+                # the q_cap entries from the head
+                live = engine.fifo_gather(buf, head,
+                                          ranks.expand(n, q_cap))
+                expired = ((ranks < q.unsqueeze(1))
+                           & (live < (now - lp.deadline).unsqueeze(1)))
+                lost_ab = torch.where(lp.deadline > 0.0,
+                                      expired.sum(1, dtype=i32), 0)
+                head = head + lost_ab
+                q = q - lost_ab
+
             # the pre-drawn arrival chain: entry 0 IS next_arr (consumed
             # above in the idle case), the last entry is the coverage
             # sentinel
@@ -297,12 +358,24 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             head = head + n_join
             q = q - n_join
 
+            if has_loss:
+                # "drop" mode: the newest waiting jobs beyond q_max leave
+                # by a tail cut (later appends overwrite the slots)
+                lost_ov = torch.clamp(q - lp.trim_to, min=0)
+                tail = tail - lost_ov
+                q = q - lost_ov
+
             # 3) run length: k identical decode steps up to the next
             #    event — the earliest retirement, the first step
             #    boundary past the next pending arrival (continuous with
             #    a free slot only), or the edge of the arrival chain
             b = n_act + n_join
             dt = a_d * b.to(f32) + t0_d
+            if has_loss:
+                # a queue emptied by reneging forms no batch: the step
+                # advances no time (dt keeps a safe divisor)
+                has_b = b > 0
+                dt = torch.where(has_b, dt, 1.0)
             t0r = now + t_pf
             m_min = torch.where(rem > 0, rem, _BIG).amin(1)
             na = torch.where(ts_ext > now.unsqueeze(1), ts_ext,
@@ -313,8 +386,12 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             k_cov = _to_i32(torch.floor((ts_ext[:, -1] - t0r) / dt))
             k = torch.minimum(torch.minimum(m_min, k_arr),
                               k_cov).clamp_(1, _BIG)
+            if has_loss:
+                k = torch.where(has_b, k, 1)
             kf = k.to(f32)
             t_end = t0r + kf * dt
+            if has_loss:
+                t_end = torch.where(has_b, t_end, now)
 
             # 4) window arrivals (now, t_end] join the waiting buffer:
             #    the chain minus the consumed entry 0 in the idle case
@@ -327,10 +404,18 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
                                   ts_ext[:, :-1])
             count = ((ts_push > now.unsqueeze(1))
                      & (ts_push <= t_end.unsqueeze(1))).sum(1, dtype=i32)
-            a = torch.minimum(count, q_cap - q)
-            dropped = (dropped + (count - a)
-                       + (ts_ext[:, -1] <= t_end).to(i32))
-            tail_hi = torch.maximum(tail_hi, tail)
+            sentinel = (ts_ext[:, -1] <= t_end).to(i32)
+            if has_loss:
+                # each arrival against its point's room: the accepted
+                # set is the first (room − q)⁺ (occupancy only grows
+                # inside a run); the turned-away ones are overflow
+                a = torch.minimum(count, torch.clamp(lp.room - q, min=0))
+                lost_ov = lost_ov + (count - a)
+                dropped = dropped + sentinel
+            else:
+                a = torch.minimum(count, q_cap - q)
+                dropped = dropped + (count - a) + sentinel
+            reach = torch.maximum(reach, tail + width)
             engine.fifo_append(buf, tail.clamp(max=buf_len - width),
                                ts_push)
             tail = tail + a
@@ -349,17 +434,49 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             # includes the idle gap, so utilization = busy/span
             if meas:
                 bf = b.to(f32)
+                n_fin = fin.sum(1, dtype=i32)
                 # a fixed pairwise order over the slots: torch's own
                 # reductions pick their split by shape, which would tie
                 # a point's float sum to P (and break split dispatch)
                 lat_sum = lat_sum + engine.row_sum(lats)
-                lat_n = lat_n + fin.sum(1, dtype=i32)
+                lat_n = lat_n + n_fin
                 sum_b = sum_b + kf * bf
                 sum_b2 = sum_b2 + kf * bf * bf
-                n_meas = n_meas + k
-                busy = busy + (t_pf + kf * dt)
+                if has_loss:
+                    n_meas = n_meas + torch.where(has_b, k, 0)
+                    busy = busy + torch.where(has_b, t_pf + kf * dt, 0.0)
+                else:
+                    n_meas = n_meas + k
+                    busy = busy + (t_pf + kf * dt)
                 span = span + (t_end - t_step0)
             q_max = torch.maximum(q_max, q)
+
+            if has_loss:
+                # the retry orbit at the run end (Binomial thinning over
+                # the whole step); admitted re-arrivals join the tail at
+                # t_end.  Then this step's losses are filed, abandoned
+                # first; what the orbit cannot hold is a terminal loss
+                p_fire = 1.0 - torch.exp(-lp.retry_rate * (t_end - t_step0))
+                n_r = engine.orbit_draws(u_orb[t], orbit, p_fire)
+                admit_r = torch.minimum(
+                    n_r, torch.clamp(lp.retry_room - q, min=0))
+                orbit = orbit - admit_r
+                reach = torch.maximum(reach, tail + r_cap)
+                engine.fifo_append(buf, tail.clamp(max=buf_len - r_cap),
+                                   t_end.unsqueeze(1).expand(n, r_cap))
+                tail = tail + admit_r
+                q = q + admit_r
+                orbit, term_ab, term_ov = engine.orbit_file(
+                    orbit, lost_ab, lost_ov, r_cap, lp.retry_on)
+                if meas:
+                    ab_n = ab_n + term_ab
+                    ov_n = ov_n + term_ov
+                    slo_n = slo_n + torch.where(
+                        lp.deadline > 0.0,
+                        (fin & (lats <= lp.deadline.unsqueeze(1)))
+                        .sum(1, dtype=i32), n_fin)
+                    fresh_n = fresh_n + due.to(i32) + count
+                    retry_n = retry_n + n_r
             j = row_of.get(t)
             if j is not None:
                 lat_blk[:, j] = lats
@@ -378,7 +495,7 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         next_arr = next_arr - now
         now = torch.zeros_like(now)
 
-    worst = int((tail_hi + width).max())
+    worst = int(reach.max())
     if worst > buf_len:
         raise RuntimeError(f"gen_sweep: a FIFO append reached {worst} > "
                            f"buffer length {buf_len}; the buffer sizing "
@@ -400,11 +517,13 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     }
     if sketch:
         out["hist_sums"] = hists[1]
+    if has_loss:
+        out.update(overflow_dropped=ov_n, abandoned=ab_n, n_in_slo=slo_n,
+                   n_fresh=fresh_n, n_retry=retry_n)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def _to_result(grid: GenGrid, out: dict, *, sketch: bool) -> GenResult:
-    n_jobs = out["n_jobs"]
     p50, p95, p99 = hist_percentiles(
         out["hist"], (50, 95, 99), edges=sketch_edges() if sketch else None)
     stderr, ci = variance.batch_means_stats(out["lat_bm_m2"],
@@ -417,18 +536,13 @@ def _to_result(grid: GenGrid, out: dict, *, sketch: bool) -> GenResult:
         mean_batch=out["mean_batch"].astype(f64),
         batch_m2=out["batch_m2"].astype(f64),
         utilization=np.clip(out["utilization"].astype(f64), 0.0, 1.0),
-        n_jobs=n_jobs,
+        n_jobs=out["n_jobs"],
         n_steps=out["n_steps"],
         max_queue=out["max_queue"],
         buffer_dropped=out["dropped"],
-        # a loss-free grid completes every measured arrival in SLO
-        overflow_dropped=np.zeros_like(n_jobs),
-        abandoned=np.zeros_like(n_jobs),
-        n_in_slo=n_jobs.copy(),
-        n_fresh=n_jobs.copy(),
-        n_retry=np.zeros_like(n_jobs),
         hist=out["hist"],
         hist_sums=out["hist_sums"].astype(f64) if sketch else None,
         stderr=stderr, ci_halfwidth=ci,
         n_blocks=out["lat_bm_n"],
+        **loss_fields(out),
     )

@@ -1,7 +1,7 @@
 """The single-server Monte Carlo sweep in PyTorch.
 
 Port of the reference package's ``repro.core.sweep.sweep`` for grids
-without loss regimes or failures.  The dynamics are the reference's
+without failures.  The dynamics are the reference's
 regenerative batch-by-batch law (see its module docstring and
 docs/theory.md): one step per service completion — an idle gap when
 the queue is empty, the optional TimeoutBatch delay, batch formation
@@ -19,13 +19,23 @@ Threefry call (``core.prng``), stacks the 32 steps' latencies into a
 makes one batch-means update.  Dtypes are the reference's: float32
 clocks and sums, int32 counts.
 
+Loss grids (any point with ``q_max``, ``deadline`` or ``retry_rate``
+set) take the loss path, in the reference's step order: arrivals
+admitted against the point's room ("reject"), deadline reneging of the
+expired FIFO prefix at the formation epoch (a queue emptied so forms no
+batch and takes no service time), the "drop" trim to ``q_max`` after
+the pop, and the bounded retry orbit at the departure epoch, whose
+re-arrivals join at ``depart``.  Every loss op sits behind the grid's
+``has_loss``, so loss-free grids run the code they ran before, bit for
+bit, and a neutral point of a loss grid gives the base path's bits.
+
 A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
 Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: loss grids (Queue A 3c), failure grids (3d),
-``metrics_tap`` (3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
+ROADMAP item that adds it: failure grids (Queue A 3d), ``metrics_tap``
+(3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine, prng, variance
-from repro_torch.core.grid import DIST_CODE, SweepGrid, SweepResult
+from repro_torch.core.grid import (DIST_CODE, OVERFLOW_CODE, SweepGrid,
+                                   SweepResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges)
 from repro_torch.kernels import superstep as _ss
@@ -55,8 +66,9 @@ _GAMMA_TRIES = 8
 
 # named random streams of one step (``prng.draw_words``); the misc
 # stream holds the idle gap (word 0), the gamma boost uniform (1), the
-# gamma accept uniforms (2 … 9) and the Box–Muller words (10 … 17)
-_S_MISC, _S_SERVICE, _S_TIMEOUT = 0, 1, 2
+# gamma accept uniforms (2 … 9) and the Box–Muller words (10 … 17); the
+# orbit stream (loss grids only) holds the retry orbit's r_cap uniforms
+_S_MISC, _S_SERVICE, _S_TIMEOUT, _S_ORBIT = 0, 1, 2, 3
 _MISC_WORDS = 2 + 2 * _GAMMA_TRIES
 
 
@@ -74,15 +86,35 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _require_supported(grid: SweepGrid) -> None:
-    if grid.has_loss:
-        raise NotImplementedError(
-            "loss regimes (q_max / deadline / retry_rate) are not ported "
-            "yet: ROADMAP Queue A item 3c")
+def _require_supported(grid) -> None:
+    # a fail-drop grid counts as has_loss only through its failures
     if grid.has_fail:
         raise NotImplementedError(
             "failure regimes (mtbf / mttr) are not ported yet: ROADMAP "
             "Queue A item 3d")
+
+
+class LossParams:
+    """A loss grid's per-point tensors, shared by both sweeps: the
+    arrival room ``room`` (``q_max`` in "reject" mode, else ``q_cap``),
+    the formation bound ``trim_to`` (``q_max`` in "drop" mode, else
+    ``q_cap``), the physical room ``retry_room`` re-arrivals meet in
+    both modes, the ``deadline`` (0: none), and the retry rate."""
+
+    def __init__(self, grid, q_cap: int, device) -> None:
+        def param(a, dt):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        q_lim = param(grid.q_max, torch.int32)
+        limited = q_lim > 0
+        reject = param(grid.overflow == OVERFLOW_CODE["reject"], torch.bool)
+        self.room = torch.where(limited & reject, q_lim, q_cap)
+        self.trim_to = torch.where(limited & ~reject, q_lim, q_cap)
+        self.retry_room = torch.where(limited,
+                                      torch.clamp(q_lim, max=q_cap), q_cap)
+        self.deadline = param(grid.deadline, torch.float32)
+        self.retry_rate = param(grid.retry_rate, torch.float32)
+        self.retry_on = self.retry_rate > 0.0
 
 
 def _require_ported_options(shard, metrics_tap) -> None:
@@ -127,11 +159,12 @@ def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
     once on the FULL grid and splat into every chunk of a split
     dispatch (``sweep(chunk, key_offset=..., **sweep_caps(full))``).
     Pass ``q_cap`` to mirror a pinned queue capacity.  Returns
-    ``q_cap``/``a_cap``."""
+    ``q_cap``/``a_cap``, and ``r_cap`` on loss grids."""
     _require_supported(grid)
     if q_cap is None:
-        q_cap = engine.queue_capacity(grid.lam, grid.alpha, grid.tau0,
-                                      grid.b_max, grid.wait_max)
+        q_cap = engine.queue_capacity(
+            grid.lam, grid.alpha, grid.tau0, grid.b_max, grid.wait_max,
+            q_max=grid.q_max if grid.has_loss else None)
     if _window_sized(grid):
         # deterministic service with a finite cap bounds the service
         # window at α·b_max + τ0, so the per-window draw can be sized
@@ -141,7 +174,10 @@ def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
         a_cap = min(int(q_cap), engine.window_capacity(grid.lam, window))
     else:
         a_cap = int(q_cap)
-    return dict(q_cap=int(q_cap), a_cap=int(a_cap))
+    caps = dict(q_cap=int(q_cap), a_cap=int(a_cap))
+    if grid.has_loss:
+        caps["r_cap"] = engine.orbit_capacity(grid.lam, grid.retry_rate)
+    return caps
 
 
 def _gamma(misc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -185,9 +221,9 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
     ``sketch=True`` keeps the 64-bin sketch and its per-bin latency sums
     instead of the 512-bin histogram.  ``superstep_backend`` picks the
     histogram update (``"cuda"``/``"torch"``/``"auto"`` — see
-    ``repro_torch.kernels.superstep``).  ``r_cap`` is accepted for
-    signature parity and unused: it only sizes the loss kernel's retry
-    orbit."""
+    ``repro_torch.kernels.superstep``).  ``r_cap`` bounds a loss grid's
+    retry orbit (``None``: ``engine.orbit_capacity``); a loss-free grid
+    ignores it."""
     if len(grid) == 0:
         raise ValueError("empty grid")
     if warmup is not None and not 0 <= warmup < int(n_batches):
@@ -198,32 +234,39 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
         warmup = max(1, n_batches // 10)
+    has_loss = grid.has_loss
     if key_offset:
         _require_pinned_caps(
             "sweep", key_offset, q_cap=q_cap is not None,
-            a_cap=a_cap is not None or not _window_sized(grid))
-    if q_cap is None or a_cap is None:
+            a_cap=a_cap is not None or not _window_sized(grid),
+            r_cap=not has_loss or r_cap is not None)
+    if q_cap is None or a_cap is None or (has_loss and r_cap is None):
         caps = sweep_caps(grid, q_cap=q_cap)
         q_cap = caps["q_cap"] if q_cap is None else q_cap
         a_cap = caps["a_cap"] if a_cap is None else a_cap
+        if has_loss and r_cap is None:
+            r_cap = caps["r_cap"]
     q_cap, a_cap = int(q_cap), int(a_cap)
+    r_cap = int(r_cap) if has_loss else 0
     if a_cap > q_cap:
         raise ValueError("a_cap must be <= q_cap (ring-buffer invariant)")
     if np.any(grid.b_max > q_cap):
         raise ValueError("b_max exceeds q_cap; raise q_cap")
+    if has_loss and np.any(grid.q_max > q_cap):
+        raise ValueError("q_max exceeds q_cap; raise q_cap")
     if sketch:
         n_bins = SKETCH_BINS
     n_bins = int(n_bins)
     ss_backend = _ss.resolve_backend(superstep_backend, dev)
     out = _run(grid, n_batches=n_batches, warmup=int(warmup), q_cap=q_cap,
-               a_cap=a_cap, n_bins=n_bins, seed=int(seed),
+               a_cap=a_cap, r_cap=r_cap, n_bins=n_bins, seed=int(seed),
                key_offset=int(key_offset), sketch=bool(sketch),
                ss_backend=ss_backend, device=dev)
     return _to_result(grid, out, sketch=bool(sketch))
 
 
 def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
-         a_cap: int, n_bins: int, seed: int, key_offset: int,
+         a_cap: int, r_cap: int, n_bins: int, seed: int, key_offset: int,
          sketch: bool, ss_backend: str, device: torch.device) -> dict:
     """The superstep loop over every point at once; returns the
     per-point outputs as numpy arrays."""
@@ -231,6 +274,7 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     n = len(grid)
     has_timeout = bool(np.any(grid.wait_max > 0.0))
     all_det = bool(np.all(grid.dist == DIST_CODE["det"]))
+    has_loss = grid.has_loss
 
     def param(a, dt):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -248,17 +292,26 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     streams = [(_S_MISC, _MISC_WORDS), (_S_SERVICE, a_cap + 1)]
     if has_timeout:
         streams.append((_S_TIMEOUT, a_cap + 1))
+    if has_loss:
+        streams.append((_S_ORBIT, r_cap))
+        lp = LossParams(grid, q_cap, device)
 
     # state: the FIFO buffer holds arrival times relative to the last
-    # departure; buf[:, :q] are the waiting jobs, oldest first
+    # departure; buf[:, :q] are the waiting jobs, oldest first.  The
+    # retry block appends after the service window's, also at q <= q_cap
     q = torch.zeros(n, dtype=i32, device=device)
-    buf = torch.zeros(n, q_cap + a_cap, dtype=f32, device=device)
+    buf = torch.zeros(n, q_cap + a_cap + r_cap, dtype=f32, device=device)
     def zeros(dt):
         return torch.zeros(n, dtype=dt, device=device)
 
     lat_sum, sum_b, sum_b2, sum_bs, busy, span = (zeros(f32)
                                                   for _ in range(6))
     lat_n, q_max, dropped = zeros(i32), zeros(i32), zeros(i32)
+    if has_loss:
+        # the orbit, then the measured overflow and abandonment losses,
+        # completions in SLO, fresh arrivals and orbit re-arrivals
+        orbit, ov_n, ab_n, slo_n, fresh_n, retry_n = (zeros(i32)
+                                                      for _ in range(6))
     bm = (zeros(f32), zeros(f32), zeros(i32))
     hists = (torch.zeros(n, n_bins, dtype=i32, device=device),)
     if sketch:
@@ -267,7 +320,22 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     inc_blk = torch.zeros(n, _REBASE_EVERY, q_cap, dtype=torch.bool,
                           device=device)
     slots = torch.arange(q_cap, device=device)
-    n_meas = 0
+    # measured steps; under loss, per point, the steps that formed a
+    # batch (a queue emptied by reneging forms none)
+    n_steps = 0
+    if has_loss:
+        n_meas = zeros(i32)
+
+    def push(buf, q, dropped, lost_ov, fresh, offs, t0, win):
+        """A window's arrivals; under loss, each against its point's
+        room, the turned-away ones counted as overflow."""
+        if not has_loss:
+            buf, q, dropped = engine.push_poisson_window(
+                buf, q, dropped, offs, t0, win, q_cap=q_cap)
+            return buf, q, dropped, lost_ov, fresh
+        buf, q, dropped, acc, rej = engine.push_poisson_window_loss(
+            buf, q, dropped, offs, t0, win, q_cap=q_cap, room=lp.room)
+        return buf, q, dropped, lost_ov + rej, fresh + acc + rej
 
     for i_base in range(0, n_batches, _REBASE_EVERY):
         words = prng.draw_words(keys, i_base, _REBASE_EVERY, streams)
@@ -276,6 +344,8 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
         offs_s = engine.exp_offsets(prng.exponential(words[1]), lam)
         if has_timeout:
             offs_t = engine.exp_offsets(prng.exponential(words[2]), lam)
+        if has_loss:
+            u_orb = prng.uniform(words[-1])
         if not all_det:
             g = _gamma(misc, kshape) / kshape
         del words, misc
@@ -283,12 +353,15 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
 
         for t in range(_REBASE_EVERY):
             meas = i_base + t >= warmup
+            lost_ov = lost_ab = fresh = None
             # idle period: the step begins when a job arrives to an
             # empty system; the queue is empty, so the slot is 0
             empty = q == 0
             now = torch.where(empty, gap[t], 0.0)
             buf[:, 0] = torch.where(empty, now, buf[:, 0])
             q = q + empty.to(i32)
+            if has_loss:
+                lost_ov, fresh = zeros(i32), empty.to(i32)
 
             if has_timeout:
                 # delay service until oldest + wait_max while fewer than
@@ -296,17 +369,27 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                 do_wait = (wait_max > 0.0) & (q < wait_target)
                 release = torch.where(
                     do_wait, torch.maximum(now, buf[:, 0] + wait_max), now)
-                buf, q, dropped = engine.push_poisson_window(
-                    buf, q, dropped, offs_t[t], now, release - now,
-                    q_cap=q_cap)
+                buf, q, dropped, lost_ov, fresh = push(
+                    buf, q, dropped, lost_ov, fresh, offs_t[t], now,
+                    release - now)
             else:
                 release = now
+
+            if has_loss:
+                # deadline reneging at the formation epoch: the expired
+                # jobs are a FIFO prefix
+                buf, q, lost_ab = engine.renege_prefix(
+                    buf, q, release, lp.deadline, q_cap)
 
             # form the batch: take min(waiting, cap), FIFO
             b = torch.minimum(q, b_cap)
             mean_s = alpha * b.to(f32) + tau0
             s = mean_s if all_det else torch.where(
                 dist == DIST_CODE["det"], mean_s, mean_s * g[t])
+            if has_loss:
+                # a queue emptied by reneging forms no batch: no service
+                # time elapses and the next step idles
+                s = torch.where(b > 0, s, 0.0)
             depart = release + s
 
             # pop the b oldest jobs; their latency ends at `depart`
@@ -315,10 +398,42 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                                depart.unsqueeze(1) - buf[:, :q_cap], 0.0)
             buf = engine.fifo_pop_shift(buf, b, q_cap)
             q = q - b
+            if has_loss:
+                # "drop" mode: the newest waiting jobs beyond q_max leave
+                # at the formation epoch
+                trim = torch.clamp(q - lp.trim_to, min=0)
+                q = q - trim
+                lost_ov = lost_ov + trim
 
             # arrivals during the service period join the queue
-            buf, q, dropped = engine.push_poisson_window(
-                buf, q, dropped, offs_s[t], release, s, q_cap=q_cap)
+            buf, q, dropped, lost_ov, fresh = push(
+                buf, q, dropped, lost_ov, fresh, offs_s[t], release, s)
+
+            if has_loss:
+                # the retry orbit at the departure epoch: each orbit job
+                # fires with p = 1 − exp(−rate·elapsed); admitted
+                # re-arrivals join at `depart`, the rest stay in orbit.
+                # Then this step's losses are filed, abandoned first;
+                # what the orbit cannot hold is a terminal loss
+                p_fire = 1.0 - torch.exp(-lp.retry_rate * depart)
+                n_r = engine.orbit_draws(u_orb[t], orbit, p_fire)
+                admit_r = torch.minimum(
+                    n_r, torch.clamp(lp.retry_room - q, min=0))
+                orbit = orbit - admit_r
+                engine.fifo_append(buf, q, depart.unsqueeze(1).expand(
+                    n, r_cap))
+                q = q + admit_r
+                orbit, term_ab, term_ov = engine.orbit_file(
+                    orbit, lost_ab, lost_ov, r_cap, lp.retry_on)
+                if meas:
+                    ab_n = ab_n + term_ab
+                    ov_n = ov_n + term_ov
+                    fresh_n = fresh_n + fresh
+                    retry_n = retry_n + n_r
+                    slo_n = slo_n + torch.where(
+                        lp.deadline > 0.0,
+                        (popmask & (lats <= lp.deadline.unsqueeze(1)))
+                        .sum(1, dtype=i32), b)
             # rebase the clock: the departure becomes the next origin
             buf.sub_(depart.unsqueeze(1))
 
@@ -333,7 +448,9 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                 sum_bs = sum_bs + bf * s
                 busy = busy + s
                 span = span + depart
-                n_meas += 1
+                n_steps += 1
+                if has_loss:
+                    n_meas = n_meas + (b > 0).to(i32)
             else:
                 inc_blk[:, t] = False
             q_max = torch.maximum(q_max, q)
@@ -345,11 +462,20 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
         bm = engine.welford_block(bm, lat_sum - s0, lat_n - n0)
 
     jobs = torch.clamp(lat_n, min=1).to(f32)
-    nb = float(max(n_meas, 1))
+    nb = float(max(n_steps, 1))
+    mean_batch, batch_m2 = sum_b / nb, sum_b2 / nb
+    if has_loss:
+        # a point that formed a batch at every measured step divides as
+        # the loss-free path does (on CUDA a host-scalar divisor is a
+        # multiply by its reciprocal), so neutral points keep its bits
+        full = n_meas == n_steps
+        nbt = torch.clamp(n_meas, min=1).to(f32)
+        mean_batch = torch.where(full, mean_batch, sum_b / nbt)
+        batch_m2 = torch.where(full, batch_m2, sum_b2 / nbt)
     out = {
         "mean_latency": lat_sum / jobs,
-        "mean_batch": sum_b / nb,
-        "batch_m2": sum_b2 / nb,
+        "mean_batch": mean_batch,
+        "batch_m2": batch_m2,
         "mean_service": sum_bs / torch.clamp(sum_b, min=1e-30),
         "utilization": busy / torch.clamp(span, min=1e-30),
         "n_jobs": lat_n,
@@ -361,9 +487,25 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     }
     if sketch:
         out["hist_sums"] = hists[1]
+    if has_loss:
+        out.update(n_batches=n_meas, overflow_dropped=ov_n, abandoned=ab_n,
+                   n_in_slo=slo_n, n_fresh=fresh_n, n_retry=retry_n)
     out = {k: v.cpu().numpy() for k, v in out.items()}
-    out["n_batches"] = np.full(n, n_meas, dtype=np.int32)
+    if not has_loss:
+        out["n_batches"] = np.full(n, n_steps, dtype=np.int32)
     return out
+
+
+def loss_fields(out: dict) -> dict:
+    """A run's loss counters for its result; a loss-free run completes
+    every measured arrival in SLO, so its counters are synthesised."""
+    if "n_in_slo" in out:
+        return {k: out[k] for k in ("overflow_dropped", "abandoned",
+                                    "n_in_slo", "n_fresh", "n_retry")}
+    n_jobs = out["n_jobs"]
+    return dict(overflow_dropped=np.zeros_like(n_jobs),
+                abandoned=np.zeros_like(n_jobs), n_in_slo=n_jobs.copy(),
+                n_fresh=n_jobs.copy(), n_retry=np.zeros_like(n_jobs))
 
 
 def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
@@ -385,14 +527,9 @@ def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
         n_batches=out["n_batches"],
         max_queue=out["max_queue"],
         buffer_dropped=out["dropped"],
-        # a loss-free grid completes every measured arrival in SLO
-        overflow_dropped=np.zeros_like(n_jobs),
-        abandoned=np.zeros_like(n_jobs),
-        n_in_slo=n_jobs.copy(),
-        n_fresh=n_jobs.copy(),
-        n_retry=np.zeros_like(n_jobs),
         hist=out["hist"],
         hist_sums=out["hist_sums"].astype(f64) if sketch else None,
         stderr=stderr, ci_halfwidth=ci,
         n_blocks=out["lat_bm_n"],
+        **loss_fields(out),
     )

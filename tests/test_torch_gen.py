@@ -369,7 +369,8 @@ def test_unported_features_raise(what):
     kw = dict(n_steps=64, **CPU)
     extra = {}
     if what == "loss":
-        extra, match = dict(q_max=8), "3c"
+        # loss grids run; one with failures still waits for 3d
+        extra, match = dict(q_max=8, mtbf=50.0, mttr=1.0), "3d"
     elif what == "fail":
         extra, match = dict(mtbf=50.0, mttr=1.0), "3d"
     elif what == "tap":

@@ -214,8 +214,10 @@ def test_unported_features_raise(what):
     g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0)
     kw = dict(n_batches=64, **CPU)
     if what == "loss":
-        g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0, q_maxes=(8,))
-        match = "3c"
+        # loss grids run; one with failures still waits for 3d
+        g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0, q_maxes=(8,),
+                                mtbfs=(50.0,), mttrs=(1.0,))
+        match = "3d"
     elif what == "fail":
         g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0,
                                 mtbfs=(50.0,), mttrs=(1.0,))

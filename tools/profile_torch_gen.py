@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's user-size generate sweep spends its time on the GPU.
 
-    python3 tools/profile_torch_gen.py [--supersteps 3] [--out DIR]
+    python3 tools/profile_torch_gen.py [--supersteps 3] [--loss] [--out DIR]
 
 Runs the superstep loop of ``repro_torch.core.gen_sweep`` on
 ``chip_smoke.py``'s generate grid (benchmarks/continuous.py's 512
@@ -22,6 +22,11 @@ supersteps — once to warm up, once on the host clock, once under
 - ``prng_ms_per_superstep`` and ``prng_share`` — the superstep's
   Threefry draw and its float transforms alone, timed with CUDA events,
   and their share of the kernel time.
+
+With ``--loss`` it profiles the loss path instead, on
+``chip_smoke.py``'s ``gen_loss_user_size`` grid (the same points with
+loss tiles, the same caps, ``r_cap`` from the loss grid), and the draw
+includes the retry orbit's uniforms.
 
 The public ``gen_sweep`` rounds ``n_steps`` up to 2,048; this tool calls
 its loop (``gen_sweep._run``) directly so that a profile covers only a
@@ -45,7 +50,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import gen_grid, nvidia_smi  # noqa: E402
+from chip_smoke import gen_grid, gen_loss_grid, nvidia_smi  # noqa: E402
 from repro_torch.core import engine, gen_caps, prng  # noqa: E402
 
 # the module (``repro_torch.core.gen_sweep`` names the function too)
@@ -70,6 +75,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiles", type=int, default=16)
     ap.add_argument("--supersteps", type=int, default=3)
+    ap.add_argument("--loss", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -77,7 +83,10 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     grid = gen_grid(args.tiles)
-    caps = gen_caps(grid)
+    caps = dict(gen_caps(grid), r_cap=None)
+    if args.loss:
+        grid = gen_loss_grid(grid, args.tiles)
+        caps["r_cap"] = gen_caps(grid)["r_cap"]
     s_cap = int(grid.max_active.max())
     R = gen_mod._REBASE_EVERY
     kw = dict(n_steps=R * args.supersteps, warmup=0, s_cap=s_cap,
@@ -113,11 +122,16 @@ def main() -> int:
     keys = prng.point_keys(29, 0, len(grid), dev)
     lam = torch.as_tensor(grid.lam, device=dev)
 
+    streams = ((gen_mod._S_GAPS, caps["a_cap"] + 1),)
+    if args.loss:
+        streams += ((gen_mod._S_ORBIT, caps["r_cap"]),)
+
     def draw():
-        gaps = prng.draw_words(keys, 0, R, ((gen_mod._S_GAPS,
-                                             caps["a_cap"] + 1),))[0]
-        engine.exp_offsets(prng.exponential(gaps), lam).permute(
+        words = prng.draw_words(keys, 0, R, streams)
+        engine.exp_offsets(prng.exponential(words[0]), lam).permute(
             0, 2, 1).contiguous()
+        if args.loss:
+            prng.uniform(words[1])
     draw()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -130,7 +144,8 @@ def main() -> int:
     kernel_ms = busy_us / 1e3 / args.supersteps
 
     print(json.dumps({
-        "points": len(grid), "caps": caps, "supersteps": args.supersteps,
+        "points": len(grid), "loss": args.loss, "caps": caps,
+        "supersteps": args.supersteps,
         "steps_per_superstep": R,
         "wall_ms_per_superstep": plain_wall_ms / args.supersteps,
         "profiled_wall_ms_per_superstep": wall_ms / args.supersteps,

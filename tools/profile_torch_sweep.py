@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's user-size sweep spends its time on the GPU.
 
-    python3 tools/profile_torch_sweep.py [--supersteps 3] [--out DIR]
+    python3 tools/profile_torch_sweep.py [--supersteps 3] [--loss] [--out DIR]
 
 Runs ``repro_torch.core.sweep`` on the examples/sweep_grid.py grid
 (8,192 requested points → 8,160, ``q_cap=768``) once to warm up, then
@@ -21,6 +21,12 @@ under ``torch.profiler`` for a few supersteps, and prints one JSON line:
 - ``prng_ms_per_superstep`` — the superstep's Threefry draw and its
   float transforms alone, timed with CUDA events.
 
+With ``--loss`` it profiles the loss path instead, on ``chip_smoke.py``'s
+``loss_user_size`` grid (benchmarks/backpressure.py's 192 points tiled
+43 times, ``a_cap=64``, ``r_cap=96``, seed 29), and adds
+``prng_base_ms_per_superstep``: the same draw without the retry orbit's
+uniforms, so the difference is the orbit's share.
+
 With ``--out`` it also writes the Chrome trace there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
 """
@@ -39,9 +45,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import build_grid, nvidia_smi  # noqa: E402
-from repro_torch.core import engine, prng, sweep  # noqa: E402
-from repro_torch.core.sweep import _MISC_WORDS, _S_MISC, _S_SERVICE  # noqa: E402
+from chip_smoke import build_grid, loss_grid, nvidia_smi  # noqa: E402
+from repro_torch.core import engine, prng, sweep, sweep_caps  # noqa: E402
+from repro_torch.core.sweep import (_MISC_WORDS, _S_MISC,  # noqa: E402
+                                    _S_ORBIT, _S_SERVICE)
 
 
 def _device_us(evt) -> float:
@@ -57,15 +64,22 @@ def main() -> int:
     ap.add_argument("--points", type=int, default=8192)
     ap.add_argument("--q-cap", type=int, default=768)
     ap.add_argument("--supersteps", type=int, default=3)
+    ap.add_argument("--loss", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_sweep: needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    grid = build_grid(args.points)
     n_batches = 32 * args.supersteps
-    kw = dict(q_cap=args.q_cap, seed=0, device=dev)
+    if args.loss:
+        grid = loss_grid()
+        kw = dict(a_cap=64, r_cap=96, seed=29, device=dev)
+        q_cap, a_cap = sweep_caps(grid)["q_cap"], 64
+    else:
+        grid = build_grid(args.points)
+        kw = dict(q_cap=args.q_cap, seed=0, device=dev)
+        q_cap = a_cap = args.q_cap
     sweep(grid, n_batches=n_batches, **kw)          # build + warm up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -90,26 +104,36 @@ def main() -> int:
         prof.export_chrome_trace(str(args.out / "sweep_trace.json"))
 
     # the superstep's random draw and its transforms alone
-    keys = prng.point_keys(0, 0, len(grid), dev)
+    keys = prng.point_keys(kw["seed"], 0, len(grid), dev)
     lam = torch.as_tensor(grid.lam, device=dev)
-    a_cap = args.q_cap
+    base = ((_S_MISC, _MISC_WORDS), (_S_SERVICE, a_cap + 1))
 
-    def draw():
-        misc, serv = prng.draw_words(keys, 0, 32, ((_S_MISC, _MISC_WORDS),
-                                                  (_S_SERVICE, a_cap + 1)))
-        prng.exponential(misc[:, 0])
-        engine.exp_offsets(prng.exponential(serv), lam)
-    draw()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
+    def draw_ms(streams) -> float:
+        def draw():
+            words = prng.draw_words(keys, 0, 32, streams)
+            prng.exponential(words[0][:, 0])
+            engine.exp_offsets(prng.exponential(words[1]), lam)
+            if len(words) > 2:
+                prng.uniform(words[2])
         draw()
-    end.record()
-    end.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            draw()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 3
+
+    extra = {}
+    if args.loss:
+        extra["prng_base_ms_per_superstep"] = draw_ms(base)
+        prng_ms = draw_ms(base + ((_S_ORBIT, kw["r_cap"]),))
+    else:
+        prng_ms = draw_ms(base)
 
     print(json.dumps({
-        "points": len(grid), "q_cap": args.q_cap,
+        "points": len(grid), "loss": args.loss, "q_cap": q_cap,
         "supersteps": args.supersteps,
         "wall_ms_per_superstep": plain_wall_ms / args.supersteps,
         "profiled_wall_ms_per_superstep": wall_ms / args.supersteps,
@@ -120,7 +144,7 @@ def main() -> int:
                          "ms_total": _device_us(e) / 1e3} for e in top],
         "hist_update_ms": (sum(_device_us(e) for e in hist) / 1e3
                            / max(1, sum(e.count for e in hist))),
-        "prng_ms_per_superstep": start.elapsed_time(end) / 3,
+        "prng_ms_per_superstep": prng_ms, **extra,
         "nvidia_smi": nvidia_smi(),
     }), flush=True)
     return 0
