@@ -107,7 +107,49 @@ printing one JSON line per phase:
                    fifo_compact inputs (rows of the loss buffer length)
                    timed as ``path_kernel`` lines.
 
-13. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
+13. fail_contracts — the failure paths on the card: the mtbf = 0
+                   points of a failure grid bitwise equal to the
+                   failure-free path (the sweep with and without a drop
+                   point, the generate sweep without), split dispatch with
+                   failures bitwise (caps pinned from the full grid) and
+                   an unpinned chunk refused, tests/test_failures.py's
+                   seed ladders (resume, restart, and drop with throttle
+                   0.85; 6 copies each, both sweeps) against the port's
+                   ``loss_ref`` failure mirrors on 3 seeds, 3σ with floors
+                   of 1.5% and 0.004, resume and restart (8 copies each)
+                   against the port's exact completion-time chain, the
+                   exact accounting laws, no truncated failure count and
+                   resume's breakdowns at rate 1/MTBF over the busy
+                   time, one hist_update (and fifo_compact) launch per
+                   superstep.
+14. fail_user_size — benchmarks/availability.py's single-server cells
+                   (V100 law, b_max 8: 2 ρ × 3 (mtbf, mttr) pairs × 3
+                   disciplines and 8 resume chain cells = 26) tiled 316
+                   times into 8,216 points, n_batches=3000, q_cap sized
+                   as the benchmark sizes it and a_cap = q_cap, r_cap 64,
+                   seed 31: two runs bitwise equal, no buffer drops,
+                   no truncated failure count, resume's breakdowns at
+                   rate 1/MTBF, availability and the fractions' sum; the harsh/baseline
+                   latency ratio per discipline at ρ 0.75 and the chain
+                   cells' |z| against the port's chain, as tile means;
+                   wall time (first and warm), jobs/s, peak memory.
+                   Superstep 60's hist_update block, from a third untimed
+                   run, timed as a ``path_kernel`` line.
+15. gen_fail_user_size — ``gen_user_size``'s grid with failure tiles
+                   (0–3 failure-free, 4–7 resume and 12–15 drop at mtbf
+                   200 / mttr 5 ms, 8–11 restart at mtbf 20,000, odd
+                   tiles throttle 0.85) and its own ``gen_caps``: tiles
+                   0–3 bitwise equal to a failure-free run of the same
+                   points with those caps pinned, no drops, no truncated
+                   failure count, resume's breakdowns at rate 1/MTBF,
+                   the longest static run's resume copies against the
+                   mirror, the bands' availability, work loss and
+                   abandonment, launch
+                   counts, wall time and requests/s of one run;
+                   superstep 160's hist_update and fifo_compact inputs
+                   timed as ``path_kernel`` lines.
+
+16. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
                    against their plain versions (float32 matmuls, TF32
                    off): at the serve path's shapes (batch 1…32, prompt
                    32, cache 37, 16 heads of 64, bf16), at the long
@@ -121,24 +163,24 @@ printing one JSON line per phase:
                    launched twice with bitwise equal outputs; kernel,
                    plain, library (``scaled_dot_product_attention``) and
                    bound times at the serve, long and batch-1 shapes.
-14. serve        — ``python -m repro_torch.launch.serve --arch
+17. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b] per bucket,
                    α, τ0, R², E[W] against φ, p99, utilisation, peak
                    memory, and exactly 24 ``flash_attention`` and 24 × 4
                    ``decode_attention`` launches per batch.
-15. serve_long   — the same model generating 32 tokens after a 1,024-
+18. serve_long   — the same model generating 32 tokens after a 1,024-
                    token prompt, ``calibrate(samples=3)`` on batches
                    1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
                    α, τ0, R², E[W] against φ, p99, peak memory, exact
                    launch counts.
-16. model_consistency — qwen1.5-0.5b at full width in float32 from the
+19. model_consistency — qwen1.5-0.5b at full width in float32 from the
                    port's seeded init, batch 2: prefill(32) and three
                    decode steps against the forward logits of all 35
                    tokens, within 3e-4 (abs + rel): the two kernels held
                    against each other through the whole model.
-17. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
+20. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
                    (float32 matmuls) at mamba2-2.7b's heads (80 × 64,
                    d_state 128, one group, B and C strided slices of
                    one activation as in the model): the serve shape
@@ -154,14 +196,14 @@ printing one JSON line per phase:
                    state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
                    SSD, so no library time).
-18. serve_ssm    — ``python -m repro_torch.launch.serve --arch
+21. serve_ssm    — ``python -m repro_torch.launch.serve --arch
                    mamba2-2.7b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b], α, τ0, R²,
                    E[W] against φ, p99, utilisation, peak memory, and
                    exactly 64 ``ssd_scan`` launches and no attention
                    launch per batch.
-19. ssm_consistency — mamba2-2.7b at full width in float32 from the
+22. ssm_consistency — mamba2-2.7b at full width in float32 from the
                    port's seeded init, batch 2: prefill(300), which
                    crosses a 256-token chunk, and three decode steps
                    against the forward logits of all 303 tokens, within
@@ -174,8 +216,8 @@ launches of that path's user-size run beside the times at that path's
 shape; the ``hist_update`` and ``fifo_compact`` rows add ``path_ms``,
 ``path_plain_ms``, ``path_bound_ms`` and ``path_library_ms`` from the
 path's own block, and ``bound_ms_bytes4`` beside each recounted
-bound; the loss paths' rows time B1 and B2 on their captured blocks
-only), the nvidia-smi line, and the last
+bound; the loss and failure paths' rows time B1 and B2 on their
+captured blocks only), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -201,7 +243,8 @@ from repro_torch.core import (  # noqa: E402
     sweep, sweep_caps)
 from repro_torch.core.analytic import (  # noqa: E402
     LinearServiceModel, mean_batch_lower, phi, stability_limit)
-from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import engine, prng  # noqa: E402
+from repro_torch.core.markov import solve as markov_solve  # noqa: E402
 from repro_torch.core.continuous_sim import (  # noqa: E402
     simulate_continuous_numpy)
 from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
@@ -1340,6 +1383,473 @@ def phase_gen_loss_user_size(dev, grid: GenGrid, base, n_steps: int = 4096,
                                "fifo_compact")
 
 
+# tests/test_failures.py's seed ladders: (fail_disc, mtbf, mttr,
+# throttle, lam) on MODEL_BP at b_max 8, and (fail_disc, mtbf, mttr) at
+# FAIL_GEN_LAM on GEN_MODEL (prompt 128, 32 tokens, max_active 64)
+FAIL_SW_CFG = [("resume", 8.0, 0.5, 1.0, 4.0),
+               ("restart", 8.0, 0.5, 1.0, 4.0),
+               ("drop", 8.0, 0.5, 0.85, 4.0)]
+FAIL_GEN_CFG = [("resume", 200.0, 5.0), ("restart", 200.0, 5.0),
+                ("drop", 200.0, 5.0)]
+FAIL_GEN_LAM = 0.7 / (GEN_MODEL.alpha_decode * 32
+                      + GEN_MODEL.alpha_prefill * GEN_PROMPT)
+FAIL_FIELDS = ("mean_latency", "utilization", "availability",
+               "work_loss_frac")
+# benchmarks/availability.py's single-server cells on the V100 law:
+# (mtbf, mttr) in ms — failure-free, mild, harsh — under each
+# discipline, and the chain cross-check's resume cells
+AV_B_MAX = 8
+AV_RHOS = [0.5, 0.75]
+AV_FAIL_PAIRS = [(0.0, 0.0), (250.0, 12.0), (60.0, 12.0)]
+AV_DISCS = ("resume", "restart", "drop")
+AV_CHAIN_RHOS = [0.4, 0.6]
+AV_CHAIN_PAIRS = [(40.0, 2.0), (10.0, 2.0), (60.0, 4.0), (20.0, 4.0)]
+
+
+def check_fail_block(r, mtbf, resume, what: str) -> dict:
+    """The failure block's witness and its law: no step's failure count
+    was truncated (``fail_truncated``), and on the resume points
+    (``resume`` mask) the measured breakdowns arrive at rate 1/MTBF over
+    the measured busy time, within 3√n (a truncated count falls
+    short)."""
+    check(int(r.fail_truncated.sum()) == 0, f"{what}: fail_truncated == 0")
+    resume = np.asarray(resume, bool)
+    busy = (np.asarray(r.utilization, float) * np.asarray(r.span, float))
+    want = float((busy[resume] / np.asarray(mtbf, float)[resume]).sum())
+    got = float(r.n_failures[resume].sum())
+    z = (got - want) / math.sqrt(max(want, 1.0))
+    check(abs(z) < 3.0, f"{what}: resume breakdowns {got} vs busy/MTBF "
+          f"{want} (z={z})")
+    return dict(resume_failures=got, busy_over_mtbf=want, z=z)
+
+
+def check_fail_accounting(r, discs, what: str) -> None:
+    """tests/test_failures.py's exact accounting laws on a failure run
+    whose points all fail (``discs`` names each point's discipline)."""
+    discs = np.asarray(discs)
+    check(int(r.buffer_dropped.sum()) == 0, f"{what}: buffer_dropped == 0")
+    check(int(r.fail_truncated.sum()) == 0, f"{what}: fail_truncated == 0")
+    av = np.asarray(r.availability, float)
+    check(bool(np.all((av > 0.0) & (av <= 1.0))), f"{what}: 0 < avail <= 1")
+    check(bool(np.allclose(av, 1.0 - r.down_time / r.span)),
+          f"{what}: availability = 1 - down_time / span")
+    wl = np.asarray(r.work_loss_frac, float)
+    check(bool(np.all((wl >= 0.0) & (wl < 1.0))), f"{what}: 0 <= wl < 1")
+    check(bool(np.all(r.n_failures > 0) and np.all(r.down_time > 0.0)),
+          f"{what}: every point failed and was repaired")
+    lost = np.asarray(r.lost_work, float)
+    check(bool(np.all(lost[discs == "resume"] == 0.0)
+               and np.all(lost[discs != "resume"] > 0.0)),
+          f"{what}: resume loses no work, restart and drop do")
+    drop = discs == "drop"
+    total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+    check(bool(np.allclose(total, 1.0, atol=1e-6)),
+          f"{what}: the four fractions sum to 1")
+    check(bool(np.all(r.abandoned[drop] > 0)
+               and int(r.abandoned[~drop].sum()) == 0),
+          f"{what}: only drop's aborted jobs are abandoned")
+
+
+NEUTRAL_FIELDS = ("mean_latency", "mean_batch", "batch_m2", "utilization",
+                  "n_jobs", "hist", "latency_p50", "latency_p99",
+                  "max_queue", "stderr")
+
+
+def phase_fail_contracts(dev) -> None:
+    """The failure paths' bitwise contracts, seed ladders and exact
+    chain on the card."""
+    m = GEN_MODEL
+    # mtbf = 0 points of a failure grid (with a drop point, a loss grid
+    # too) give the failure-free path's bits at pinned caps; the
+    # generate sweep's drop grid is gen_fail_user_size's, at full width
+    for with_loss in (False, True):
+        discs = ["drop" if with_loss else "restart", "resume", "resume"]
+        g = SweepGrid.from_points(
+            [4.0, 3.0, 2.0], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
+            fail_disc=discs, mtbf=[8.0, 0.0, 0.0], mttr=[0.5, 0.0, 0.0],
+            throttle=[0.85, 1.0, 1.0])
+        kw = dict(n_batches=1024, q_cap=64, a_cap=64, seed=11, device=dev)
+        gg = GenGrid.from_points(
+            [FAIL_GEN_LAM, 0.8 * FAIL_GEN_LAM, 0.6 * FAIL_GEN_LAM],
+            m.alpha_decode, m.tau0_decode, m.alpha_prefill, m.tau0_prefill,
+            prompt_len=GEN_PROMPT, gen_tokens=32, max_active=[64, 32, 16],
+            discipline=["continuous", "continuous", "static"],
+            fail_disc=discs, mtbf=[200.0, 0.0, 0.0], mttr=[5.0, 0.0, 0.0])
+        gkw = dict(n_steps=1024, q_cap=64, a_cap=96, seed=13, device=dev)
+        pairs = {"sweep": (sweep(g, r_cap=32, **kw),
+                           sweep(g.take(slice(1, None)), key_offset=1, **kw))}
+        if not with_loss:
+            pairs["gen"] = (gen_sweep(gg, r_cap=32, **gkw),
+                            gen_sweep(gg.take(slice(1, None)), key_offset=1,
+                                      **gkw))
+        for name, (mx, bs) in pairs.items():
+            for f in NEUTRAL_FIELDS:
+                check(np.array_equal(getattr(mx, f)[1:], getattr(bs, f),
+                                     equal_nan=True),
+                      f"{name} mtbf=0 points bitwise equal to the base "
+                      f"path on {f} (loss={with_loss})")
+            check(int(mx.n_failures[0]) > 0
+                  and int(mx.n_failures[1:].sum()) == 0
+                  and bool(np.all(mx.availability[1:] == 1.0)),
+                  f"{name}: failures on the failing point only")
+
+    # split dispatch with failures: chunks with key_offset and every
+    # cap pinned from the full grid; an unpinned chunk is refused
+    discs = ["resume", "restart", "drop", "resume"]
+    g = SweepGrid.from_points(
+        [4.0, 3.5, 3.0, 2.5], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
+        fail_disc=discs, mtbf=[8.0, 8.0, 8.0, 0.0], mttr=[0.5, 0.5, 0.5, 0.0],
+        throttle=[1.0, 0.85, 1.0, 1.0], dist=["det", "gamma"] * 2)
+    gg = GenGrid.from_points(
+        [FAIL_GEN_LAM] * 4, m.alpha_decode, m.tau0_decode, m.alpha_prefill,
+        m.tau0_prefill, prompt_len=GEN_PROMPT, gen_tokens=32,
+        max_active=[64, 32, 64, 16],
+        discipline=["continuous", "static", "continuous", "static"],
+        fail_disc=discs, mtbf=[200.0, 200.0, 200.0, 0.0],
+        mttr=[5.0, 5.0, 5.0, 0.0], throttle=[0.85, 1.0, 1.0, 1.0])
+    for name, run, grid, kw in (
+            ("sweep", sweep, g, dict(n_batches=512, seed=11,
+                                     **sweep_caps(g))),
+            ("gen", gen_sweep, gg, dict(n_steps=1024, seed=13,
+                                        **gen_caps(gg)))):
+        whole = run(grid, device=dev, **kw)
+        a = run(grid.take(slice(0, 2)), device=dev, **kw)
+        b = run(grid.take(slice(2, None)), key_offset=2, device=dev, **kw)
+        for f in ("mean_latency", "n_jobs", "hist", "n_failures",
+                  "down_time", "lost_work", "utilization", "abandoned",
+                  "fail_truncated"):
+            split = np.concatenate([getattr(a, f), getattr(b, f)])
+            check(np.array_equal(getattr(whole, f), split),
+                  f"{name} split dispatch with failures bitwise on {f}")
+        kw.pop("q_cap")
+        try:
+            run(grid.take(slice(2, None)), key_offset=2, device=dev, **kw)
+        except ValueError as e:
+            check("q_cap" in str(e), f"{name}: unpinned chunk refused: {e}")
+        else:
+            check(False, f"{name}: an unpinned chunk of a failure grid ran")
+
+    # the seed ladders against the port's own numpy mirrors; each run
+    # launches hist_update (and fifo_compact) once per superstep
+    ladders = {}
+    cfg = [c for c in FAIL_SW_CFG for _ in range(6)]
+    g = SweepGrid.from_points(
+        [c[4] for c in cfg], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
+        fail_disc=[c[0] for c in cfg], mtbf=[c[1] for c in cfg],
+        mttr=[c[2] for c in cfg], throttle=[c[3] for c in cfg])
+    r = _counted(lambda: sweep(g, n_batches=4000, q_cap=64, a_cap=64,
+                               r_cap=64, seed=11, device=dev),
+                 -(-4000 // 32), "sweep failure ladder")
+    check_fail_accounting(r, [c[0] for c in cfg], "sweep failure ladder")
+    blocks = {"sweep": check_fail_block(
+        r, g.mtbf, np.array([c[0] for c in cfg]) == "resume",
+        "sweep failure ladder")}
+    for ci, (disc, mtbf, mttr, thr, lam) in enumerate(FAIL_SW_CFG):
+        refs = [simulate_loss_numpy(lam, MODEL_BP, 8, mtbf=mtbf, mttr=mttr,
+                                    fail_disc=disc, throttle=thr, q_cap=64,
+                                    r_cap=64, n_batches=15_000, seed=s)
+                for s in range(3)]
+        sl = slice(ci * 6, (ci + 1) * 6)
+        ladders[f"sweep_{disc}"] = {f: _gate_ladder(
+            np.asarray(getattr(r, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"sweep {disc} {f}")
+            for f in FAIL_FIELDS}
+    cfg = [c for c in FAIL_GEN_CFG for _ in range(6)]
+    gg = GenGrid.from_points(
+        [FAIL_GEN_LAM] * len(cfg), m.alpha_decode, m.tau0_decode,
+        m.alpha_prefill, m.tau0_prefill, prompt_len=GEN_PROMPT,
+        gen_tokens=32, max_active=64, fail_disc=[c[0] for c in cfg],
+        mtbf=[c[1] for c in cfg], mttr=[c[2] for c in cfg])
+    r = _counted(lambda: gen_sweep(gg, n_steps=4096, q_cap=96, a_cap=96,
+                                   r_cap=64, seed=5, device=dev),
+                 4096 // 16, "gen failure ladder", compact=True)
+    check_fail_accounting(r, [c[0] for c in cfg], "gen failure ladder")
+    blocks["gen"] = check_fail_block(
+        r, gg.mtbf, np.array([c[0] for c in cfg]) == "resume",
+        "gen failure ladder")
+    for ci, (disc, mtbf, mttr) in enumerate(FAIL_GEN_CFG):
+        refs = [simulate_gen_loss_numpy(
+            FAIL_GEN_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
+            max_active=64, mtbf=mtbf, mttr=mttr, fail_disc=disc, q_cap=96,
+            r_cap=64, n_steps=20_000, seed=s) for s in range(3)]
+        sl = slice(ci * 6, (ci + 1) * 6)
+        ladders[f"gen_{disc}"] = {f: _gate_ladder(
+            np.asarray(getattr(r, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"gen {disc} {f}")
+            for f in FAIL_FIELDS}
+
+    # resume and restart against the exact completion-time chain
+    # (tests/test_failures.py's TestChainVsMC), 8 copies each
+    lam, mtbf, mttr = 3.0, 8.0, 0.5
+    g = SweepGrid.from_points([lam] * 16, MODEL_BP.alpha, MODEL_BP.tau0,
+                              b_max=8, fail_disc=["resume"] * 8
+                              + ["restart"] * 8, mtbf=mtbf, mttr=mttr)
+    r = sweep(g, n_batches=4000, q_cap=64, a_cap=64, seed=3, device=dev)
+    blocks["chain"] = check_fail_block(r, g.mtbf, np.arange(16) < 8,
+                                       "chain cells")
+    chain = {}
+    for i, disc in enumerate(("resume", "restart")):
+        ex = markov_solve(lam, MODEL_BP, b_max=8, mtbf=mtbf, mttr=mttr,
+                          fail_disc=disc)
+        lat = np.asarray(r.mean_latency[i * 8:(i + 1) * 8], float)
+        se = max(lat.std(ddof=1) / math.sqrt(8), 0.003 * ex.mean_latency)
+        z = (lat.mean() - ex.mean_latency) / se
+        av = float(np.mean(r.availability[i * 8:(i + 1) * 8]))
+        check(abs(z) < 3.0, f"{disc}: E[W] {lat.mean()} vs chain "
+              f"{ex.mean_latency} (z={z})")
+        check(abs(av - ex.availability) < 0.01,
+              f"{disc}: availability {av} vs chain {ex.availability}")
+        chain[disc] = dict(kernel=float(lat.mean()), chain=ex.mean_latency,
+                           z=float(z), availability=av,
+                           chain_availability=ex.availability)
+    emit("fail_contracts", neutral_bitwise=True, split_bitwise=True,
+         accounting=True, launches_per_superstep=True, ladders=ladders,
+         chain=chain, fail_block=blocks)
+
+
+def fail_grid(tiles: int = 316) -> tuple:
+    """benchmarks/availability.py's single-server cells — 2 ρ × 3
+    (mtbf, mttr) pairs × 3 disciplines and the 2 × 4 resume chain cells,
+    26 in all — on the V100 law at b_max 8, tiled ``tiles`` times: the
+    copies of a cell differ only in their global index, so they form a
+    seed ladder.  Returns the grid and the cells."""
+    cap = AV_B_MAX / (V100[0] * AV_B_MAX + V100[1])
+    cells = [(rho, mb, mr, d) for rho in AV_RHOS
+             for (mb, mr) in AV_FAIL_PAIRS for d in AV_DISCS]
+    cells += [(rho, mb, mr, "resume") for rho in AV_CHAIN_RHOS
+              for (mb, mr) in AV_CHAIN_PAIRS]
+    base = SweepGrid.from_points(
+        [c[0] * cap for c in cells], V100[0], V100[1], b_max=AV_B_MAX,
+        mtbf=[c[1] for c in cells], mttr=[c[2] for c in cells],
+        fail_disc=[c[3] for c in cells])
+    return base.take(np.tile(np.arange(len(base)), tiles)), cells
+
+
+def phase_fail_user_size(dev, tiles: int = 316, n_batches: int = 3000,
+                         capture_at: int = 60) -> tuple:
+    """The availability benchmark's single-server grid at 8,216 points:
+    q_cap sized as the benchmark sizes it (the worst cell's completion
+    law, restart at the harsh pair), a_cap = q_cap (``sweep_caps``' rule
+    for failure grids: a failed batch's completion has no bound), r_cap
+    64, seed 31.  Returns the record, the hist_update launches and the
+    path block of superstep ``capture_at``."""
+    grid, cells = fail_grid(tiles)
+    n_base = len(cells)
+    cap = AV_B_MAX / (V100[0] * AV_B_MAX + V100[1])
+    q_cap = engine.queue_capacity(max(AV_RHOS) * cap, V100[0], V100[1],
+                                  AV_B_MAX, mtbf=60.0, mttr=12.0,
+                                  restart=True)
+    kw = dict(n_batches=n_batches, q_cap=q_cap, a_cap=q_cap, r_cap=64,
+              seed=31, device=dev)
+    supersteps = -(-n_batches // 32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: sweep(grid, **kw), supersteps,
+                 "failure user-size sweep")
+    first_s = time.perf_counter() - t0
+    launches = ss.hist_update.launches
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r2 = sweep(grid, **kw)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for f in ("hist", "mean_latency", "n_failures", "down_time",
+              "lost_work", "abandoned"):
+        check(np.array_equal(getattr(r, f), getattr(r2, f)),
+              f"two failure user-size runs give the same bits on {f}")
+    check(int(r.buffer_dropped.sum()) == 0,
+          "failure user-size buffer_dropped == 0")
+    fail_block = check_fail_block(
+        r, grid.mtbf, np.array([c[3] == "resume" and c[1] > 0
+                                for c in cells] * tiles),
+        "failure user-size")
+    total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+    check(bool(np.allclose(total, 1.0, atol=1e-6)),
+          "failure user-size: the four fractions sum to 1")
+    failing = np.array([c[1] > 0 for c in cells] * tiles)
+    av = np.asarray(r.availability, float)
+    check(bool(np.all(av[~failing] == 1.0)
+               and np.all((av[failing] > 0.0) & (av[failing] < 1.0))),
+          "failure user-size: availability 1 without failures, in (0, 1) "
+          "with them")
+
+    def index(rho, pair, disc) -> int:
+        (i,) = [j for j, c in enumerate(cells)
+                if c == (rho, pair[0], pair[1], disc)]
+        return i
+
+    # the benchmark's frontier: each discipline at the harsh pair
+    # against its failure-free cell, ρ 0.75, as tile means
+    frontier = {}
+    for disc in AV_DISCS:
+        i = index(0.75, (60.0, 12.0), disc)
+        i0 = index(0.75, (0.0, 0.0), disc)
+        lat = np.asarray(r.mean_latency, float)
+        ratio = lat[i::n_base] / lat[i0::n_base]
+        frontier[disc] = dict(
+            latency_ratio=_tile_stats(ratio, 1, 0),
+            availability=_tile_stats(r.availability, n_base, i),
+            work_loss_frac=_tile_stats(r.work_loss_frac, n_base, i),
+            abandon_frac=_tile_stats(r.abandon_frac, n_base, i))
+    check(frontier["restart"]["work_loss_frac"]["mean"]
+          > frontier["resume"]["work_loss_frac"]["mean"] == 0.0,
+          f"restart loses work, resume none: {frontier}")
+    # the chain cells against the port's exact completion-time chain
+    chain = []
+    for rho, (mb, mr) in ((rho, p) for rho in AV_CHAIN_RHOS
+                          for p in AV_CHAIN_PAIRS):
+        i = index(rho, (mb, mr), "resume")
+        ex = markov_solve(float(grid.lam[i]),
+                          LinearServiceModel(*V100), b_max=AV_B_MAX,
+                          mtbf=mb, mttr=mr, fail_disc="resume")
+        lat = np.asarray(r.mean_latency, float)[i::n_base]
+        se = max(lat.std(ddof=1) / math.sqrt(tiles),
+                 0.003 * ex.mean_latency)
+        chain.append(dict(
+            rho=rho, mtbf=mb, mttr=mr, kernel=float(lat.mean()),
+            chain=ex.mean_latency, z=float((lat.mean() - ex.mean_latency)
+                                           / se),
+            availability=float(np.mean(r.availability[i::n_base])),
+            chain_availability=ex.availability))
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(grid), tiles=tiles, n_batches=n_batches,
+               caps=dict(q_cap=q_cap, a_cap=q_cap, r_cap=64,
+                         sweep_caps=sweep_caps(grid)),
+               fail_block=fail_block,
+               first_call_s=first_s, warm_s=warm_s, jobs=jobs,
+               jobs_per_s_warm=jobs / warm_s, peak_mem_bytes=peak,
+               launches=launches, supersteps=supersteps, buffer_dropped=0,
+               frontier_rho_0_75=frontier, chain=chain,
+               chain_max_abs_z=max(abs(c["z"]) for c in chain),
+               chain_availability_max_abs_err=max(
+                   abs(c["availability"] - c["chain_availability"])
+                   for c in chain))
+    emit("fail_user_size", **out)
+    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
+                            "hist_update")
+    return out, launches, blocks["hist_update"]
+
+
+# the generate failure tiles: mtbf and mttr (ms) by discipline.  Resume
+# and drop take GEN_CFG's 200 and 5; restart at 200 is unstable on this
+# grid's static runs of up to ≈ 3.1 s (15 MTBFs: completion inflation
+# e^15, gen_caps q_cap 8,192), so restart takes 20,000 (0.15 MTBFs a
+# run at most), where it is stable and still fails on the long runs
+GEN_FAIL_PAIRS = {"resume": (200.0, 5.0), "restart": (20_000.0, 5.0),
+                  "drop": (200.0, 5.0)}
+# the grid's longest run: the static gen-256 cap-64 point at ρ 0.85,
+# 15 resume MTBFs a run, held against the mirror (which draws the
+# breakdown count unbounded) on its resume tiles at throttle 1
+GEN_LONG = (0.85, 256, 64, "static")
+
+
+def gen_fail_grid(grid: GenGrid, tiles: int = 16) -> GenGrid:
+    """``gen_grid``'s points with failure axes by tile: tiles 0–3
+    failure-free, 4–7 resume, 8–11 restart, 12–15 drop
+    (``GEN_FAIL_PAIRS``), odd tiles degraded after a repair (throttle
+    0.85)."""
+    n = len(grid)
+    tile = np.arange(n) // (n // tiles)
+    band = np.clip(tile // (tiles // 4) - 1, -1, 2)
+    names = np.array(AV_DISCS)[np.clip(band, 0, 2)]
+    mtbf = np.array([GEN_FAIL_PAIRS[d][0] for d in names])
+    mttr = np.array([GEN_FAIL_PAIRS[d][1] for d in names])
+    return dataclasses.replace(
+        grid, mtbf=np.where(band >= 0, mtbf, 0.0).astype(np.float32),
+        mttr=np.where(band >= 0, mttr, 0.0).astype(np.float32),
+        fail_disc=np.clip(band, 0, 2).astype(np.int32),
+        throttle=np.where((band >= 0) & (tile % 2 == 1), 0.85,
+                          1.0).astype(np.float32))
+
+
+def phase_gen_fail_user_size(dev, grid: GenGrid, n_steps: int = 4096,
+                             capture_at: int = 160) -> tuple:
+    """The generate sweep's failure path at full width: ``gen_grid``
+    with failure tiles and its own ``gen_caps``; tiles 0–3 bitwise equal
+    to a failure-free run of the same points with those caps pinned.
+    One timed run (the eager loop has nothing to warm: the other
+    generate phases' first and warm calls differ by the host's noise).
+    Returns the record and the path blocks of superstep
+    ``capture_at``."""
+    fgrid = gen_fail_grid(grid)
+    caps = gen_caps(fgrid)
+    kw = dict(n_steps=n_steps, seed=29, device=dev, **caps)
+    supersteps = n_steps // 16
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: gen_sweep(fgrid, **kw), supersteps,
+                 "gen failure user-size sweep", compact=True)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"hist_update": ss.hist_update.launches,
+                "fifo_compact": ss.fifo_compact.launches}
+    check(int(r.buffer_dropped.sum()) == 0,
+          "gen failure user-size buffer_dropped == 0")
+    fail_block = check_fail_block(
+        r, fgrid.mtbf, (fgrid.mtbf > 0) & (fgrid.fail_disc == 0),
+        "gen failure user-size")
+    # the longest run's resume copies at throttle 1 (tiles 4 and 6)
+    # against the mirror
+    i0 = gen_index(*GEN_LONG)
+    per_tile = len(grid) // 16
+    long_i = [i0 + tile * per_tile for tile in (4, 6)]
+    check(bool(np.all(fgrid.mtbf[long_i] == GEN_FAIL_PAIRS["resume"][0])
+               and np.all(fgrid.fail_disc[long_i] == 0)
+               and np.all(fgrid.throttle[long_i] == 1.0)),
+          "the long-run copies are resume at throttle 1")
+    mirror = [simulate_gen_loss_numpy(
+        float(fgrid.lam[i0]), GEN_MODEL, prompt_len=GEN_PROMPT,
+        gen_tokens=GEN_LONG[1], max_active=GEN_LONG[2],
+        discipline=GEN_LONG[3], mtbf=GEN_FAIL_PAIRS["resume"][0],
+        mttr=GEN_FAIL_PAIRS["resume"][1], fail_disc="resume",
+        q_cap=caps["q_cap"], n_steps=12_000, seed=s) for s in range(3)]
+    long_run = {f: _gate_ladder(
+        np.asarray(getattr(r, f)[long_i], float),
+        np.array([getattr(x, f) for x in mirror]), f"gen long resume {f}")
+        for f in FAIL_FIELDS}
+    total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+    check(bool(np.allclose(total, 1.0, atol=1e-6)),
+          "gen failure user-size: the four fractions sum to 1")
+    per = len(grid) // 4
+    neutral = slice(0, per)
+    check(bool(np.all(fgrid.mtbf[neutral] == 0)), "tiles 0-3 failure-free")
+    base = gen_sweep(grid.take(neutral), n_steps=n_steps, seed=29,
+                     device=dev, q_cap=caps["q_cap"], a_cap=caps["a_cap"])
+    for f in ("mean_latency", "mean_batch", "batch_m2", "utilization",
+              "n_jobs", "n_steps", "max_queue", "hist", "stderr"):
+        check(np.array_equal(getattr(r, f)[neutral], getattr(base, f),
+                             equal_nan=True),
+              f"gen failure tiles 0-3 bitwise equal to a failure-free run "
+              f"on {f}")
+    bands = {}
+    for bi, name in enumerate(("failure_free",) + AV_DISCS):
+        sl = slice(bi * per, (bi + 1) * per)
+        bands[name] = {f: float(np.mean(getattr(r, f)[sl])) for f in (
+            "availability", "work_loss_frac", "abandon_frac",
+            "mean_latency", "utilization")}
+        bands[name]["n_failures"] = int(r.n_failures[sl].sum())
+    check(bands["failure_free"]["availability"] == 1.0
+          and all(bands[d]["n_failures"] > 0 for d in AV_DISCS)
+          and bands["resume"]["work_loss_frac"] == 0.0
+          and bands["drop"]["abandon_frac"] > 0.0,
+          f"the failure bands show their regimes: {bands}")
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(fgrid), n_steps=n_steps, caps=caps,
+               pairs=GEN_FAIL_PAIRS,
+               buffer_length=buffer_length(caps["q_cap"], caps["a_cap"],
+                                           int(grid.max_active.max()),
+                                           caps["r_cap"]),
+               wall_s=wall_s, requests=jobs, requests_per_s=jobs / wall_s,
+               peak_mem_bytes=peak, launches=launches,
+               supersteps=supersteps, buffer_dropped=0,
+               neutral_tiles_bitwise=True, bands=bands,
+               fail_block=fail_block, long_resume_vs_mirror=long_run)
+    emit("gen_fail_user_size", **out)
+    return out, capture_blocks(lambda: gen_sweep(fgrid, **kw), capture_at,
+                               "fifo_compact")
+
+
 def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False):
     gen = torch.Generator(device=dev).manual_seed(seed)
     qshape = (b, h, hd) if decode else (b, s, h, hd)
@@ -1938,6 +2448,18 @@ def main() -> int:
                                        emit_as="path_kernel")
     del captured, blocks, gen_base
     torch.cuda.empty_cache()
+    phase("fail_contracts", phase_fail_contracts, dev)
+    _, fail_launches, captured = phase("fail_user_size",
+                                          phase_fail_user_size, dev)
+    fail_path = path_hist(dev, captured, "sweep_fail_path")
+    gen_fail, blocks = phase("gen_fail_user_size", phase_gen_fail_user_size,
+                             dev, grid)
+    gen_fail_path = path_hist(dev, blocks["hist_update"], "gen_fail_path")
+    compact_fail_path = compact_report(dev, *blocks["fifo_compact"][0],
+                                       "gen_fail_path",
+                                       emit_as="path_kernel")
+    del captured, blocks
+    torch.cuda.empty_cache()
     attn = phase("attn_kernel", phase_attn_kernel, dev)
     served = phase("serve", phase_serve, dev)
     phase("serve_long", phase_serve_long, dev)
@@ -1989,6 +2511,17 @@ def main() -> int:
         _kernel_row("fifo_compact", "gen_loss_user_size",
                     gen_loss["launches"]["fifo_compact"], compact_loss_path,
                     **_path_keys(compact_loss_path)),
+        # the failure paths, timed on their own captured blocks
+        _kernel_row("hist_update", "sweep_fail_user_size", fail_launches,
+                    fail_path, bound_ms_bytes4=fail_path["bound_ms_bytes4"],
+                    **_path_keys(fail_path)),
+        _kernel_row("hist_update", "gen_fail_user_size",
+                    gen_fail["launches"]["hist_update"], gen_fail_path,
+                    bound_ms_bytes4=gen_fail_path["bound_ms_bytes4"],
+                    **_path_keys(gen_fail_path)),
+        _kernel_row("fifo_compact", "gen_fail_user_size",
+                    gen_fail["launches"]["fifo_compact"], compact_fail_path,
+                    **_path_keys(compact_fail_path)),
         *(_kernel_row(
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},

@@ -1,8 +1,10 @@
 """The port's queueing core: the paper's closed forms, the grid and
 result records, the PyTorch Monte Carlo sweep behind
 ``evaluate(grid, backend="sweep")``, the token-level generate sweep
-behind ``evaluate(grid, backend="gen")``, and the batching policies and
-linear-fit calibration of the serving engine."""
+behind ``evaluate(grid, backend="gen")``, the exact references they are
+held against (the event simulator and the truncated-chain numerics,
+``"sim"`` and ``"markov"``), the planner, and the batching policies
+and linear-fit calibration of the serving engine."""
 from repro_torch.core.analytic import (  # noqa: F401
     LinearServiceModel,
     is_stable,
@@ -39,9 +41,16 @@ from repro_torch.core.grid import (  # noqa: F401
     DISC_NAME,
     GenGrid,
     GenResult,
+    MarkovGrid,
+    MarkovGridResult,
     SweepGrid,
     SweepResult,
 )
+from repro_torch.core.markov import solve as solve_markov  # noqa: F401
+from repro_torch.core.markov import (  # noqa: F401
+    solve_grid as solve_markov_grid,
+)
+from repro_torch.core.planner import Planner  # noqa: F401
 from repro_torch.core.policy import (  # noqa: F401
     BatchAllWaiting,
     BatchPolicy,
@@ -49,4 +58,5 @@ from repro_torch.core.policy import (  # noqa: F401
     TimeoutBatch,
 )
 from repro_torch.core.results import SimResult  # noqa: F401
+from repro_torch.core.simulate import simulate  # noqa: F401
 from repro_torch.core.sweep import sweep, sweep_caps  # noqa: F401

@@ -32,8 +32,11 @@ where the reference takes a key, so a point draws the same words
 whatever its state; their integer results equal the reference's on the
 same inputs.
 
-The capacity helpers are numpy copies of the reference's, so both
-packages size their buffers alike.
+The capacity helpers, with ``completion_inflation`` (the failure
+regime's sizing law), are numpy copies of the reference's, so both
+packages size their buffers alike.  ``fail_capacity`` and its two tail
+bounds are the port's own: the reference draws its failure counts
+unbounded, the port a fixed block a step, sized here.
 """
 from __future__ import annotations
 
@@ -46,8 +49,9 @@ __all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
            "accept_window", "push_poisson_window",
            "push_poisson_window_loss", "renege_prefix", "orbit_draws",
            "orbit_file", "welford_block", "row_sum", "scatter_hist",
-           "scatter_hist_sums", "queue_capacity", "window_capacity",
-           "orbit_capacity"]
+           "scatter_hist_sums", "completion_inflation", "queue_capacity",
+           "window_capacity", "orbit_capacity", "failure_count_bound",
+           "restart_attempt_bound", "fail_capacity"]
 
 
 def exp_offsets(exps: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
@@ -242,24 +246,96 @@ def _occupancy_scale(lam, alpha, tau0, b_max, wait_max=0.0):
     return m, sd
 
 
-def queue_capacity(lam, alpha, tau0, b_max, wait_max=0.0, *,
-                   q_max=None, floor: int = 64, ceil: int = 8192) -> int:
-    """Adaptive ``q_cap`` for a failure-free grid: the occupancy scale
-    plus a ~10σ margin, power-of-two bucketed, at least twice the
-    largest finite b_max.  With ``q_max`` given, a ``q_max > 0`` point
-    needs at most its room plus one window's worth of pre-trim ("drop")
-    arrivals, whatever its load — but never less than the room itself."""
+def completion_inflation(lam, alpha, tau0, b_max, mtbf, mttr,
+                         restart=None, throttle=None) -> np.ndarray:
+    """Per-point multiplicative service-time inflation E[C]/s from the
+    breakdown/repair regime, evaluated at each point's occupancy-scale
+    batch size.  Preempt-resume (and fail-drop) inflate by 1 + ξ·mttr
+    (ξ = 1/MTBF); preempt-restart re-executes the batch from scratch a
+    Geometric number of times, the classical
+    E[C] = (1/ξ + mttr)·(e^{ξs} − 1), which *exponentiates* in ξ·s.
+    Clipped to [1, 64]: beyond that the point is far past ρ_eff = 1 and
+    no finite buffer sizing is meaningful anyway."""
     lam64 = np.asarray(lam, dtype=np.float64)
-    m, sd = _occupancy_scale(lam, alpha, tau0, b_max, wait_max)
-    need = np.maximum(m + 10.0 * sd, 0.0) + 32.0
+    mtbf64 = np.asarray(mtbf, dtype=np.float64) * np.ones_like(lam64)
+    r = np.asarray(mttr, dtype=np.float64) * np.ones_like(lam64)
+    xi = np.where(mtbf64 > 0, 1.0 / np.maximum(mtbf64, 1e-300), 0.0)
+    m0, _ = _occupancy_scale(lam, alpha, tau0, b_max)
+    cap = np.where(np.asarray(b_max) > 0, np.asarray(b_max), np.inf)
+    b_eff = np.minimum(np.maximum(m0, 1.0), cap)
+    s_b = (np.asarray(alpha, dtype=np.float64) * b_eff
+           + np.asarray(tau0, dtype=np.float64))
+    infl = 1.0 + xi * r
+    if restart is not None:
+        xs = np.minimum(xi * s_b, 32.0)
+        infl_restart = ((1.0 / np.maximum(xi, 1e-300) + r)
+                        * np.expm1(xs) / np.maximum(s_b, 1e-300))
+        rmask = np.asarray(restart, dtype=bool) \
+            * np.ones_like(lam64, dtype=bool)
+        infl = np.where(rmask & (xi > 0),
+                        np.maximum(infl_restart, infl), infl)
+    if throttle is not None:
+        infl = infl * np.maximum(
+            np.asarray(throttle, dtype=np.float64), 1.0)
+    return np.clip(np.where(xi > 0, infl, 1.0), 1.0, 64.0)
+
+
+def queue_capacity(lam, alpha, tau0, b_max, wait_max=0.0, *,
+                   q_max=None, mtbf=None, mttr=None, restart=None,
+                   throttle=None, floor: int = 64,
+                   ceil: int = 8192) -> int:
+    """Adaptive ``q_cap`` for a request-level grid: sized from the
+    dispatched grid's own maximum load instead of a global worst case.
+
+    Power-of-two bucketed (bounds recompiles across campaigns), with a
+    ~10σ fluctuation margin over the occupancy scale so multi-thousand
+    -step runs keep ``buffer_dropped == 0`` (overflow is still counted,
+    never silent — the kernels report it and the tests assert on it).
+
+    A finite waiting room caps a point's need regardless of its load:
+    with ``q_max`` given, a ``q_max > 0`` point never holds more than
+    ``q_max`` waiting jobs plus one window's worth of pre-trim ("drop"
+    mode) arrivals — this is what keeps super-critical (ρ > 1) loss
+    points inside finite buffers.
+
+    Breakdown/repair points (``mtbf``/``mttr`` given, with ``restart``
+    a per-point preempt-restart mask and ``throttle`` the degraded-
+    phase factor) size against the *completion-time* law instead of
+    the bare service time: the occupancy scale inflates by E[C]/s
+    (restart re-execution exponentiates in s/MTBF — see
+    ``completion_inflation``), and an additive repair-burst margin
+    λ·mttr + 10σ covers the arrivals that pile up across a repair
+    window, keeping ``buffer_dropped == 0`` the witness at MTTR up to
+    ~10·τ[b_max]."""
+    lam64 = np.asarray(lam, dtype=np.float64)
+    alpha_eff = np.asarray(alpha, dtype=np.float64) * np.ones_like(lam64)
+    tau0_eff = np.asarray(tau0, dtype=np.float64) * np.ones_like(lam64)
+    burst = 0.0
+    if mtbf is not None and np.any(np.asarray(mtbf) > 0):
+        infl = completion_inflation(lam, alpha, tau0, b_max, mtbf,
+                                    0.0 if mttr is None else mttr,
+                                    restart=restart, throttle=throttle)
+        alpha_eff = alpha_eff * infl
+        tau0_eff = tau0_eff * infl
+        lr = lam64 * (np.asarray(mttr, dtype=np.float64)
+                      * np.ones_like(lam64))
+        # repairs cluster inside busy periods: two back-to-back mean
+        # repairs' worth of arrivals plus a 10σ Poisson margin
+        burst = 2.0 * lr + 10.0 * np.sqrt(lr + 1.0)
+    m, sd = _occupancy_scale(lam, alpha_eff, tau0_eff, b_max, wait_max)
+    need = np.maximum(m + 10.0 * sd, 0.0) + burst + 32.0
     if q_max is not None:
         qm = np.asarray(q_max, dtype=np.float64) * np.ones_like(lam64)
         cap = np.where(np.asarray(b_max) > 0, np.asarray(b_max), np.inf)
         b_eff = np.minimum(np.maximum(qm, 1.0), cap)
-        w_mu = lam64 * (np.asarray(alpha, dtype=np.float64) * b_eff
-                        + np.asarray(tau0, dtype=np.float64)
+        w_mu = lam64 * (alpha_eff * b_eff + tau0_eff
                         + np.asarray(wait_max))
-        room_need = qm + w_mu + 10.0 * np.sqrt(w_mu + 1.0) + 32.0
+        room_need = qm + w_mu + 10.0 * np.sqrt(w_mu + 1.0) \
+            + burst + 32.0
+        # the room bound caps the load estimate, but the buffer must
+        # still physically hold a full waiting room (the plan layer
+        # rejects q_cap < q_max) — a lightly-loaded q_max = 256 chunk
+        # would otherwise size below its own room
         need = np.where(qm > 0,
                         np.minimum(np.maximum(need, qm + 1.0), room_need),
                         need)
@@ -292,3 +368,72 @@ def orbit_capacity(lam, retry_rate, *, floor: int = 16,
     r_star = np.where(rr > 0, lam64 / np.maximum(rr, 1e-12), 0.0)
     need = float(np.max(r_star + 10.0 * np.sqrt(r_star + 1.0))) + 8.0
     return int(min(ceil, max(floor, _pow2ceil(need))))
+
+
+# ---------------------------------------------------------------------------
+# the failure block's sizing (the port's own: the reference samples its
+# failure counts unbounded, the port draws a fixed block a step)
+# ---------------------------------------------------------------------------
+
+# the tail probability, per busy span, that the sizing below leaves to
+# the ``fail_truncated`` and ``buffer_dropped`` counters
+FAIL_TAIL = 1e-9
+
+
+def failure_count_bound(x: float, kshape: float = np.inf, *,
+                        ceil: int = 1024) -> int:
+    """Smallest n with P(M ≥ n) < FAIL_TAIL for the breakdowns M in one
+    busy span whose mean holds ``x`` MTBFs: Poisson(x) for a fixed span
+    (``kshape`` infinite), its Gamma(kshape) mixture — the negative
+    binomial with r = kshape and mean x — for a random one.  ``ceil``
+    when the tail is still above FAIL_TAIL there."""
+    if x <= 0.0:
+        return 0
+    if np.isinf(kshape):
+        log_p = -x
+    else:
+        q = x / (kshape + x)
+        log_p = kshape * np.log1p(-q)
+    cdf = 0.0
+    for n in range(ceil):
+        if 1.0 - cdf < FAIL_TAIL:
+            return n
+        cdf += float(np.exp(log_p))
+        # pmf(n + 1) / pmf(n)
+        log_p += (np.log(x / (n + 1)) if np.isinf(kshape)
+                  else np.log(q * (kshape + n) / (n + 1)))
+    return ceil
+
+
+def restart_attempt_bound(x: float, *, ceil: int = 1024) -> int:
+    """Smallest n with P(n attempts in a row fail) < FAIL_TAIL for a
+    preempt-restart span of ``x`` MTBFs: each attempt fails with
+    p = 1 − e^{−x}, so n = ⌈ln FAIL_TAIL / ln p⌉; ``ceil`` when p
+    rounds to 1."""
+    if x <= 0.0:
+        return 0
+    p = -np.expm1(-x)
+    if p >= 1.0:
+        return ceil
+    return int(min(ceil, max(1, np.ceil(np.log(FAIL_TAIL) / np.log(p)))))
+
+
+def fail_capacity(mtbf, span, kshape=np.inf, *, floor: int = 16,
+                  bucket: int = 16, ceil: int = 512) -> int:
+    """Adaptive ``f_cap``, the failure block a step draws: ``f_cap``
+    failure epochs and as many repairs.  Resume counts a busy span's
+    breakdowns among the block's partial sums, so the count is
+    truncated at ``f_cap``; it is sized so that P(M ≥ f_cap) < FAIL_TAIL
+    at every failing point's longest busy span ``span`` (fixed, or the
+    mean of a Gamma(``kshape``) span), bucketed to ``bucket`` and at
+    least ``floor`` (the reference's restart block).  A run counts the
+    steps where the block binds in ``fail_truncated``."""
+    mtbf, span, kshape = np.broadcast_arrays(
+        np.asarray(mtbf, np.float64), np.asarray(span, np.float64),
+        np.asarray(kshape, np.float64))
+    on = mtbf > 0.0
+    need = floor
+    for x, k in set(zip((span[on] / mtbf[on]).tolist(),
+                        kshape[on].tolist())):
+        need = max(need, failure_count_bound(x, k, ceil=ceil))
+    return int(min(ceil, -(-need // bucket) * bucket))

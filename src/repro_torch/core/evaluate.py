@@ -1,12 +1,24 @@
 """One entry point over the port's queue-evaluation backends.
 
 ``evaluate(grid, backend=...)`` mirrors the reference package's
-``repro.core.evaluate`` for the backends this slice ports:
+``repro.core.evaluate`` for the backends the port has:
 
 - ``"analytic"`` — closed form only (Theorem 2 + Remark 5 + Lemma 5):
   ``mean_latency`` is the upper bound φ, ``mean_batch`` the Remark-5
   lower bound, ``utilization`` the Lemma-5 upper bound.  Deterministic
   service, infinite b_max, no timeout — other points raise.
+- ``"markov"`` — exact truncated-chain numerics on the host (the
+  port's copy of ``repro.core.markov``); deterministic service, no
+  timeout.  A ``SweepGrid`` goes point by point through
+  ``markov.solve`` (``solve_loss`` for q_max reject points, the
+  completion-time chain for resume/restart failure points without
+  admission control or throttle).  A ``MarkovGrid`` goes through
+  ``markov.solve_grid``, whose default torch method is ROADMAP Queue A
+  item 6b and raises until it lands; pass ``method="numpy"`` for the
+  host loop.
+- ``"sim"`` — the scalar numpy event simulator (the port's copy of
+  ``repro.core.simulate``), one point at a time; no timeout, loss or
+  failure regimes.
 - ``"sweep"`` — the PyTorch Monte Carlo sweep (``repro_torch.core
   .sweep``), on CUDA unless ``device="cpu"``; keyword arguments pass
   through to it.
@@ -15,31 +27,32 @@
   request-level backends refuse one.
 
 Both sweeps take loss grids (``q_max``, ``deadline``, ``overflow``,
-``retry_rate``); their results carry ``goodput_frac``, ``reject_frac``,
-``abandon_frac`` and ``retry_inflation``.  ``"analytic"`` refuses them.
+``retry_rate``) and failure grids (``mtbf``, ``mttr``, ``fail_disc``,
+``throttle``); their results carry ``goodput_frac``, ``reject_frac``,
+``abandon_frac`` and ``retry_inflation``.  ``"analytic"`` refuses both.
 
-Every other backend of the reference raises ``NotImplementedError``
+The reference's ``"fleet"`` backend raises ``NotImplementedError``
 naming the ROADMAP item that ports it.  Each call returns one
 ``SimResult`` per point, with the reference's field names.
 """
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
 
 from repro_torch.core import analytic as an
-from repro_torch.core.grid import DIST_CODE, GenGrid, SweepGrid
+from repro_torch.core.grid import (DIST_CODE, DIST_NAME, GenGrid, MarkovGrid,
+                                   SweepGrid)
 from repro_torch.core.results import SimResult
 
 __all__ = ["evaluate", "BACKENDS"]
 
-BACKENDS = ("analytic", "sweep", "gen")
+BACKENDS = ("analytic", "markov", "sim", "sweep", "gen")
 
 # the reference's other backends and the ROADMAP items that port them
 _NOT_PORTED = {
-    "markov": "ROADMAP Queue A item 6 (chain solver)",
-    "sim": "ROADMAP Queue A item 3a (scalar simulator reference)",
     "fleet": "ROADMAP Queue A item 4 (fleet_sweep)",
 }
 
@@ -60,7 +73,8 @@ def _analytic(grid: SweepGrid) -> List[SimResult]:
              "assumes an infinite patient queue)")
     _require(not grid.has_fail, "analytic",
              "failure-free points (Theorem 2 assumes a server that "
-             "never breaks down)")
+             "never breaks down; use backend='markov' with mtbf/mttr "
+             "or the MC kernels)")
     out = []
     for i in range(len(grid)):
         lam = float(grid.lam[i])
@@ -78,12 +92,108 @@ def _analytic(grid: SweepGrid) -> List[SimResult]:
     return out
 
 
+def _markov(grid: SweepGrid, **kw) -> List[SimResult]:
+    from repro_torch.core.markov import solve, solve_loss
+    from repro_torch.core.grid import FAIL_DISC_NAME, OVERFLOW_CODE
+    _require(bool(np.all(grid.dist == DIST_CODE["det"])), "markov",
+             "deterministic service")
+    _require(bool(np.all(grid.wait_max == 0.0)), "markov",
+             "the no-wait policy")
+    if grid.has_fail:
+        # the completion-time chain covers the pure breakdown/repair
+        # regime; mixing failures with admission control couples the
+        # chain to the room/orbit (use the MC kernels + loss_ref)
+        failing = grid.mtbf > 0.0
+        _require(bool(np.all(~failing
+                             | ((grid.q_max == 0)
+                                & (grid.deadline == 0.0)
+                                & (grid.retry_rate == 0.0)))),
+                 "markov", "failure points without admission control "
+                 "(no q_max/deadline/retry alongside mtbf)")
+        _require(bool(np.all(~failing | (grid.throttle == 1.0))),
+                 "markov", "failure points without a degraded phase "
+                 "(throttle = 1; the post-repair throttle makes "
+                 "service state-dependent across batches)")
+    if grid.has_loss:
+        # the exact chain covers exactly the finite-waiting-room reject
+        # regime; impatience and retry feedback have no embedded-chain
+        # representation (use the MC kernels for those)
+        _require(bool(np.all(grid.deadline == 0.0)), "markov",
+                 "q_max-only loss points (no deadlines)")
+        _require(bool(np.all(grid.retry_rate == 0.0)), "markov",
+                 "q_max-only loss points (no retry feedback)")
+        _require(bool(np.all((grid.q_max == 0)
+                             | (grid.overflow
+                                == OVERFLOW_CODE["reject"]))),
+                 "markov", "the reject ('429') overflow mode")
+    out = []
+    for i in range(len(grid)):
+        b_max = float(grid.b_max[i]) if grid.b_max[i] > 0 else math.inf
+        model = an.LinearServiceModel(float(grid.alpha[i]),
+                                      float(grid.tau0[i]))
+        if grid.has_loss and grid.q_max[i] > 0:
+            r = solve_loss(float(grid.lam[i]), model, b_max=b_max,
+                           q_max=int(grid.q_max[i]), **kw)
+            out.append(SimResult(
+                lam=r.lam, n_jobs=0, mean_latency=r.mean_latency,
+                mean_batch=r.mean_batch, batch_m2=r.batch_m2,
+                utilization=r.utilization, backend="markov",
+                goodput_frac=1.0 - r.loss_frac,
+                reject_frac=r.loss_frac, abandon_frac=0.0,
+                retry_inflation=1.0,
+            ))
+            continue
+        fkw = dict(kw)
+        if grid.has_fail and grid.mtbf[i] > 0.0:
+            fkw.update(mtbf=float(grid.mtbf[i]),
+                       mttr=float(grid.mttr[i]),
+                       fail_disc=FAIL_DISC_NAME[int(grid.fail_disc[i])])
+        m = solve(float(grid.lam[i]), model, b_max=b_max, **fkw)
+        out.append(SimResult(
+            lam=m.lam, n_jobs=0, mean_latency=m.mean_latency,
+            mean_batch=m.mean_batch, batch_m2=m.batch_m2,
+            utilization=m.utilization, backend="markov",
+        ))
+    return out
+
+
+def _sim(grid: SweepGrid, **kw) -> List[SimResult]:
+    from repro_torch.core.simulate import simulate
+    _require(bool(np.all(grid.wait_max == 0.0)), "sim",
+             "the no-wait policy (use backend='sweep' for timeouts)")
+    _require(not grid.has_loss, "sim",
+             "lossless points (the scalar simulator has no admission "
+             "control; use backend='sweep' or repro_torch.core.loss_ref)")
+    _require(not grid.has_fail, "sim",
+             "failure-free points (the scalar simulator has no "
+             "breakdown/repair model; use backend='sweep' or "
+             "repro_torch.core.loss_ref)")
+    out = []
+    for i in range(len(grid)):
+        b_max = float(grid.b_max[i]) if grid.b_max[i] > 0 else math.inf
+        out.append(simulate(
+            float(grid.lam[i]),
+            an.LinearServiceModel(float(grid.alpha[i]),
+                                  float(grid.tau0[i])),
+            b_max=b_max, dist=DIST_NAME[int(grid.dist[i])],
+            cv=float(grid.cv[i]), **kw))
+    return out
+
+
 def evaluate(grid: SweepGrid, backend: str = "sweep",
              **kw) -> List[SimResult]:
     """Evaluate every grid point with the chosen backend (see module
     docstring); returns one ``SimResult`` per point.  The sweep fills
     each result's ``stderr``/``ci_halfwidth`` (batch means, nominal
-    95%); the analytic backend leaves them NaN."""
+    95%); the exact backends leave them NaN."""
+    if isinstance(grid, MarkovGrid):
+        if backend != "markov":
+            # the exact grid has no service-distribution/policy axes —
+            # no other backend can read it
+            raise ValueError(f"backend {backend!r} cannot evaluate a "
+                             "MarkovGrid — use backend='markov'")
+        from repro_torch.core.markov import solve_grid
+        return solve_grid(grid, **kw).to_results()
     if backend == "gen":
         from repro_torch.core.gen_sweep import gen_sweep
         if not isinstance(grid, GenGrid):
@@ -100,6 +210,10 @@ def evaluate(grid: SweepGrid, backend: str = "sweep",
             raise ValueError("backend 'analytic' accepts no keyword "
                              f"arguments (got {sorted(kw)})")
         return _analytic(grid)
+    if backend == "markov":
+        return _markov(grid, **kw)
+    if backend == "sim":
+        return _sim(grid, **kw)
     if backend == "sweep":
         from repro_torch.core.sweep import sweep
         return sweep(grid, **kw).to_results()

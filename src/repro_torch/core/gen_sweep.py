@@ -1,7 +1,7 @@
 """The token-level (generate) Monte Carlo sweep in PyTorch.
 
-Port of the reference package's ``repro.core.gen_sweep.gen_sweep`` for
-grids without failures.  A request is a prefill of
+Port of the reference package's ``repro.core.gen_sweep.gen_sweep``.  A
+request is a prefill of
 ``prompt_len`` tokens plus ``gen_tokens`` decode steps; one step of the
 simulation is one cycle of the scheduler:
 
@@ -45,13 +45,26 @@ Every loss op sits behind the grid's ``has_loss``, so loss-free grids
 run the code they ran before, and a neutral point of a loss grid gives
 the base path's bits at the same ``q_cap``/``a_cap``.
 
+Failure grids add the breakdown/repair regime at run granularity (the
+run — prefill plus k decode steps — is the unit of preemptible work):
+a failure clock at rate 1/MTBF runs over the run's busy span, *resume*
+extends the run end by its repairs, *restart* prepends the lost
+attempts and their repairs, and *drop* aborts the run at its first
+failure and files all of its active sequences through the
+abandonment/retry path.  Arrivals during repairs join the queue (the
+window push uses the extended run end), and the run after a repair
+runs degraded: prefill and decode times scale by ``throttle``.  Every
+failure op sits behind the grid's ``has_fail`` with a random stream of
+its own, so an ``mtbf = 0`` point gives the base path's bits at the
+same caps.
+
 A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
 Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: failure grids (Queue A 3d), ``metrics_tap``
-(3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
+ROADMAP item that adds it: ``metrics_tap`` (Queue A 3e) and ``shard``
+> 1 (multi-GPU dispatch, 3f).
 """
 from __future__ import annotations
 
@@ -61,14 +74,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine, prng, variance
-from repro_torch.core.grid import (DISC_CODE, DISC_NAME, GenGrid,  # noqa: F401
-                                   GenResult)
+from repro_torch.core.grid import (DISC_CODE, DISC_NAME,  # noqa: F401
+                                   FAIL_DISC_CODE, GenGrid, GenResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges, thinned_rows)
-from repro_torch.core.sweep import (LossParams, _require_pinned_caps,
+from repro_torch.core.sweep import (FailParams,
+                                    LossParams, _require_pinned_caps,
                                     _require_ported_options,
-                                    _require_supported, loss_fields,
-                                    resolve_device)
+                                    fail_capacity_args, fail_fields,
+                                    loss_fields, resolve_device)
 from repro_torch.kernels import superstep as _ss
 
 __all__ = ["DISC_CODE", "DISC_NAME", "GenGrid", "GenResult", "gen_sweep",
@@ -83,11 +97,13 @@ _STEP_BUCKET = 2048
 
 # named random streams (``prng.draw_words``), keyed by (seed, global
 # point index) with counter (step, stream + word): the superstep's
-# arrival gaps, the first arrival epoch (drawn once, at step 0) and, on
-# loss grids, the retry orbit's r_cap uniforms a step.  They are
-# disjoint, and a point draws the same words per superstep whatever its
-# state, so its bits never depend on the other points
-_S_GAPS, _S_INIT, _S_ORBIT = 0, 1, 2
+# arrival gaps, the first arrival epoch (drawn once, at step 0), on
+# loss grids the retry orbit's r_cap uniforms a step and on failure
+# grids the failure epochs and repairs (``f_cap`` each a
+# step).  They are disjoint, and a point draws the same words per
+# superstep whatever its state, so its bits never depend on the other
+# points
+_S_GAPS, _S_INIT, _S_ORBIT, _S_FAIL = 0, 1, 2, 3
 
 _BIG = 2 ** 24
 _INF = 3.0e38
@@ -120,14 +136,19 @@ def gen_caps(grid: GenGrid, *, q_cap: Optional[int] = None) -> dict:
     """The capacities ``gen_sweep`` would derive from ``grid`` — compute
     once on the FULL grid and splat into every chunk of a split
     dispatch (``gen_sweep(chunk, key_offset=..., **gen_caps(full))``).
-    Returns ``q_cap``/``a_cap`` (and ``r_cap`` on loss grids), the
-    reference's integers on the same grid."""
-    _require_supported(grid)
+    Returns ``q_cap``/``a_cap``, ``r_cap`` on loss grids and ``f_cap``
+    on failure grids.  ``q_cap`` and ``r_cap`` are the reference's
+    integers on the same grid, and so is ``a_cap`` on failure-free
+    grids; on failure grids ``a_cap`` also covers each point's longest
+    extended run (``_fail_caps``), which the reference's sizing does
+    not."""
+    fail_kw = fail_capacity_args(grid)
     if q_cap is None:
         # sized from the static-equivalent request-level law
         q_cap = engine.queue_capacity(
             grid.lam, grid.equivalent_alpha, grid.equivalent_tau0,
-            grid.max_active, q_max=grid.q_max if grid.has_loss else None)
+            grid.max_active, q_max=grid.q_max if grid.has_loss else None,
+            **fail_kw)
     # the densest indivisible window: the batched prefill of a full
     # batch plus the decode step it precedes
     window = (grid.alpha_prefill * grid.prompt_len * grid.max_active
@@ -135,15 +156,67 @@ def gen_caps(grid: GenGrid, *, q_cap: Optional[int] = None) -> dict:
               + grid.alpha_decode * grid.max_active
               + grid.tau0_decode)
     a_cap = int(engine.window_capacity(grid.lam, window))
+    if fail_kw:
+        # repairs and rework stretch a run past its nominal span, and
+        # the arrival chain must still cover the extended window: scale
+        # by the completion inflation and add an MTTR burst allowance
+        infl = float(np.max(engine.completion_inflation(
+            grid.lam, grid.equivalent_alpha, grid.equivalent_tau0,
+            grid.max_active, **fail_kw)))
+        burst = float(np.max(2.0 * grid.lam * grid.mttr
+                             + 10.0 * np.sqrt(grid.lam * grid.mttr
+                                              + 1.0)))
+        a_cap = int(np.ceil(a_cap * infl + burst))
     caps = dict(q_cap=int(q_cap), a_cap=a_cap)
     if grid.has_loss:
         caps["r_cap"] = engine.orbit_capacity(grid.lam, grid.retry_rate)
+    if fail_kw:
+        caps["f_cap"], cover = _fail_caps(grid)
+        caps["a_cap"] = max(a_cap, cover)
     return caps
+
+
+def _fail_caps(grid: GenGrid) -> tuple:
+    """``f_cap`` and the arrival chain a failure grid's runs need.  A
+    run's busy span is at most a full batch's prefill and ``gen_tokens``
+    decode steps, at the throttle.  A run ends inside the chain, and
+    its breakdowns then extend it: restart by its lost attempts (each
+    shorter than the span, at most ``f_cap`` of them), every
+    discipline by its repairs.  The chain must cover the extended run,
+    or the arrivals past its edge are lost (``buffer_dropped``): each
+    failing point needs the arrivals of its span plus its extension at
+    the sizing's tail, ``n`` attempts (restart) or breakdowns (resume;
+    drop has one) and the 1e-9 quantile of n repairs, bounded by
+    (n + 6√n + 21)·mttr."""
+    cap = grid.max_active.astype(np.float64)
+    span = ((grid.alpha_prefill * grid.prompt_len * cap + grid.tau0_prefill
+             + grid.gen_tokens * (grid.alpha_decode * cap
+                                  + grid.tau0_decode))
+            * np.maximum(np.asarray(grid.throttle, np.float64), 1.0))
+    f_cap = engine.fail_capacity(grid.mtbf, span)
+    ext = np.zeros(len(grid))
+    on = grid.mtbf > 0
+    cells = np.stack([span[on], grid.mtbf[on], grid.mttr[on],
+                      grid.fail_disc[on]], 1)
+    uniq, inv = np.unique(cells, axis=0, return_inverse=True)
+    need = np.zeros(len(uniq))
+    for j, (w, mtbf, mttr, disc) in enumerate(uniq):
+        if disc == FAIL_DISC_CODE["restart"]:
+            n = min(f_cap, engine.restart_attempt_bound(w / mtbf))
+            need[j] = n * w
+        elif disc == FAIL_DISC_CODE["drop"]:
+            n = 1
+        else:
+            n = min(f_cap, engine.failure_count_bound(w / mtbf))
+        need[j] += (n + 6.0 * np.sqrt(n) + 21.0) * mttr
+    ext[on] = need[inv.ravel()]
+    return f_cap, engine.window_capacity(grid.lam, span + ext)
 
 
 def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
               warmup: Optional[int] = None, q_cap: Optional[int] = None,
               a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+              f_cap: Optional[int] = None,
               n_bins: int = 512, seed: int = 0, key_offset: int = 0,
               hist_every: int = 1, shard=None, sketch: bool = False,
               superstep_backend: Optional[str] = None,
@@ -162,14 +235,14 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
     each superstep's steps to the percentile histogram
     (``hist.thinned_rows``); means and counters use every step.
     ``sketch``/``superstep_backend`` behave as in ``sweep``.
-    ``r_cap`` bounds a loss grid's retry orbit (``None``:
-    ``engine.orbit_capacity``); a loss-free grid ignores it."""
+    ``r_cap`` bounds a loss grid's retry orbit and ``f_cap`` a failure
+    grid's failure block (``None``: ``gen_caps``); a grid without the
+    regime ignores them."""
     if not isinstance(grid, GenGrid):
         raise TypeError("gen_sweep needs a GenGrid "
                         "(see GenGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_supported(grid)
     _require_ported_options(shard, metrics_tap)
     dev = resolve_device(device)
     n_steps = -(-int(n_steps) // _STEP_BUCKET) * _STEP_BUCKET
@@ -180,20 +253,25 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
     if int(hist_every) < 1:
         raise ValueError(f"hist_every must be >= 1 (got {hist_every})")
     s_cap = int(grid.max_active.max())
-    has_loss = grid.has_loss
+    has_loss, has_fail = grid.has_loss, grid.has_fail
     if key_offset:
         _require_pinned_caps("gen_sweep", key_offset,
                              q_cap=q_cap is not None,
                              a_cap=a_cap is not None,
-                             r_cap=not has_loss or r_cap is not None)
-    if q_cap is None or a_cap is None or (has_loss and r_cap is None):
+                             r_cap=not has_loss or r_cap is not None,
+                             f_cap=not has_fail or f_cap is not None)
+    if (q_cap is None or a_cap is None or (has_loss and r_cap is None)
+            or (has_fail and f_cap is None)):
         caps = gen_caps(grid, q_cap=q_cap)
         q_cap = caps["q_cap"] if q_cap is None else q_cap
         a_cap = caps["a_cap"] if a_cap is None else a_cap
         if has_loss and r_cap is None:
             r_cap = caps["r_cap"]
+        if has_fail and f_cap is None:
+            f_cap = caps["f_cap"]
     q_cap, a_cap = int(q_cap), int(a_cap)
     r_cap = int(r_cap) if has_loss else None
+    f_cap = int(f_cap) if has_fail else 0
     if s_cap > q_cap:
         raise ValueError("max_active exceeds q_cap; raise q_cap")
     if has_loss and np.any(grid.q_max > q_cap):
@@ -205,7 +283,8 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
         n_bins = SKETCH_BINS
     ss_backend = _ss.resolve_backend(superstep_backend, dev)
     out = _run(grid, n_steps=n_steps, warmup=int(warmup), s_cap=s_cap,
-               q_cap=q_cap, a_cap=a_cap, r_cap=r_cap, n_bins=int(n_bins),
+               q_cap=q_cap, a_cap=a_cap, r_cap=r_cap, f_cap=f_cap,
+               n_bins=int(n_bins),
                seed=int(seed), key_offset=int(key_offset),
                hist_every=int(hist_every), sketch=bool(sketch),
                ss_backend=ss_backend, device=dev)
@@ -223,7 +302,8 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
-         q_cap: int, a_cap: int, r_cap: Optional[int], n_bins: int,
+         q_cap: int, a_cap: int, r_cap: Optional[int], f_cap: int,
+         n_bins: int,
          seed: int, key_offset: int, hist_every: int, sketch: bool,
          ss_backend: str, device: torch.device) -> dict:
     """The superstep loop over every point at once; returns the
@@ -232,7 +312,7 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     R = _REBASE_EVERY
-    has_loss = r_cap is not None
+    has_loss, has_fail = r_cap is not None, grid.has_fail
     buf_len = buffer_length(q_cap, a_cap, s_cap, r_cap)
     width = a_cap + 1
 
@@ -253,6 +333,9 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         streams += ((_S_ORBIT, r_cap),)
         lp = LossParams(grid, q_cap, device)
         ranks = torch.arange(q_cap, device=device)
+    if has_fail:
+        streams += ((_S_FAIL, 2 * f_cap),)
+        fp = FailParams(grid, f_cap, device)
 
     def zeros(*shape, dt=f32):
         return torch.zeros(n, *shape, dtype=dt, device=device)
@@ -273,6 +356,13 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         # completions in SLO, fresh arrivals and orbit re-arrivals
         orbit, ov_n, ab_n, slo_n, fresh_n, retry_n = (zeros(dt=i32)
                                                       for _ in range(6))
+    if has_fail:
+        # the degraded phase (the next run is throttled), then the
+        # measured failures, repair time and lost work, and the steps
+        # (warmup too) whose failure count the block truncated
+        deg, n_fail, trunc = (zeros(dt=torch.bool), zeros(dt=i32),
+                              zeros(dt=i32))
+        down, lost_work = zeros(), zeros()
     # the furthest any block write reached, checked after the loop
     reach = zeros(dt=i32)
     bm = (zeros(), zeros(), zeros(dt=i32))
@@ -294,6 +384,8 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         offs = offs.permute(0, 2, 1).contiguous()         # (R, P, width)
         if has_loss:
             u_orb = prng.uniform(words[1])                # (R, r_cap, P)
+        if has_fail:
+            fail_blk = fp.block(words[-1])
         del words
         s0, n0 = lat_sum, lat_n
 
@@ -349,6 +441,11 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             n_join = torch.where(gate, torch.minimum(q, cap - n_act), 0)
             t_pf = torch.where(n_join > 0,
                                a_p * prompt * n_join.to(f32) + t0_p, 0.0)
+            if has_fail:
+                # a run after a repair is degraded: prefill and decode
+                # times scale by the throttle
+                thr = torch.where(deg, fp.throttle, 1.0)
+                t_pf = t_pf * thr
             inactive = ~active
             rank = torch.cumsum(inactive.to(i32), 1, dtype=i32) - 1
             take = inactive & (rank < n_join.unsqueeze(1))
@@ -371,6 +468,8 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             #    a free slot only), or the edge of the arrival chain
             b = n_act + n_join
             dt = a_d * b.to(f32) + t0_d
+            if has_fail:
+                dt = dt * thr
             if has_loss:
                 # a queue emptied by reneging forms no batch: the step
                 # advances no time (dt keeps a safe divisor)
@@ -392,6 +491,20 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
             t_end = t0r + kf * dt
             if has_loss:
                 t_end = torch.where(has_b, t_end, now)
+            if has_fail:
+                # breakdowns over the run's busy span: the extended run
+                # end feeds the window push below, so arrivals during
+                # repairs join the queue; a drop abort ends the run at
+                # the failure's repair
+                w = t_pf + kf * dt
+                if has_loss:
+                    w = torch.where(has_b, w, 0.0)
+                fail = fp.interrupt(fail_blk, t, w, w > 0.0)
+                aborts = fail["aborts"]
+                t_end = torch.where(aborts, now + fail["abort_end"],
+                                    t_end + fail["ext"])
+                deg = fail["degraded"]
+                trunc = trunc + fail["trunc"]
 
             # 4) window arrivals (now, t_end] join the waiting buffer:
             #    the chain minus the consumed entry 0 in the idle case
@@ -424,9 +537,14 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
                              _INF).amin(1)
             next_arr = torch.where(mn < _INF, mn, ts_ext[:, -1])
 
-            # 5) the run retires exactly the rem == k sequences
+            # 5) the run retires exactly the rem == k sequences; an
+            #    aborted run completes nothing: every active sequence is
+            #    dropped whole and filed through the abandonment path
             rem = torch.where(rem > 0, rem - k.unsqueeze(1), 0)
             fin = (take | active) & (rem == 0)
+            if has_fail:
+                fin &= ~aborts.unsqueeze(1)
+                rem = torch.where(aborts.unsqueeze(1), 0, rem)
             lats = torch.where(fin, (t_end.unsqueeze(1) - arr_s), 0.0)
             now = t_end
 
@@ -440,14 +558,24 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
                 # a point's float sum to P (and break split dispatch)
                 lat_sum = lat_sum + engine.row_sum(lats)
                 lat_n = lat_n + n_fin
-                sum_b = sum_b + kf * bf
-                sum_b2 = sum_b2 + kf * bf * bf
-                if has_loss:
-                    n_meas = n_meas + torch.where(has_b, k, 0)
-                    busy = busy + torch.where(has_b, t_pf + kf * dt, 0.0)
-                else:
+                # decode-step statistics count the runs that formed a
+                # batch and completed; busy is productive execution
+                # (repairs and lost work are counted apart)
+                kc, ran = kf, (has_b if has_loss else None)
+                if has_fail:
+                    kc = torch.where(aborts, 0.0, kf)
+                    ran = ~aborts if ran is None else ran & ~aborts
+                    n_fail = n_fail + fail["n_f"]
+                    down = down + fail["rep"]
+                    lost_work = lost_work + fail["lost"]
+                sum_b = sum_b + kc * bf
+                sum_b2 = sum_b2 + kc * bf * bf
+                if ran is None:
                     n_meas = n_meas + k
                     busy = busy + (t_pf + kf * dt)
+                else:
+                    n_meas = n_meas + torch.where(ran, k, 0)
+                    busy = busy + torch.where(ran, t_pf + kf * dt, 0.0)
                 span = span + (t_end - t_step0)
             q_max = torch.maximum(q_max, q)
 
@@ -455,7 +583,10 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
                 # the retry orbit at the run end (Binomial thinning over
                 # the whole step); admitted re-arrivals join the tail at
                 # t_end.  Then this step's losses are filed, abandoned
-                # first; what the orbit cannot hold is a terminal loss
+                # first; what the orbit cannot hold is a terminal loss.
+                # An aborted run's b sequences are filed as abandoned
+                if has_fail:
+                    lost_ab = lost_ab + torch.where(aborts, b, 0)
                 p_fire = 1.0 - torch.exp(-lp.retry_rate * (t_end - t_step0))
                 n_r = engine.orbit_draws(u_orb[t], orbit, p_fire)
                 admit_r = torch.minimum(
@@ -520,6 +651,9 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     if has_loss:
         out.update(overflow_dropped=ov_n, abandoned=ab_n, n_in_slo=slo_n,
                    n_fresh=fresh_n, n_retry=retry_n)
+    if has_fail:
+        out.update(n_failures=n_fail, down_time=down, lost_work=lost_work,
+                   span=span, fail_truncated=trunc)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -544,5 +678,5 @@ def _to_result(grid: GenGrid, out: dict, *, sketch: bool) -> GenResult:
         hist_sums=out["hist_sums"].astype(f64) if sketch else None,
         stderr=stderr, ci_halfwidth=ci,
         n_blocks=out["lat_bm_n"],
-        **loss_fields(out),
+        **loss_fields(out), **fail_fields(out),
     )

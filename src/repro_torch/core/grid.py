@@ -2,13 +2,11 @@
 
 Own copy of the part of the reference package's ``repro.core.grid`` that
 the ported kernels need: the integer codes, ``SweepGrid`` (every axis,
-the loss and failure axes included — the port stores them so a
-reference grid carries across whole, and its sweep refuses grids that
-set them), the ``_LossAccounting`` mixin, ``SweepResult`` (without the
-failure accounting fields, which come with the failure slice), and the
-token-level ``GenGrid`` / ``GenResult`` of the generate sweep.  The
-fleet and Markov grids come with the slices that port those kernels.
-Plain numpy, no torch.
+the loss and failure axes included), the ``_LossAccounting`` mixin,
+``SweepResult`` and ``GenResult`` with their failure accounting, the
+token-level ``GenGrid``, and the exact chain's ``MarkovGrid`` /
+``MarkovGridResult``.  The fleet grid comes with the slice that ports
+its kernel.  Plain numpy, no torch.
 """
 from __future__ import annotations
 
@@ -22,7 +20,8 @@ from repro_torch.core.results import SimResult
 
 __all__ = ["DIST_CODE", "DIST_NAME", "OVERFLOW_CODE", "OVERFLOW_NAME",
            "DISC_CODE", "DISC_NAME", "FAIL_DISC_CODE", "FAIL_DISC_NAME",
-           "SweepGrid", "SweepResult", "GenGrid", "GenResult"]
+           "SweepGrid", "SweepResult", "GenGrid", "GenResult",
+           "MarkovGrid", "MarkovGridResult"]
 
 DIST_CODE = {"det": 0, "exp": 1, "gamma": 2}
 DIST_NAME = {v: k for k, v in DIST_CODE.items()}
@@ -272,9 +271,9 @@ class GenGrid(_GridOps):
     (one decode step over b active sequences costs α_d·b + τ0_d, a
     batched prefill of t tokens costs α_p·t + τ0_p).  ``max_active``
     bounds the concurrent sequences (the static discipline's b_max);
-    ``discipline`` holds ``DISC_CODE`` integers.  The loss and failure
-    axes are stored so a reference grid carries across whole; the
-    port's ``gen_sweep`` refuses grids that set them."""
+    ``discipline`` holds ``DISC_CODE`` integers.  Deliberately NOT a
+    ``SweepGrid``: the axes are different (no service-distribution or
+    timeout knobs — token-level service is deterministic here)."""
 
     lam: np.ndarray
     alpha_decode: np.ndarray
@@ -421,6 +420,119 @@ class GenGrid(_GridOps):
                 self.throttle)
 
 
+@dataclass(frozen=True)
+class MarkovGrid(_GridOps):
+    """Parameter grid for the *exact* truncated-chain backend: one
+    (λ, α, τ0, b_max) cell per entry, solved by the structured
+    (banded level-recursion) chain solver
+    (``repro_torch.core.markov.solve_grid``).
+
+    ``b_max`` must be a finite integer ≥ 1 for every cell: the
+    structured solver exploits the repeating (M/G/1-type) band that
+    only exists for finite maximum batch sizes.  For b_max = ∞ use the
+    scalar ``markov.solve`` (which routes to the dense reference).
+    ``lam`` is kept in float64 — the exact backend's answers resolve
+    far below float32."""
+
+    lam: np.ndarray
+    alpha: np.ndarray
+    tau0: np.ndarray
+    b_max: np.ndarray
+
+    @property
+    def rho(self) -> np.ndarray:
+        return self.lam * self.alpha
+
+    @property
+    def stability_limit(self) -> np.ndarray:
+        """Per-cell supremum of stable rates, b_max/(α·b_max + τ0)."""
+        return self.b_max / (self.alpha * self.b_max + self.tau0)
+
+    @classmethod
+    def from_points(cls, lam, alpha, tau0, *, b_max=1) -> "MarkovGrid":
+        arrays = [np.asarray(lam, dtype=np.float64).reshape(-1),
+                  np.asarray(alpha, dtype=np.float64).reshape(-1),
+                  np.asarray(tau0, dtype=np.float64).reshape(-1),
+                  _as_i32(b_max)]
+        n = max(a.shape[0] for a in arrays)
+        arrays = [np.broadcast_to(a, (n,)).copy() if a.shape[0] == 1 else a
+                  for a in arrays]
+        if any(a.shape[0] != n for a in arrays):
+            raise ValueError("per-cell sequences have mismatched lengths")
+        if np.any(arrays[3] < 1):
+            raise ValueError("MarkovGrid needs finite b_max >= 1 per "
+                             "cell (the structured exact solver has no "
+                             "repeating band at b_max = inf; use "
+                             "markov.solve for that case)")
+        return cls(*arrays)
+
+    @classmethod
+    def from_product(cls, lams: Sequence[float], alphas: Sequence[float],
+                     tau0s: Sequence[float], *,
+                     b_maxes: Sequence[int] = (1,)) -> "MarkovGrid":
+        mesh = np.meshgrid(np.asarray(lams, np.float64),
+                           np.asarray(alphas, np.float64),
+                           np.asarray(tau0s, np.float64),
+                           _as_i32(b_maxes), indexing="ij")
+        flat = [m.reshape(-1) for m in mesh]
+        return cls.from_points(flat[0], flat[1], flat[2],
+                               b_max=flat[3].astype(np.int32))
+
+    @classmethod
+    def from_fracs(cls, fracs: Sequence[float], alpha: float, tau0: float,
+                   *, b_maxes: Sequence[int] = (1,)) -> "MarkovGrid":
+        """The λ × b_max *surface* grid: each (frac, b_max) cell gets
+        λ = frac × that b_max's stability limit, so every column of the
+        surface is sampled at the same relative distance from its own
+        saturation point."""
+        lam_pts, b_pts = [], []
+        for b in b_maxes:
+            lim = b / (alpha * b + tau0)
+            for f in fracs:
+                lam_pts.append(f * lim)
+                b_pts.append(int(b))
+        return cls.from_points(lam_pts, alpha, tau0, b_max=b_pts)
+
+    def _arrays(self) -> Tuple[np.ndarray, ...]:
+        return (self.lam, self.alpha, self.tau0, self.b_max)
+
+
+@dataclass
+class MarkovGridResult:
+    """Exact-chain output for a ``MarkovGrid`` (one entry per cell).
+
+    ``tail_mass`` is the per-cell a-posteriori truncation witness
+    (stationary mass at the truncation cell K); ``truncation`` the
+    shared level K the dispatch converged at."""
+
+    grid: MarkovGrid
+    mean_latency: np.ndarray
+    mean_batch: np.ndarray
+    batch_m2: np.ndarray
+    utilization: np.ndarray
+    mean_queue: np.ndarray
+    pi0: np.ndarray
+    tail_mass: np.ndarray
+    truncation: int
+    method: str = "numpy"
+
+    def __len__(self) -> int:
+        return len(self.grid)
+
+    def point(self, i: int) -> SimResult:
+        return SimResult(
+            lam=float(self.grid.lam[i]),
+            n_jobs=0,
+            mean_latency=float(self.mean_latency[i]),
+            mean_batch=float(self.mean_batch[i]),
+            batch_m2=float(self.batch_m2[i]),
+            utilization=float(self.utilization[i]),
+            backend="markov",
+        )
+
+    def to_results(self) -> List[SimResult]:
+        return [self.point(i) for i in range(len(self))]
+
 
 class _LossAccounting:
     """Derived goodput/loss metrics shared by the MC result classes.
@@ -533,6 +645,49 @@ class SweepResult(_LossAccounting):
     ci_halfwidth: np.ndarray = field(default=None, repr=False)
     n_blocks: np.ndarray = field(default=None, repr=False)
 
+    # breakdown/repair accounting, filled only on failure grids
+    # (``grid.has_fail``); None on failure-free runs.  ``n_failures``
+    # counts measured breakdowns, ``down_time`` the total repair time
+    # spent, ``lost_work`` the service time thrown away by
+    # restarts/aborts, and ``span`` the measured wall-clock the
+    # down-time is relative to.
+    n_failures: np.ndarray = field(default=None, repr=False)
+    down_time: np.ndarray = field(default=None, repr=False)
+    lost_work: np.ndarray = field(default=None, repr=False)
+    span: np.ndarray = field(default=None, repr=False)
+    # the port's witness of its fixed failure block (as buffer_dropped
+    # is of its buffers): the steps whose failure count the block of
+    # ``f_cap`` attempts truncated, 0 in a correct run
+    fail_truncated: np.ndarray = field(default=None, repr=False)
+
+    @property
+    def availability(self) -> np.ndarray:
+        """Fraction of measured wall-clock each point's server (fleet:
+        server-hours) spent NOT under repair; 1 on failure-free runs."""
+        ones = np.ones_like(np.asarray(self.mean_latency, np.float64))
+        if self.down_time is None or self.span is None:
+            return ones
+        k = np.asarray(getattr(self.grid, "k", 1), np.float64)
+        denom = k * np.asarray(self.span, np.float64)
+        return np.where(denom > 0,
+                        1.0 - self.down_time / np.maximum(denom, 1e-30),
+                        ones)
+
+    @property
+    def work_loss_frac(self) -> np.ndarray:
+        """Fraction of executed service time thrown away by
+        preempt-restart re-execution / fail-drop aborts (the work-loss
+        tax); 0 on failure-free runs."""
+        zeros = np.zeros_like(np.asarray(self.mean_latency, np.float64))
+        if self.lost_work is None or self.span is None:
+            return zeros
+        k = np.asarray(getattr(self.grid, "k", 1), np.float64)
+        useful = (np.asarray(self.utilization, np.float64)
+                  * k * np.asarray(self.span, np.float64))
+        tot = useful + np.asarray(self.lost_work, np.float64)
+        return np.where(tot > 0,
+                        self.lost_work / np.maximum(tot, 1e-30), zeros)
+
     @property
     def hist_bin_edges(self) -> np.ndarray:
         """Latency values bounding the (shared) histogram bins — the
@@ -596,7 +751,7 @@ class GenResult(_LossAccounting):
     ``mean_latency`` and the histogram percentiles).  The loss counters
     follow the ``SweepResult`` split: ``buffer_dropped`` is the capacity
     witness (must stay 0), ``overflow_dropped``/``abandoned`` the
-    measured admission-control losses (0 until the loss slice)."""
+    measured admission-control losses."""
 
     grid: GenGrid
     mean_latency: np.ndarray
@@ -621,6 +776,42 @@ class GenResult(_LossAccounting):
     stderr: np.ndarray = field(default=None, repr=False)
     ci_halfwidth: np.ndarray = field(default=None, repr=False)
     n_blocks: np.ndarray = field(default=None, repr=False)
+
+    # breakdown/repair accounting — see SweepResult
+    n_failures: np.ndarray = field(default=None, repr=False)
+    down_time: np.ndarray = field(default=None, repr=False)
+    lost_work: np.ndarray = field(default=None, repr=False)
+    span: np.ndarray = field(default=None, repr=False)
+    # the port's witness of its fixed failure block (as buffer_dropped
+    # is of its buffers): the steps whose failure count the block of
+    # ``f_cap`` attempts truncated, 0 in a correct run
+    fail_truncated: np.ndarray = field(default=None, repr=False)
+
+    @property
+    def availability(self) -> np.ndarray:
+        """Fraction of measured wall-clock the server spent NOT under
+        repair; 1 on failure-free runs."""
+        ones = np.ones_like(np.asarray(self.mean_latency, np.float64))
+        if self.down_time is None or self.span is None:
+            return ones
+        sp = np.asarray(self.span, np.float64)
+        return np.where(sp > 0,
+                        1.0 - self.down_time / np.maximum(sp, 1e-30),
+                        ones)
+
+    @property
+    def work_loss_frac(self) -> np.ndarray:
+        """Fraction of executed decode/prefill time thrown away by
+        preempt-restart re-execution / fail-drop aborts; 0 on
+        failure-free runs."""
+        zeros = np.zeros_like(np.asarray(self.mean_latency, np.float64))
+        if self.lost_work is None or self.span is None:
+            return zeros
+        useful = (np.asarray(self.utilization, np.float64)
+                  * np.asarray(self.span, np.float64))
+        tot = useful + np.asarray(self.lost_work, np.float64)
+        return np.where(tot > 0,
+                        self.lost_work / np.maximum(tot, 1e-30), zeros)
 
     @property
     def hist_bin_edges(self) -> np.ndarray:

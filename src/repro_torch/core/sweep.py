@@ -1,13 +1,13 @@
 """The single-server Monte Carlo sweep in PyTorch.
 
-Port of the reference package's ``repro.core.sweep.sweep`` for grids
-without failures.  The dynamics are the reference's
-regenerative batch-by-batch law (see its module docstring and
-docs/theory.md): one step per service completion — an idle gap when
-the queue is empty, the optional TimeoutBatch delay, batch formation
-``min(q, b_max)``, a det / exp / gamma service time, the popped jobs'
-latencies, and the Poisson arrivals of the service window appended to a
-linear FIFO buffer whose clock is rebased to the departure.
+Port of the reference package's ``repro.core.sweep.sweep``.  The
+dynamics are the reference's regenerative batch-by-batch law (see its
+module docstring and docs/theory.md): one step per service completion
+— an idle gap when the queue is empty, the optional TimeoutBatch delay,
+batch formation ``min(q, b_max)``, a det / exp / gamma service time,
+the popped jobs' latencies, and the Poisson arrivals of the service
+window appended to a linear FIFO buffer whose clock is rebased to the
+departure.
 
 Where the reference ``vmap``s one point's ``lax.scan`` over the grid,
 this runs every point at once: the carry is a set of ``(P, …)``
@@ -29,13 +29,27 @@ re-arrivals join at ``depart``.  Every loss op sits behind the grid's
 ``has_loss``, so loss-free grids run the code they ran before, bit for
 bit, and a neutral point of a loss grid gives the base path's bits.
 
+Failure grids (any point with ``mtbf`` set) add the breakdown/repair
+regime, also in the reference's order: a failure clock at rate 1/MTBF
+runs while a batch executes, repairs are Exp(MTTR), and the point's
+``fail_disc`` handles the batch in flight — *resume* adds its repairs
+to the completion, *restart* prepends the lost attempts and their
+repairs, *drop* aborts the batch at the first failure and files its
+jobs through the abandonment/retry path (so a drop grid is a loss
+grid).  The batch after a repair runs degraded, its service scaled by
+``throttle``.  Arrivals join over the whole completion window, repairs
+included.  Every failure op sits behind the grid's ``has_fail`` and
+draws its words from a stream of its own, so failure-free grids run
+the code they ran before, and an ``mtbf = 0`` point of a failure grid
+gives the base path's bits.
+
 A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
 Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: failure grids (Queue A 3d), ``metrics_tap``
-(3e) and ``shard`` > 1 (multi-GPU dispatch, 3f).
+ROADMAP item that adds it: ``metrics_tap`` (Queue A 3e) and ``shard``
+> 1 (multi-GPU dispatch, 3f).
 """
 from __future__ import annotations
 
@@ -45,8 +59,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine, prng, variance
-from repro_torch.core.grid import (DIST_CODE, OVERFLOW_CODE, SweepGrid,
-                                   SweepResult)
+from repro_torch.core.grid import (DIST_CODE, FAIL_DISC_CODE, OVERFLOW_CODE,
+                                   SweepGrid, SweepResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges)
 from repro_torch.kernels import superstep as _ss
@@ -64,11 +78,23 @@ _REBASE_EVERY = 32
 # a truncation far below Monte Carlo noise.
 _GAMMA_TRIES = 8
 
+# failure attempts materialized per step (fixed-shape RNG): each step
+# draws f_cap unit-exponential failure epochs and as many repairs
+# (``engine.fail_capacity`` sizes f_cap from the grid, at least the
+# reference's 16).  Restart's geometric attempt count is truncated at
+# the block (the reference's own rule, at 16); resume's Poisson(ξ·s)
+# failure count is the number of the block's partial sums inside s,
+# truncated at the block too, where the reference samples it unbounded.
+# f_cap makes P(M ≥ f_cap) < 1e-9 at each point's longest busy span,
+# and a run counts the steps where the block binds in
+# ``fail_truncated``.  loss_ref's mirrors sample both counts unbounded
+
 # named random streams of one step (``prng.draw_words``); the misc
 # stream holds the idle gap (word 0), the gamma boost uniform (1), the
 # gamma accept uniforms (2 … 9) and the Box–Muller words (10 … 17); the
-# orbit stream (loss grids only) holds the retry orbit's r_cap uniforms
-_S_MISC, _S_SERVICE, _S_TIMEOUT, _S_ORBIT = 0, 1, 2, 3
+# orbit stream (loss grids only) holds the retry orbit's r_cap uniforms,
+# the failure stream (failure grids only) the failure epochs and repairs
+_S_MISC, _S_SERVICE, _S_TIMEOUT, _S_ORBIT, _S_FAIL = 0, 1, 2, 3, 4
 _MISC_WORDS = 2 + 2 * _GAMMA_TRIES
 
 
@@ -84,14 +110,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _require_supported(grid) -> None:
-    # a fail-drop grid counts as has_loss only through its failures
-    if grid.has_fail:
-        raise NotImplementedError(
-            "failure regimes (mtbf / mttr) are not ported yet: ROADMAP "
-            "Queue A item 3d")
 
 
 class LossParams:
@@ -115,6 +133,83 @@ class LossParams:
         self.deadline = param(grid.deadline, torch.float32)
         self.retry_rate = param(grid.retry_rate, torch.float32)
         self.retry_on = self.retry_rate > 0.0
+
+
+class FailParams:
+    """A failure grid's per-point tensors and its per-step breakdown
+    law, shared by both sweeps.  ``block`` turns a superstep's failure
+    words into the steps' attempt epochs (Exp with mean MTBF) and the
+    partial sums of the epochs and of the repairs (Exp with mean MTTR);
+    ``interrupt`` applies one step's breakdowns to a busy span."""
+
+    def __init__(self, grid, f_cap: int, device) -> None:
+        def param(a, dt):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        self.f_cap = f_cap
+        mtbf = param(grid.mtbf, torch.float32)
+        self.on = mtbf > 0.0
+        self.scale = torch.where(self.on, mtbf, 1.0)
+        self.mttr = param(grid.mttr, torch.float32)
+        self.throttle = param(grid.throttle, torch.float32)
+        disc = param(grid.fail_disc, torch.int32)
+        self.restart = disc == FAIL_DISC_CODE["restart"]
+        self.drop = disc == FAIL_DISC_CODE["drop"]
+
+    def block(self, words: torch.Tensor) -> tuple:
+        """``(S, 2·f_cap, P)`` words → the attempt epochs and
+        the partial sums of epochs and repairs, each ``(S, F, P)``; the
+        sums run over an outer dimension, so a point's sums do not
+        depend on P."""
+        x = prng.exponential(words)
+        e = x[:, :self.f_cap] * self.scale
+        return (e, torch.cumsum(e, 1),
+                torch.cumsum(x[:, self.f_cap:] * self.mttr, 1))
+
+    def interrupt(self, blk: tuple, t: int, w: torch.Tensor,
+                  busy: torch.Tensor) -> dict:
+        """Step ``t``'s breakdowns over the busy span ``w`` of the points
+        where ``busy``.  Resume: the failures are the epochs' partial
+        sums inside w, each followed by its repair.  Restart: attempt k
+        fails iff its epoch lands inside w, losing that partial work
+        plus a repair; the first surviving attempt runs the full w.
+        Drop: the work aborts at the first epoch if it lands inside w,
+        and only that repair follows.  Returns the aborts, the failure
+        count, the repair time, the lost work, the extension of the
+        completion past w (not on aborts), the abort's completion
+        ``e1 + r1`` and where the block bound the count (resume: all
+        f_cap epochs inside w; restart: all f_cap attempts failed)."""
+        e_blk, e_cum, r_cum = (x[t] for x in blk)
+        on = self.on & busy
+        m = (e_cum < w).sum(0, dtype=torch.int32)
+        n_rst = torch.cumprod((e_blk < w).to(torch.int32), 0).sum(
+            0, dtype=torch.int32)
+
+        def prefix(cum, k):
+            # cum[k − 1], 0 where k = 0
+            at = torch.gather(cum, 0, (k - 1).clamp(min=0).long()
+                              .unsqueeze(0)).squeeze(0)
+            return torch.where(k > 0, at, 0.0)
+
+        rep_res, rep_rst = prefix(r_cum, m), prefix(r_cum, n_rst)
+        lost_rst = prefix(e_cum, n_rst)
+        e1, r1 = e_blk[0], r_cum[0]
+        aborts = on & self.drop & (e1 < w)
+        restarted = on & self.restart
+        n_f = torch.where(on, torch.where(
+            self.restart, n_rst,
+            torch.where(self.drop, aborts.to(torch.int32), m)), 0)
+        rep = torch.where(on, torch.where(
+            self.restart, rep_rst,
+            torch.where(self.drop, torch.where(aborts, r1, 0.0), rep_res)),
+            0.0)
+        lost = torch.where(aborts, e1,
+                           torch.where(restarted, lost_rst, 0.0))
+        trunc = on & ~self.drop & (n_f == self.f_cap)
+        return dict(aborts=aborts, n_f=n_f, rep=rep, lost=lost,
+                    ext=rep + torch.where(restarted, lost_rst, 0.0),
+                    abort_end=e1 + r1, degraded=on & (n_f > 0),
+                    trunc=trunc.to(torch.int32))
 
 
 def _require_ported_options(shard, metrics_tap) -> None:
@@ -148,10 +243,23 @@ def _require_pinned_caps(entry: str, key_offset: int, **pinned) -> None:
 
 def _window_sized(grid: SweepGrid) -> bool:
     """Whether ``a_cap`` is sized from the grid (deterministic service,
-    no timeout, every b_max finite), rather than coupled to q_cap."""
+    no timeout, every b_max finite, no failures), rather than coupled to
+    q_cap."""
     return (bool(np.all(grid.dist == DIST_CODE["det"]))
             and not bool(np.any(grid.wait_max > 0.0))
-            and not bool(np.any(grid.b_max == 0)))
+            and not bool(np.any(grid.b_max == 0))
+            and not grid.has_fail)
+
+
+def fail_capacity_args(grid) -> dict:
+    """``engine.queue_capacity``'s failure arguments for a grid (none
+    on a failure-free one): the room is sized for the completion-time
+    law and the repair burst."""
+    if not grid.has_fail:
+        return {}
+    return dict(mtbf=grid.mtbf, mttr=grid.mttr,
+                restart=grid.fail_disc == FAIL_DISC_CODE["restart"],
+                throttle=grid.throttle)
 
 
 def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
@@ -159,17 +267,19 @@ def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
     once on the FULL grid and splat into every chunk of a split
     dispatch (``sweep(chunk, key_offset=..., **sweep_caps(full))``).
     Pass ``q_cap`` to mirror a pinned queue capacity.  Returns
-    ``q_cap``/``a_cap``, and ``r_cap`` on loss grids."""
-    _require_supported(grid)
+    ``q_cap``/``a_cap``, ``r_cap`` on loss grids and ``f_cap`` on
+    failure grids."""
     if q_cap is None:
         q_cap = engine.queue_capacity(
             grid.lam, grid.alpha, grid.tau0, grid.b_max, grid.wait_max,
-            q_max=grid.q_max if grid.has_loss else None)
+            q_max=grid.q_max if grid.has_loss else None,
+            **fail_capacity_args(grid))
     if _window_sized(grid):
         # deterministic service with a finite cap bounds the service
         # window at α·b_max + τ0, so the per-window draw can be sized
         # to it; otherwise a queue excursion can stretch the window
-        # toward τ(q_cap), and a_cap stays coupled to q_cap
+        # toward τ(q_cap), and a failed batch's completion has no bound
+        # at all, so a_cap stays coupled to q_cap
         window = grid.alpha * grid.b_max + grid.tau0
         a_cap = min(int(q_cap), engine.window_capacity(grid.lam, window))
     else:
@@ -177,7 +287,23 @@ def sweep_caps(grid: SweepGrid, *, q_cap: Optional[int] = None) -> dict:
     caps = dict(q_cap=int(q_cap), a_cap=int(a_cap))
     if grid.has_loss:
         caps["r_cap"] = engine.orbit_capacity(grid.lam, grid.retry_rate)
+    if grid.has_fail:
+        caps["f_cap"] = _fail_cap(grid, int(q_cap))
     return caps
+
+
+def _fail_cap(grid: SweepGrid, q_cap: int) -> int:
+    """``f_cap`` for a sweep grid: the longest busy span is a full
+    batch's service at the throttle, its mean when the service law is
+    random (exp: Gamma(1), gamma: Gamma(1/cv²))."""
+    b = np.where(grid.b_max > 0, grid.b_max, q_cap).astype(np.float64)
+    span = ((grid.alpha * b + grid.tau0)
+            * np.maximum(np.asarray(grid.throttle, np.float64), 1.0))
+    cv = np.asarray(grid.cv, np.float64)
+    kshape = np.where(grid.dist == DIST_CODE["det"], np.inf,
+                      np.where(grid.dist == DIST_CODE["exp"], 1.0,
+                               1.0 / np.maximum(cv * cv, 1e-12)))
+    return engine.fail_capacity(grid.mtbf, span, kshape)
 
 
 def _gamma(misc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -205,6 +331,7 @@ def _gamma(misc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def sweep(grid: SweepGrid, *, n_batches: int = 3000,
           warmup: Optional[int] = None, q_cap: Optional[int] = None,
           a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+          f_cap: Optional[int] = None,
           n_bins: int = 512, seed: int = 0, key_offset: int = 0,
           shard=None, sketch: bool = False,
           superstep_backend: Optional[str] = None,
@@ -222,32 +349,37 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
     instead of the 512-bin histogram.  ``superstep_backend`` picks the
     histogram update (``"cuda"``/``"torch"``/``"auto"`` — see
     ``repro_torch.kernels.superstep``).  ``r_cap`` bounds a loss grid's
-    retry orbit (``None``: ``engine.orbit_capacity``); a loss-free grid
-    ignores it."""
+    retry orbit (``None``: ``engine.orbit_capacity``) and ``f_cap`` a
+    failure grid's failure block (``None``: ``engine.fail_capacity``);
+    a grid without the regime ignores them."""
     if len(grid) == 0:
         raise ValueError("empty grid")
     if warmup is not None and not 0 <= warmup < int(n_batches):
         raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
-    _require_supported(grid)
     _require_ported_options(shard, metrics_tap)
     dev = resolve_device(device)
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
         warmup = max(1, n_batches // 10)
-    has_loss = grid.has_loss
+    has_loss, has_fail = grid.has_loss, grid.has_fail
     if key_offset:
         _require_pinned_caps(
             "sweep", key_offset, q_cap=q_cap is not None,
             a_cap=a_cap is not None or not _window_sized(grid),
-            r_cap=not has_loss or r_cap is not None)
-    if q_cap is None or a_cap is None or (has_loss and r_cap is None):
+            r_cap=not has_loss or r_cap is not None,
+            f_cap=not has_fail or f_cap is not None)
+    if (q_cap is None or a_cap is None or (has_loss and r_cap is None)
+            or (has_fail and f_cap is None)):
         caps = sweep_caps(grid, q_cap=q_cap)
         q_cap = caps["q_cap"] if q_cap is None else q_cap
         a_cap = caps["a_cap"] if a_cap is None else a_cap
         if has_loss and r_cap is None:
             r_cap = caps["r_cap"]
+        if has_fail and f_cap is None:
+            f_cap = caps["f_cap"]
     q_cap, a_cap = int(q_cap), int(a_cap)
     r_cap = int(r_cap) if has_loss else 0
+    f_cap = int(f_cap) if has_fail else 0
     if a_cap > q_cap:
         raise ValueError("a_cap must be <= q_cap (ring-buffer invariant)")
     if np.any(grid.b_max > q_cap):
@@ -259,14 +391,16 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
     n_bins = int(n_bins)
     ss_backend = _ss.resolve_backend(superstep_backend, dev)
     out = _run(grid, n_batches=n_batches, warmup=int(warmup), q_cap=q_cap,
-               a_cap=a_cap, r_cap=r_cap, n_bins=n_bins, seed=int(seed),
+               a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=n_bins,
+               seed=int(seed),
                key_offset=int(key_offset), sketch=bool(sketch),
                ss_backend=ss_backend, device=dev)
     return _to_result(grid, out, sketch=bool(sketch))
 
 
 def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
-         a_cap: int, r_cap: int, n_bins: int, seed: int, key_offset: int,
+         a_cap: int, r_cap: int, f_cap: int, n_bins: int, seed: int,
+         key_offset: int,
          sketch: bool, ss_backend: str, device: torch.device) -> dict:
     """The superstep loop over every point at once; returns the
     per-point outputs as numpy arrays."""
@@ -274,7 +408,7 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     n = len(grid)
     has_timeout = bool(np.any(grid.wait_max > 0.0))
     all_det = bool(np.all(grid.dist == DIST_CODE["det"]))
-    has_loss = grid.has_loss
+    has_loss, has_fail = grid.has_loss, grid.has_fail
 
     def param(a, dt):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -295,6 +429,10 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     if has_loss:
         streams.append((_S_ORBIT, r_cap))
         lp = LossParams(grid, q_cap, device)
+    if has_fail:
+        streams.append((_S_FAIL, 2 * f_cap))
+        fp = FailParams(grid, f_cap, device)
+    stream_at = {sid: j for j, (sid, _) in enumerate(streams)}
 
     # state: the FIFO buffer holds arrival times relative to the last
     # departure; buf[:, :q] are the waiting jobs, oldest first.  The
@@ -312,6 +450,12 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
         # completions in SLO, fresh arrivals and orbit re-arrivals
         orbit, ov_n, ab_n, slo_n, fresh_n, retry_n = (zeros(i32)
                                                       for _ in range(6))
+    if has_fail:
+        # the degraded phase (the next batch runs at throttle), then the
+        # measured failures, repair time and lost work, and the steps
+        # (warmup too) whose failure count the block truncated
+        deg, n_fail, trunc = zeros(torch.bool), zeros(i32), zeros(i32)
+        down, lost_work = zeros(f32), zeros(f32)
     bm = (zeros(f32), zeros(f32), zeros(i32))
     hists = (torch.zeros(n, n_bins, dtype=i32, device=device),)
     if sketch:
@@ -320,8 +464,9 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     inc_blk = torch.zeros(n, _REBASE_EVERY, q_cap, dtype=torch.bool,
                           device=device)
     slots = torch.arange(q_cap, device=device)
-    # measured steps; under loss, per point, the steps that formed a
-    # batch (a queue emptied by reneging forms none)
+    # measured steps; under loss, per point, the steps that completed a
+    # batch (a queue emptied by reneging forms none, an aborted batch
+    # completes none)
     n_steps = 0
     if has_loss:
         n_meas = zeros(i32)
@@ -343,9 +488,12 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
         gap = prng.exponential(misc[:, 0]) / lam
         offs_s = engine.exp_offsets(prng.exponential(words[1]), lam)
         if has_timeout:
-            offs_t = engine.exp_offsets(prng.exponential(words[2]), lam)
+            offs_t = engine.exp_offsets(
+                prng.exponential(words[stream_at[_S_TIMEOUT]]), lam)
         if has_loss:
-            u_orb = prng.uniform(words[-1])
+            u_orb = prng.uniform(words[stream_at[_S_ORBIT]])
+        if has_fail:
+            fail_blk = fp.block(words[stream_at[_S_FAIL]])
         if not all_det:
             g = _gamma(misc, kshape) / kshape
         del words, misc
@@ -390,10 +538,28 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                 # a queue emptied by reneging forms no batch: no service
                 # time elapses and the next step idles
                 s = torch.where(b > 0, s, 0.0)
-            depart = release + s
+            comp = s
+            if has_fail:
+                # the batch after a repair runs degraded; breakdowns
+                # while it executes stretch its completion (a drop
+                # abort ends it at the failure's repair instead)
+                s = s * torch.where(deg, fp.throttle, 1.0)
+                fail = fp.interrupt(fail_blk, t, s, b > 0)
+                aborts = fail["aborts"]
+                comp = torch.where(aborts, fail["abort_end"],
+                                   s + fail["ext"])
+                deg = fail["degraded"]
+                trunc = trunc + fail["trunc"]
+            depart = release + comp
 
-            # pop the b oldest jobs; their latency ends at `depart`
+            # pop the b oldest jobs; their latency ends at `depart`.  An
+            # aborted batch completes none: its jobs leave through the
+            # abandonment path
             popmask = slots < b.unsqueeze(1)
+            b_done = b
+            if has_fail:
+                popmask &= ~aborts.unsqueeze(1)
+                b_done = torch.where(aborts, 0, b)
             lats = torch.where(popmask,
                                depart.unsqueeze(1) - buf[:, :q_cap], 0.0)
             buf = engine.fifo_pop_shift(buf, b, q_cap)
@@ -405,16 +571,21 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                 q = q - trim
                 lost_ov = lost_ov + trim
 
-            # arrivals during the service period join the queue
+            # arrivals during the service period join the queue; under
+            # failures the period is the whole completion, repairs and
+            # rework included
             buf, q, dropped, lost_ov, fresh = push(
-                buf, q, dropped, lost_ov, fresh, offs_s[t], release, s)
+                buf, q, dropped, lost_ov, fresh, offs_s[t], release, comp)
 
             if has_loss:
                 # the retry orbit at the departure epoch: each orbit job
                 # fires with p = 1 − exp(−rate·elapsed); admitted
                 # re-arrivals join at `depart`, the rest stay in orbit.
                 # Then this step's losses are filed, abandoned first;
-                # what the orbit cannot hold is a terminal loss
+                # what the orbit cannot hold is a terminal loss.  An
+                # aborted batch's b jobs are filed as abandoned
+                if has_fail:
+                    lost_ab = lost_ab + torch.where(aborts, b, 0)
                 p_fire = 1.0 - torch.exp(-lp.retry_rate * depart)
                 n_r = engine.orbit_draws(u_orb[t], orbit, p_fire)
                 admit_r = torch.minimum(
@@ -433,24 +604,33 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
                     slo_n = slo_n + torch.where(
                         lp.deadline > 0.0,
                         (popmask & (lats <= lp.deadline.unsqueeze(1)))
-                        .sum(1, dtype=i32), b)
+                        .sum(1, dtype=i32), b_done)
             # rebase the clock: the departure becomes the next origin
             buf.sub_(depart.unsqueeze(1))
 
             lat_blk[:, t] = lats
             if meas:
                 inc_blk[:, t] = popmask
+                # batch statistics count completed batches: an aborted
+                # one adds nothing, and a job's service is the whole
+                # completion; busy is productive execution only (repairs
+                # and lost work are counted apart)
                 lat_sum = lat_sum + engine.row_sum(lats)
-                lat_n = lat_n + b
-                bf = b.to(f32)
+                lat_n = lat_n + b_done
+                bf = b_done.to(f32)
                 sum_b = sum_b + bf
                 sum_b2 = sum_b2 + bf * bf
-                sum_bs = sum_bs + bf * s
-                busy = busy + s
+                sum_bs = sum_bs + bf * comp
+                busy = busy + (torch.where(aborts, 0.0, s) if has_fail
+                               else s)
                 span = span + depart
                 n_steps += 1
                 if has_loss:
-                    n_meas = n_meas + (b > 0).to(i32)
+                    n_meas = n_meas + (b_done > 0).to(i32)
+                if has_fail:
+                    n_fail = n_fail + fail["n_f"]
+                    down = down + fail["rep"]
+                    lost_work = lost_work + fail["lost"]
             else:
                 inc_blk[:, t] = False
             q_max = torch.maximum(q_max, q)
@@ -490,6 +670,9 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     if has_loss:
         out.update(n_batches=n_meas, overflow_dropped=ov_n, abandoned=ab_n,
                    n_in_slo=slo_n, n_fresh=fresh_n, n_retry=retry_n)
+    if has_fail:
+        out.update(n_failures=n_fail, down_time=down, lost_work=lost_work,
+                   span=span, fail_truncated=trunc)
     out = {k: v.cpu().numpy() for k, v in out.items()}
     if not has_loss:
         out["n_batches"] = np.full(n, n_steps, dtype=np.int32)
@@ -506,6 +689,19 @@ def loss_fields(out: dict) -> dict:
     return dict(overflow_dropped=np.zeros_like(n_jobs),
                 abandoned=np.zeros_like(n_jobs), n_in_slo=n_jobs.copy(),
                 n_fresh=n_jobs.copy(), n_retry=np.zeros_like(n_jobs))
+
+
+def fail_fields(out: dict) -> dict:
+    """A failure run's accounting for its result (none otherwise: the
+    result's fields stay None, and availability reads 1)."""
+    if "n_failures" not in out:
+        return {}
+    f64 = np.float64
+    return dict(n_failures=out["n_failures"],
+                down_time=out["down_time"].astype(f64),
+                lost_work=out["lost_work"].astype(f64),
+                span=out["span"].astype(f64),
+                fail_truncated=out["fail_truncated"])
 
 
 def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
@@ -531,5 +727,5 @@ def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
         hist_sums=out["hist_sums"].astype(f64) if sketch else None,
         stderr=stderr, ci_halfwidth=ci,
         n_blocks=out["lat_bm_n"],
-        **loss_fields(out),
+        **loss_fields(out), **fail_fields(out),
     )

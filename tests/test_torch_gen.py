@@ -366,18 +366,30 @@ def test_backends_guard_their_grids():
 
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard"])
 def test_unported_features_raise(what):
+    """metrics_tap (3e) and shard > 1 (3f) raise, naming their ROADMAP
+    items.  Failure grids, with and without a loss regime, raised here
+    until they were ported; their cases now hold the grid's
+    accounting."""
     kw = dict(n_steps=64, **CPU)
-    extra = {}
-    if what == "loss":
-        # loss grids run; one with failures still waits for 3d
-        extra, match = dict(q_max=8, mtbf=50.0, mttr=1.0), "3d"
-    elif what == "fail":
-        extra, match = dict(mtbf=50.0, mttr=1.0), "3d"
-    elif what == "tap":
+    if what in ("loss", "fail"):
+        extra = dict(mtbf=50.0, mttr=1.0)
+        if what == "loss":
+            extra["q_max"] = 8
+        g = GenGrid.from_points([0.05], *CONST.values(), **extra)
+        assert g.has_fail and g.has_loss == (what == "loss")
+        r = gen_sweep(g, seed=3, **kw)
+        assert int(r.buffer_dropped.sum()) == 0
+        assert int(r.fail_truncated.sum()) == 0
+        assert int(r.n_failures[0]) > 0 and float(r.lost_work[0]) == 0.0
+        assert 0.0 < float(r.availability[0]) < 1.0
+        total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+        assert np.allclose(total, 1.0, atol=1e-6)
+        return
+    if what == "tap":
         kw["metrics_tap"], match = object(), "3e"
     else:
         kw["shard"], match = 2, "3f"
-    g = GenGrid.from_points([0.05], *CONST.values(), **extra)
+    g = GenGrid.from_points([0.05], *CONST.values())
     with pytest.raises(NotImplementedError, match=match):
         gen_sweep(g, **kw)
 

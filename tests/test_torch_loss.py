@@ -454,17 +454,27 @@ def test_split_dispatch_with_loss_bitwise(which):
 @pytest.mark.parametrize("which", ["sweep", "gen"])
 @pytest.mark.parametrize("grid", ["fail_drop", "loss_mtbf"])
 def test_failure_grids_raise_3d(which, grid):
+    """Loss grids with failures (a fail-drop grid is a loss grid through
+    its failures) raised "3d" until the failure regimes were ported;
+    they now run, and hold the exact accounting laws."""
     extra = (dict(mtbf=50.0, mttr=1.0, fail_disc="drop") if grid == "fail_drop"
              else dict(q_max=8, deadline=5.0, mtbf=50.0, mttr=1.0))
     if which == "sweep":
         g = SweepGrid.from_points([2.0], V100.alpha, V100.tau0, **extra)
-        call = lambda: sweep(g, n_batches=64, **CPU)      # noqa: E731
+        r = sweep(g, n_batches=512, seed=3, **CPU)
     else:
         g = GenGrid.from_points([0.05], 0.1, 1.0, 0.1, 1.0, **extra)
-        call = lambda: gen_sweep(g, n_steps=64, **CPU)    # noqa: E731
+        r = gen_sweep(g, n_steps=64, seed=3, **CPU)
     assert g.has_loss and g.has_fail
-    with pytest.raises(NotImplementedError, match="3d"):
-        call()
+    assert int(r.buffer_dropped.sum()) == 0
+    assert int(r.fail_truncated.sum()) == 0
+    offered = r.n_jobs + r.overflow_dropped + r.abandoned
+    total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+    assert np.all(offered > 0) and np.allclose(total, 1.0, atol=1e-6)
+    assert int(r.n_failures[0]) > 0 and 0.0 < float(r.availability[0]) < 1.0
+    if grid == "fail_drop":
+        # aborted work is lost work, and its jobs are abandoned
+        assert float(r.lost_work[0]) > 0.0 and int(r.abandoned[0]) > 0
 
 
 def test_q_max_above_q_cap_raises():

@@ -211,27 +211,40 @@ def test_sweep_runs_the_superstep_update_once_per_block(monkeypatch):
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard",
                                   "markov"])
 def test_unported_features_raise(what):
+    """metrics_tap (3e) and shard > 1 (3f) raise, naming their ROADMAP
+    items.  Failure grids, with and without a loss regime, and the
+    "markov" backend raised here until they were ported; their cases
+    now hold what runs: the failure grid's accounting, and the exact
+    chain's answer equal to the reference's."""
     g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0)
     kw = dict(n_batches=64, **CPU)
-    if what == "loss":
-        # loss grids run; one with failures still waits for 3d
-        g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0, q_maxes=(8,),
-                                mtbfs=(50.0,), mttrs=(1.0,))
-        match = "3d"
-    elif what == "fail":
+    if what in ("loss", "fail"):
+        extra = dict(q_maxes=(8,)) if what == "loss" else {}
         g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0,
-                                mtbfs=(50.0,), mttrs=(1.0,))
-        match = "3d"
-    elif what == "tap":
+                                mtbfs=(50.0,), mttrs=(1.0,), **extra)
+        assert g.has_fail and g.has_loss == (what == "loss")
+        r = sweep(g, n_batches=512, seed=3, **CPU)
+        assert int(r.buffer_dropped.sum()) == 0
+        assert int(r.fail_truncated.sum()) == 0
+        assert int(r.n_failures[0]) > 0 and float(r.lost_work[0]) == 0.0
+        assert 0.0 < float(r.availability[0]) < 1.0
+        total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
+        assert np.allclose(total, 1.0, atol=1e-6)
+        return
+    if what == "markov":
+        (x,) = evaluate(g, backend="markov")
+        (y,) = ref_evaluate(RefGrid.from_rhos([0.5], V100.alpha,
+                                              V100.tau0), backend="markov")
+        assert isinstance(x, SimResult) and x.backend == "markov"
+        assert (x.mean_latency, x.mean_batch, x.utilization) == \
+            (y.mean_latency, y.mean_batch, y.utilization)
+        return
+    if what == "tap":
         kw["metrics_tap"] = object()
         match = "3e"
-    elif what == "shard":
+    else:
         kw["shard"] = 2
         match = "3f"
-    else:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            evaluate(g, backend="markov")
-        return
     with pytest.raises(NotImplementedError, match=match):
         sweep(g, **kw)
 

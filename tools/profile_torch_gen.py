@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's user-size generate sweep spends its time on the GPU.
 
-    python3 tools/profile_torch_gen.py [--supersteps 3] [--loss] [--out DIR]
+    python3 tools/profile_torch_gen.py [--supersteps 3] [--loss | --fail]
+        [--out DIR]
 
 Runs the superstep loop of ``repro_torch.core.gen_sweep`` on
 ``chip_smoke.py``'s generate grid (benchmarks/continuous.py's 512
@@ -26,7 +27,11 @@ supersteps — once to warm up, once on the host clock, once under
 With ``--loss`` it profiles the loss path instead, on
 ``chip_smoke.py``'s ``gen_loss_user_size`` grid (the same points with
 loss tiles, the same caps, ``r_cap`` from the loss grid), and the draw
-includes the retry orbit's uniforms.
+includes the retry orbit's uniforms.  With ``--fail`` it profiles the
+failure path, on ``chip_smoke.py``'s ``gen_fail_user_size`` grid (the
+same points with failure tiles, its own ``gen_caps``), and the draw
+includes the orbit's uniforms (its drop tiles make it a loss grid) and
+the failure epochs and repairs.
 
 The public ``gen_sweep`` rounds ``n_steps`` up to 2,048; this tool calls
 its loop (``gen_sweep._run``) directly so that a profile covers only a
@@ -50,7 +55,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import gen_grid, gen_loss_grid, nvidia_smi  # noqa: E402
+from chip_smoke import (gen_fail_grid, gen_grid, gen_loss_grid,  # noqa: E402
+                        nvidia_smi)
 from repro_torch.core import engine, gen_caps, prng  # noqa: E402
 
 # the module (``repro_torch.core.gen_sweep`` names the function too)
@@ -75,7 +81,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiles", type=int, default=16)
     ap.add_argument("--supersteps", type=int, default=3)
-    ap.add_argument("--loss", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--loss", action="store_true")
+    mode.add_argument("--fail", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -83,10 +91,13 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     grid = gen_grid(args.tiles)
-    caps = dict(gen_caps(grid), r_cap=None)
+    caps = dict(gen_caps(grid), r_cap=None, f_cap=0)
     if args.loss:
         grid = gen_loss_grid(grid, args.tiles)
         caps["r_cap"] = gen_caps(grid)["r_cap"]
+    elif args.fail:
+        grid = gen_fail_grid(grid, args.tiles)
+        caps = gen_caps(grid)
     s_cap = int(grid.max_active.max())
     R = gen_mod._REBASE_EVERY
     kw = dict(n_steps=R * args.supersteps, warmup=0, s_cap=s_cap,
@@ -123,15 +134,21 @@ def main() -> int:
     lam = torch.as_tensor(grid.lam, device=dev)
 
     streams = ((gen_mod._S_GAPS, caps["a_cap"] + 1),)
-    if args.loss:
+    if caps["r_cap"] is not None:
         streams += ((gen_mod._S_ORBIT, caps["r_cap"]),)
+    if args.fail:
+        streams += ((gen_mod._S_FAIL, 2 * caps["f_cap"]),)
 
     def draw():
         words = prng.draw_words(keys, 0, R, streams)
         engine.exp_offsets(prng.exponential(words[0]), lam).permute(
             0, 2, 1).contiguous()
-        if args.loss:
+        if caps["r_cap"] is not None:
             prng.uniform(words[1])
+        if args.fail:
+            x = prng.exponential(words[-1])
+            torch.cumsum(x[:, :caps["f_cap"]], 1)
+            torch.cumsum(x[:, caps["f_cap"]:], 1)
     draw()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -144,7 +161,8 @@ def main() -> int:
     kernel_ms = busy_us / 1e3 / args.supersteps
 
     print(json.dumps({
-        "points": len(grid), "loss": args.loss, "caps": caps,
+        "points": len(grid), "loss": args.loss, "fail": args.fail,
+        "caps": caps,
         "supersteps": args.supersteps,
         "steps_per_superstep": R,
         "wall_ms_per_superstep": plain_wall_ms / args.supersteps,

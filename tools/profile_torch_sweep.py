@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's user-size sweep spends its time on the GPU.
 
-    python3 tools/profile_torch_sweep.py [--supersteps 3] [--loss] [--out DIR]
+    python3 tools/profile_torch_sweep.py [--supersteps 3] [--loss | --fail]
+        [--out DIR]
 
 Runs ``repro_torch.core.sweep`` on the examples/sweep_grid.py grid
 (8,192 requested points → 8,160, ``q_cap=768``) once to warm up, then
@@ -27,6 +28,13 @@ With ``--loss`` it profiles the loss path instead, on ``chip_smoke.py``'s
 ``prng_base_ms_per_superstep``: the same draw without the retry orbit's
 uniforms, so the difference is the orbit's share.
 
+With ``--fail`` it profiles the failure path, on ``chip_smoke.py``'s
+``fail_user_size`` grid (benchmarks/availability.py's 26 single-server
+cells tiled 316 times, ``q_cap = a_cap = 512``, ``r_cap=64``, seed 31;
+its drop cells make it a loss grid too), and
+``prng_base_ms_per_superstep`` is the draw of the misc and service
+streams alone, without the orbit's and the failures' words.
+
 With ``--out`` it also writes the Chrome trace there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
 """
@@ -45,10 +53,11 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import build_grid, loss_grid, nvidia_smi  # noqa: E402
+from chip_smoke import (AV_B_MAX, AV_RHOS, V100, build_grid,  # noqa: E402
+                        fail_grid, loss_grid, nvidia_smi)
 from repro_torch.core import engine, prng, sweep, sweep_caps  # noqa: E402
-from repro_torch.core.sweep import (_MISC_WORDS, _S_MISC,  # noqa: E402
-                                    _S_ORBIT, _S_SERVICE)
+from repro_torch.core.sweep import (_MISC_WORDS, _S_FAIL,  # noqa: E402
+                                    _S_MISC, _S_ORBIT, _S_SERVICE)
 
 
 def _device_us(evt) -> float:
@@ -64,7 +73,9 @@ def main() -> int:
     ap.add_argument("--points", type=int, default=8192)
     ap.add_argument("--q-cap", type=int, default=768)
     ap.add_argument("--supersteps", type=int, default=3)
-    ap.add_argument("--loss", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--loss", action="store_true")
+    mode.add_argument("--fail", action="store_true")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -76,6 +87,14 @@ def main() -> int:
         grid = loss_grid()
         kw = dict(a_cap=64, r_cap=96, seed=29, device=dev)
         q_cap, a_cap = sweep_caps(grid)["q_cap"], 64
+    elif args.fail:
+        grid, _ = fail_grid()
+        cap = AV_B_MAX / (V100[0] * AV_B_MAX + V100[1])
+        q_cap = a_cap = engine.queue_capacity(
+            max(AV_RHOS) * cap, V100[0], V100[1], AV_B_MAX, mtbf=60.0,
+            mttr=12.0, restart=True)
+        kw = dict(q_cap=q_cap, a_cap=a_cap, r_cap=64, seed=31, device=dev)
+        kw["f_cap"] = sweep_caps(grid, q_cap=q_cap)["f_cap"]
     else:
         grid = build_grid(args.points)
         kw = dict(q_cap=args.q_cap, seed=0, device=dev)
@@ -113,8 +132,13 @@ def main() -> int:
             words = prng.draw_words(keys, 0, 32, streams)
             prng.exponential(words[0][:, 0])
             engine.exp_offsets(prng.exponential(words[1]), lam)
-            if len(words) > 2:
-                prng.uniform(words[2])
+            for (sid, _), w in zip(streams[2:], words[2:]):
+                if sid == _S_ORBIT:
+                    prng.uniform(w)
+                else:
+                    x = prng.exponential(w)
+                    torch.cumsum(x[:, :kw["f_cap"]], 1)
+                    torch.cumsum(x[:, kw["f_cap"]:], 1)
         draw()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -126,14 +150,18 @@ def main() -> int:
         return start.elapsed_time(end) / 3
 
     extra = {}
-    if args.loss:
+    if args.loss or args.fail:
         extra["prng_base_ms_per_superstep"] = draw_ms(base)
-        prng_ms = draw_ms(base + ((_S_ORBIT, kw["r_cap"]),))
+        more = ((_S_ORBIT, kw["r_cap"]),)
+        if args.fail:
+            more += ((_S_FAIL, 2 * kw["f_cap"]),)
+        prng_ms = draw_ms(base + more)
     else:
         prng_ms = draw_ms(base)
 
     print(json.dumps({
-        "points": len(grid), "loss": args.loss, "q_cap": q_cap,
+        "points": len(grid), "loss": args.loss, "fail": args.fail,
+        "q_cap": q_cap, "a_cap": a_cap,
         "supersteps": args.supersteps,
         "wall_ms_per_superstep": plain_wall_ms / args.supersteps,
         "profiled_wall_ms_per_superstep": wall_ms / args.supersteps,
