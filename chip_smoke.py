@@ -149,7 +149,55 @@ printing one JSON line per phase:
                    superstep 160's hist_update and fifo_compact inputs
                    timed as ``path_kernel`` lines.
 
-16. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
+16. fleet_contracts — the k-replica fleet on the card: one mixed grid
+                   (a loss point, a resume-restart and a drop failure
+                   point, three neutral points, all three routings)
+                   dispatched whole and in two chunks with
+                   ``fleet_caps`` pinned, bitwise, an unpinned chunk
+                   refused, and its neutral points bitwise equal to the
+                   plain path; tests/test_fleet.py's grid (n_steps
+                   4,992): k = 1 under each routing, the k = 4 random
+                   split and the k = 1 timeout point against the port's
+                   ``sweep`` within 3σ, the round-robin balance, JSQ at
+                   k 4 against ``simulate_jsq_numpy`` (3 seeds); the
+                   FL_CFG loss and failure ladders of
+                   tests/test_backpressure.py and tests/test_failures.py
+                   (12 copies each, 4,000 steps, one dispatch) against
+                   the port's ``simulate_fleet_loss_numpy`` at 3σ;
+                   accounting, ``buffer_dropped == 0``,
+                   ``fail_truncated == 0``, resume's breakdowns at
+                   1/MTBF, one hist_update launch per superstep.
+17. fleet_user_size — benchmarks/replicas.py's grid (11 total loads × k
+                   1…16 × random / round-robin / JSQ = 528 points)
+                   tiled 16 times into 8,448 fleets, n_steps 4,000,
+                   a_cap 32, hist_every 4, seed 17: two calls bitwise
+                   equal, no drops, first and warm wall, jobs/s, peak
+                   memory, the JSQ/random E[W] ratio at k 16 and the
+                   ρ1 0.8 curve as tile means; superstep 60's
+                   hist_update block (8,448 × 8 × 256), from a third
+                   untimed run, as a ``path_kernel`` line.
+18. fleet_fail_user_size — benchmarks/availability.py's fleet half (2 ρ
+                   × k 1, 4 × 3 (mtbf, mttr) pairs × 3 disciplines = 36
+                   JSQ points, b_max 8) tiled 228 times into 8,208,
+                   q_cap 512 as the benchmark sizes it, a_cap 64, r_cap
+                   64, n_steps 6,000, seed 31: no drops, no truncated
+                   failure count, resume's breakdowns at 1/MTBF,
+                   availability per cell and the harsh/baseline E[W]
+                   per discipline at ρ 0.75, k 4, as tile means; one
+                   timed run; superstep 60's block (8,208 × 32 × 8) as
+                   a ``path_kernel`` line.
+19. chain_grid   — examples/exact_surface.py's MarkovGrid (24 load
+                   fractions × b_max 1…128 = 192 cells) through
+                   ``solve_grid`` on the card (float64, adaptive K):
+                   E[W], utilization and E[B] within rel 1e-10 and
+                   ``tail_mass`` within 1e-12 of the host's GTH
+                   recursion on every cell and of ``method="numpy"``
+                   where the banded host solve agrees with GTH; the
+                   cells where it does not are held against the dense
+                   LU and reported (ROADMAP C-R2); K, V, wall, peak
+                   memory.
+
+20. attn_kernel   — the CUDA ``flash_attention`` and ``decode_attention``
                    against their plain versions (float32 matmuls, TF32
                    off): at the serve path's shapes (batch 1…32, prompt
                    32, cache 37, 16 heads of 64, bf16), at the long
@@ -163,24 +211,24 @@ printing one JSON line per phase:
                    launched twice with bitwise equal outputs; kernel,
                    plain, library (``scaled_dot_product_attention``) and
                    bound times at the serve, long and batch-1 shapes.
-17. serve        — ``python -m repro_torch.launch.serve --arch
+21. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b] per bucket,
                    α, τ0, R², E[W] against φ, p99, utilisation, peak
                    memory, and exactly 24 ``flash_attention`` and 24 × 4
                    ``decode_attention`` launches per batch.
-18. serve_long   — the same model generating 32 tokens after a 1,024-
+22. serve_long   — the same model generating 32 tokens after a 1,024-
                    token prompt, ``calibrate(samples=3)`` on batches
                    1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
                    α, τ0, R², E[W] against φ, p99, peak memory, exact
                    launch counts.
-19. model_consistency — qwen1.5-0.5b at full width in float32 from the
+23. model_consistency — qwen1.5-0.5b at full width in float32 from the
                    port's seeded init, batch 2: prefill(32) and three
                    decode steps against the forward logits of all 35
                    tokens, within 3e-4 (abs + rel): the two kernels held
                    against each other through the whole model.
-20. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
+24. ssd_kernel   — the CUDA ``ssd_scan`` against its plain version
                    (float32 matmuls) at mamba2-2.7b's heads (80 × 64,
                    d_state 128, one group, B and C strided slices of
                    one activation as in the model): the serve shape
@@ -196,14 +244,14 @@ printing one JSON line per phase:
                    state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
                    SSD, so no library time).
-21. serve_ssm    — ``python -m repro_torch.launch.serve --arch
+25. serve_ssm    — ``python -m repro_torch.launch.serve --arch
                    mamba2-2.7b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b], α, τ0, R²,
                    E[W] against φ, p99, utilisation, peak memory, and
                    exactly 64 ``ssd_scan`` launches and no attention
                    launch per batch.
-22. ssm_consistency — mamba2-2.7b at full width in float32 from the
+26. ssm_consistency — mamba2-2.7b at full width in float32 from the
                    port's seeded init, batch 2: prefill(300), which
                    crosses a 256-token chunk, and three decode steps
                    against the forward logits of all 303 tokens, within
@@ -216,7 +264,7 @@ launches of that path's user-size run beside the times at that path's
 shape; the ``hist_update`` and ``fifo_compact`` rows add ``path_ms``,
 ``path_plain_ms``, ``path_bound_ms`` and ``path_library_ms`` from the
 path's own block, and ``bound_ms_bytes4`` beside each recounted
-bound; the loss and failure paths' rows time B1 and B2 on their
+bound; the loss, failure and fleet paths' rows time B1 and B2 on their
 captured blocks only), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -239,12 +287,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import (  # noqa: E402
-    GenGrid, GenServiceModel, SweepGrid, evaluate, gen_caps, gen_sweep,
-    sweep, sweep_caps)
+    FleetGrid, GenGrid, GenServiceModel, MarkovGrid, SweepGrid, evaluate,
+    fleet_caps, fleet_sweep, gen_caps, gen_sweep, sweep, sweep_caps)
 from repro_torch.core.analytic import (  # noqa: E402
     LinearServiceModel, mean_batch_lower, phi, stability_limit)
 from repro_torch.core import engine, prng  # noqa: E402
+from repro_torch.core.chain_solver import (  # noqa: E402
+    _grid_shapes, build_chain, chain_metrics, solve_pi_gth)
 from repro_torch.core.markov import solve as markov_solve  # noqa: E402
+from repro_torch.core.markov import solve_grid  # noqa: E402
 from repro_torch.core.continuous_sim import (  # noqa: E402
     simulate_continuous_numpy)
 from repro_torch.core.gen_sweep import buffer_length  # noqa: E402
@@ -252,7 +303,8 @@ from repro_torch.core.grid import OVERFLOW_CODE  # noqa: E402
 from repro_torch.core.hist import (bit_bins, hist_edges,  # noqa: E402
                                    sketch_edges, thinned_rows)
 from repro_torch.core.loss_ref import (  # noqa: E402
-    simulate_gen_loss_numpy, simulate_loss_numpy)
+    simulate_fleet_loss_numpy, simulate_gen_loss_numpy, simulate_loss_numpy)
+from repro_torch.core.replicas import simulate_jsq_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -1410,11 +1462,12 @@ def check_fail_block(r, mtbf, resume, what: str) -> dict:
     """The failure block's witness and its law: no step's failure count
     was truncated (``fail_truncated``), and on the resume points
     (``resume`` mask) the measured breakdowns arrive at rate 1/MTBF over
-    the measured busy time, within 3√n (a truncated count falls
-    short)."""
+    the measured busy time (a fleet's: utilization · k · span), within
+    3√n (a truncated count falls short)."""
     check(int(r.fail_truncated.sum()) == 0, f"{what}: fail_truncated == 0")
     resume = np.asarray(resume, bool)
-    busy = (np.asarray(r.utilization, float) * np.asarray(r.span, float))
+    busy = (np.asarray(r.utilization, float) * np.asarray(r.span, float)
+            * np.asarray(getattr(r.grid, "k", 1), float))
     want = float((busy[resume] / np.asarray(mtbf, float)[resume]).sum())
     got = float(r.n_failures[resume].sum())
     z = (got - want) / math.sqrt(max(want, 1.0))
@@ -1849,6 +1902,472 @@ def phase_gen_fail_user_size(dev, grid: GenGrid, n_steps: int = 4096,
     return out, capture_blocks(lambda: gen_sweep(fgrid, **kw), capture_at,
                                "fifo_compact")
 
+
+# -- the k-replica fleet (fleet_sweep) and the chain grid solver --------------
+
+# tests/test_fleet.py's shared dispatch: k = 1 under each routing, a k = 4
+# random and round-robin split, a k = 1 timeout point, a k = 4 JSQ ladder
+FLEET_KW = dict(n_steps=4992, q_cap=128, a_cap=32, seed=7)
+FLEET_LAM1 = 0.5 / V100[0]
+FLEET_JSQ = 6
+# the FL_CFG ladders of tests/test_backpressure.py (routing, overflow,
+# q_max, deadline, retry) and tests/test_failures.py (fail_disc, routing)
+FLEET_BP_CFG = [("random", "reject", 6, 4.0, 0.5),
+                ("jsq", "drop", 12, 1.8, 0.5)]
+FLEET_BP = (8.0, 2, 4)               # λ, k, b_max
+FLEET_FAIL_CFG = [("resume", "jsq"), ("restart", "random"),
+                  ("drop", "round_robin")]
+FLEET_FAIL = (6.0, 2, 4, 8.0, 0.5)   # λ, k, b_max, mtbf, mttr
+FLEET_REPS = 12
+# benchmarks/replicas.py's grid: total load as a fraction of ONE
+# replica's saturation rate × k 1…16 × 3 routings
+REP_RHO1S = [0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.5, 0.6, 0.7, 0.8]
+REP_KS = list(range(1, 17))
+REP_ROUTINGS = ("random", "round_robin", "jsq")
+# benchmarks/availability.py's fleet half: k 1 and 4, JSQ
+AV_KS = [1, 4]
+# examples/exact_surface.py's grid
+SURFACE_B_MAXES = (1, 2, 4, 8, 16, 32, 64, 128)
+SURFACE_FRACS = 24
+
+
+def check_fleet_accounting(r, what: str) -> None:
+    """The fleet's exact laws on one run: no capacity drop, every
+    measured job attributed to exactly one active replica, and on loss
+    grids the accounting laws of ``check_accounting``."""
+    check(int(r.buffer_dropped.sum()) == 0, f"{what}: buffer_dropped == 0")
+    check(np.array_equal(r.jobs_by_replica.sum(1), r.n_jobs),
+          f"{what}: jobs_by_replica sums to n_jobs")
+    k = np.asarray(r.grid.k)
+    inactive = np.arange(r.jobs_by_replica.shape[1]) >= k[:, None]
+    check(int(r.jobs_by_replica[inactive].sum()) == 0,
+          f"{what}: no job on an inactive replica")
+    if r.grid.has_loss:
+        check_accounting(r, what)
+    if r.grid.has_fail:
+        av = np.asarray(r.availability, float)
+        check(bool(np.allclose(av, 1.0 - r.down_time / (k * r.span))),
+              f"{what}: availability = 1 - down_time / (k span)")
+
+
+def _z_gate(a, se_a, b, se_b, what: str, floor: float = 0.01) -> float:
+    """|a − b| within 3σ of the two batch-means errors (``floor`` of b
+    at least)."""
+    se = max(math.hypot(se_a, se_b), floor * abs(b))
+    z = (a - b) / se
+    check(abs(z) < 3.0, f"{what}: {a} vs {b} (z={z})")
+    return float(z)
+
+
+def phase_fleet_contracts(dev) -> dict:
+    """The fleet's bitwise contracts, its reductions to the single
+    server, and its seed ladders against the host oracles, on the
+    card."""
+    m = MODEL_BP
+    # one mixed grid: a loss point, two failure points (drop makes it a
+    # loss grid too), and three neutral points, every routing
+    g = FleetGrid.from_points(
+        [9.0, 6.0, 6.0, 5.0, 4.0, 5.5], m.alpha, m.tau0,
+        k=[2, 2, 2, 2, 3, 2], b_max=4,
+        routing=["jsq", "random", "round_robin", "jsq", "random",
+                 "round_robin"],
+        dist=["det", "gamma", "det", "det", "exp", "det"],
+        q_max=[10, 0, 0, 0, 0, 0], deadline=[6.0, 0, 0, 0, 0, 0],
+        retry_rate=[0.5, 0, 0, 0, 0, 0],
+        fail_disc=["resume", "restart", "drop", "resume", "resume",
+                   "resume"],
+        mtbf=[0.0, 8.0, 8.0, 0.0, 0.0, 0.0], mttr=[0.0, 0.5, 0.5, 0, 0, 0],
+        throttle=[1.0, 0.85, 1.0, 1.0, 1.0, 1.0])
+    caps = fleet_caps(g)
+    kw = dict(n_steps=512, a_cap=16, seed=13, device=dev, **caps)
+    whole = _counted(lambda: fleet_sweep(g, **kw), 16, "fleet mixed grid")
+    a = fleet_sweep(g.take(slice(0, 2)), **kw)
+    b = fleet_sweep(g.take(slice(2, None)), key_offset=2, **kw)
+    for f in ("mean_latency", "mean_batch", "utilization", "n_jobs", "hist",
+              "jobs_by_replica", "stderr", "max_queue", "abandoned",
+              "overflow_dropped", "n_retry", "n_failures", "down_time",
+              "lost_work", "fail_truncated"):
+        want = getattr(whole, f)
+        parts = [getattr(x, f) for x in (a, b)]
+        if f == "jobs_by_replica":
+            # a chunk's replica axis is its own k_max wide
+            parts = [np.pad(x, ((0, 0), (0, want.shape[1] - x.shape[1])))
+                     for x in parts]
+        split = np.concatenate(parts)
+        check(np.array_equal(want, split, equal_nan=True),
+              f"fleet split dispatch bitwise on {f}")
+    kw.pop("q_cap")
+    try:
+        fleet_sweep(g.take(slice(2, None)), key_offset=2, **kw)
+    except ValueError as e:
+        check("q_cap" in str(e), f"fleet: unpinned chunk refused: {e}")
+    else:
+        check(False, "fleet: an unpinned chunk ran")
+    # the neutral points (no q_max, deadline, retry or mtbf) give the
+    # loss- and failure-free path's bits at the same caps and indices
+    base = fleet_sweep(g.take(slice(3, None)), key_offset=3, n_steps=512,
+                       a_cap=16, q_cap=caps["q_cap"], seed=13, device=dev)
+    check(not g.take(slice(3, None)).has_loss, "the neutral slice is plain")
+    for f in NEUTRAL_FIELDS + ("jobs_by_replica", "mean_service"):
+        got = getattr(whole, f)[3:]
+        if f == "jobs_by_replica":
+            got = got[:, :base.jobs_by_replica.shape[1]]
+        check(np.array_equal(got, getattr(base, f), equal_nan=True),
+              f"fleet neutral points bitwise equal to the base path on {f}")
+    check(int(whole.overflow_dropped[0] + whole.abandoned[0]) > 0
+          and int(whole.n_failures[1:3].min()) > 0
+          and int(whole.n_failures[3:].sum()) == 0,
+          "fleet mixed grid: the loss and failure points lose and fail")
+
+    # tests/test_fleet.py's grid: k = 1 is the single server for every
+    # routing, a random 1/k split is the single queue at λ/k, JSQ
+    # against the per-event numpy loop
+    lam1 = FLEET_LAM1
+    lam = [lam1] * 3 + [4 * lam1] * 2 + [lam1] + [4 * lam1] * FLEET_JSQ
+    fg = FleetGrid.from_points(
+        lam, *V100, k=[1, 1, 1, 4, 4, 1] + [4] * FLEET_JSQ,
+        routing=(["random", "round_robin", "jsq", "random", "round_robin",
+                  "random"] + ["jsq"] * FLEET_JSQ),
+        b_max=[0] * 5 + [64] + [0] * FLEET_JSQ,
+        wait_max=[0.0] * 5 + [5.0] + [0.0] * FLEET_JSQ,
+        wait_target=[0] * 5 + [32] + [0] * FLEET_JSQ)
+    n_super = FLEET_KW["n_steps"] // 32
+    r = _counted(lambda: fleet_sweep(fg, device=dev, **FLEET_KW), n_super,
+                 "fleet test grid")
+    check_fleet_accounting(r, "fleet test grid")
+    s = sweep(SweepGrid.from_points([lam1, lam1], *V100, b_max=[0, 64],
+                                    wait_max=[0.0, 5.0], wait_target=[0, 32]),
+              n_batches=6016, seed=5, device=dev)
+    reductions = {}
+    for i, j, name in ((0, 0, "k1_random"), (1, 0, "k1_round_robin"),
+                       (2, 0, "k1_jsq"), (3, 0, "k4_random_split"),
+                       (5, 1, "k1_timeout")):
+        reductions[name] = dict(
+            fleet=float(r.mean_latency[i]), sweep=float(s.mean_latency[j]),
+            z=_z_gate(float(r.mean_latency[i]), float(r.stderr[i]),
+                      float(s.mean_latency[j]), float(s.stderr[j]), name))
+    jsq = r.mean_latency[6:6 + FLEET_JSQ]
+    legacy = np.array([simulate_jsq_numpy(4 * lam1, LinearServiceModel(*V100),
+                                          4, n_jobs=40_000, seed=sd)
+                       for sd in range(3)])
+    se = max(_ladder_se(jsq, legacy), 0.01 * legacy.mean())
+    check(abs(jsq.mean() - legacy.mean()) < 3.0 * se,
+          f"fleet JSQ {jsq.mean()} vs the numpy loop {legacy.mean()}")
+    bal = r.balance(4)
+    check(bool(np.all(np.abs(bal - 0.25) < 0.05)),
+          f"round-robin balances k = 4: {bal}")
+
+    # the FL_CFG ladders, both in one dispatch, against the port's fleet
+    # mirror: more copies at half the tests' steps (the card's wall time
+    # is per step, not per point)
+    lb, kb, bb = FLEET_BP
+    lf, kf, bf, mtbf, mttr = FLEET_FAIL
+    cfg_l = [c for c in FLEET_BP_CFG for _ in range(FLEET_REPS)]
+    cfg_f = [c for c in FLEET_FAIL_CFG for _ in range(FLEET_REPS)]
+    n_l = len(cfg_l)
+    lg = FleetGrid.from_points(
+        [lb] * n_l + [lf] * len(cfg_f), m.alpha, m.tau0,
+        k=[kb] * n_l + [kf] * len(cfg_f), b_max=[bb] * n_l + [bf] * len(cfg_f),
+        routing=[c[0] for c in cfg_l] + [c[1] for c in cfg_f],
+        overflow=[c[1] for c in cfg_l] + ["reject"] * len(cfg_f),
+        q_max=[c[2] for c in cfg_l] + [0] * len(cfg_f),
+        deadline=[c[3] for c in cfg_l] + [0.0] * len(cfg_f),
+        retry_rate=[c[4] for c in cfg_l] + [0.0] * len(cfg_f),
+        fail_disc=["resume"] * n_l + [c[0] for c in cfg_f],
+        mtbf=[0.0] * n_l + [mtbf] * len(cfg_f),
+        mttr=[0.0] * n_l + [mttr] * len(cfg_f))
+    lr = _counted(lambda: fleet_sweep(lg, n_steps=4000, q_cap=64, a_cap=32,
+                                      r_cap=64, seed=7, device=dev),
+                  -(-4000 // 32), "fleet ladders")
+    check_fleet_accounting(lr, "fleet ladders")
+    discs = np.array(["none"] * n_l + [c[0] for c in cfg_f])
+    lost = np.asarray(lr.lost_work, float)
+    check(int(lr.n_failures[:n_l].sum()) == 0
+          and bool(np.all(lr.n_failures[n_l:] > 0))
+          and bool(np.all(lost[discs == "resume"] == 0.0))
+          and bool(np.all(lost[(discs == "restart") | (discs == "drop")]
+                          > 0.0))
+          and bool(np.all(lr.abandoned[discs == "drop"] > 0)),
+          "fleet ladders: failures on the failure copies, resume loses no "
+          "work, restart and drop do, drop abandons")
+    fail_rate = check_fail_block(lr, lg.mtbf, discs == "resume",
+                                 "fleet ladders")
+    ladders = {}
+    for ci, (route, ov, qm, dl, rr) in enumerate(FLEET_BP_CFG):
+        refs = [simulate_fleet_loss_numpy(
+            lb, m, bb, k=kb, routing=route, q_max=qm, deadline=dl,
+            overflow=ov, retry_rate=rr, q_cap=64, r_cap=64,
+            n_events=25_000, seed=sd) for sd in range(3)]
+        sl = slice(ci * FLEET_REPS, (ci + 1) * FLEET_REPS)
+        ladders[f"loss_{route}_{ov}"] = {f: _gate_ladder(
+            np.asarray(getattr(lr, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"fleet {route} {f}")
+            for f in LADDER_FIELDS}
+    for ci, (disc, route) in enumerate(FLEET_FAIL_CFG):
+        refs = [simulate_fleet_loss_numpy(
+            lf, m, bf, k=kf, routing=route, mtbf=mtbf, mttr=mttr,
+            fail_disc=disc, q_cap=64, r_cap=64, n_events=25_000, seed=sd)
+            for sd in range(3)]
+        sl = slice(n_l + ci * FLEET_REPS, n_l + (ci + 1) * FLEET_REPS)
+        ladders[f"fail_{disc}_{route}"] = {f: _gate_ladder(
+            np.asarray(getattr(lr, f)[sl], float),
+            np.array([getattr(x, f) for x in refs]), f"fleet {disc} {f}")
+            for f in FAIL_FIELDS}
+    out = dict(split_bitwise=True, neutral_bitwise=True, unpinned_refused=True,
+               accounting=True, launches_per_superstep=True,
+               reductions=reductions,
+               jsq_vs_numpy=dict(fleet=float(jsq.mean()),
+                                 numpy=float(legacy.mean()), se=se),
+               round_robin_balance=bal.tolist(), ladders=ladders,
+               fail_rate=fail_rate)
+    emit("fleet_contracts", **out)
+    return out
+
+
+def replicas_grid(tiles: int = 16) -> tuple:
+    """benchmarks/replicas.py's grid — 11 total loads (fractions of one
+    replica's saturation rate 1/α) × k 1…16 × 3 routings = 528 points,
+    λ-major and routing-minor — tiled ``tiles`` times: the copies of a
+    point differ only in their global index, so they form a seed
+    ladder.  Returns the grid and the base point count."""
+    base = FleetGrid.from_product([r / V100[0] for r in REP_RHO1S],
+                                  [V100[0]], [V100[1]], ks=REP_KS,
+                                  routings=REP_ROUTINGS)
+    return base.take(np.tile(np.arange(len(base)), tiles)), len(base)
+
+
+def replicas_index(rho1: float, k: int, routing: str) -> int:
+    return ((REP_RHO1S.index(rho1) * len(REP_KS) + REP_KS.index(k))
+            * len(REP_ROUTINGS) + REP_ROUTINGS.index(routing))
+
+
+def phase_fleet_user_size(dev, tiles: int = 16, n_steps: int = 4000,
+                          capture_at: int = 60) -> tuple:
+    """The replicas benchmark's grid at 8,448 points, its own run
+    (n_steps 4,000, a_cap 32, hist_every 4, seed 17, q_cap from
+    ``fleet_caps``): two calls, bitwise equal; warm wall, jobs/s, peak
+    memory; the JSQ/random E[W] ratio at k 16 as tile means.  Returns
+    the record, the hist_update launches and the path block of
+    superstep ``capture_at`` (a third run, not timed, stopped there)."""
+    grid, n_base = replicas_grid(tiles)
+    kw = dict(n_steps=n_steps, a_cap=32, hist_every=4, seed=17, device=dev)
+    supersteps = -(-n_steps // 32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: fleet_sweep(grid, **kw), supersteps,
+                 "fleet user-size run")
+    first_s = time.perf_counter() - t0
+    launches = ss.hist_update.launches
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r2 = fleet_sweep(grid, **kw)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for f in ("hist", "mean_latency", "jobs_by_replica", "n_batches"):
+        check(np.array_equal(getattr(r, f), getattr(r2, f)),
+              f"two fleet user-size runs give the same bits on {f}")
+    check_fleet_accounting(r, "fleet user-size")
+    check(bool(np.all(r.n_jobs > 0)), "every fleet point served jobs")
+    ratio = {}
+    for rho1 in REP_RHO1S:
+        ij = replicas_index(rho1, 16, "jsq")
+        ir = replicas_index(rho1, 16, "random")
+        lat = np.asarray(r.mean_latency, float)
+        ratio[str(rho1)] = _tile_stats(lat[ij::n_base] / lat[ir::n_base], 1, 0)
+    check(ratio["0.8"]["mean"] < 1.0,
+          f"JSQ beats a random split at k 16, rho1 0.8: {ratio['0.8']}")
+    # the consolidation curve's fleet side at rho1 0.8 (replicas.py's §2)
+    curve = {str(k): {rt: _tile_stats(r.mean_latency, n_base,
+                                      replicas_index(0.8, k, rt))
+                      for rt in REP_ROUTINGS} for k in (2, 4, 8, 16)}
+    jobs = int(r.n_jobs.sum())
+    q_cap = fleet_caps(grid)["q_cap"]
+    out = dict(points=len(grid), tiles=tiles, n_steps=n_steps,
+               caps=dict(q_cap=q_cap, a_cap=32, hist_every=4, pop_cap=q_cap),
+               first_call_s=first_s, warm_s=warm_s, jobs=jobs,
+               jobs_per_s_warm=jobs / warm_s, peak_mem_bytes=peak,
+               launches=launches, supersteps=supersteps, buffer_dropped=0,
+               jsq_over_random_k16=ratio, ew_rho1_0_8=curve)
+    emit("fleet_user_size", **out)
+    blocks = capture_blocks(lambda: fleet_sweep(grid, **kw), capture_at,
+                            "hist_update")
+    return out, launches, blocks["hist_update"]
+
+
+def fleet_fail_grid(tiles: int = 228) -> tuple:
+    """benchmarks/availability.py's fleet half — 2 ρ (per replica) × k
+    1, 4 × 3 (mtbf, mttr) pairs × 3 disciplines = 36 JSQ points at b_max
+    8 — tiled ``tiles`` times.  Returns the grid and the cells."""
+    cap = AV_B_MAX / (V100[0] * AV_B_MAX + V100[1])
+    cells = [(rho, k, mb, mr, d) for rho in AV_RHOS for k in AV_KS
+             for (mb, mr) in AV_FAIL_PAIRS for d in AV_DISCS]
+    base = FleetGrid.from_points(
+        [c[0] * c[1] * cap for c in cells], *V100, k=[c[1] for c in cells],
+        routing="jsq", b_max=AV_B_MAX, mtbf=[c[2] for c in cells],
+        mttr=[c[3] for c in cells], fail_disc=[c[4] for c in cells])
+    return base.take(np.tile(np.arange(len(base)), tiles)), cells
+
+
+def phase_fleet_fail_user_size(dev, tiles: int = 228, n_steps: int = 6000,
+                               capture_at: int = 60) -> tuple:
+    """The availability benchmark's fleet half at 8,208 points, its own
+    run (q_cap as the benchmark sizes it, a_cap 64, r_cap 64, n_steps
+    6,000, seed 31): no drops, no truncated failure count, resume's
+    breakdowns at rate 1/MTBF, availability, and the harsh/baseline E[W]
+    per discipline at ρ 0.75, k 4 (the benchmark's frontier) as tile
+    means.  One timed run (the eager loop has nothing to warm after
+    ``fleet_contracts``); returns the record, the hist_update launches
+    and the path block of superstep ``capture_at``."""
+    grid, cells = fleet_fail_grid(tiles)
+    n_base = len(cells)
+    cap = AV_B_MAX / (V100[0] * AV_B_MAX + V100[1])
+    q_cap = engine.queue_capacity(max(AV_RHOS) * cap, V100[0], V100[1],
+                                  AV_B_MAX, mtbf=60.0, mttr=12.0,
+                                  restart=True)
+    caps = fleet_caps(grid, q_cap=q_cap)
+    kw = dict(n_steps=n_steps, q_cap=q_cap, a_cap=64, r_cap=64,
+              f_cap=caps["f_cap"], seed=31, device=dev)
+    supersteps = -(-n_steps // 32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _counted(lambda: fleet_sweep(grid, **kw), supersteps,
+                 "fleet failure user-size run")
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = ss.hist_update.launches
+    check_fleet_accounting(r, "fleet failure user-size")
+    failing = np.array([c[2] > 0 for c in cells] * tiles)
+    av = np.asarray(r.availability, float)
+    check(bool(np.all(av[~failing] == 1.0)
+               and np.all((av[failing] > 0.0) & (av[failing] < 1.0))),
+          "fleet failure user-size: availability 1 without failures, in "
+          "(0, 1) with them")
+    resume = np.array([c[4] == "resume" and c[2] > 0 for c in cells] * tiles)
+    fail_rate = check_fail_block(r, grid.mtbf, resume,
+                                 "fleet failure user-size")
+
+    def index(rho, k, pair, disc) -> int:
+        (i,) = [j for j, c in enumerate(cells)
+                if c == (rho, k, pair[0], pair[1], disc)]
+        return i
+
+    frontier = {}
+    lat = np.asarray(r.mean_latency, float)
+    for disc in AV_DISCS:
+        i = index(0.75, 4, (60.0, 12.0), disc)
+        i0 = index(0.75, 4, (0.0, 0.0), disc)
+        frontier[disc] = dict(
+            latency_ratio=_tile_stats(lat[i::n_base] / lat[i0::n_base], 1, 0),
+            availability=_tile_stats(r.availability, n_base, i),
+            work_loss_frac=_tile_stats(r.work_loss_frac, n_base, i),
+            abandon_frac=_tile_stats(r.abandon_frac, n_base, i))
+    check(frontier["restart"]["work_loss_frac"]["mean"]
+          > frontier["resume"]["work_loss_frac"]["mean"] == 0.0
+          and frontier["drop"]["abandon_frac"]["mean"] > 0.0,
+          f"fleet frontier shows its regimes: {frontier}")
+    availability = {f"{c[0]}_{c[1]}_{c[2]:g}_{c[4]}":
+                    _tile_stats(r.availability, n_base, i)["mean"]
+                    for i, c in enumerate(cells) if c[2] > 0}
+    jobs = int(r.n_jobs.sum())
+    out = dict(points=len(grid), tiles=tiles, n_steps=n_steps,
+               caps=dict(q_cap=q_cap, a_cap=64, r_cap=64, f_cap=caps["f_cap"],
+                         pop_cap=AV_B_MAX),
+               wall_s=wall_s, jobs=jobs, jobs_per_s=jobs / wall_s,
+               peak_mem_bytes=peak, launches=launches, supersteps=supersteps,
+               buffer_dropped=0, fail_truncated=0, fail_rate=fail_rate,
+               frontier_rho_0_75_k4=frontier, availability=availability)
+    emit("fleet_fail_user_size", **out)
+    blocks = capture_blocks(lambda: fleet_sweep(grid, **kw), capture_at,
+                            "hist_update")
+    return out, launches, blocks["hist_update"]
+
+
+def phase_chain_grid(dev) -> dict:
+    """examples/exact_surface.py's MarkovGrid (24 load fractions × b_max
+    1…128 = 192 cells) through the port's ``solve_grid`` on the card,
+    adaptive K, against the host: rel ≤ 1e-10 on E[W], utilization and
+    E[B] and abs ≤ 1e-12 on the truncation witness, against
+    ``method="numpy"`` (the banded LAPACK solve) and against the host
+    GTH recursion (``solve_pi_gth``, the numpy path the others are
+    pinned to).  Where the banded solve disagrees with the GTH recursion
+    (ROADMAP C-R2: two b_max-128 cells near saturation, where it returns
+    an E[W] below the service time), the cell is held against the GTH
+    recursion and the dense LU, and the disagreement is reported."""
+    fracs = np.linspace(0.10, 0.95, SURFACE_FRACS)
+    grid = MarkovGrid.from_fracs(fracs, *V100, b_maxes=SURFACE_B_MAXES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = solve_grid(grid, device=dev)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    want = solve_grid(grid, method="numpy")
+    host_s = time.perf_counter() - t0
+    K = got.truncation
+    check(K == want.truncation and got.method == "torch",
+          f"chain grid: K {K} vs the host's {want.truncation}")
+    model = LinearServiceModel(*V100)
+    gth = {f: np.empty(len(grid)) for f in ("mean_latency", "utilization",
+                                            "mean_batch", "tail_mass")}
+    for i in range(len(grid)):
+        ch = build_chain(float(grid.lam[i]), model, float(grid.b_max[i]), K)
+        mt = chain_metrics(float(grid.lam[i]), solve_pi_gth(ch), ch.t_of,
+                           ch.b_of)
+        for f in gth:
+            gth[f][i] = mt[f]
+
+    def rel(a, b):
+        return np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))
+
+    band_ok = np.all([rel(getattr(want, f), gth[f]) <= 1e-10
+                      for f in ("mean_latency", "utilization",
+                                "mean_batch")], axis=0)
+    errs = {}
+    for f in ("mean_latency", "utilization", "mean_batch"):
+        errs[f"{f}_vs_gth"] = float(rel(getattr(got, f), gth[f]).max())
+        errs[f"{f}_vs_numpy"] = float(
+            rel(getattr(got, f), getattr(want, f))[band_ok].max())
+        check(max(errs[f"{f}_vs_gth"], errs[f"{f}_vs_numpy"]) <= 1e-10,
+              f"chain grid {f}: rel {errs} > 1e-10")
+    errs["tail_mass_abs_vs_numpy"] = float(np.max(np.abs(
+        got.tail_mass - want.tail_mass)[band_ok]))
+    errs["tail_mass_abs_vs_gth"] = float(np.max(np.abs(got.tail_mass
+                                                       - gth["tail_mass"])))
+    check(max(errs["tail_mass_abs_vs_numpy"], errs["tail_mass_abs_vs_gth"])
+          <= 1e-12, f"chain grid tail_mass: {errs}")
+    check(float(got.tail_mass.max()) <= 1e-10, "chain grid: K adaptive")
+    band_faults = []
+    for i in np.flatnonzero(~band_ok):
+        dense = markov_solve(float(grid.lam[i]), model,
+                             b_max=float(grid.b_max[i]), method="dense",
+                             truncation=K)
+        check(rel(got.mean_latency[i], dense.mean_latency) <= 1e-10
+              and want.mean_latency[i] < V100[0] + V100[1],
+              f"chain grid cell {i}: the banded solve ({want.mean_latency[i]})"
+              f" is below the service time, the card "
+              f"({got.mean_latency[i]}) equals the dense LU "
+              f"({dense.mean_latency})")
+        band_faults.append(dict(
+            cell=int(i), b_max=int(grid.b_max[i]),
+            frac=float(fracs[i % SURFACE_FRACS]),
+            numpy_band=float(want.mean_latency[i]),
+            gth=float(gth["mean_latency"][i]),
+            dense=float(dense.mean_latency),
+            card=float(got.mean_latency[i])))
+    check(len(band_faults) <= 4, f"chain grid: {len(band_faults)} cells where "
+          f"the banded host solve disagrees with GTH")
+    V, D = _grid_shapes(grid.lam.astype(np.float64),
+                        grid.alpha.astype(np.float64),
+                        grid.tau0.astype(np.float64),
+                        grid.b_max.astype(np.int64), K)
+    out = dict(cells=len(grid), K=K, V=V, D=D, cells_per_dispatch=64,
+               wall_s=wall_s, host_numpy_s=host_s, peak_mem_bytes=peak,
+               max_err=errs, tail_mass_max=float(got.tail_mass.max()),
+               band_faults=band_faults)
+    emit("chain_grid", **out)
+    return out
 
 def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False):
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2460,6 +2979,16 @@ def main() -> int:
                                        emit_as="path_kernel")
     del captured, blocks
     torch.cuda.empty_cache()
+    phase("fleet_contracts", phase_fleet_contracts, dev)
+    _, fleet_launches, captured = phase("fleet_user_size",
+                                        phase_fleet_user_size, dev)
+    fleet_path = path_hist(dev, captured, "fleet_path")
+    _, fleet_fail_launches, captured = phase(
+        "fleet_fail_user_size", phase_fleet_fail_user_size, dev)
+    fleet_fail_path = path_hist(dev, captured, "fleet_fail_path")
+    del captured
+    torch.cuda.empty_cache()
+    phase("chain_grid", phase_chain_grid, dev)
     attn = phase("attn_kernel", phase_attn_kernel, dev)
     served = phase("serve", phase_serve, dev)
     phase("serve_long", phase_serve_long, dev)
@@ -2522,6 +3051,14 @@ def main() -> int:
         _kernel_row("fifo_compact", "gen_fail_user_size",
                     gen_fail["launches"]["fifo_compact"], compact_fail_path,
                     **_path_keys(compact_fail_path)),
+        # the fleet paths, timed on their own captured blocks
+        _kernel_row("hist_update", "fleet_user_size", fleet_launches,
+                    fleet_path, bound_ms_bytes4=fleet_path["bound_ms_bytes4"],
+                    **_path_keys(fleet_path)),
+        _kernel_row("hist_update", "fleet_fail_user_size",
+                    fleet_fail_launches, fleet_fail_path,
+                    bound_ms_bytes4=fleet_fail_path["bound_ms_bytes4"],
+                    **_path_keys(fleet_fail_path)),
         *(_kernel_row(
             name, "serve", served["launches"][name], attn[f"{short}_serve"],
             **{f"long_{k}": attn[f"{short}_long"][k] for k in long_keys},

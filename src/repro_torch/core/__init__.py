@@ -1,6 +1,7 @@
 """The port's queueing core: the paper's closed forms, the grid and
 result records, the PyTorch Monte Carlo sweep behind
-``evaluate(grid, backend="sweep")``, the token-level generate sweep
+``evaluate(grid, backend="sweep")``, the k-replica fleet sweep behind
+``evaluate(grid, backend="fleet")``, the token-level generate sweep
 behind ``evaluate(grid, backend="gen")``, the exact references they are
 held against (the event simulator and the truncated-chain numerics,
 ``"sim"`` and ``"markov"``), the planner, and the batching policies
@@ -39,10 +40,13 @@ from repro_torch.core.gen_sweep import gen_caps, gen_sweep  # noqa: F401
 from repro_torch.core.grid import (  # noqa: F401
     DISC_CODE,
     DISC_NAME,
+    FleetGrid,
+    FleetResult,
     GenGrid,
     GenResult,
     MarkovGrid,
     MarkovGridResult,
+    ROUTE_CODE,
     SweepGrid,
     SweepResult,
 )
@@ -59,4 +63,9 @@ from repro_torch.core.policy import (  # noqa: F401
 )
 from repro_torch.core.results import SimResult  # noqa: F401
 from repro_torch.core.simulate import simulate  # noqa: F401
-from repro_torch.core.sweep import sweep, sweep_caps  # noqa: F401
+from repro_torch.core.sweep import (  # noqa: F401
+    fleet_caps,
+    fleet_sweep,
+    sweep,
+    sweep_caps,
+)

@@ -1,15 +1,19 @@
-"""Structured exact-chain solver — the port's copy of its host paths.
+"""Structured exact-chain solver — the port's copy, with its grid
+solver on the card.
 
-Own copy of the numpy paths of the reference package's
-``repro.core.chain_solver``: ``build_chain``, ``solve_pi_gth``,
-``solve_pi_banded``, ``solve_pi``, ``chain_metrics`` and
-``chain_loss_metrics``, unchanged, and ``grid_solve`` with its
-``method="numpy"`` loop.  The reference's one-dispatch JAX grid kernel
-becomes a float64 torch kernel on the card in ROADMAP Queue A item 6b;
-until then ``grid_solve``'s default method raises.
+Own copy of the reference package's ``repro.core.chain_solver``: the
+numpy paths (``build_chain``, ``solve_pi_gth``, ``solve_pi_banded``,
+``solve_pi``, ``chain_metrics``, ``chain_loss_metrics`` and
+``grid_solve(method="numpy")``) unchanged, and the reference's
+one-dispatch JAX grid kernel as ``grid_solve(method="torch")``: the
+same GTH level recursion in float64 torch, every cell of a chunk at
+once on ``device`` (CUDA unless the caller asks for the CPU).  Where
+the reference ``vmap``s one cell's ``lax.scan``, the chunk's cells
+share a ``(C, V, V + 1)`` sliding window and a Python loop runs over
+the levels; sums run in a fixed pairwise order, so a cell's result does
+not depend on how many cells share its chunk.
 
-The reference module's description follows; its ``grid_solve`` JAX
-path is the one left out here.
+The reference module's description follows.
 
 Structured exact-chain solver: banded level recursion for the
 embedded batching chain.
@@ -40,12 +44,12 @@ Three solvers share that band:
   linear system via LAPACK ``gbsv`` (SciPy) — the fastest CPU path
   (~60–100× over dense LU at the legacy K = 8192 truncation).  Falls
   back to ``solve_pi_gth`` when SciPy is absent.
-- ``grid_solve`` — a JAX port of the GTH level recursion:
-  ``lax.scan`` over levels with an O(V²) sliding-window carry (the
-  repeating Toeplitz band is regenerated on the fly per level, and the
+- ``grid_solve`` — the GTH level recursion batched over cells: a loop
+  over levels with an O(V²) sliding-window carry (the repeating
+  Toeplitz band is regenerated on the fly per level, and the
   elimination emits exactly the frozen column values the backward pass
-  needs), ``vmap``-ed over (λ, b_max) cells and jitted once — a whole
-  exact surface in one float64 device dispatch.
+  needs), over a chunk of (λ, b_max) cells at once — a whole exact
+  surface in float64 on the card.
 
 The truncation-cell witness is unchanged: every row's residual mass is
 absorbed at the end of its band (the same place the dense solver's
@@ -69,8 +73,10 @@ from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core.analytic import LinearServiceModel
+from repro_torch.core.engine import padded_row_sum as _rsum
 
 __all__ = ["BandedChain", "build_chain", "solve_pi", "solve_pi_gth",
            "solve_pi_banded", "chain_metrics", "chain_loss_metrics",
@@ -333,6 +339,139 @@ def chain_loss_metrics(lam: float, pi: np.ndarray, t_of: np.ndarray,
     }
 
 
+# ---------------------------------------------------------------------------
+# the batched float64 grid solver (torch)
+# ---------------------------------------------------------------------------
+
+def _grid_shapes(lams: np.ndarray, alphas: np.ndarray, tau0s: np.ndarray,
+                 b_maxes: np.ndarray, K: int):
+    """Static (V, D) for a dispatch: the widest per-cell band (row
+    means are maximal at b_max, where the repeating band sits) and the
+    largest down-move span.  Bucketed to limit recompiles.
+
+    D is clamped to V + 1: a level's nonzero below-diagonal entries
+    all live inside its own band (initial support by construction,
+    censored fill by the nondecreasing-c invariant), so at low loads
+    where the Poisson window is narrower than b_max the down-move
+    vector is just the whole band row."""
+    mu_top = lams * (alphas * b_maxes + tau0s)
+    lo, hi = _poisson_window(mu_top)
+    V = int(min(K, np.max(hi - lo)))
+    V = min(K, -(-V // 16) * 16)                      # round up to 16
+    D = int(min(np.max(b_maxes), K, V + 1))
+    return V, D
+
+
+def _grid_chunk(lam: torch.Tensor, alpha: torch.Tensor, tau0: torch.Tensor,
+                b: torch.Tensor, K: int, V: int, D: int,
+                cumlogfact: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The GTH level recursion for a chunk of C cells, specialized to
+    (K, V, D): the reference's ``_build_grid_kernel`` cell body with the
+    cell axis first.  ``lam``/``alpha``/``tau0`` are float64 ``(C,)``,
+    ``b`` int64 ``(C,)``, ``cumlogfact`` the float64 log-factorial
+    table of K + V + 2 entries.
+
+    Downward pass over levels n = K..1, carrying only the V-row sliding
+    window of band rows still subject to fill; initial rows — the
+    repeating Toeplitz band too — are regenerated O(V) a level from the
+    per-row scalars (μ, carry, c, width) and the table, so the band is
+    never built whole.  Each level emits the frozen column ``f`` and
+    the down-probability ``s_n``; the upward O(V) pass turns them into
+    the expected visits x, then π and the renewal-reward metrics."""
+    f64, i64 = torch.float64, torch.int64
+    dev = lam.device
+    C = lam.shape[0]
+    lam_, alpha_, tau0_, b_ = (t.unsqueeze(1) for t in (lam, alpha, tau0, b))
+
+    # per-row scalars of rows i = -V … K (row i at column i + V)
+    rows = torch.arange(-V, K + 1, dtype=i64, device=dev).unsqueeze(0)
+    bi = torch.minimum(torch.clamp(rows, min=1), b_)
+    mu = lam_ * (alpha_ * bi.to(f64) + tau0_)
+    carry = torch.clamp(rows - bi, min=0)
+    half = torch.sqrt(2.0 * mu * _LOG_INV_TOL)
+    plo = torch.clamp(torch.floor(mu - half - 4.0), min=0.0).to(i64)
+    phi = torch.ceil(mu + half + 8.0).to(i64) + 2
+    c_tab = torch.clamp(carry + plo, max=K)
+    width = torch.clamp(torch.clamp(carry + phi, max=K) - c_tab, 0, V)
+    log_mu = torch.log(mu)
+    shift = c_tab - carry
+    jV = torch.arange(V + 1, dtype=i64, device=dev)
+    jD = torch.arange(D, dtype=i64, device=dev)
+
+    def init_rows(lo: int, hi: int) -> torch.Tensor:
+        """Band rows lo … hi − 1 of the raw chain, ``(C, hi − lo, V + 1)``
+        (zeros for rows below 0); each row's residual mass is absorbed
+        at its last valid cell."""
+        sl = slice(lo + V, hi + V)
+        pidx = shift[:, sl, None] + jV
+        logp = (pidx.to(f64) * log_mu[:, sl, None]
+                - cumlogfact[pidx] - mu[:, sl, None])
+        wd = width[:, sl, None]
+        r = torch.where(jV <= wd, torch.exp(logp), 0.0)
+        r = r + torch.where(jV == wd,
+                            torch.clamp(1.0 - _rsum(r), min=0.0)
+                            .unsqueeze(-1), 0.0)
+        below = rows[0, sl] < 0
+        return torch.where(below[None, :, None], 0.0, r)
+
+    # the frozen columns and down-probabilities, level n at index n − 1
+    fs = torch.empty(K, C, V - 1, dtype=f64, device=dev)
+    s = torch.empty(K, C, dtype=f64, device=dev)
+    W = init_rows(K - V + 1, K + 1)               # rows n − V + 1 … n
+    irow_off = torch.arange(-V + 1, 0, dtype=i64, device=dev)
+    gpad = torch.zeros(C, D + 2 * (V + 1), dtype=f64, device=dev)
+    for n in range(K, 0, -1):
+        row_n = W[:, V - 1]
+        c_win = c_tab[:, n + 1:n + V + 1]          # rows n − V + 1 … n
+        c_n = c_win[:, V - 1]
+        g = torch.where(jD < torch.clamp(n - c_n, max=D).unsqueeze(1),
+                        row_n[:, :D], 0.0)
+        s_n = _rsum(g)
+        g = g / torch.clamp(s_n, min=_TINY).unsqueeze(1)
+        cw = c_win[:, :V - 1]
+        bidx = n - cw                              # band index of col n
+        valid = (n + irow_off >= 0) & (bidx >= 1) & (bidx <= V)
+        f = torch.gather(W[:, :V - 1], 2,
+                         torch.clamp(bidx, 0, V).unsqueeze(2)).squeeze(2)
+        f = torch.where(valid, f, 0.0)
+        # rank-one fill, shifted per row by the band offset — the
+        # Toeplitz-band convolution step of the recursion; g sits in a
+        # zero-padded row, so a shifted read outside it reads 0
+        gpad[:, V + 1:V + 1 + D] = g
+        gidx = (V + 1 - (c_n.unsqueeze(1) - cw)).unsqueeze(2) + jV
+        gv = torch.gather(gpad, 1, gidx.clamp_(min=0).reshape(C, -1)).reshape(
+            C, V - 1, V + 1)
+        W = torch.cat((init_rows(n - V, n - V + 1),
+                       W[:, :V - 1] + f.unsqueeze(2) * gv), 1)
+        fs[n - 1] = f
+        s[n - 1] = s_n
+
+    # upward pass: x_n from the window x_{n−V+1} … x_{n−1}; x_0 = 1
+    X = torch.zeros(C, V - 1 + K, dtype=f64, device=dev)
+    X[:, V - 2] = 1.0
+    for n in range(1, K + 1):
+        X[:, V - 2 + n] = (_rsum(X[:, n - 1:n + V - 2] * fs[n - 1])
+                           / torch.clamp(s[n - 1], min=_TINY))
+    pi = X[:, V - 2:]                              # levels 0 … K
+    pi = pi / _rsum(pi).unsqueeze(1)
+
+    ls = torch.arange(K + 1, dtype=i64, device=dev)
+    b_of = torch.minimum(torch.clamp(ls, min=1), b_).to(f64)
+    t_of = alpha_ * b_of + tau0_
+    idle = torch.where(ls == 0, 1.0 / lam_, 0.0)
+    integral = (torch.clamp(ls, min=1).to(f64) * t_of
+                + lam_ * t_of * t_of / 2.0)
+    mean_cycle = _rsum(pi * (idle + t_of))
+    e_l = _rsum(pi * integral) / mean_cycle
+    return {"mean_latency": e_l / lam,
+            "mean_batch": _rsum(pi * b_of),
+            "batch_m2": _rsum(pi * (b_of * b_of)),
+            "utilization": _rsum(pi * t_of) / mean_cycle,
+            "mean_queue": e_l,
+            "pi0": pi[:, 0],
+            "tail_mass": pi[:, K]}
+
+
 def _check_grid_domain(lams, alphas, tau0s, b_maxes, K: int):
     """The band-attachment check ``build_chain`` enforces, without
     building any band: level l detaches iff plo(μ_l) ≥ l − carry(l),
@@ -356,26 +495,22 @@ def _check_grid_domain(lams, alphas, tau0s, b_maxes, K: int):
 
 
 def grid_solve(lams, alphas, tau0s, b_maxes, K: int, *,
-               cells_per_dispatch: int = 64,
-               method: str = "torch") -> Dict[str, np.ndarray]:
+               cells_per_dispatch: int = 64, method: str = "torch",
+               device=None) -> Dict[str, np.ndarray]:
     """Solve every (λ, α, τ0, b_max) cell at truncation K.
 
+    ``method="torch"`` (the default): the float64 level recursion over
+    ``cells_per_dispatch`` cells at a time on ``device`` (CUDA unless
+    ``device="cpu"``); the chunk bounds memory through the per-level
+    frozen-column stack of K × (V − 1) × cells float64.  All cells share
+    one (K, V, D), so a cell's result does not depend on its chunk.
     ``method="numpy"``: the banded CPU solver per cell — same chain,
-    same answers as the reference's.  ``method="torch"`` (the default)
-    is the float64 level recursion batched over cells on the card,
-    ROADMAP Queue A item 6b; until it lands it raises, rather than run
-    the host loop in its place.  ``cells_per_dispatch`` is kept for the
-    reference's signature.
+    same answers, the reference's host loop.
 
     Returns a dict of per-cell metric arrays (float64), including the
     ``tail_mass`` witness the adaptive-K loop in ``markov.solve_grid``
     checks."""
-    if method == "torch":
-        raise NotImplementedError(
-            "the batched float64 grid solver on the card is not ported "
-            "yet: ROADMAP Queue A item 6b; pass method='numpy' for the "
-            "banded host solver")
-    if method != "numpy":
+    if method not in ("torch", "numpy"):
         raise ValueError(f"unknown grid method {method!r}")
     lams = np.asarray(lams, dtype=np.float64).reshape(-1)
     alphas = np.asarray(alphas, dtype=np.float64).reshape(-1)
@@ -388,10 +523,38 @@ def grid_solve(lams, alphas, tau0s, b_maxes, K: int, *,
     keys = ("mean_latency", "mean_batch", "batch_m2", "utilization",
             "mean_queue", "pi0", "tail_mass")
     out = {k: np.empty(n) for k in keys}
-    for i in range(n):
-        model = LinearServiceModel(float(alphas[i]), float(tau0s[i]))
-        ch = build_chain(float(lams[i]), model, float(b_maxes[i]), K)
-        m = chain_metrics(float(lams[i]), solve_pi(ch), ch.t_of, ch.b_of)
+
+    if method == "numpy":
+        for i in range(n):
+            model = LinearServiceModel(float(alphas[i]), float(tau0s[i]))
+            ch = build_chain(float(lams[i]), model, float(b_maxes[i]), K)
+            m = chain_metrics(float(lams[i]), solve_pi(ch), ch.t_of,
+                              ch.b_of)
+            for k in keys:
+                out[k][i] = m[k]
+        return out
+
+    from repro_torch.core.sweep import resolve_device
+    dev = resolve_device(device)
+    V, D = _grid_shapes(lams, alphas, tau0s, b_maxes, K)
+    cumlogfact = torch.as_tensor(np.concatenate(
+        [[0.0], np.cumsum(np.log(np.arange(1, K + V + 2,
+                                           dtype=np.float64)))]),
+        dtype=torch.float64, device=dev)
+    chunk = max(1, min(int(cells_per_dispatch), n))
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+
+        def cells(a, dt):
+            return torch.as_tensor(a[lo:hi], dtype=dt, device=dev)
+
+        res = _grid_chunk(cells(lams, torch.float64),
+                          cells(alphas, torch.float64),
+                          cells(tau0s, torch.float64),
+                          cells(b_maxes, torch.int64), K, V, D, cumlogfact)
         for k in keys:
-            out[k][i] = m[k]
+            if res[k].dtype != torch.float64:
+                raise RuntimeError(f"grid_solve: {k} left float64 "
+                                   f"({res[k].dtype})")
+            out[k][lo:hi] = res[k].cpu().numpy()
     return out

@@ -17,7 +17,9 @@ dispatch):
   column in sequence, in float32 (the CPU scan accumulates in
   float64 instead, so the two devices differ in the last bits).
 - ``row_sum`` adds in a fixed pairwise order with elementwise adds, for
-  the same reason: torch's reductions choose their split by shape.
+  the same reason: torch's reductions choose their split by shape;
+  ``padded_row_sum`` pads to a power of two first, so the order does
+  not depend on the row's width either.
 
 ``fifo_append`` is a scatter at ``q + arange(a_cap)``: where the
 reference's ``lax.dynamic_update_slice`` silently clamps its start
@@ -48,7 +50,8 @@ import torch
 __all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
            "accept_window", "push_poisson_window",
            "push_poisson_window_loss", "renege_prefix", "orbit_draws",
-           "orbit_file", "welford_block", "row_sum", "scatter_hist",
+           "orbit_file", "welford_block", "row_sum", "padded_row_sum",
+           "scatter_hist",
            "scatter_hist_sums", "completion_inflation", "queue_capacity",
            "window_capacity", "orbit_capacity", "failure_count_bound",
            "restart_attempt_bound", "fail_capacity"]
@@ -196,6 +199,17 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
         y = x[..., :h] + x[..., h:2 * h]
         x = torch.cat((y, x[..., 2 * h:]), -1) if x.shape[-1] % 2 else y
     return x[..., 0]
+
+
+def padded_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``row_sum`` of the last dimension zero-padded to a power of two:
+    trailing zeros then leave the result unchanged, so two rows that
+    differ only in how many zeros follow their entries sum alike."""
+    n = x.shape[-1]
+    w = 1 << max(0, (n - 1).bit_length())
+    if w != n:
+        x = torch.nn.functional.pad(x, (0, w - n))
+    return row_sum(x)
 
 
 def scatter_hist(hist: torch.Tensor, bins: torch.Tensor,

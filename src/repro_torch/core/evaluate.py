@@ -13,9 +13,9 @@
   ``markov.solve`` (``solve_loss`` for q_max reject points, the
   completion-time chain for resume/restart failure points without
   admission control or throttle).  A ``MarkovGrid`` goes through
-  ``markov.solve_grid``, whose default torch method is ROADMAP Queue A
-  item 6b and raises until it lands; pass ``method="numpy"`` for the
-  host loop.
+  ``markov.solve_grid``: the whole (λ, b_max) grid through the batched
+  float64 chain solver on the card (``device="cpu"`` on request;
+  ``method="numpy"`` for the host loop).
 - ``"sim"`` — the scalar numpy event simulator (the port's copy of
   ``repro.core.simulate``), one point at a time; no timeout, loss or
   failure regimes.
@@ -26,14 +26,13 @@
   .gen_sweep``), likewise.  It takes a ``GenGrid``, and the
   request-level backends refuse one.
 
-Both sweeps take loss grids (``q_max``, ``deadline``, ``overflow``,
+The three sweeps take loss grids (``q_max``, ``deadline``, ``overflow``,
 ``retry_rate``) and failure grids (``mtbf``, ``mttr``, ``fail_disc``,
 ``throttle``); their results carry ``goodput_frac``, ``reject_frac``,
 ``abandon_frac`` and ``retry_inflation``.  ``"analytic"`` refuses both.
 
-The reference's ``"fleet"`` backend raises ``NotImplementedError``
-naming the ROADMAP item that ports it.  Each call returns one
-``SimResult`` per point, with the reference's field names.
+Each call returns one ``SimResult`` per point, with the reference's
+field names.
 """
 from __future__ import annotations
 
@@ -43,18 +42,13 @@ from typing import List
 import numpy as np
 
 from repro_torch.core import analytic as an
-from repro_torch.core.grid import (DIST_CODE, DIST_NAME, GenGrid, MarkovGrid,
-                                   SweepGrid)
+from repro_torch.core.grid import (DIST_CODE, DIST_NAME, FleetGrid, GenGrid,
+                                   MarkovGrid, SweepGrid)
 from repro_torch.core.results import SimResult
 
 __all__ = ["evaluate", "BACKENDS"]
 
-BACKENDS = ("analytic", "markov", "sim", "sweep", "gen")
-
-# the reference's other backends and the ROADMAP items that port them
-_NOT_PORTED = {
-    "fleet": "ROADMAP Queue A item 4 (fleet_sweep)",
-}
+BACKENDS = ("analytic", "markov", "sim", "sweep", "fleet", "gen")
 
 
 def _require(cond: bool, backend: str, what: str) -> None:
@@ -188,8 +182,8 @@ def evaluate(grid: SweepGrid, backend: str = "sweep",
     95%); the exact backends leave them NaN."""
     if isinstance(grid, MarkovGrid):
         if backend != "markov":
-            # the exact grid has no service-distribution/policy axes —
-            # no other backend can read it
+            # the exact grid has no service-distribution/policy/replica
+            # axes — no other backend can read it
             raise ValueError(f"backend {backend!r} cannot evaluate a "
                              "MarkovGrid — use backend='markov'")
         from repro_torch.core.markov import solve_grid
@@ -205,6 +199,13 @@ def evaluate(grid: SweepGrid, backend: str = "sweep",
         # request-level backends would misread the token-level axes
         raise ValueError(f"backend {backend!r} is request-level; this is "
                          "a GenGrid — use backend='gen'")
+    if backend != "fleet" and isinstance(grid, FleetGrid) \
+            and bool(np.any(grid.k > 1)):
+        # single-server backends would silently read lam as one queue's
+        # rate and ignore k/routing — a wrong "exact" reference
+        raise ValueError(f"backend {backend!r} is single-server; this "
+                         "FleetGrid has k > 1 points — use "
+                         "backend='fleet'")
     if backend == "analytic":
         if kw:
             raise ValueError("backend 'analytic' accepts no keyword "
@@ -216,8 +217,23 @@ def evaluate(grid: SweepGrid, backend: str = "sweep",
         return _sim(grid, **kw)
     if backend == "sweep":
         from repro_torch.core.sweep import sweep
+        if isinstance(grid, FleetGrid):
+            raise ValueError("backend 'sweep' is single-server; use "
+                             "backend='fleet' for a FleetGrid")
         return sweep(grid, **kw).to_results()
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(f"backend {backend!r} is not ported "
-                                  f"yet: {_NOT_PORTED[backend]}")
+    if backend == "fleet":
+        from repro_torch.core.sweep import fleet_sweep
+        if not isinstance(grid, FleetGrid):
+            # k = 1 reduces to the single-server model for every
+            # routing; "random" runs the cheapest routing (no JSQ
+            # water-filling)
+            grid = FleetGrid.from_points(
+                grid.lam, grid.alpha, grid.tau0, k=1, routing="random",
+                b_max=grid.b_max, dist=grid.dist, cv=grid.cv,
+                wait_max=grid.wait_max, wait_target=grid.wait_target,
+                q_max=grid.q_max, deadline=grid.deadline,
+                overflow=grid.overflow, retry_rate=grid.retry_rate,
+                mtbf=grid.mtbf, mttr=grid.mttr,
+                fail_disc=grid.fail_disc, throttle=grid.throttle)
+        return fleet_sweep(grid, **kw).to_results()
     raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")

@@ -4,9 +4,9 @@ Own copy of the part of the reference package's ``repro.core.grid`` that
 the ported kernels need: the integer codes, ``SweepGrid`` (every axis,
 the loss and failure axes included), the ``_LossAccounting`` mixin,
 ``SweepResult`` and ``GenResult`` with their failure accounting, the
+k-replica ``FleetGrid`` / ``FleetResult`` with the routing codes, the
 token-level ``GenGrid``, and the exact chain's ``MarkovGrid`` /
-``MarkovGridResult``.  The fleet grid comes with the slice that ports
-its kernel.  Plain numpy, no torch.
+``MarkovGridResult``.  Plain numpy, no torch.
 """
 from __future__ import annotations
 
@@ -18,13 +18,19 @@ import numpy as np
 from repro_torch.core.hist import hist_edges, sketch_edges
 from repro_torch.core.results import SimResult
 
-__all__ = ["DIST_CODE", "DIST_NAME", "OVERFLOW_CODE", "OVERFLOW_NAME",
-           "DISC_CODE", "DISC_NAME", "FAIL_DISC_CODE", "FAIL_DISC_NAME",
-           "SweepGrid", "SweepResult", "GenGrid", "GenResult",
-           "MarkovGrid", "MarkovGridResult"]
+__all__ = ["DIST_CODE", "DIST_NAME", "ROUTE_CODE", "ROUTE_NAME",
+           "DISC_CODE", "DISC_NAME", "OVERFLOW_CODE", "OVERFLOW_NAME",
+           "FAIL_DISC_CODE", "FAIL_DISC_NAME",
+           "SweepGrid", "SweepResult", "FleetGrid", "FleetResult",
+           "GenGrid", "GenResult", "MarkovGrid", "MarkovGridResult"]
 
 DIST_CODE = {"det": 0, "exp": 1, "gamma": 2}
 DIST_NAME = {v: k for k, v in DIST_CODE.items()}
+
+# Routing disciplines for the k-replica fleet kernel: how each arrival is
+# assigned to one of the k replica queues.
+ROUTE_CODE = {"random": 0, "round_robin": 1, "jsq": 2}
+ROUTE_NAME = {v: k for k, v in ROUTE_CODE.items()}
 
 # Finite-waiting-room overflow modes: "reject" turns an arrival away at
 # its arrival epoch when q_max jobs already wait (an immediate 429);
@@ -260,6 +266,136 @@ class SweepGrid(_GridOps):
                 self.cv, self.wait_max, self.wait_target, self.q_max,
                 self.deadline, self.overflow, self.retry_rate,
                 self.mtbf, self.mttr, self.fail_disc, self.throttle)
+
+
+def _as_route_codes(routing) -> List[int]:
+    vals = ([routing] if isinstance(routing, str)
+            else list(np.atleast_1d(routing)))
+    return [ROUTE_CODE[r] if isinstance(r, str) else int(r) for r in vals]
+
+
+@dataclass(frozen=True)
+class FleetGrid(SweepGrid):
+    """A ``SweepGrid`` whose points are k-replica fleets.
+
+    Each point adds ``k`` (number of replicas; every replica runs the
+    point's (α, τ0, b_max, dist, policy) service law and takes a share of
+    the *total* arrival rate ``lam``) and ``routing`` (a ``ROUTE_CODE``
+    integer: how arrivals are assigned to replicas).  ``k = 1`` reduces
+    exactly to the single-server model for every routing."""
+
+    k: np.ndarray
+    routing: np.ndarray
+
+    @property
+    def rho(self) -> np.ndarray:
+        """Per-replica offered load λα/k (the fleet stability metric)."""
+        return self.lam * self.alpha / self.k
+
+    @property
+    def routing_names(self) -> List[str]:
+        return [ROUTE_NAME[int(r)] for r in self.routing]
+
+    @classmethod
+    def from_points(cls, lam, alpha, tau0, *, k=1, routing="jsq", b_max=0,
+                    dist="det", cv=0.5, wait_max=0.0, wait_target=0,
+                    q_max=0, deadline=0.0, overflow="reject",
+                    retry_rate=0.0, mtbf=0.0, mttr=0.0,
+                    fail_disc="resume", throttle=1.0) -> "FleetGrid":
+        base = SweepGrid.from_points(lam, alpha, tau0, b_max=b_max,
+                                     dist=dist, cv=cv, wait_max=wait_max,
+                                     wait_target=wait_target, q_max=q_max,
+                                     deadline=deadline, overflow=overflow,
+                                     retry_rate=retry_rate, mtbf=mtbf,
+                                     mttr=mttr, fail_disc=fail_disc,
+                                     throttle=throttle)
+        n = len(base)
+        ks = _as_i32(k)
+        routes = _as_i32(_as_route_codes(routing))
+        extras = [np.broadcast_to(a, (n,)).copy() if a.shape[0] == 1 else a
+                  for a in (ks, routes)]
+        if any(a.shape[0] != n for a in extras):
+            raise ValueError("k/routing lengths do not match the grid")
+        return cls(*base._arrays(), *extras)
+
+    @classmethod
+    def from_product(cls, lams: Sequence[float], alphas: Sequence[float],
+                     tau0s: Sequence[float], *,
+                     ks: Sequence[int] = (1,),
+                     routings: Sequence[str] = ("jsq",),
+                     b_maxes: Sequence[int] = (0,),
+                     dists: Sequence[str] = ("det",),
+                     cvs: Sequence[float] = (0.5,),
+                     wait_maxes: Sequence[float] = (0.0,),
+                     wait_targets: Sequence[int] = (0,),
+                     q_maxes: Sequence[int] = (0,),
+                     deadlines: Sequence[float] = (0.0,),
+                     overflows: Sequence[str] = ("reject",),
+                     retry_rates: Sequence[float] = (0.0,),
+                     mtbfs: Sequence[float] = (0.0,),
+                     mttrs: Sequence[float] = (0.0,),
+                     fail_discs: Sequence[str] = ("resume",),
+                     throttles: Sequence[float] = (1.0,)
+                     ) -> "FleetGrid":
+        dist_codes = [DIST_CODE[d] if isinstance(d, str) else int(d)
+                      for d in dists]
+        mesh = np.meshgrid(_as_f32(lams), _as_f32(alphas), _as_f32(tau0s),
+                           _as_i32(b_maxes), _as_i32(dist_codes),
+                           _as_f32(cvs), _as_f32(wait_maxes),
+                           _as_i32(wait_targets), _as_i32(q_maxes),
+                           _as_f32(deadlines),
+                           _as_i32(_as_overflow_codes(list(overflows))),
+                           _as_f32(retry_rates), _as_f32(mtbfs),
+                           _as_f32(mttrs),
+                           _as_i32(_as_fail_disc_codes(list(fail_discs))),
+                           _as_f32(throttles), _as_i32(ks),
+                           _as_i32(_as_route_codes(routings)),
+                           indexing="ij")
+        flat = [m.reshape(-1) for m in mesh]
+        return cls.from_points(
+            flat[0], flat[1], flat[2], b_max=flat[3], dist=flat[4],
+            cv=flat[5], wait_max=flat[6], wait_target=flat[7],
+            q_max=flat[8], deadline=flat[9], overflow=flat[10],
+            retry_rate=flat[11], mtbf=flat[12], mttr=flat[13],
+            fail_disc=flat[14], throttle=flat[15], k=flat[16],
+            routing=flat[17])
+
+    @classmethod
+    def from_rhos(cls, rhos: Sequence[float], alpha: float, tau0: float,
+                  *, ks: Sequence[int] = (1,),
+                  routings: Sequence[str] = ("jsq",), b_max=0,
+                  dist="det", cv=0.5, wait_max=0.0,
+                  wait_target=0, q_max=0, deadline=0.0,
+                  overflow="reject", retry_rate=0.0, mtbf=0.0,
+                  mttr=0.0, fail_disc="resume",
+                  throttle=1.0) -> "FleetGrid":
+        """Grid over *per-replica* loads ρ = λα/k for one service model —
+        each (ρ, k) point gets total rate λ = kρ/α, so replicas face the
+        same offered load regardless of k.
+
+        NOTE: deliberately a different contract from
+        ``SweepGrid.from_rhos`` — (ρ, k, routing) are coupled product
+        axes here, while the remaining policy knobs broadcast per point
+        (singular names), so the keyword surfaces are not
+        interchangeable between the two classes."""
+        lam_pts, k_pts, route_pts = [], [], []
+        for r in rhos:
+            for k in ks:
+                for route in routings:
+                    lam_pts.append(int(k) * r / alpha)
+                    k_pts.append(int(k))
+                    route_pts.append(route)
+        return cls.from_points(lam_pts, alpha, tau0, k=k_pts,
+                               routing=route_pts, b_max=b_max,
+                               dist=dist, cv=cv, wait_max=wait_max,
+                               wait_target=wait_target, q_max=q_max,
+                               deadline=deadline, overflow=overflow,
+                               retry_rate=retry_rate, mtbf=mtbf,
+                               mttr=mttr, fail_disc=fail_disc,
+                               throttle=throttle)
+
+    def _arrays(self) -> Tuple[np.ndarray, ...]:
+        return (*super()._arrays(), self.k, self.routing)
 
 
 @dataclass(frozen=True)
@@ -736,6 +872,32 @@ class SweepResult(_LossAccounting):
 
     def to_results(self) -> List[SimResult]:
         return [self.point(i) for i in range(len(self))]
+
+
+@dataclass
+class FleetResult(SweepResult):
+    """Fleet sweep output: ``SweepResult`` metrics aggregated fleet-wide
+    (latency over all jobs, batches over all replicas, utilization as the
+    busy fraction of k servers) plus per-replica job counts."""
+
+    grid: FleetGrid
+    # default only because it follows SweepResult's defaulted
+    # ``hist_sums`` in the dataclass field order; fleet_sweep always
+    # fills it
+    jobs_by_replica: np.ndarray = field(default=None, repr=False)
+
+    def point(self, i: int) -> SimResult:
+        res = super().point(i)
+        res.backend = "fleet"
+        res.k = int(self.grid.k[i])
+        res.routing = ROUTE_NAME[int(self.grid.routing[i])]
+        return res
+
+    def balance(self, i: int) -> np.ndarray:
+        """Fraction of point i's measured jobs served by each replica."""
+        k = int(self.grid.k[i])
+        jobs = self.jobs_by_replica[i, :k].astype(np.float64)
+        return jobs / max(1.0, jobs.sum())
 
 
 @dataclass

@@ -5,9 +5,10 @@ imports nothing of ``repro``, not even this module, which loads no JAX.
 It is the ``"markov"`` backend of ``repro_torch.core.evaluate`` and the
 port's exact oracle on the card, the failure chain (``solve(mtbf=,
 mttr=)``) included.  The code is the reference's, except
-``solve_grid``: its default method is the torch grid solver of ROADMAP
-Queue A item 6b, which raises until it lands; ``method="numpy"`` is the
-reference's host loop.
+``solve_grid``: its default method is the float64 torch grid solver
+(``chain_solver.grid_solve(method="torch")``) on the card, in place of
+the reference's JAX kernel, and it takes ``device``; ``method="numpy"``
+is the reference's host loop.
 
 The reference module's description follows.
 
@@ -796,17 +797,18 @@ def solve_batch(lams: Sequence[float], model: LinearServiceModel, *,
 
 def solve_grid(grid: MarkovGrid, *, tail_tol: float = _TAIL_TOL,
                truncation: int = 0, method: str = "torch",
-               cells_per_dispatch: int = 64) -> MarkovGridResult:
+               cells_per_dispatch: int = 64,
+               device=None) -> MarkovGridResult:
     """Exact-chain metrics for a whole (λ, α, τ0, b_max) grid through
     the structured solver.
 
-    ``method="numpy"`` loops the banded CPU solver.  ``method="torch"``
-    (the default) is the batched float64 solver on the card, ROADMAP
-    Queue A item 6b; it raises until that lands (``chain_solver
-    .grid_solve``).  All cells share one truncation level K,
-    grown adaptively (doubling) until every cell's ``tail_mass``
-    witness clears ``tail_tol``; an explicit ``truncation`` is used
-    as-is."""
+    ``method="torch"`` (the default) runs every cell through the batched
+    float64 level recursion on ``device`` — CUDA unless ``device="cpu"``
+    — ``cells_per_dispatch`` cells at a time; ``method="numpy"`` loops
+    the banded CPU solver — same chain, same answers.  All cells share
+    one truncation level K, grown adaptively (doubling) until every
+    cell's ``tail_mass`` witness clears ``tail_tol``; an explicit
+    ``truncation`` is used as-is."""
     if not isinstance(grid, MarkovGrid):
         raise TypeError("solve_grid takes a MarkovGrid (use "
                         "MarkovGrid.from_product/from_fracs)")
@@ -823,7 +825,8 @@ def solve_grid(grid: MarkovGrid, *, tail_tol: float = _TAIL_TOL,
     while True:
         out = chain_solver.grid_solve(
             grid.lam, grid.alpha, grid.tau0, grid.b_max, K,
-            cells_per_dispatch=cells_per_dispatch, method=method)
+            cells_per_dispatch=cells_per_dispatch, method=method,
+            device=device)
         if truncation or float(out["tail_mass"].max()) <= tail_tol \
                 or K >= _TRUNC_CAP_STRUCT:
             break

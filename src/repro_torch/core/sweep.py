@@ -47,6 +47,10 @@ A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
+The k-replica ``fleet_sweep`` and its ``fleet_caps`` live in
+``core.fleet`` and are re-exported here, as the reference's module
+holds both kernels.
+
 Not in this slice — each raises ``NotImplementedError`` naming the
 ROADMAP item that adds it: ``metrics_tap`` (Queue A 3e) and ``shard``
 > 1 (multi-GPU dispatch, 3f).
@@ -60,12 +64,13 @@ import torch
 
 from repro_torch.core import engine, prng, variance
 from repro_torch.core.grid import (DIST_CODE, FAIL_DISC_CODE, OVERFLOW_CODE,
-                                   SweepGrid, SweepResult)
+                                   FleetGrid, SweepGrid, SweepResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges)
 from repro_torch.kernels import superstep as _ss
 
-__all__ = ["sweep", "sweep_caps", "resolve_device"]
+__all__ = ["sweep", "sweep_caps", "fleet_sweep", "fleet_caps", "FleetGrid",
+           "resolve_device"]
 
 # steps per superstep: the histogram update and the batch-means sample
 # are taken once per block of this many steps
@@ -729,3 +734,8 @@ def _to_result(grid: SweepGrid, out: dict, *, sketch: bool) -> SweepResult:
         n_blocks=out["lat_bm_n"],
         **loss_fields(out), **fail_fields(out),
     )
+
+
+# the fleet kernel shares this module's helpers; it is imported last so
+# that they exist when it loads
+from repro_torch.core.fleet import fleet_caps, fleet_sweep  # noqa: E402

@@ -6,9 +6,11 @@ failure grids, with the reference's guards.
 
 Both sides run the same numpy code on the same inputs in one process,
 so the results are equal, not merely close.  The reference's JAX grid
-solver is left out (it is broken on this host, ROADMAP C-R1); the
-port's torch grid solver is ROADMAP Queue A item 6b, and its default
-method raises naming it.
+solver is left out (it is broken on this host, ROADMAP C-R1): the
+port's float64 torch grid solver, ``grid_solve(method="torch")`` and
+``solve_grid``'s default, runs here with ``device="cpu"`` and is held
+against the numpy host loop at rel 1e-10 (abs 1e-12 on ``tail_mass``),
+the bound of ``tests/test_chain_solver.py``.
 """
 import dataclasses
 import importlib
@@ -16,6 +18,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import chain_solver as ref_cs
 from repro.core import markov as ref_markov
@@ -137,7 +140,27 @@ def test_markov_failure_guards_raise_as_the_reference(kw):
     assert _message(got) == str(want.value)
 
 
-def test_solve_grid_numpy_equals_the_reference_and_torch_raises_6b():
+GRID_FIELDS = ("mean_latency", "mean_batch", "utilization", "batch_m2",
+               "mean_queue")
+
+
+def _close_to_numpy(got, want) -> None:
+    """The torch grid solver against the numpy host loop: rel 1e-10 on
+    the metrics, abs 1e-12 on the truncation witness."""
+    get = (lambda r, f: r[f]) if isinstance(got, dict) else getattr
+    for f in GRID_FIELDS:
+        a, b = np.asarray(get(got, f)), np.asarray(get(want, f))
+        assert np.max(np.abs(a - b) / np.abs(b)) <= 1e-10, f
+    assert np.max(np.abs(np.asarray(get(got, "tail_mass"))
+                         - np.asarray(get(want, "tail_mass")))) <= 1e-12
+
+
+def test_solve_grid_numpy_equals_the_reference_and_torch_raises_6b(
+        monkeypatch):
+    """The numpy method equals the reference's; the default method, the
+    torch grid solver (it raised, naming ROADMAP item 6b, until that
+    landed), agrees with it and picks the same truncation; it runs on
+    CUDA unless asked for the CPU."""
     axes = ([0.2, 0.6, 0.9], 0.1438, 1.8874)
     g = MarkovGrid.from_fracs(*axes, b_maxes=[2, 8, 32])
     rg = RefMarkovGrid.from_fracs(*axes, b_maxes=[2, 8, 32])
@@ -149,10 +172,14 @@ def test_solve_grid_numpy_equals_the_reference_and_torch_raises_6b():
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     for a, b in zip(got.to_results(), want.to_results()):
         _same(a, b)
-    with pytest.raises(NotImplementedError, match="6b"):
-        pt_markov.solve_grid(g)
+    card = pt_markov.solve_grid(g, device="cpu")
+    assert card.method == "torch" and card.truncation == got.truncation
+    _close_to_numpy(card, got)
     with pytest.raises(ValueError, match="unknown grid method"):
         pt_markov.solve_grid(g, method="jax")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_markov.solve_grid(g)
 
 
 # -- chain_solver's numpy paths --------------------------------------------
@@ -176,10 +203,90 @@ def test_chain_solver_numpy_paths_equal_the_reference(lam, b_max, K):
     _same(pt_cs.chain_loss_metrics(lam, pi, ch.t_of, ch.b_of, K),
           ref_cs.chain_loss_metrics(lam, pi, rch.t_of, rch.b_of, K))
     args = ([lam, 0.5 * lam], [0.05, 0.05], [1.0, 1.0], [b_max, b_max], K)
-    _same(pt_cs.grid_solve(*args, method="numpy"),
-          ref_cs.grid_solve(*args, method="numpy"))
-    with pytest.raises(NotImplementedError, match="6b"):
-        pt_cs.grid_solve(*args)
+    want = pt_cs.grid_solve(*args, method="numpy")
+    _same(want, ref_cs.grid_solve(*args, method="numpy"))
+    # the default method, the torch grid solver (it raised until ROADMAP
+    # item 6b landed), on the same cells
+    _close_to_numpy(pt_cs.grid_solve(*args, device="cpu"), want)
+
+
+# -- the torch grid solver (grid_solve(method="torch")) ----------------------
+
+# tests/test_chain_solver.py's grids: (fracs, b_maxes, truncation; 0 is
+# the adaptive K)
+TORCH_GRIDS = {
+    "three_way": ([0.3, 0.7, 0.9], [2, 8, 32], 512),
+    "low_load_wide_bmax": ([0.1, 0.2], [128], 512),
+    "evaluate_backend": ([0.4, 0.8], [4, 16], 0),
+    "adaptive": ([0.5, 0.95], [8, 64], 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TORCH_GRIDS))
+def test_torch_grid_solver_matches_numpy(name):
+    """The batched float64 recursion against the banded host solver on
+    the reference's own test grids, at K 512 and at the adaptive K —
+    which both methods must pick alike."""
+    fracs, b_maxes, K = TORCH_GRIDS[name]
+    g = MarkovGrid.from_fracs(fracs, V100.alpha, V100.tau0, b_maxes=b_maxes)
+    got = pt_markov.solve_grid(g, truncation=K, device="cpu")
+    want = pt_markov.solve_grid(g, truncation=K, method="numpy")
+    assert got.truncation == want.truncation
+    if not K:
+        assert float(got.tail_mass.max()) <= 1e-10
+    _close_to_numpy(got, want)
+    for f in ("mean_latency", "mean_batch", "utilization"):
+        assert getattr(got, f).dtype == np.float64
+
+
+def test_torch_grid_solver_is_chunk_invariant():
+    """A cell's result does not depend on its chunk: every
+    cells_per_dispatch gives the same bits (fixed-order sums), and a
+    cell solved alone gives them too."""
+    g = MarkovGrid.from_fracs([0.2, 0.55, 0.9], V100.alpha, V100.tau0,
+                              b_maxes=[1, 4, 16, 64])
+    args = (g.lam, g.alpha, g.tau0, g.b_max, 512)
+    runs = [pt_cs.grid_solve(*args, cells_per_dispatch=c, device="cpu")
+            for c in (64, 5, 1)]
+    for r in runs[1:]:
+        for f, v in r.items():
+            assert np.array_equal(v, runs[0][f]), f
+    alone = pt_cs.grid_solve(g.lam[7:8], g.alpha[7:8], g.tau0[7:8],
+                             g.b_max[7:8], 512, device="cpu")
+    # a grid of one cell has its own (V, D); the metrics still agree
+    for f in GRID_FIELDS:
+        assert alone[f][0] == pytest.approx(runs[0][f][7], rel=1e-12), f
+
+
+def test_torch_grid_solver_guards_as_the_reference():
+    """The domain guard and the finite-b_max guard, with the reference's
+    messages, before any work on the device."""
+    lam = 2.0 * 256 / (V100.alpha * 256 + V100.tau0)
+    args = ([lam], [V100.alpha], [V100.tau0], [256], 256)
+    with pytest.raises(ValueError) as want:
+        ref_cs.grid_solve(*args, method="numpy")
+    with pytest.raises(ValueError) as got:
+        pt_cs.grid_solve(*args, device="cpu")
+    assert "domain" in str(got.value) and _message(got) == str(want.value)
+    bad = ([1.0], [V100.alpha], [V100.tau0], [0], 256)
+    with pytest.raises(ValueError) as want:
+        ref_cs.grid_solve(*bad, method="numpy")
+    with pytest.raises(ValueError) as got:
+        pt_cs.grid_solve(*bad, device="cpu")
+    assert _message(got) == str(want.value)
+
+
+def test_torch_grid_solver_keeps_float64_under_a_float32_default():
+    """Every operation is float64 whatever torch's default dtype: the
+    answers match the host loop at 1e-10 with float32 as the default."""
+    g = MarkovGrid.from_fracs([0.6, 0.9], V100.alpha, V100.tau0,
+                              b_maxes=[8, 32])
+    assert torch.get_default_dtype() == torch.float32
+    got = pt_cs.grid_solve(g.lam, g.alpha, g.tau0, g.b_max, 512,
+                           device="cpu")
+    want = pt_cs.grid_solve(g.lam, g.alpha, g.tau0, g.b_max, 512,
+                            method="numpy")
+    _close_to_numpy(got, want)
 
 
 # -- simulate, stochastic, planner -------------------------------------------
@@ -286,10 +393,13 @@ def test_evaluate_markov_grid():
     for a, b in zip(evaluate(g, backend="markov", method="numpy"),
                     ref_evaluate(rg, backend="markov", method="numpy")):
         _same(a, b)
-    # the default is the card's grid solver, which is not ported yet:
-    # it raises rather than run the host loop in its place
-    with pytest.raises(NotImplementedError, match="6b"):
-        evaluate(g, backend="markov")
+    # the default is the torch grid solver (it raised until ROADMAP
+    # item 6b landed), here on the CPU
+    for a, b in zip(evaluate(g, backend="markov", device="cpu"),
+                    evaluate(g, backend="markov", method="numpy")):
+        assert a.backend == "markov"
+        for f in ("mean_latency", "mean_batch", "utilization"):
+            assert getattr(a, f) == pytest.approx(getattr(b, f), rel=1e-10)
     for backend in ("sim", "sweep", "analytic"):
         with pytest.raises(ValueError, match="MarkovGrid"):
             evaluate(g, backend=backend)
