@@ -210,7 +210,14 @@ def solve_pi_banded(chain: BandedChain) -> np.ndarray:
     the nonsingular banded system over x_1..x_K
     ``Σ_{l≥1} x_l (P(l,j) − δ_lj) = −P(0,j)`` whose bandwidths are the
     chain's own up/down move spans — O(K·V²) flops, no fill beyond the
-    band.  Falls back to the GTH recursion when SciPy is missing."""
+    band.  Falls back to the GTH recursion when SciPy is missing, and
+    when the anchored solve breaks down: near saturation at a large
+    b_max π_0 falls to ~1e-15 and below, the anchor π_0 = 1 leaves the
+    system ill-conditioned, and the solved x comes out negative
+    (entries below −1e-9·max|x|), which the clip below would turn into
+    π = (1, 0, …, 0).  Past the stability limit the chain has no
+    stationary law and the banded answer stands, as in the reference
+    package, which keeps the bare solve everywhere."""
     solve_banded = _scipy_solve_banded()
     if solve_banded is None:                          # pragma: no cover
         return solve_pi_gth(chain)
@@ -232,6 +239,11 @@ def solve_pi_banded(chain: BandedChain) -> np.ndarray:
     np.add.at(rhs, j0[ok0] - 1, -B[0, ok0])
     x = solve_banded((kl, ku), ab, rhs, overwrite_ab=True,
                      overwrite_b=True, check_finite=False)
+    # below the stability limit (λ·τ[b_max] < b_max) a negative x is
+    # the anchored solve breaking down, not the chain
+    stable = chain.lam * chain.t_of[-1] < chain.b_of[-1]
+    if stable and x.size and x.min() < -1e-9 * np.abs(x).max():
+        return solve_pi_gth(chain)
     pi = np.concatenate([[1.0], x])
     pi = np.clip(pi, 0.0, None)
     return pi / pi.sum()

@@ -42,7 +42,7 @@ unbounded, the port a fixed block a step, sized here.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +54,8 @@ __all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
            "scatter_hist",
            "scatter_hist_sums", "completion_inflation", "queue_capacity",
            "window_capacity", "orbit_capacity", "failure_count_bound",
-           "restart_attempt_bound", "fail_capacity"]
+           "restart_attempt_bound", "fail_capacity", "KernelPlan",
+           "dispatch_device", "dispatch", "host_outputs"]
 
 
 def exp_offsets(exps: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
@@ -451,3 +452,55 @@ def fail_capacity(mtbf, span, kshape=np.inf, *, floor: int = 16,
                         kshape[on].tolist())):
         need = max(need, failure_count_bound(x, k, ceil=ceil))
     return int(min(ceil, -(-need // bucket) * bucket))
+
+
+# ---------------------------------------------------------------------------
+# the plan / dispatch split (the campaign's entry to the three sweeps)
+# ---------------------------------------------------------------------------
+
+class KernelPlan(NamedTuple):
+    """A fully resolved sweep run, before it starts: what ``sweep_plan``
+    / ``fleet_plan`` / ``gen_plan`` return.
+
+    ``kernel(params, keys)`` runs the superstep loop on the plan's
+    device and returns the per-point outputs as device tensors (the
+    loop closes over the validated grid and its pinned caps);
+    ``params`` holds the per-point inputs the campaign's fold reads
+    (``lam``), ``keys`` the per-point Threefry keys
+    (``prng.point_keys``; the adaptive campaign swaps in
+    ``prng.point_keys_at`` of a compacted index set).  ``sketch`` /
+    ``has_loss`` record the output schema (``hist_sums``, the loss
+    counters).  A run may add ``"_limits"`` to its outputs: name →
+    (device scalar, bound, message) invariants that ``host_outputs``
+    and the campaign check once the values reach the host."""
+
+    kernel: Callable
+    params: Dict[str, Any]
+    keys: Any
+    n: int
+    sketch: bool
+    has_loss: bool
+
+
+def dispatch_device(kernel: Callable, params: Dict[str, Any], keys):
+    """Run a plan's kernel and keep its outputs on the device (one
+    device: multi-GPU dispatch, ``shard`` > 1, is ROADMAP Queue A item
+    3f and raises in the plan)."""
+    return kernel(params, keys)
+
+
+def host_outputs(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A run's device outputs as numpy arrays, after checking the run's
+    ``"_limits"`` invariants (a violated one raises ``RuntimeError``)."""
+    out = dict(out)
+    for val, bound, msg in out.pop("_limits", {}).values():
+        got = int(val)
+        if got > bound:
+            raise RuntimeError(msg.format(got=got, bound=bound))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def dispatch(kernel: Callable, params: Dict[str, Any], keys
+             ) -> Dict[str, np.ndarray]:
+    """Run a plan's kernel and return its outputs as host numpy arrays."""
+    return host_outputs(dispatch_device(kernel, params, keys))

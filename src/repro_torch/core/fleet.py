@@ -39,8 +39,11 @@ replicas.  Every loss and failure op sits behind the grid's ``has_loss``
 bits, and a point's result depends only on its parameters, the seed
 and its global index.
 
-Not in this slice, as in ``sweep``: ``metrics_tap`` (ROADMAP Queue A
-3e) and ``shard`` > 1 (3f) raise ``NotImplementedError``.
+``fleet_plan`` is the run's plan (``engine.KernelPlan``, device
+outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
+per-lane counters back once a superstep, the queue summed over a
+fleet's replicas.  Not in this slice, as in ``sweep``: ``shard`` > 1
+(ROADMAP Queue A 3f) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import engine, prng, variance
+from repro_torch.core import engine, metrics, prng, variance
 from repro_torch.core.grid import (DIST_CODE, ROUTE_CODE, FleetGrid,
                                    FleetResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
@@ -59,10 +62,11 @@ from repro_torch.core.sweep import (_MISC_WORDS, FailParams, LossParams,
                                     _fail_cap, _gamma, _require_pinned_caps,
                                     _require_ported_options,
                                     fail_capacity_args, fail_fields,
-                                    loss_fields, resolve_device)
+                                    loss_fields, observe_summary,
+                                    resolve_device)
 from repro_torch.kernels import superstep as _ss
 
-__all__ = ["fleet_sweep", "fleet_caps", "jsq_destinations",
+__all__ = ["fleet_sweep", "fleet_plan", "fleet_caps", "jsq_destinations",
            "random_destinations", "round_robin_destinations"]
 
 # events per superstep: the clock rebase, the histogram update and the
@@ -197,38 +201,23 @@ def fleet_caps(grid: FleetGrid, *, q_cap: Optional[int] = None) -> dict:
     return caps
 
 
-def fleet_sweep(grid: FleetGrid, *, n_steps: int = 6000,
-                warmup: Optional[int] = None, q_cap: Optional[int] = None,
-                a_cap: int = 32, r_cap: Optional[int] = None,
-                f_cap: Optional[int] = None, n_bins: int = 512,
-                seed: int = 0, key_offset: int = 0, hist_every: int = 1,
-                shard=None, sketch: bool = False,
-                superstep_backend: Optional[str] = None,
-                metrics_tap=None, device=None) -> FleetResult:
-    """Simulate every fleet point for ``n_steps`` replica decisions
-    (rounded up to a multiple of 32) on ``device`` — CUDA unless
-    ``device="cpu"`` is asked for.
-
-    ``n_steps`` counts fleet-wide events: at moderate load nearly every
-    event is a completion that starts the next batch, so size it k×
-    larger to give each replica a single-server ``sweep``'s run length.
-    ``q_cap`` bounds each replica's waiting room (overflowing it is
-    counted in ``buffer_dropped``, 0 in a correct run; ``None`` sizes it
-    from the per-replica load, ``fleet_caps``).  ``a_cap`` only tiles
-    the arrival routing: a window denser than it defers its event a
-    step, exact but slower.  ``hist_every = N > 1`` records a 1-in-N
-    step subsample in the histogram (``hist.thinned_rows``); means and
-    counters use every job.  ``r_cap`` bounds a loss grid's retry orbit
-    and ``f_cap`` a failure grid's failure block (``None``: sized from
-    the grid).  Split dispatches (``key_offset != 0``) must pin the
-    grid-derived caps (``**fleet_caps(full_grid)``) or this raises.
-    ``sketch`` and ``superstep_backend`` behave as in ``sweep``."""
+def fleet_plan(grid: FleetGrid, *, n_steps: int = 6000,
+               warmup: Optional[int] = None, q_cap: Optional[int] = None,
+               a_cap: int = 32, r_cap: Optional[int] = None,
+               f_cap: Optional[int] = None, n_bins: int = 512,
+               seed: int = 0, key_offset: int = 0, hist_every: int = 1,
+               shard=None, sketch: bool = False,
+               superstep_backend: Optional[str] = None,
+               metrics_tap=None, device=None) -> engine.KernelPlan:
+    """Everything ``fleet_sweep`` does before the run (validate, pin the
+    caps, resolve the device and backend, make the keys); same
+    signature, returns an ``engine.KernelPlan`` with device outputs."""
     if not isinstance(grid, FleetGrid):
         raise TypeError("fleet_sweep needs a FleetGrid "
                         "(see FleetGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard, metrics_tap)
+    _require_ported_options(shard)
     dev = resolve_device(device)
     n_steps = -(-int(n_steps) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
@@ -265,21 +254,69 @@ def fleet_sweep(grid: FleetGrid, *, n_steps: int = 6000,
         raise ValueError("q_max exceeds q_cap; raise q_cap")
     if sketch:
         n_bins = SKETCH_BINS
-    ss_backend = _ss.resolve_backend(superstep_backend, dev)
-    out = _run(grid, n_steps=n_steps, warmup=int(warmup), q_cap=q_cap,
+    cfg = dict(n_steps=n_steps, warmup=int(warmup), q_cap=q_cap,
                a_cap=int(a_cap), r_cap=r_cap, f_cap=f_cap,
-               n_bins=int(n_bins), seed=int(seed),
-               key_offset=int(key_offset), hist_every=int(hist_every),
-               sketch=bool(sketch), ss_backend=ss_backend, device=dev)
-    return _to_result(grid, out, sketch=bool(sketch))
+               n_bins=int(n_bins), hist_every=int(hist_every),
+               sketch=bool(sketch),
+               ss_backend=_ss.resolve_backend(superstep_backend, dev),
+               tap=metrics_tap, device=dev)
+
+    def kernel(params, keys):
+        return _run(grid, keys, **cfg)
+
+    return engine.KernelPlan(
+        kernel=kernel,
+        params={"lam": torch.as_tensor(np.asarray(grid.lam),
+                                       dtype=torch.float32, device=dev)},
+        keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
+        n=len(grid), sketch=bool(sketch),
+        has_loss=grid.has_loss)
 
 
-def _run(grid: FleetGrid, *, n_steps: int, warmup: int, q_cap: int,
-         a_cap: int, r_cap: int, f_cap: int, n_bins: int, seed: int,
-         key_offset: int, hist_every: int, sketch: bool, ss_backend: str,
-         device: torch.device) -> dict:
-    """The superstep loop over every fleet at once; returns the
-    per-point outputs as numpy arrays."""
+def fleet_sweep(grid: FleetGrid, *, n_steps: int = 6000,
+                warmup: Optional[int] = None, q_cap: Optional[int] = None,
+                a_cap: int = 32, r_cap: Optional[int] = None,
+                f_cap: Optional[int] = None, n_bins: int = 512,
+                seed: int = 0, key_offset: int = 0, hist_every: int = 1,
+                shard=None, sketch: bool = False,
+                superstep_backend: Optional[str] = None,
+                metrics_tap=None, device=None) -> FleetResult:
+    """Simulate every fleet point for ``n_steps`` replica decisions
+    (rounded up to a multiple of 32) on ``device`` — CUDA unless
+    ``device="cpu"`` is asked for.
+
+    ``n_steps`` counts fleet-wide events: at moderate load nearly every
+    event is a completion that starts the next batch, so size it k×
+    larger to give each replica a single-server ``sweep``'s run length.
+    ``q_cap`` bounds each replica's waiting room (overflowing it is
+    counted in ``buffer_dropped``, 0 in a correct run; ``None`` sizes it
+    from the per-replica load, ``fleet_caps``).  ``a_cap`` only tiles
+    the arrival routing: a window denser than it defers its event a
+    step, exact but slower.  ``hist_every = N > 1`` records a 1-in-N
+    step subsample in the histogram (``hist.thinned_rows``); means and
+    counters use every job.  ``r_cap`` bounds a loss grid's retry orbit
+    and ``f_cap`` a failure grid's failure block (``None``: sized from
+    the grid).  Split dispatches (``key_offset != 0``) must pin the
+    grid-derived caps (``**fleet_caps(full_grid)``) or this raises.
+    ``sketch``, ``superstep_backend`` and ``metrics_tap`` behave as in
+    ``sweep``."""
+    plan = fleet_plan(grid, n_steps=n_steps, warmup=warmup, q_cap=q_cap,
+                      a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=n_bins,
+                      seed=seed, key_offset=key_offset,
+                      hist_every=hist_every, shard=shard, sketch=sketch,
+                      superstep_backend=superstep_backend,
+                      metrics_tap=metrics_tap, device=device)
+    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    r = _to_result(grid, out, sketch=plan.sketch)
+    observe_summary(metrics_tap, "fleet", r)
+    return r
+
+
+def _run(grid: FleetGrid, keys, *, n_steps: int, warmup: int, q_cap: int,
+         a_cap: int, r_cap: int, f_cap: int, n_bins: int, hist_every: int,
+         sketch: bool, ss_backend: str, tap, device: torch.device) -> dict:
+    """The superstep loop over every fleet at once, keyed by ``keys``;
+    returns the per-point outputs as device tensors."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     R = _REBASE_EVERY
@@ -320,7 +357,6 @@ def _run(grid: FleetGrid, *, n_steps: int, warmup: int, q_cap: int,
     has_retry = has_loss and bool(np.any(grid.retry_rate > 0.0))
     if has_timeout:
         do_wait = (wait_max > 0.0) & (wait_target > 1)
-    keys = prng.point_keys(seed, key_offset, n, device)
     streams = [(_S_ROUTE, a_cap), (_S_GAPS, a_cap)]
     if not all_det:
         streams.append((_S_SERVICE, _MISC_WORDS))
@@ -692,6 +728,12 @@ def _run(grid: FleetGrid, *, n_steps: int, warmup: int, q_cap: int,
         _ss.hist_update(hists, lat_blk, inc_blk, n_bins=n_bins,
                         backend=ss_backend, sketch=sketch)
         bm = engine.welford_block(bm, lat_sum - s0, lat_n - n0)
+        if tap is not None:
+            metrics.tap_superstep(
+                tap, i_base // R, queue=q.sum(1), jobs=lat_n, busy=busy,
+                span=span, dropped=dropped,
+                **(dict(overflow=ov_n, abandoned=ab_n) if has_loss
+                   else {}))
         # rebase every time to the last processed event
         buf.sub_(clock.unsqueeze(1))
         t_free = t_free - clock.unsqueeze(1)
@@ -723,7 +765,7 @@ def _run(grid: FleetGrid, *, n_steps: int, warmup: int, q_cap: int,
     if has_fail:
         out.update(n_failures=n_fail, down_time=down, lost_work=lost_work,
                    span=span, fail_truncated=trunc)
-    return {key: v.cpu().numpy() for key, v in out.items()}
+    return out
 
 
 def _to_result(grid: FleetGrid, out: dict, *, sketch: bool) -> FleetResult:

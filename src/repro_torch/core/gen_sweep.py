@@ -62,9 +62,11 @@ A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
-Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: ``metrics_tap`` (Queue A 3e) and ``shard``
-> 1 (multi-GPU dispatch, 3f).
+``gen_plan`` is the run's plan (``engine.KernelPlan``, device
+outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
+per-lane counters back once a superstep.  Not in this slice: ``shard``
+> 1 (multi-GPU dispatch) raises ``NotImplementedError`` naming ROADMAP
+Queue A item 3f.
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import engine, prng, variance
+from repro_torch.core import engine, metrics, prng, variance
 from repro_torch.core.grid import (DISC_CODE, DISC_NAME,  # noqa: F401
                                    FAIL_DISC_CODE, GenGrid, GenResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
@@ -82,11 +84,12 @@ from repro_torch.core.sweep import (FailParams,
                                     LossParams, _require_pinned_caps,
                                     _require_ported_options,
                                     fail_capacity_args, fail_fields,
-                                    loss_fields, resolve_device)
+                                    loss_fields, observe_summary,
+                                    resolve_device)
 from repro_torch.kernels import superstep as _ss
 
 __all__ = ["DISC_CODE", "DISC_NAME", "GenGrid", "GenResult", "gen_sweep",
-           "gen_caps", "buffer_length"]
+           "gen_plan", "gen_caps", "buffer_length"]
 
 # scan steps per superstep: the clock rebase, buffer compaction,
 # histogram update and batch-means sample happen once per block
@@ -213,37 +216,23 @@ def _fail_caps(grid: GenGrid) -> tuple:
     return f_cap, engine.window_capacity(grid.lam, span + ext)
 
 
-def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
-              warmup: Optional[int] = None, q_cap: Optional[int] = None,
-              a_cap: Optional[int] = None, r_cap: Optional[int] = None,
-              f_cap: Optional[int] = None,
-              n_bins: int = 512, seed: int = 0, key_offset: int = 0,
-              hist_every: int = 1, shard=None, sketch: bool = False,
-              superstep_backend: Optional[str] = None,
-              metrics_tap=None, device=None) -> GenResult:
-    """Simulate every grid point for ``n_steps`` scheduler decisions
-    (rounded up to a multiple of 2048) on ``device`` — CUDA unless
-    ``device="cpu"`` is asked for.
-
-    Each step advances a *run* of identical decode steps up to the next
-    scheduler event.  ``q_cap`` bounds the waiting buffer and ``a_cap``
-    the arrival chain visible per step; exceeding either clamps and
-    counts in ``buffer_dropped`` (0 in a correct run).  ``None`` sizes
-    them from the grid (``gen_caps``); split dispatches
-    (``key_offset != 0``) must pin them from the full grid.
-    ``hist_every > 1`` feeds only a fixed scrambled 1-in-N subsample of
-    each superstep's steps to the percentile histogram
-    (``hist.thinned_rows``); means and counters use every step.
-    ``sketch``/``superstep_backend`` behave as in ``sweep``.
-    ``r_cap`` bounds a loss grid's retry orbit and ``f_cap`` a failure
-    grid's failure block (``None``: ``gen_caps``); a grid without the
-    regime ignores them."""
+def gen_plan(grid: GenGrid, *, n_steps: int = 4096,
+             warmup: Optional[int] = None, q_cap: Optional[int] = None,
+             a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+             f_cap: Optional[int] = None,
+             n_bins: int = 512, seed: int = 0, key_offset: int = 0,
+             hist_every: int = 1, shard=None, sketch: bool = False,
+             superstep_backend: Optional[str] = None,
+             metrics_tap=None, device=None) -> engine.KernelPlan:
+    """Everything ``gen_sweep`` does before the run (validate, pin the
+    caps, resolve the device and backend, make the keys); same
+    signature, returns an ``engine.KernelPlan`` with device outputs."""
     if not isinstance(grid, GenGrid):
         raise TypeError("gen_sweep needs a GenGrid "
                         "(see GenGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard, metrics_tap)
+    _require_ported_options(shard)
     dev = resolve_device(device)
     n_steps = -(-int(n_steps) // _STEP_BUCKET) * _STEP_BUCKET
     if warmup is None:
@@ -281,14 +270,62 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
                          f"(valid: {DISC_CODE})")
     if sketch:
         n_bins = SKETCH_BINS
-    ss_backend = _ss.resolve_backend(superstep_backend, dev)
-    out = _run(grid, n_steps=n_steps, warmup=int(warmup), s_cap=s_cap,
+    cfg = dict(n_steps=n_steps, warmup=int(warmup), s_cap=s_cap,
                q_cap=q_cap, a_cap=a_cap, r_cap=r_cap, f_cap=f_cap,
-               n_bins=int(n_bins),
-               seed=int(seed), key_offset=int(key_offset),
-               hist_every=int(hist_every), sketch=bool(sketch),
-               ss_backend=ss_backend, device=dev)
-    return _to_result(grid, out, sketch=bool(sketch))
+               n_bins=int(n_bins), hist_every=int(hist_every),
+               sketch=bool(sketch),
+               ss_backend=_ss.resolve_backend(superstep_backend, dev),
+               tap=metrics_tap, device=dev)
+
+    def kernel(params, keys):
+        return _run(grid, keys, **cfg)
+
+    return engine.KernelPlan(
+        kernel=kernel,
+        params={"lam": torch.as_tensor(np.asarray(grid.lam),
+                                       dtype=torch.float32, device=dev)},
+        keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
+        n=len(grid), sketch=bool(sketch), has_loss=has_loss)
+
+
+
+
+def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
+              warmup: Optional[int] = None, q_cap: Optional[int] = None,
+              a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+              f_cap: Optional[int] = None,
+              n_bins: int = 512, seed: int = 0, key_offset: int = 0,
+              hist_every: int = 1, shard=None, sketch: bool = False,
+              superstep_backend: Optional[str] = None,
+              metrics_tap=None, device=None) -> GenResult:
+    """Simulate every grid point for ``n_steps`` scheduler decisions
+    (rounded up to a multiple of 2048) on ``device`` — CUDA unless
+    ``device="cpu"`` is asked for.
+
+    Each step advances a *run* of identical decode steps up to the next
+    scheduler event.  ``q_cap`` bounds the waiting buffer and ``a_cap``
+    the arrival chain visible per step; exceeding either clamps and
+    counts in ``buffer_dropped`` (0 in a correct run).  ``None`` sizes
+    them from the grid (``gen_caps``); split dispatches
+    (``key_offset != 0``) must pin them from the full grid.
+    ``hist_every > 1`` feeds only a fixed scrambled 1-in-N subsample of
+    each superstep's steps to the percentile histogram
+    (``hist.thinned_rows``); means and counters use every step.
+    ``sketch``/``superstep_backend``/``metrics_tap`` behave as in
+    ``sweep``.
+    ``r_cap`` bounds a loss grid's retry orbit and ``f_cap`` a failure
+    grid's failure block (``None``: ``gen_caps``); a grid without the
+    regime ignores them."""
+    plan = gen_plan(grid, n_steps=n_steps, warmup=warmup, q_cap=q_cap,
+                    a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=n_bins,
+                    seed=seed, key_offset=key_offset, hist_every=hist_every,
+                    shard=shard, sketch=sketch,
+                    superstep_backend=superstep_backend,
+                    metrics_tap=metrics_tap, device=device)
+    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    r = _to_result(grid, out, sketch=plan.sketch)
+    observe_summary(metrics_tap, "gen", r)
+    return r
 
 
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -301,14 +338,14 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(-float(_BIG), float(_BIG)).to(torch.int32)
 
 
-def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
+def _run(grid: GenGrid, keys, *, n_steps: int, warmup: int, s_cap: int,
          q_cap: int, a_cap: int, r_cap: Optional[int], f_cap: int,
-         n_bins: int,
-         seed: int, key_offset: int, hist_every: int, sketch: bool,
-         ss_backend: str, device: torch.device) -> dict:
-    """The superstep loop over every point at once; returns the
-    per-point outputs as numpy arrays.  ``r_cap`` is None on a
-    loss-free grid."""
+         n_bins: int, hist_every: int, sketch: bool, ss_backend: str, tap,
+         device: torch.device) -> dict:
+    """The superstep loop over every point at once, keyed by ``keys``;
+    returns the per-point outputs as device tensors, with the buffer
+    reach under ``"_limits"`` (checked where the outputs reach the
+    host).  ``r_cap`` is None on a loss-free grid."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     R = _REBASE_EVERY
@@ -327,7 +364,6 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     gen = param(grid.gen_tokens, i32).unsqueeze(1)
     cap = param(np.clip(grid.max_active, 1, s_cap), i32)
     is_cont = param(grid.discipline == DISC_CODE["continuous"], torch.bool)
-    keys = prng.point_keys(seed, key_offset, n, device)
     streams = ((_S_GAPS, width),)
     if has_loss:
         streams += ((_S_ORBIT, r_cap),)
@@ -616,6 +652,12 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         _ss.hist_update(hists, lat_blk, inc_blk, n_bins=n_bins,
                         backend=ss_backend, sketch=sketch)
         bm = engine.welford_block(bm, lat_sum - s0, lat_n - n0)
+        if tap is not None:
+            metrics.tap_superstep(
+                tap, i_base // R, queue=tail - head, jobs=lat_n, busy=busy,
+                span=span, dropped=dropped,
+                **(dict(overflow=ov_n, abandoned=ab_n) if has_loss
+                   else {}))
         # rebase the clock to the superstep end and re-compact every
         # buffer to head = 0, out of place into the spare buffer
         buf, spare = _ss.fifo_compact(buf, head, now, backend=ss_backend,
@@ -626,11 +668,6 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
         next_arr = next_arr - now
         now = torch.zeros_like(now)
 
-    worst = int(reach.max())
-    if worst > buf_len:
-        raise RuntimeError(f"gen_sweep: a FIFO append reached {worst} > "
-                           f"buffer length {buf_len}; the buffer sizing "
-                           f"invariant does not hold")
     jobs = torch.clamp(lat_n, min=1).to(f32)
     nst = torch.clamp(n_meas, min=1).to(f32)
     out = {
@@ -654,7 +691,11 @@ def _run(grid: GenGrid, *, n_steps: int, warmup: int, s_cap: int,
     if has_fail:
         out.update(n_failures=n_fail, down_time=down, lost_work=lost_work,
                    span=span, fail_truncated=trunc)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    out["_limits"] = {"reach": (
+        reach.max(), buf_len,
+        "gen_sweep: a FIFO append reached {got} > buffer length {bound}; "
+        "the buffer sizing invariant does not hold")}
+    return out
 
 
 def _to_result(grid: GenGrid, out: dict, *, sketch: bool) -> GenResult:

@@ -31,8 +31,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["threefry2x32", "point_keys", "draw_words", "uniform",
-           "exponential", "normal_pairs", "STREAM_STRIDE"]
+__all__ = ["threefry2x32", "point_keys", "point_keys_at", "draw_words",
+           "uniform", "exponential", "normal_pairs", "STREAM_STRIDE"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -73,8 +73,18 @@ def point_keys(seed: int, offset: int, n: int,
                device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point keys ``(k0, k1)``, each an int32 ``(n,)`` tensor, for
     global point indices ``offset … offset + n − 1``."""
-    idx = torch.arange(offset, offset + n, dtype=torch.int64,
-                       device=device)
+    return point_keys_at(seed, torch.arange(offset, offset + n,
+                                            dtype=torch.int64,
+                                            device=device))
+
+
+def point_keys_at(seed: int, idx: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``point_keys`` for an int64 tensor of arbitrary global point
+    indices, on its device: the adaptive campaign's refine pass runs
+    compacted, non-contiguous index sets, and each lane keeps the key
+    its point has in a contiguous dispatch."""
+    n, device = idx.numel(), idx.device
     lo = torch.where(idx >= 1 << 31, idx - (1 << 32), idx)
     zero = torch.zeros(n, dtype=torch.int32, device=device)
     s0 = torch.tensor(_i32(seed), dtype=torch.int32, device=device)

@@ -47,13 +47,20 @@ A point's result depends only on its parameters, the seed and its
 global index, so ``key_offset`` chunks with pinned caps reproduce the
 whole-grid dispatch bit for bit.
 
+``sweep_plan`` is everything ``sweep`` does before the run — validate,
+pin the caps, make the keys — and returns an ``engine.KernelPlan``
+whose kernel leaves the outputs on the device: ``sweep`` is plan → run
+→ host copy → ``SweepResult``, and the campaign driver
+(``core.campaign``) folds the device outputs on the card instead.  A
+``metrics_tap`` reads the per-lane counters back once a superstep
+(``metrics.tap_superstep``).
+
 The k-replica ``fleet_sweep`` and its ``fleet_caps`` live in
 ``core.fleet`` and are re-exported here, as the reference's module
 holds both kernels.
 
-Not in this slice — each raises ``NotImplementedError`` naming the
-ROADMAP item that adds it: ``metrics_tap`` (Queue A 3e) and ``shard``
-> 1 (multi-GPU dispatch, 3f).
+Not in this slice: ``shard`` > 1 (multi-GPU dispatch) raises
+``NotImplementedError`` naming ROADMAP Queue A item 3f.
 """
 from __future__ import annotations
 
@@ -62,15 +69,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import engine, prng, variance
+from repro_torch.core import engine, metrics, prng, variance
 from repro_torch.core.grid import (DIST_CODE, FAIL_DISC_CODE, OVERFLOW_CODE,
                                    FleetGrid, SweepGrid, SweepResult)
 from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges)
 from repro_torch.kernels import superstep as _ss
 
-__all__ = ["sweep", "sweep_caps", "fleet_sweep", "fleet_caps", "FleetGrid",
-           "resolve_device"]
+__all__ = ["sweep", "sweep_plan", "sweep_caps", "fleet_sweep", "fleet_plan",
+           "fleet_caps", "FleetGrid", "resolve_device"]
 
 # steps per superstep: the histogram update and the batch-means sample
 # are taken once per block of this many steps
@@ -217,10 +224,7 @@ class FailParams:
                     trunc=trunc.to(torch.int32))
 
 
-def _require_ported_options(shard, metrics_tap) -> None:
-    if metrics_tap is not None:
-        raise NotImplementedError(
-            "metrics_tap is not ported yet: ROADMAP Queue A item 3e")
+def _require_ported_options(shard) -> None:
     if shard not in (None, True, False) and int(shard) != 1:
         if int(shard) < 1:
             raise ValueError(f"shard must be >= 1 (got {shard})")
@@ -333,35 +337,25 @@ def _gamma(misc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.where(boost, g * torch.exp(torch.log(ub) / k), g)
 
 
-def sweep(grid: SweepGrid, *, n_batches: int = 3000,
-          warmup: Optional[int] = None, q_cap: Optional[int] = None,
-          a_cap: Optional[int] = None, r_cap: Optional[int] = None,
-          f_cap: Optional[int] = None,
-          n_bins: int = 512, seed: int = 0, key_offset: int = 0,
-          shard=None, sketch: bool = False,
-          superstep_backend: Optional[str] = None,
-          metrics_tap=None, device=None) -> SweepResult:
-    """Simulate every grid point for ``n_batches`` service completions
-    (rounded up to a multiple of 32) on ``device`` — CUDA unless
-    ``device="cpu"`` is asked for.
-
-    ``q_cap`` bounds the waiting room and ``a_cap`` the per-window
-    arrival draw; points whose dynamics exceed them report the clamped
-    arrivals in ``buffer_dropped`` (0 in a correct run).  ``None`` sizes
-    them from the grid (``sweep_caps``).  Split dispatches
-    (``key_offset != 0``) must pin them from the full grid.
-    ``sketch=True`` keeps the 64-bin sketch and its per-bin latency sums
-    instead of the 512-bin histogram.  ``superstep_backend`` picks the
-    histogram update (``"cuda"``/``"torch"``/``"auto"`` — see
-    ``repro_torch.kernels.superstep``).  ``r_cap`` bounds a loss grid's
-    retry orbit (``None``: ``engine.orbit_capacity``) and ``f_cap`` a
-    failure grid's failure block (``None``: ``engine.fail_capacity``);
-    a grid without the regime ignores them."""
+def sweep_plan(grid: SweepGrid, *, n_batches: int = 3000,
+               warmup: Optional[int] = None, q_cap: Optional[int] = None,
+               a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+               f_cap: Optional[int] = None,
+               n_bins: int = 512, seed: int = 0, key_offset: int = 0,
+               shard=None, sketch: bool = False,
+               superstep_backend: Optional[str] = None,
+               metrics_tap=None, device=None) -> engine.KernelPlan:
+    """Everything ``sweep`` does before the run: validate the grid,
+    derive (or check) the caps, resolve the device and the superstep
+    backend, and make the keys.  Same signature as ``sweep``; returns an
+    ``engine.KernelPlan`` whose kernel returns the device outputs.
+    ``sweep`` runs the plan and builds a ``SweepResult`` on the host;
+    the campaign driver folds the outputs on the card instead."""
     if len(grid) == 0:
         raise ValueError("empty grid")
     if warmup is not None and not 0 <= warmup < int(n_batches):
         raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
-    _require_ported_options(shard, metrics_tap)
+    _require_ported_options(shard)
     dev = resolve_device(device)
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
@@ -393,22 +387,77 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
         raise ValueError("q_max exceeds q_cap; raise q_cap")
     if sketch:
         n_bins = SKETCH_BINS
-    n_bins = int(n_bins)
-    ss_backend = _ss.resolve_backend(superstep_backend, dev)
-    out = _run(grid, n_batches=n_batches, warmup=int(warmup), q_cap=q_cap,
-               a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=n_bins,
-               seed=int(seed),
-               key_offset=int(key_offset), sketch=bool(sketch),
-               ss_backend=ss_backend, device=dev)
-    return _to_result(grid, out, sketch=bool(sketch))
+    cfg = dict(n_batches=n_batches, warmup=int(warmup), q_cap=q_cap,
+               a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=int(n_bins),
+               sketch=bool(sketch),
+               ss_backend=_ss.resolve_backend(superstep_backend, dev),
+               tap=metrics_tap, device=dev)
+
+    def kernel(params, keys):
+        return _run(grid, keys, **cfg)
+
+    return engine.KernelPlan(
+        kernel=kernel,
+        params={"lam": torch.as_tensor(np.asarray(grid.lam),
+                                       dtype=torch.float32, device=dev)},
+        keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
+        n=len(grid), sketch=bool(sketch), has_loss=has_loss)
 
 
-def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
-         a_cap: int, r_cap: int, f_cap: int, n_bins: int, seed: int,
-         key_offset: int,
-         sketch: bool, ss_backend: str, device: torch.device) -> dict:
-    """The superstep loop over every point at once; returns the
-    per-point outputs as numpy arrays."""
+def sweep(grid: SweepGrid, *, n_batches: int = 3000,
+          warmup: Optional[int] = None, q_cap: Optional[int] = None,
+          a_cap: Optional[int] = None, r_cap: Optional[int] = None,
+          f_cap: Optional[int] = None,
+          n_bins: int = 512, seed: int = 0, key_offset: int = 0,
+          shard=None, sketch: bool = False,
+          superstep_backend: Optional[str] = None,
+          metrics_tap=None, device=None) -> SweepResult:
+    """Simulate every grid point for ``n_batches`` service completions
+    (rounded up to a multiple of 32) on ``device`` — CUDA unless
+    ``device="cpu"`` is asked for.
+
+    ``q_cap`` bounds the waiting room and ``a_cap`` the per-window
+    arrival draw; points whose dynamics exceed them report the clamped
+    arrivals in ``buffer_dropped`` (0 in a correct run).  ``None`` sizes
+    them from the grid (``sweep_caps``).  Split dispatches
+    (``key_offset != 0``) must pin them from the full grid.
+    ``sketch=True`` keeps the 64-bin sketch and its per-bin latency sums
+    instead of the 512-bin histogram.  ``superstep_backend`` picks the
+    histogram update (``"cuda"``/``"torch"``/``"auto"`` — see
+    ``repro_torch.kernels.superstep``).  ``r_cap`` bounds a loss grid's
+    retry orbit (``None``: ``engine.orbit_capacity``) and ``f_cap`` a
+    failure grid's failure block (``None``: ``engine.fail_capacity``);
+    a grid without the regime ignores them.  ``metrics_tap`` attaches a
+    ``repro_torch.core.metrics.MetricsTap`` that receives one record a
+    superstep and a final ``summary``."""
+    plan = sweep_plan(grid, n_batches=n_batches, warmup=warmup,
+                      q_cap=q_cap, a_cap=a_cap, r_cap=r_cap, f_cap=f_cap,
+                      n_bins=n_bins, seed=seed, key_offset=key_offset,
+                      shard=shard, sketch=sketch,
+                      superstep_backend=superstep_backend,
+                      metrics_tap=metrics_tap, device=device)
+    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    r = _to_result(grid, out, sketch=plan.sketch)
+    observe_summary(metrics_tap, "sweep", r)
+    return r
+
+
+def observe_summary(tap, kind: str, r) -> None:
+    """A tapped sweep's final ``summary`` record: points, measured jobs
+    and the medians of the per-point percentiles."""
+    if tap is not None:
+        tap.observe_summary(
+            kind=kind, points=len(r.grid), jobs_total=int(r.n_jobs.sum()),
+            p50_median=float(np.nanmedian(r.latency_p50)),
+            p95_median=float(np.nanmedian(r.latency_p95)),
+            p99_median=float(np.nanmedian(r.latency_p99)))
+
+
+def _run(grid: SweepGrid, keys, *, n_batches: int, warmup: int,
+         q_cap: int, a_cap: int, r_cap: int, f_cap: int, n_bins: int,
+         sketch: bool, ss_backend: str, tap, device: torch.device) -> dict:
+    """The superstep loop over every point at once, keyed by ``keys``;
+    returns the per-point outputs as device tensors."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     has_timeout = bool(np.any(grid.wait_max > 0.0))
@@ -427,7 +476,6 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     cv = param(grid.cv, f32)
     kshape = torch.where(dist == DIST_CODE["exp"],
                          torch.ones_like(cv), 1.0 / (cv * cv))
-    keys = prng.point_keys(seed, key_offset, n, device)
     streams = [(_S_MISC, _MISC_WORDS), (_S_SERVICE, a_cap + 1)]
     if has_timeout:
         streams.append((_S_TIMEOUT, a_cap + 1))
@@ -645,6 +693,12 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
         # one batch-means sample per superstep: the mean latency of the
         # jobs that completed inside this block
         bm = engine.welford_block(bm, lat_sum - s0, lat_n - n0)
+        if tap is not None:
+            metrics.tap_superstep(
+                tap, i_base // _REBASE_EVERY, queue=q, jobs=lat_n,
+                busy=busy, span=span, dropped=dropped,
+                **(dict(overflow=ov_n, abandoned=ab_n) if has_loss
+                   else {}))
 
     jobs = torch.clamp(lat_n, min=1).to(f32)
     nb = float(max(n_steps, 1))
@@ -678,9 +732,9 @@ def _run(grid: SweepGrid, *, n_batches: int, warmup: int, q_cap: int,
     if has_fail:
         out.update(n_failures=n_fail, down_time=down, lost_work=lost_work,
                    span=span, fail_truncated=trunc)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
     if not has_loss:
-        out["n_batches"] = np.full(n, n_steps, dtype=np.int32)
+        out["n_batches"] = torch.full((n,), n_steps, dtype=i32,
+                                      device=device)
     return out
 
 

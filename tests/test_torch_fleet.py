@@ -636,8 +636,12 @@ def test_fleet_sweep_guards_as_the_reference(monkeypatch):
             fleet_sweep(make(FleetGrid, SweepGrid), **kw, **CPU)
         assert _message(got) == str(want.value)
     g = FleetGrid.from_points([1.0], 0.1, 1.0, k=2)
-    with pytest.raises(NotImplementedError, match="3e"):
-        fleet_sweep(g, metrics_tap=object(), **CPU)
+    # the metrics tap (3e) raised here until it was ported
+    from repro_torch.core.metrics import MetricsTap
+    tap = MetricsTap(expected_points=1)
+    a = fleet_sweep(g, n_steps=64, seed=3, **CPU)
+    b = fleet_sweep(g, n_steps=64, seed=3, metrics_tap=tap, **CPU)
+    assert np.array_equal(a.hist, b.hist) and tap.supersteps == 2
     with pytest.raises(NotImplementedError, match="3f"):
         fleet_sweep(g, shard=2, **CPU)
     with pytest.raises(ValueError, match="hist_every"):

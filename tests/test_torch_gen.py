@@ -366,10 +366,10 @@ def test_backends_guard_their_grids():
 
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard"])
 def test_unported_features_raise(what):
-    """metrics_tap (3e) and shard > 1 (3f) raise, naming their ROADMAP
-    items.  Failure grids, with and without a loss regime, raised here
-    until they were ported; their cases now hold the grid's
-    accounting."""
+    """shard > 1 (3f) raises, naming its ROADMAP item.  Failure grids,
+    with and without a loss regime, and the metrics tap (3e) raised here
+    until they were ported; their cases now hold the grid's accounting
+    and a tapped run bitwise equal to an untapped one."""
     kw = dict(n_steps=64, **CPU)
     if what in ("loss", "fail"):
         extra = dict(mtbf=50.0, mttr=1.0)
@@ -385,12 +385,19 @@ def test_unported_features_raise(what):
         total = r.goodput_frac + r.late_frac + r.reject_frac + r.abandon_frac
         assert np.allclose(total, 1.0, atol=1e-6)
         return
-    if what == "tap":
-        kw["metrics_tap"], match = object(), "3e"
-    else:
-        kw["shard"], match = 2, "3f"
     g = GenGrid.from_points([0.05], *CONST.values())
-    with pytest.raises(NotImplementedError, match=match):
+    if what == "tap":
+        # ported since: the tap observes and changes no bit
+        from repro_torch.core.metrics import MetricsTap
+        tap = MetricsTap(expected_points=1)
+        a, b = gen_sweep(g, seed=3, **kw), gen_sweep(g, seed=3,
+                                                     metrics_tap=tap, **kw)
+        assert np.array_equal(a.hist, b.hist)
+        assert np.array_equal(a.mean_latency, b.mean_latency)
+        assert tap.supersteps == 2048 // 16
+        return
+    kw["shard"] = 2
+    with pytest.raises(NotImplementedError, match="3f"):
         gen_sweep(g, **kw)
 
 

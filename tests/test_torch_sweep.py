@@ -211,11 +211,12 @@ def test_sweep_runs_the_superstep_update_once_per_block(monkeypatch):
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard",
                                   "markov"])
 def test_unported_features_raise(what):
-    """metrics_tap (3e) and shard > 1 (3f) raise, naming their ROADMAP
-    items.  Failure grids, with and without a loss regime, and the
-    "markov" backend raised here until they were ported; their cases
-    now hold what runs: the failure grid's accounting, and the exact
-    chain's answer equal to the reference's."""
+    """shard > 1 (3f) raises, naming its ROADMAP item.  Failure grids,
+    with and without a loss regime, the "markov" backend and the
+    metrics tap (3e) raised here until they were ported; their cases
+    now hold what runs: the failure grid's accounting, the exact
+    chain's answer equal to the reference's, and a tapped run bitwise
+    equal to an untapped one."""
     g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0)
     kw = dict(n_batches=64, **CPU)
     if what in ("loss", "fail"):
@@ -240,12 +241,17 @@ def test_unported_features_raise(what):
             (y.mean_latency, y.mean_batch, y.utilization)
         return
     if what == "tap":
-        kw["metrics_tap"] = object()
-        match = "3e"
-    else:
-        kw["shard"] = 2
-        match = "3f"
-    with pytest.raises(NotImplementedError, match=match):
+        # ported since: the tap observes and changes no bit
+        from repro_torch.core.metrics import MetricsTap
+        tap = MetricsTap(expected_points=len(g))
+        a, b = sweep(g, seed=3, **kw), sweep(g, seed=3, metrics_tap=tap,
+                                             **kw)
+        assert np.array_equal(a.hist, b.hist)
+        assert np.array_equal(a.mean_latency, b.mean_latency)
+        assert tap.supersteps == 2
+        return
+    kw["shard"] = 2
+    with pytest.raises(NotImplementedError, match="3f"):
         sweep(g, **kw)
 
 

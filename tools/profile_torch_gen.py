@@ -101,11 +101,12 @@ def main() -> int:
     s_cap = int(grid.max_active.max())
     R = gen_mod._REBASE_EVERY
     kw = dict(n_steps=R * args.supersteps, warmup=0, s_cap=s_cap,
-              n_bins=512, seed=29, key_offset=0, hist_every=1,
-              sketch=False, ss_backend="cuda", device=dev, **caps)
+              n_bins=512, hist_every=1, sketch=False, ss_backend="cuda",
+              tap=None, device=dev, **caps)
+    keys = prng.point_keys(29, 0, len(grid), dev)
 
     def run():
-        gen_mod._run(grid, **kw)
+        gen_mod._run(grid, keys, **kw)
 
     run()                                           # build + warm up
     torch.cuda.synchronize()
