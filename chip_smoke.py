@@ -9,8 +9,9 @@ printing one JSON line per phase:
 
 1. build         — compile ``hist_update.cu``, ``fifo_compact.cu``,
                    ``flash_attention.cu``, ``decode_attention.cu``,
-                   ``ssd_scan.cu`` and ``campaign_fold.cu``; the card's
-                   name and power limit from nvidia-smi.
+                   ``decode_attention_int8.cu``, ``ssd_scan.cu`` and
+                   ``campaign_fold.cu``; the card's name and power limit
+                   from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version on random blocks (lognormal latencies, an
                    i.i.d. 50% mask) of each path's user-size shape: the
@@ -292,6 +293,52 @@ printing one JSON line per phase:
                    against the forward logits of all 303 tokens, within
                    3e-4 (abs + rel): the kernel's final state held
                    against the eager recurrence.
+30. kv_int8_kernel — B4's int8-cache form (``decode_attention_int8``)
+                   against its plain version: the continuous pool's
+                   shape (B 64, cache 161, qwen1.5-0.5b's heads), the
+                   long shape (B 32, cache 1,057), batch 1 at 1,057, a
+                   ragged batch at lengths -1, 0, 63, S-1, S and S+5,
+                   phi4-mini's GQA heads with a window, and float32 q;
+                   every case launched twice and held bit for bit, a
+                   row of length -1 exactly 0; kernel, plain and bound
+                   times, the bf16-cache B4's time at the same shape,
+                   and SDPA over a cache dequantized beforehand (not the
+                   same function, so the library time is null).
+31. continuous_serve — ``ContinuousEngine`` on qwen1.5-0.5b at full
+                   width and depth, bf16: prompt 128, 32 tokens, 64
+                   slots (examples/continuous_batching.py's PROMPT and
+                   CAP), 400 Poisson jobs at half the capacity measured
+                   in warm-up, 1 / (prefill + 32 × step / 64): every job
+                   served, 1 ≤ mean_active ≤ 64, exactly 24
+                   ``flash_attention`` launches per admission and 24
+                   ``decode_attention`` per decode step, an idle slot's
+                   length past the cache; E[W], p50/p99, utilisation,
+                   steps, prefill ms per admission and the decode
+                   step's ms against the active count.  Slot isolation:
+                   an 8-layer float32 copy admits four prompts at
+                   staggered steps, and each one's first three decode
+                   logits in the pool agree with its solo prefill +
+                   decode within 1e-4.
+32. serve_moe    — ``python -m repro_torch.launch.serve --arch
+                   olmoe-1b-7b --full --workload generate --rho 0.5
+                   --jobs 300 --max-batch 32`` (bf16, capacity factor
+                   1.25) through its ``run``: as ``serve``, exactly 16
+                   ``flash_attention`` and 16 × 4 ``decode_attention``
+                   launches per batch, and the share of routed (token,
+                   slot) pairs dropped over capacity in one batch at b 1
+                   and at b 32.
+33. moe_consistency — olmoe-1b-7b at full width in float32 with
+                   capacity factor E / k (nothing dropped), batch 2:
+                   prefill(300) + 3 decode steps against forward(303),
+                   within 3e-4 (abs + rel).
+34. serve_int8   — ``serve``'s command with ``REPRO_KV_INT8=1`` set for
+                   this phase only: exactly 24 ``flash_attention`` and
+                   24 × 4 ``decode_attention_int8`` launches per batch
+                   and no float ``decode_attention``; the cache's bytes
+                   counted exactly (int8 codes plus float32 scales,
+                   ≈ 0.53× the bf16 cache's at hd 64); the first decode
+                   step's max |Δlogit| and top-1 agreement against the
+                   bf16 cache on the same 32 prompts.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -303,7 +350,11 @@ bound; the loss, failure, fleet and campaign paths' rows time B1 and
 B2 on their captured blocks only; the ``campaign_fold`` row, a kernel
 of the port with no TPU counterpart, takes its times from the path's
 own case (8,192 × 512, loss counters, every lane valid) and adds the
-loss-free, sketch and NaN cases' times), the nvidia-smi line, and the last
+loss-free, sketch and NaN cases' times; the ``flash_attention`` and
+``decode_attention`` rows add the continuous and MoE paths' launches;
+the ``decode_attention_int8`` row, on ``serve_int8``, is timed at the
+continuous pool's shape with ``long_*``, ``batch1_*`` and the bf16-cache
+B4's ``float_cache_ms`` beside), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -313,6 +364,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -355,14 +407,18 @@ from repro_torch.kernels import superstep as ss  # noqa: E402
 from repro_torch.kernels.campaign_fold import (  # noqa: E402
     FoldAcc, campaign_fold, campaign_fold_plain, fold_min_bytes)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain, decode_splits)
+    decode_attention, decode_attention_int8, decode_attention_int8_plain,
+    decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunked, ssd_scan, ssd_scan_plain, ssd_splits)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
-from repro_torch.serving import InferenceEngine  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.attention import quantize_kv  # noqa: E402
+from repro_torch.serving import (ContinuousEngine,  # noqa: E402
+                                 InferenceEngine)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
@@ -385,6 +441,11 @@ KERNELS = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:27",
                          "src/repro/kernels/decode_attention.py:_kernel"),
+    # B4's int8-cache instantiation of the same template
+    "decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention_int8.cu",
+        "src/repro/kernels/decode_attention.py:27",
+        "src/repro/kernels/decode_attention.py:_kernel"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:28",
                  "src/repro/kernels/ssd_scan.py:_kernel"),
@@ -401,6 +462,11 @@ SERVE_ARGS = ["--arch", SERVE_ARCH, "--full", "--workload", "generate",
 SERVE_PROMPT, SERVE_GEN = 32, 4
 LONG_PROMPT, LONG_GEN = 1024, 32
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# B4 over the int8 cache against its plain version's float32 result,
+# (relative, absolute): both do float32 arithmetic on the same codes and
+# scales, so a bf16 output is that result rounded (half an ulp, at most
+# 2^-8 of it) and float32 differs by the order of the sums
+INT8_TOL = {torch.bfloat16: (2.0 ** -8, 1e-5), torch.float32: (0.0, 2e-5)}
 # the Mamba2 serve path: launch.serve's arguments on mamba2-2.7b, one
 # ssd_scan launch per layer per batch (in the prefill)
 SSM_ARCH = "mamba2-2.7b"
@@ -408,6 +474,13 @@ SSM_ARGS = ["--arch", SSM_ARCH, "--full", "--workload", "generate",
             "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
 SSM_PROMPT, SSM_LONG = 32, 1024
 SSD_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# the continuous engine: examples/continuous_batching.py's PROMPT and
+# CAP, 32 generated tokens, 400 Poisson jobs at half the capacity
+CONT_PROMPT, CONT_GEN, CONT_CAP, CONT_JOBS = 128, 32, 64, 400
+# the MoE serve path: launch.serve's arguments on olmoe-1b-7b
+MOE_ARCH = "olmoe-1b-7b"
+MOE_ARGS = ["--arch", MOE_ARCH, "--full", "--workload", "generate",
+            "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
 # benchmarks/continuous.py's token-level V100-like constants (ms) and
 # grid axes
 GEN_MODEL = GenServiceModel(alpha_decode=0.14, tau0_decode=1.9,
@@ -455,15 +528,19 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the CUDA sources: one library each
+SOURCES = sorted({Path(src).stem for src, _, _ in KERNELS.values()})
+
+
 def phase_build() -> str:
     """Build every kernel source at once, one nvcc each, and load it."""
     t0 = time.perf_counter()
-    _build.build(*KERNELS)
-    for name in KERNELS:
+    _build.build(*SOURCES)
+    for name in SOURCES:
         _build.library(name)
     smi = nvidia_smi()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds={k: _build.build_seconds.get(k) for k in KERNELS},
+         nvcc_seconds={k: _build.build_seconds.get(k) for k in SOURCES},
          flags=" ".join(_build.NVCC_FLAGS), nvidia_smi=smi)
     print(smi, flush=True)
     return smi
@@ -2975,8 +3052,9 @@ def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
 
 def phase_attn_kernel(dev) -> dict:
     """B3 and B4 against their plain versions on the card, at the serve
-    path's shapes and the long serve shapes (timed), at phi4-mini's GQA
-    heads, with a window, ragged lengths and in float32."""
+    path's shapes and the long serve shapes (timed), at the continuous
+    pool's and OLMoE's serve shapes (timed), at phi4-mini's GQA heads,
+    with a window, ragged lengths and in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3032,6 +3110,39 @@ def phase_attn_kernel(dev) -> dict:
                                   window=9, seed=43))
         cases.append(_check_decode(dev, dt, 8, 523, h, kv, hd, ragged,
                                    window=100, seed=44))
+    # the paths of the continuous engine and of OLMoE: the pool's step
+    # (B 64 over a 161-position cache, lengths over 128..160, and idle
+    # rows past the cache), its one-prompt prefill, OLMoE's serve
+    # batches (16/16 heads of width 128: one query head a kv head, so a
+    # score is split over four threads) and its float32 consistency run
+    pool = CONT_PROMPT + CONT_GEN + 1
+    spread = [CONT_PROMPT + i % (CONT_GEN + 1) for i in range(CONT_CAP)]
+    out["flash_continuous"] = _check_flash(dev, bf16, 1, CONT_PROMPT, h, kv,
+                                           hd, seed=60, timed=True)
+    out["decode_continuous"] = _check_decode(dev, bf16, CONT_CAP, pool, h,
+                                             kv, hd, spread, seed=61,
+                                             timed=True)
+    cases.append(_check_decode(dev, bf16, CONT_CAP, pool, h, kv, hd,
+                               [0, pool - 1, pool, pool + 100] + spread[4:],
+                               seed=62))
+    moe = get_config(MOE_ARCH)
+    mh, mkv, mhd = moe.num_heads, moe.num_kv_heads, moe.head_dim
+    for b in (1, 2, 4, 8, 16):
+        cases.append(_check_flash(dev, bf16, b, SERVE_PROMPT, mh, mkv, mhd,
+                                  seed=62 + b))
+        cases.append(_check_decode(dev, bf16, b, cache, mh, mkv, mhd,
+                                   [SERVE_PROMPT + i % SERVE_GEN
+                                    for i in range(b)], seed=62 + b))
+    out["flash_moe"] = _check_flash(dev, bf16, 32, SERVE_PROMPT, mh, mkv,
+                                    mhd, seed=94, timed=True)
+    out["decode_moe"] = _check_decode(
+        dev, bf16, 32, cache, mh, mkv, mhd,
+        [SERVE_PROMPT + SERVE_GEN - 1] * 32, seed=94, timed=True)
+    cases += [out[k] for k in ("flash_continuous", "decode_continuous",
+                               "flash_moe", "decode_moe")]
+    cases.append(_check_flash(dev, f32, 2, 303, mh, mkv, mhd, seed=95))
+    cases.append(_check_decode(dev, f32, 2, 303, mh, mkv, mhd, [300, 302],
+                               seed=96))
     cases.append(_check_flash(dev, f32, 32, SERVE_PROMPT, h, kv, hd,
                               seed=45))
     cases.append(_check_decode(dev, f32, 32, cache, h, kv, hd,
@@ -3166,10 +3277,15 @@ def _consistency(dev, arch: str, prompt: int, extra: int = 3) -> dict:
     """``arch`` at full width in float32 from the port's seeded init,
     batch 2: the logits of prefill(prompt) and ``extra`` decode steps
     against the forward logits of the whole sequence, within 3e-4 (abs
-    + rel)."""
+    + rel).  A MoE config runs at capacity factor E / k, where no token
+    is dropped (at 1.25 the three passes' group sizes give different
+    capacities, and so different drops)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     bundle = build_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(5))
     toks = torch.as_tensor(np.random.default_rng(5).integers(
@@ -3381,6 +3497,478 @@ def phase_ssm_consistency(dev) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# the continuous engine, the MoE family and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def _check_decode_int8(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
+                       seed=0, timed=False) -> dict:
+    """B4 over an int8 cache (codes and scales from ``quantize_kv`` of
+    random K/V) against its plain version, launched twice."""
+    q, k, v = _attn_inputs(dev, torch.float32, b, s, h, kv, hd, seed,
+                           decode=True)
+    q = q.to(dtype)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention_int8(q, kq, ks, vq, vs, lens, window=window)
+    again = decode_attention_int8(q, kq, ks, vq, vs, lens, window=window)
+    want = decode_attention_int8_plain(q, kq, ks, vq, vs, lens,
+                                       window=window)
+    # the plain version's float32 result before the output's rounding
+    exact = decode_attention_int8_plain(q.float(), kq, ks, vq, vs, lens,
+                                        window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    rel, floor = INT8_TOL[dtype]
+    over = float(((got.float() - exact).abs()
+                  / (rel * exact.abs() + floor)).max())
+    splits = decode_splits(b, kv, s, hd, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0]
+    case = dict(kernel="decode_attention_int8", dtype=str(dtype), batch=b,
+                cache=s, heads=h, kv_heads=kv, head_dim=hd, window=window,
+                lengths=[min(lengths), max(lengths)], splits=splits,
+                max_abs_err=err,
+                max_abs_err_vs_f32=float((got.float() - exact).abs().max()),
+                tolerance=f"|out - f32 plain| <= {rel} * |f32 plain| "
+                          f"+ {floor}", worst_over_tol=over)
+    check(bool(torch.isfinite(got).all()) and over <= 1.0,
+          f"decode_attention_int8 vs plain: {case}")
+    check(torch.equal(got, again),
+          f"decode_attention_int8 repeats bitwise (split merge): {case}")
+    empty = [i for i, n in enumerate(lengths) if n < 0]
+    check(bool((got[empty] == 0).all()),
+          f"decode_attention_int8: a row of length -1 gives 0: {case}")
+    if timed:
+        admitted = [max(0, min(s, n + 1) - (max(0, n - window + 1)
+                                            if window else 0))
+                    for n in lengths]
+        # the admitted codes and scales read once, q read, out written
+        elt = torch.finfo(dtype).bits // 8
+        bytes_moved = (2 * sum(admitted) * kv * (hd + 4)
+                       + 2 * elt * q.numel() + 4 * b)
+        flops = 4 * hd * sum(admitted) * h
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        case.update(bytes=bytes_moved, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["kernel_ms"] = time_ms(lambda: decode_attention_int8(
+            q, kq, ks, vq, vs, lens, window=window))
+        case["plain_ms"] = time_ms(lambda: decode_attention_int8_plain(
+            q, kq, ks, vq, vs, lens, window=window))
+        # the bf16-cache B4 at the same shape
+        kb, vb = k.to(dtype), v.to(dtype)
+        case["float_cache_ms"] = time_ms(lambda: decode_attention(
+            q, kb, vb, lens, window=window))
+        # SDPA over a cache dequantized beforehand: not the same function
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
+        kt, vt = ((c.float() * sc).to(dtype).transpose(1, 2).contiguous()
+                  for c, sc in ((kq, ks), (vq, vs)))
+        qt = q[:, :, None, :]
+        # no PyTorch call reads an int8 cache with its scales
+        case["library_ms"] = None
+        case["sdpa_dequantized_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        case["library_note"] = ("none; sdpa_dequantized_ms, not the same "
+                                "function, is scaled_dot_product_attention "
+                                "over (B, KV, S, hd) copies of the cache "
+                                "dequantized beforehand, with a boolean "
+                                "length mask")
+    return case
+
+
+def phase_kv_int8_kernel(dev) -> dict:
+    """B4's int8 form against its plain version at serve_int8's shapes
+    (every batch bucket over its 37-position cache; batch 32 timed), at
+    the continuous pool's shape and the long and batch-1 shapes (timed,
+    off the int8 path), ragged lengths past both ends of the cache, GQA
+    heads with a window, and float32 q."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(SERVE_ARCH)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache = SERVE_PROMPT + SERVE_GEN + 1
+    pool = CONT_PROMPT + CONT_GEN + 1
+    long_cache = LONG_PROMPT + LONG_GEN + 1
+    cases = [_check_decode_int8(dev, bf16, b, cache, h, kv, hd,
+                                [SERVE_PROMPT + i % SERVE_GEN
+                                 for i in range(b)], seed=56 + b)
+             for b in (1, 2, 4, 8, 16)]
+    out = {"serve": _check_decode_int8(dev, bf16, 32, cache, h, kv, hd,
+                                       [SERVE_PROMPT + SERVE_GEN - 1] * 32,
+                                       seed=49, timed=True),
+           "pool": _check_decode_int8(dev, bf16, CONT_CAP, pool, h, kv, hd,
+                                      [pool - 1] * CONT_CAP, seed=50,
+                                      timed=True),
+           "long": _check_decode_int8(dev, bf16, 32, long_cache, h, kv, hd,
+                                      [long_cache - 1] * 32, seed=51,
+                                      timed=True),
+           "batch1": _check_decode_int8(dev, bf16, 1, long_cache, h, kv, hd,
+                                        [long_cache - 1], seed=52,
+                                        timed=True)}
+    phi4 = get_config("phi4-mini-3.8b")
+    cases += list(out.values()) + [
+        _check_decode_int8(dev, bf16, 6, pool, h, kv, hd,
+                           [-1, 0, 63, pool - 1, pool, pool + 5], seed=53),
+        _check_decode_int8(dev, bf16, 8, 523, phi4.num_heads,
+                           phi4.num_kv_heads, phi4.head_dim,
+                           [0, 1, 250, 299, 511, 300, 17, 400], window=100,
+                           seed=54),
+        _check_decode_int8(dev, f32, 32, cache, h, kv, hd,
+                           [SERVE_PROMPT + i % SERVE_GEN for i in range(32)],
+                           seed=48),
+        _check_decode_int8(dev, f32, CONT_CAP, pool, h, kv, hd,
+                           list(range(CONT_PROMPT, CONT_PROMPT + CONT_CAP)),
+                           seed=55),
+        _check_decode_int8(dev, f32, 6, pool, h, kv, hd,
+                           [-1, 0, 63, pool - 1, pool, pool + 5], seed=56)]
+    emit("kv_int8_kernel", cases=cases,
+         worst_bf16=max(c["max_abs_err"] for c in cases
+                        if c["dtype"] == str(bf16)),
+         worst_bf16_over_tol=max(c["worst_over_tol"] for c in cases
+                                 if c["dtype"] == str(bf16)),
+         worst_f32=max(c["max_abs_err"] for c in cases
+                       if c["dtype"] == str(f32)))
+    return out
+
+
+def _serve_launches() -> dict:
+    return {**_attn_launches(),
+            "decode_attention_int8": decode_attention_int8.launches}
+
+
+def _reset_serve_launches() -> None:
+    _reset_attn_launches()
+    decode_attention_int8.launches = 0
+
+
+def _slot_isolation(dev, layers: int = 8, prompt: int = 32,
+                    steps: int = 3) -> dict:
+    """The continuous pool in float32 at ``layers`` layers: four prompts
+    admitted into slots 0, 5, 2 and 7 of 8 at steps 0, 1, 1 and 3 (the
+    idle slots decoding beside them), each one's first ``steps`` decode
+    logits in the pool against its solo prefill + decode, fed the same
+    tokens."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32",
+                              num_layers=layers)
+    eng = ContinuousEngine(cfg, prompt_len=prompt, gen_tokens=8,
+                           max_active=8, seed=3)
+    bundle, params = eng.bundle, eng.params
+    rng = np.random.default_rng(3)
+    admit = {0: [(0, 0)], 1: [(5, 1), (2, 2)], 3: [(7, 3)]}
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            size=(1, prompt)), device=dev)
+               for _ in range(4)]
+    pool_logits = {r: [] for r in range(4)}
+    fed = {r: [] for r in range(4)}
+    slot_of = {}
+    with torch.inference_mode():
+        for step in range(6):
+            for slot, req in admit.get(step, []):
+                tok, cache = eng._prefill(params, prompts[req])
+                eng._write_slot(slot, cache, tok)
+                slot_of[req] = slot
+            tok_in = eng._pool_tok.clone()
+            lg, _ = bundle.decode_step(params, eng._pool_tok,
+                                       eng._pool_cache, eng._pool_len)
+            eng._pool_tok = torch.argmax(lg, dim=-1)
+            eng._pool_len += 1
+            for req, slot in slot_of.items():
+                if len(pool_logits[req]) < steps:
+                    pool_logits[req].append(lg[slot, 0].clone())
+                    fed[req].append(tok_in[slot:slot + 1].clone())
+        worst = 0.0
+        for req in range(4):
+            _, cache = bundle.prefill(params, {"tokens": prompts[req]},
+                                      eng.cache_len)
+            lens = torch.full((1,), prompt, dtype=torch.int32, device=dev)
+            for t in range(steps):
+                lg, cache = bundle.decode_step(params, fed[req][t], cache,
+                                               lens)
+                lens = lens + 1
+                worst = max(worst, float((lg[0, 0] - pool_logits[req][t])
+                                         .abs().max()))
+    info = dict(layers=layers, dtype="float32", slots=8, prompt=prompt,
+                requests=4, decode_steps=steps, max_abs_diff=worst,
+                tolerance=1e-4)
+    check(worst <= 1e-4, f"continuous slot isolation: {info}")
+    del eng, bundle, params
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_continuous_serve(dev) -> dict:
+    """The port's ContinuousEngine as a user runs it, on qwen1.5-0.5b at
+    full width and depth."""
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ContinuousEngine(cfg, prompt_len=CONT_PROMPT, gen_tokens=CONT_GEN,
+                           max_active=CONT_CAP)
+    # warm-up: the prefill of one prompt and the pool's decode step, on a
+    # copy of the pool
+    eng.warmup()
+    with torch.inference_mode():
+        scratch = [{k: t.clone() for k, t in c.items()}
+                   for c in eng._pool_cache]
+    pre = [eng._timed(eng._prefill, eng.params, eng._prompt())[1]
+           for _ in range(3)]
+    step = [eng._timed(eng._decode, eng.params, eng._pool_tok, scratch,
+                       eng._pool_len)[1] for _ in range(3)]
+    del scratch
+    eng._rng = np.random.default_rng(0)
+    p_s, s_s = float(np.median(pre)), float(np.median(step))
+    # the pool serves max_active / gen_tokens requests a step at best;
+    # each admission's prefill holds the pool for p_s
+    capacity = 1.0 / (p_s + CONT_GEN * s_s / CONT_CAP)
+    lam = 0.5 * capacity
+    # count admissions and steps, and time each step beside its active
+    # count, as the engine sees them
+    remaining = [0] * CONT_CAP
+    steps_log, prefill_dts = [], []
+    write, timed = eng._write_slot, eng._timed
+
+    def counted_write(slot, cache_one, tok_one):
+        remaining[slot] = CONT_GEN
+        write(slot, cache_one, tok_one)
+
+    def counted_timed(fn, *args):
+        out, dt = timed(fn, *args)
+        if fn == eng._decode:
+            active = sum(r > 0 for r in remaining)
+            steps_log.append((active, dt))
+            for i, r in enumerate(remaining):
+                remaining[i] = max(0, r - 1)
+        else:
+            prefill_dts.append(dt)
+        return out, dt
+
+    eng._write_slot, eng._timed = counted_write, counted_timed
+    _reset_serve_launches()
+    t0 = time.perf_counter()
+    res = eng.serve_poisson(lam, n_jobs=CONT_JOBS, seed=0)
+    seconds = time.perf_counter() - t0
+    launches = _serve_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_pre, n_dec = len(prefill_dts), len(steps_log)
+    want = {"flash_attention": cfg.num_layers * n_pre,
+            "decode_attention": cfg.num_layers * n_dec,
+            "decode_attention_int8": 0}
+    check(launches == want, f"continuous_serve: {n_pre} prefills and "
+          f"{n_dec} steps launched {launches}, expected {want}")
+    check(res.n_jobs == CONT_JOBS and len(res.latencies) == CONT_JOBS
+          and bool(np.all(np.isfinite(res.latencies))
+                   and np.all(res.latencies > 0)),
+          f"continuous_serve: {res.n_jobs} of {CONT_JOBS} jobs served")
+    check(1 <= res.mean_active <= CONT_CAP,
+          f"continuous_serve: mean_active {res.mean_active}")
+    # the warm-up's prefill and step, then one per admission and step
+    check(n_pre == CONT_JOBS + 1 and n_dec == res.steps + 1,
+          f"continuous_serve: {n_pre} prefills, {n_dec} steps for "
+          f"{res.steps} served steps")
+    lens = eng._pool_len.cpu().numpy()
+    check(int(lens.max()) > eng.cache_len,
+          f"continuous_serve: no idle slot passed the cache "
+          f"({int(lens.max())} <= {eng.cache_len})")
+    served = steps_log[1:]
+    act = np.array([a for a, _ in served], float)
+    dts = np.array([d for _, d in served]) * 1e3
+    slope, icept = np.polyfit(act, dts, 1) if len(set(act)) > 1 else (0, 0)
+    by_active = {}
+    for lo in range(1, CONT_CAP + 1, 8):
+        sel = (act >= lo) & (act < lo + 8)
+        if sel.any():
+            by_active[f"{lo}-{lo + 7}"] = dict(
+                steps=int(sel.sum()), mean_ms=float(dts[sel].mean()),
+                p50_ms=float(np.median(dts[sel])))
+    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, prompt=CONT_PROMPT,
+                gen_tokens=CONT_GEN, max_active=CONT_CAP, jobs=CONT_JOBS,
+                warmup_prefill_ms=p_s * 1e3, warmup_step_ms=s_s * 1e3,
+                capacity_per_s=capacity,
+                capacity_without_prefill_per_s=CONT_CAP / (CONT_GEN * s_s),
+                lam_per_s=lam, seconds=seconds,
+                mean_latency_ms=res.mean_latency * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_active=res.mean_active, utilization=res.utilization,
+                steps=res.steps,
+                prefill_ms_per_admission=float(np.mean(prefill_dts[1:]))
+                * 1e3,
+                step_ms=dict(mean=float(dts.mean()),
+                             p50=float(np.median(dts)),
+                             p99=float(np.percentile(dts, 99)),
+                             slope_ms_per_active=float(slope),
+                             intercept_ms=float(icept),
+                             by_active=by_active),
+                max_slot_length=int(lens.max()), cache_len=eng.cache_len,
+                launches=launches, prefills=n_pre, decode_steps=n_dec,
+                peak_mem_bytes=peak)
+    del eng
+    torch.cuda.empty_cache()
+    info["slot_isolation"] = _slot_isolation(dev)
+    emit("continuous_serve", **info)
+    return info
+
+
+def _drop_share(eng, b: int) -> dict:
+    """One generate batch of ``b`` with the MoE's routing counted: the
+    share of (token, slot) pairs dropped over capacity, prefill and
+    decode together."""
+    route = moe_module._route
+    counts = [0, 0]
+
+    def counted(logits, moe, capacity):
+        out = route(logits, moe, capacity)
+        counts[0] += out[2].numel()
+        counts[1] += int((~out[2]).sum())
+        return out
+
+    moe_module._route = counted
+    try:
+        eng._fns[b](eng.params, eng._make_batch(b))
+    finally:
+        moe_module._route = route
+    return dict(batch=b, routed=counts[0], dropped=counts[1],
+                dropped_share=counts[1] / counts[0])
+
+
+def phase_serve_moe(dev) -> dict:
+    """The port's launch.serve path on olmoe-1b-7b as a user runs it."""
+    cfg = get_config(MOE_ARCH)
+    args = serve_cli.parse_args(MOE_ARGS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_serve_launches()
+    t0 = time.perf_counter()
+    out = serve_cli.run(args)
+    seconds = time.perf_counter() - t0
+    launches = _attn_launches()
+    eng, res = out["engine"], out["result"]
+    batches = eng.batches_run
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_per_batch(cfg.num_layers, SERVE_GEN, batches, launches,
+                     "serve_moe")
+    check(decode_attention_int8.launches == 0, "serve_moe: no int8 launch")
+    check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
+          and bool(np.all(np.isfinite(res.latencies))
+                   and np.all(res.latencies > 0)),
+          f"serve_moe: {len(res.latencies)} of {args.jobs} jobs served")
+    check(all(t > 0 for t in out["tau_s"]), "serve_moe: positive τ^[b]")
+    drops = [_drop_share(eng, b) for b in (1, eng.max_batch)]
+    batch = eng._make_batch(eng.max_batch)
+    toks = eng._fns[eng.max_batch](eng.params, batch)
+    check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve_moe: generated tokens in the vocabulary")
+    with torch.inference_mode():
+        logits, aux = eng.bundle.forward(eng.params, batch)
+    check(bool(torch.isfinite(logits).all()) and float(aux) > 0,
+          "serve_moe: finite bf16 logits and a positive aux loss")
+    info = dict(arch=MOE_ARCH, dtype=cfg.dtype, args=MOE_ARGS,
+                capacity_factor=cfg.moe.capacity_factor, seconds=seconds,
+                buckets=out["buckets"],
+                tau_ms=[t * 1e3 for t in out["tau_s"]],
+                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
+                r2=out["r2"], lam_per_s=out["lam"],
+                mean_latency_ms=res.mean_latency * 1e3,
+                phi_ms=out["phi_s"] * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_batch=res.mean_batch, utilization=res.utilization,
+                jobs=res.n_jobs, served_batches=len(res.batch_sizes),
+                batches_run=batches, launches=launches, drops=drops,
+                aux_loss=float(aux), peak_mem_bytes=peak)
+    emit("serve_moe", **info)
+    del eng, out, batch, logits
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_moe_consistency(dev) -> dict:
+    """olmoe-1b-7b in float32 at capacity factor E / k: prefill(300) + 3
+    decode steps against forward(303)."""
+    info = _consistency(dev, MOE_ARCH, 300)
+    emit("moe_consistency", **info)
+    return info
+
+
+def phase_serve_int8(dev) -> dict:
+    """``serve``'s command with the int8 KV cache (REPRO_KV_INT8=1 for
+    this phase only)."""
+    cfg = get_config(SERVE_ARCH)
+    args = serve_cli.parse_args(SERVE_ARGS)
+    os.environ["REPRO_KV_INT8"] = "1"
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_serve_launches()
+        t0 = time.perf_counter()
+        out = serve_cli.run(args)
+        seconds = time.perf_counter() - t0
+        launches = _serve_launches()
+        eng, res = out["engine"], out["result"]
+        batches = eng.batches_run
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {"flash_attention": cfg.num_layers * batches,
+                "decode_attention": 0,
+                "decode_attention_int8": cfg.num_layers * SERVE_GEN
+                * batches}
+        check(launches == want, f"serve_int8: {batches} batches launched "
+              f"{launches}, expected {want}")
+        check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
+              and bool(np.all(np.isfinite(res.latencies))),
+              f"serve_int8: {len(res.latencies)} of {args.jobs} jobs served")
+        # the cache's bytes, counted exactly against the bf16 cache's
+        b, s = eng.max_batch, SERVE_PROMPT + SERVE_GEN + 1
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        cache = eng.bundle.init_cache(b, s, device=dev)
+        int8_bytes = sum(t.numel() * t.element_size() for c in cache
+                         for t in c.values())
+        want_bytes = cfg.num_layers * 2 * b * s * kv * (hd + 4)
+        bf16_bytes = cfg.num_layers * 2 * b * s * kv * hd * 2
+        check(int8_bytes == want_bytes
+              and all(c["k"].dtype == torch.int8 for c in cache),
+              f"serve_int8: cache of {int8_bytes} bytes, expected "
+              f"{want_bytes}")
+        del cache
+        batch = eng._make_batch(b)
+        lens = torch.full((b,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+        first = {}
+        with torch.inference_mode():
+            for mode in ("int8", "bf16"):
+                if mode == "bf16":
+                    del os.environ["REPRO_KV_INT8"]
+                lg, c = eng.bundle.prefill(eng.params, batch, s)
+                tok = torch.argmax(lg[:, -1:], dim=-1)
+                lg, _ = eng.bundle.decode_step(eng.params, tok, c, lens)
+                first[mode] = lg[:, 0].float()
+    finally:
+        os.environ.pop("REPRO_KV_INT8", None)
+    dlogit = float((first["int8"] - first["bf16"]).abs().max())
+    top1 = float((first["int8"].argmax(-1) == first["bf16"].argmax(-1))
+                 .float().mean())
+    # the reference's gate on the int8 cache against the float one
+    check(dlogit < 0.1, f"serve_int8: first-step max |dlogit| {dlogit} "
+          f"against the bf16 cache (top-1 agreement {top1}), gate 0.1")
+    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, kv_cache="int8",
+                args=SERVE_ARGS, seconds=seconds, buckets=out["buckets"],
+                tau_ms=[t * 1e3 for t in out["tau_s"]],
+                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
+                r2=out["r2"], lam_per_s=out["lam"],
+                mean_latency_ms=res.mean_latency * 1e3,
+                phi_ms=out["phi_s"] * 1e3,
+                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
+                mean_batch=res.mean_batch, utilization=res.utilization,
+                jobs=res.n_jobs, batches_run=batches, launches=launches,
+                cache_bytes_int8=int8_bytes, cache_bytes_bf16=bf16_bytes,
+                cache_ratio=int8_bytes / bf16_bytes,
+                first_step_max_abs_dlogit=dlogit,
+                first_step_top1_agreement=top1,
+                max_abs_logit=float(first["bf16"].abs().max()),
+                peak_mem_bytes=peak)
+    emit("serve_int8", **info)
+    del eng, out, batch
+    torch.cuda.empty_cache()
+    return info
+
+
 def _kernel_row(name: str, path: str, launches: int, k: dict,
                 **extra) -> dict:
     source, replaces, tpu_ref = KERNELS[name]
@@ -3502,6 +4090,11 @@ def main() -> int:
     ssd = phase("ssd_kernel", phase_ssd_kernel, dev)
     served_ssm = phase("serve_ssm", phase_serve_ssm, dev)
     phase("ssm_consistency", phase_ssm_consistency, dev)
+    int8 = phase("kv_int8_kernel", phase_kv_int8_kernel, dev)
+    cont = phase("continuous_serve", phase_continuous_serve, dev)
+    served_moe = phase("serve_moe", phase_serve_moe, dev)
+    phase("moe_consistency", phase_moe_consistency, dev)
+    served_int8 = phase("serve_int8", phase_serve_int8, dev)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
@@ -3588,12 +4181,39 @@ def main() -> int:
             long_bound_by=attn[f"{short}_long"]["bound_by"],
             **{f"batch1_{k}": attn[f"{short}_batch1"][key]
                for k, key in batch1_keys},
-            batch1_bound_by=attn[f"{short}_batch1"]["bound_by"], **extra)
+            batch1_bound_by=attn[f"{short}_batch1"]["bound_by"],
+            continuous_launches=cont["launches"][name],
+            **{f"continuous_{k}": attn[f"{short}_continuous"][key]
+               for k, key in batch1_keys},
+            continuous_bound_by=attn[f"{short}_continuous"]["bound_by"],
+            moe_launches=served_moe["launches"][name],
+            **{f"moe_{k}": attn[f"{short}_moe"][key]
+               for k, key in batch1_keys},
+            moe_bound_by=attn[f"{short}_moe"]["bound_by"], **extra)
           for name, short, extra in (
               ("flash_attention", "flash", {}),
               ("decode_attention", "decode",
                {"splits": {k: attn[f"decode_{k}"]["splits"]
-                           for k in ("serve", "long", "batch1")}}))),
+                           for k in ("serve", "long", "batch1",
+                                     "continuous", "moe")}}))),
+        # B4 over the int8 cache, timed at serve_int8's largest batch;
+        # the pool_*, long_* and batch1_* shapes run on no int8 path
+        _kernel_row(
+            "decode_attention_int8", "serve_int8",
+            served_int8["launches"]["decode_attention_int8"], int8["serve"],
+            max_abs_err=max(int8[k]["max_abs_err"] for k in int8),
+            worst_over_tol=max(int8[k]["worst_over_tol"] for k in int8),
+            library_note=int8["serve"]["library_note"],
+            float_cache_ms=int8["serve"]["float_cache_ms"],
+            sdpa_dequantized_ms=int8["serve"]["sdpa_dequantized_ms"],
+            off_path_note="pool_*, long_*, batch1_*: shapes no int8 path "
+                          "runs (continuous_serve uses the bf16 cache)",
+            **{f"{case}_{k}": int8[case][key]
+               for case in ("pool", "long", "batch1")
+               for k, key in batch1_keys + (("float_cache_ms",
+                                             "float_cache_ms"),
+                                            ("bound_by", "bound_by"))},
+            splits={k: int8[k]["splits"] for k in int8}),
         _kernel_row(
             "ssd_scan", "serve_ssm", served_ssm["launches"]["ssd_scan"],
             ssd["serve"], library_note=ssd["serve"]["library_note"],

@@ -93,9 +93,13 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _params(tree: Dict, device, index=None) -> nn.ParameterDict:
+    """A ``ParameterDict`` of ``tree``'s leaves (entry ``index`` of each
+    when given), nesting a ``ParameterDict`` for each sub-dict (a MoE
+    layer's ``shared`` experts)."""
     return nn.ParameterDict({
-        k: param(_tensor(v if index is None else np.asarray(v)[index],
-                         device))
+        k: (_params(v, device, index) if isinstance(v, dict) else
+            param(_tensor(v if index is None else np.asarray(v)[index],
+                          device)))
         for k, v in tree.items()})
 
 
@@ -105,7 +109,10 @@ def model_params_from_jax(cfg: ModelConfig, params: Dict,
     pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), the
     same values in the same dtypes, on ``device``.  Repeat ``i`` of the
     stacked ``params["stack"][j]`` leaves is layer ``lead + i·p + j``,
-    with the ``(d, h, hd)`` and ``(h, hd, d)`` projection layouts kept."""
+    with the ``(d, h, hd)`` and ``(h, hd, d)`` projection layouts kept;
+    a MoE ``ffn`` keeps its float32 ``router``, its ``(E, d, f)`` /
+    ``(E, f, d)`` expert stacks and its nested ``shared`` dict, and
+    q/k norms their ``(hd,)`` scales."""
     require_supported(cfg)
     lead, p, r = split_pattern(cfg)
     layers = [nn.ModuleDict({name: _params(sub, device)

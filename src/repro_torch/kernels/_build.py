@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes) and is compiled for
 Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at
 the root of the checkout; ``.gitignore`` lists ``build/``.  The hash
-covers the source and the flags, so an edited source builds afresh.
+covers the source, the headers it includes from ``csrc/`` (``#include
+"<file>"``, followed into those headers too) and the flags, so an
+edited source or one of its headers builds afresh.
 A build or load failure raises: there is no fallback.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +50,21 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> Dict[Path, bytes]:
+    """``path`` and the ``csrc/`` headers it includes, transitively."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _LOCAL_INCLUDE.findall(seen[path]):
+            _sources(CSRC / inc.decode(), seen)
+    return seen
+
+
 def _out_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = b"".join(_sources(CSRC / f"{name}.cu", {}).values())
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -42,16 +42,19 @@ HEAD_DIMS = (32, 64, 128)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_attention_inputs(q: torch.Tensor, *kv: torch.Tensor) -> None:
+def check_attention_inputs(q: torch.Tensor, *kv: torch.Tensor,
+                           cache_dtypes: bool = True) -> None:
     """Raise unless q and the kv tensors share a device and a dtype the
-    kernels take, are contiguous, and group the heads evenly."""
-    for t in (q, *kv):
+    kernels take, are contiguous, and group the heads evenly.  With
+    ``cache_dtypes=False`` only q's dtype is checked (the int8 cache's
+    codes and scales have their own)."""
+    for t in (q, *kv) if cache_dtypes else (q,):
         if t.dtype not in DTYPE_CODE:
             raise ValueError(f"attention takes float32 or bfloat16, got "
                              f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("attention takes contiguous tensors")
-    if len({t.dtype for t in (q, *kv)}) != 1:
+    if not all(t.is_contiguous() for t in (q, *kv)):
+        raise ValueError("attention takes contiguous tensors")
+    if cache_dtypes and len({t.dtype for t in (q, *kv)}) != 1:
         raise ValueError(f"q, k and v differ in dtype: "
                          f"{[t.dtype for t in (q, *kv)]}")
     if len({t.device for t in (q, *kv)}) != 1:

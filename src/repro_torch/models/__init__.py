@@ -1,3 +1,4 @@
-"""The port's model stack: the dense GQA decoder transformer, with its
-attention cores on the hand-written CUDA kernels."""
+"""The port's model stack: dense and MoE GQA decoder transformers and
+Mamba2, with their attention cores and SSD scan on the hand-written CUDA
+kernels."""
 from repro_torch.models.registry import ModelBundle, build  # noqa: F401

@@ -205,21 +205,41 @@ def _hybrid_without_moe():
                                moe=None)
 
 
+def _unported(arch):
+    """A config of each kind the port does not serve yet.  OLMoE itself
+    is ported; its case is OLMoE with learned positions (8e)."""
+    if arch == "jamba-interleave":
+        return _hybrid_without_moe()
+    cfg = pt_reduced(pt_get_config(arch))
+    if arch == "olmoe-1b-7b":
+        return dataclasses.replace(cfg, learned_positions=True)
+    return cfg
+
+
 @pytest.mark.parametrize("arch", ["jamba-interleave", "olmoe-1b-7b",
                                   "deepseek-v2-lite-16b", "whisper-medium",
                                   "internvl2-1b", "jamba-v0.1-52b"])
 def test_unported_families_raise_and_name_their_item(arch):
-    cfg = (_hybrid_without_moe() if arch == "jamba-interleave"
-           else pt_reduced(pt_get_config(arch)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg)
+        build(_unported(arch))
 
 
 def test_int8_kv_cache_raises(monkeypatch):
+    """The int8 cache is ported (``REPRO_KV_INT8=1`` gives int8 codes and
+    scales); the float decode attention raises on its codes, and its own
+    decode attention on a float cache."""
+    from repro_torch.kernels import decode_attention as da
     monkeypatch.setenv("REPRO_KV_INT8", "1")
     cfg = pt_reduced(pt_get_config("qwen1.5-0.5b"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tfm.init_cache(cfg, 1, 8, device="cpu")
+    cache = tfm.init_cache(cfg, 1, 8, device="cpu")[0]
+    assert cache["k"].dtype == torch.int8 and "k_scale" in cache
+    q = torch.zeros(1, cfg.num_heads, cfg.head_dim)
+    lens = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        da.decode_attention(q, cache["k"], cache["v"], lens)
+    with pytest.raises(ValueError, match="int8"):
+        da.decode_attention_int8(q, cache["k"].float(), cache["k_scale"],
+                                 cache["v"].float(), cache["v_scale"], lens)
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])

@@ -4,7 +4,8 @@
     python3 tools/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
 Builds ``InferenceEngine(ARCH, workload="generate")`` (default
-qwen1.5-0.5b; mamba2-2.7b for the SSM serve path) at full width (bf16,
+qwen1.5-0.5b; mamba2-2.7b for the SSM serve path, olmoe-1b-7b for the
+MoE one) at full width (bf16,
 the port's seeded init) at two sizes — ``serve``
 (``launch.serve``'s prompt of 32 and 4 generated tokens) and
 ``serve_long`` (a 1,024-token prompt and 32 tokens) — and, for batch 1
@@ -22,7 +23,11 @@ per (size, batch):
 - ``top_kernels`` — device time by kernel name;
 - ``flash_attention_ms`` / ``decode_attention_ms`` / ``ssd_scan_ms``
   — the port's model kernels' time in the batch, their launches, and
-  their share of the kernel time.
+  their share of the kernel time;
+- ``moe_ms`` / ``moe_share`` / ``moe_calls`` (MoE configs) — the
+  kernel time of every ``apply_moe`` call (router, routing, dispatch,
+  the experts' products, combine), read off a ``record_function`` range
+  around it, and its share of the kernel time.
 
 With ``--out`` it also writes the Chrome traces there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
@@ -45,17 +50,29 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import nvidia_smi  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
 
 SIZES = {"serve": (32, 4), "serve_long": (1024, 32)}
+# the profiler range around each MoE FFN call
+MOE_RANGE = "apply_moe"
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, prefix: str = "self_") -> float:
+    """A kernel's own device time; with ``prefix=""``, a CPU range's:
+    the kernels launched inside it."""
+    for name in (f"{prefix}device_time_total", f"{prefix}cuda_time_total"):
         v = getattr(evt, name, None)
         if v is not None:
             return float(v)
     return 0.0
+
+
+def _annotated(fn, label: str):
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return wrapped
 
 
 def _kernel_sum(kernels, name: str):
@@ -73,8 +90,11 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn(eng.params, batch)
         torch.cuda.synchronize()
+    # the device's kernels (the MoE range's own device-side annotation
+    # is a span, not a kernel)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != MOE_RANGE]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:10]
     if trace is not None:
@@ -89,6 +109,12 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
         out[f"{name}_ms"] = ms
         out[f"{name}_launches"] = n
         out[f"{name}_share"] = ms / busy_ms if busy_ms else None
+    if eng.cfg.moe is not None:
+        moe = [e for e in prof.key_averages() if e.key == MOE_RANGE
+               and e.device_type == torch.autograd.DeviceType.CPU]
+        moe_ms = sum(_device_us(e, prefix="") for e in moe) / 1e3
+        out.update(moe_ms=moe_ms, moe_calls=sum(e.count for e in moe),
+                   moe_share=moe_ms / busy_ms if busy_ms else None)
     return out
 
 
@@ -103,6 +129,8 @@ def main() -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     cfg = get_config(args.arch)
+    # a profiler range around each MoE FFN call
+    transformer.apply_moe = _annotated(transformer.apply_moe, MOE_RANGE)
     rows = {}
     t0 = time.perf_counter()
     for label, (prompt, gen) in SIZES.items():
