@@ -9,9 +9,9 @@ printing one JSON line per phase:
 
 1. build         — compile ``hist_update.cu``, ``fifo_compact.cu``,
                    ``flash_attention.cu``, ``decode_attention.cu``,
-                   ``decode_attention_int8.cu``, ``ssd_scan.cu`` and
-                   ``campaign_fold.cu``; the card's name and power limit
-                   from nvidia-smi.
+                   ``decode_attention_int8.cu``, ``ssd_scan.cu``,
+                   ``mla_decode.cu`` and ``campaign_fold.cu``; the
+                   card's name and power limit from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version on random blocks (lognormal latencies, an
                    i.i.d. 50% mask) of each path's user-size shape: the
@@ -252,8 +252,15 @@ printing one JSON line per phase:
                    --jobs 300 --max-batch 32`` through its ``run``: all
                    jobs served with finite latencies, τ^[b] per bucket,
                    α, τ0, R², E[W] against φ, p99, utilisation, peak
-                   memory, and exactly 24 ``flash_attention`` and 24 × 4
-                   ``decode_attention`` launches per batch.
+                   memory under the card's, tokens in the vocabulary,
+                   finite logits, and exactly 24 ``flash_attention`` and
+                   24 × 4 ``decode_attention`` launches per batch, over
+                   the run and over one more batch.  ``serve_ssm``,
+                   ``serve_moe``, ``serve_int8``, ``serve_mla`` and
+                   ``serve_hybrid`` run the same gates (one helper,
+                   ``_serve_model``), each with its own launch counts;
+                   on a MoE model also a positive aux loss and the
+                   dropped-token share at b 1 and 32.
 25. serve_long   — the same model generating 32 tokens after a 1,024-
                    token prompt, ``calibrate(samples=3)`` on batches
                    1…32, then 300 Poisson requests at ρ = 0.5: τ^[b],
@@ -339,6 +346,50 @@ printing one JSON line per phase:
                    ≈ 0.53× the bf16 cache's at hd 64); the first decode
                    step's max |Δlogit| and top-1 agreement against the
                    bf16 cache on the same 32 prompts.
+35. hybrid_kernels — B5 at jamba-v0.1-52b's widths (128 heads of 64,
+                   d_state 16, one group) against its plain version at
+                   2e-3 (bf16) / 1e-4: the serve shape (B 32, S 32),
+                   the long shape (S 1,024) and batch 1 at S 1,024
+                   (split) timed, ragged S 1,000 at B 4 and B 1, float32
+                   at B 32 × 32 and B 2 × 300, every bf16 case twice
+                   bitwise; B3 and B4 at Jamba's attention heads (32
+                   over 8 of 128) at the serve batches, batch 32 timed,
+                   and in float32.
+36. mla_kernel   — B3 at MLA's (qk 192, v 128) pair against its plain
+                   version at 2e-2 / 2e-5 (the serve batches; B 32 at S
+                   32 and 1,024 and B 1 at S 1,024 timed, with SDPA at
+                   the same widths; windowed; float32), and the MLA
+                   decode kernel against its plain version at 2e-5 on
+                   the float32 context, with a bf16 and a float32 cache:
+                   the serve cache (B 32, 37 slots), the long one (B 32,
+                   1,057) and batch 1 on 1,057 timed (SDPA with
+                   ``enable_gqa`` over [c_kv ‖ k_pe] against c_kv as its
+                   library time), lengths -1, 0, 63, S - 1, S + 5,
+                   ragged and windowed; every case twice bitwise, a row
+                   of length -1 exactly 0.
+37. serve_mla    — ``python -m repro_torch.launch.serve --arch
+                   deepseek-v2-lite-16b --full --workload generate
+                   --rho 0.5 --jobs 300 --max-batch 32`` (bf16, all 27
+                   layers) through its ``run``: as ``serve_moe``,
+                   exactly 27 ``flash_attention`` and 27 × 4
+                   ``mla_decode`` launches and no B4 or B5 per batch,
+                   the dropped-token share at b 1 and 32, peak memory
+                   under the card's.
+38. mla_consistency — deepseek-v2-lite-16b in float32, its first 8
+                   layers (the dense lead and 7 MoE layers), capacity
+                   factor E / k: prefill(300) + 3 decode steps against
+                   forward(303) within 3e-4 (abs + rel).
+39. serve_hybrid — ``launch.serve``'s ``run`` on jamba-v0.1-52b at full
+                   width cut to its first 16 of 32 layers (attention at
+                   4 and 12, MoE on the odd layers; the config is
+                   passed to ``run``, as the command line has no depth
+                   flag), bf16: as ``serve_mla``, exactly 2
+                   ``flash_attention``, 2 × 4 ``decode_attention`` and
+                   14 ``ssd_scan`` launches per batch.
+40. hybrid_consistency — jamba-v0.1-52b in float32, its first 8 layers
+                   (one period), capacity factor E / k: prefill(300),
+                   which crosses the 256-token chunk, + 3 decode steps
+                   against forward(303) within 3e-4.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -354,7 +405,13 @@ loss-free, sketch and NaN cases' times; the ``flash_attention`` and
 ``decode_attention`` rows add the continuous and MoE paths' launches;
 the ``decode_attention_int8`` row, on ``serve_int8``, is timed at the
 continuous pool's shape with ``long_*``, ``batch1_*`` and the bf16-cache
-B4's ``float_cache_ms`` beside), the nvidia-smi line, and the last
+B4's ``float_cache_ms`` beside; the ``flash_attention`` row adds
+``mla_*`` (launches on ``serve_mla``, times at (192, 128)), and it, the
+``decode_attention`` and the ``ssd_scan`` rows add ``hybrid_*``
+(launches on ``serve_hybrid``, times at Jamba's shapes); the
+``mla_decode`` row, a kernel with no TPU counterpart, is timed at
+``serve_mla``'s last decode step with ``path_*``, ``long_*`` and
+``batch1_*``), the nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -411,6 +468,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.mla_decode import (  # noqa: E402
+    mla_decode_attention, mla_decode_attention_plain, mla_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunked, ssd_scan, ssd_scan_plain, ssd_splits)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -449,6 +508,10 @@ KERNELS = {
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:28",
                  "src/repro/kernels/ssd_scan.py:_kernel"),
+    # no TPU kernel: the reference's float32 einsum chain of MLA decode
+    "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                   "src/repro/models/attention.py:380",
+                   "src/repro/models/attention.py:mla_decode"),
     # no TPU kernel: the reference folds a chunk with a jitted lax.scan
     "campaign_fold": ("src/repro_torch/kernels/csrc/campaign_fold.cu",
                       "src/repro/core/campaign.py:391",
@@ -481,6 +544,28 @@ CONT_PROMPT, CONT_GEN, CONT_CAP, CONT_JOBS = 128, 32, 64, 400
 MOE_ARCH = "olmoe-1b-7b"
 MOE_ARGS = ["--arch", MOE_ARCH, "--full", "--workload", "generate",
             "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+# the MLA serve path: launch.serve's arguments on deepseek-v2-lite-16b
+# (whole: 27 layers, ≈ 31 GB of bf16 weights)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_ARGS = ["--arch", MLA_ARCH, "--full", "--workload", "generate",
+            "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+# MLA decode's float32 context against its plain version: both do
+# float32 arithmetic on the same cache values, in another order
+MLA_TOL = 2e-5
+# the hybrid serve path: jamba-v0.1-52b at full width cut to its first
+# 16 of 32 layers (two periods of 8: attention at 4 and 12, MoE on the
+# odd layers; ≈ 52 GB of bf16 weights, where all 32 would be ≈ 104 GB)
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 16
+HYBRID_ARGS = ["--arch", HYBRID_ARCH, "--full", "--workload", "generate",
+               "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+
+
+def hybrid_config(layers: int = HYBRID_LAYERS):
+    """Jamba at full width, its first ``layers`` layers."""
+    return dataclasses.replace(get_config(HYBRID_ARCH), num_layers=layers)
+
+
 # benchmarks/continuous.py's token-level V100-like constants (ms) and
 # grid axes
 GEN_MODEL = GenServiceModel(alpha_decode=0.14, tau0_decode=1.9,
@@ -2945,11 +3030,12 @@ def phase_campaign_user_size(dev, n_fracs: int = 1024, chunk: int = 8192,
     return out, blocks["hist_update"]
 
 
-def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False):
+def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False,
+                 hdv=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     qshape = (b, h, hd) if decode else (b, s, h, hd)
     q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
-               for shape in (qshape, (b, s, kv, hd), (b, s, kv, hd)))
+               for shape in (qshape, (b, s, kv, hd), (b, s, kv, hdv or hd)))
     return q, k, v
 
 
@@ -2968,16 +3054,18 @@ def _attn_bound(dtype, io_elems: int, pairs: int, hd: int) -> dict:
 
 
 def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
-                 seed=0, timed=False) -> dict:
-    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed)
+                 seed=0, timed=False, hdv=None) -> dict:
+    """B3 against its plain version; ``hdv``: a value width other than
+    the query/key width (MLA's pair)."""
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, hdv=hdv)
     got = flash_attention(q, k, v, causal=causal, window=window)
     again = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     case = dict(kernel="flash_attention", dtype=str(dtype), batch=b, seq=s,
-                heads=h, kv_heads=kv, head_dim=hd, causal=causal,
-                window=window, max_abs_err=err)
+                heads=h, kv_heads=kv, head_dim=hd, value_dim=v.shape[3],
+                causal=causal, window=window, max_abs_err=err)
     check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
           f"flash_attention vs plain: {case}")
     check(torch.equal(got, again), f"flash_attention repeats bitwise: {case}")
@@ -2988,16 +3076,20 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
             adm &= pos[None, :] <= pos[:, None]
         if window:
             adm &= pos[:, None] - pos[None, :] < window
-        case.update(_attn_bound(dtype, 2 * q.numel() + 2 * k.numel(),
-                                b * h * int(adm.sum()), hd))
+        # q, k, v read once, the output written once; q·k over hd and
+        # p·v over the value width per admitted pair
+        case.update(_attn_bound(dtype, q.numel() + k.numel() + v.numel()
+                                + got.numel(), b * h * int(adm.sum()),
+                                (hd + v.shape[3]) / 2))
         case["kernel_ms"] = time_ms(lambda: flash_attention(
             q, k, v, causal=causal, window=window))
         case["plain_ms"] = time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal, window=window), reps=3, warm=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gqa = {"enable_gqa": True} if h != kv else {}
         case["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
+                qt, kt, vt, is_causal=causal, **gqa))
         case["library_note"] = ("scaled_dot_product_attention(is_causal) "
                                 "on (B, H, S, hd) copies made beforehand")
     return case
@@ -3041,9 +3133,10 @@ def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
         mask = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
         qt = q[:, :, None, :]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        gqa = {"enable_gqa": True} if h != kv else {}
         case["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask))
+                qt, kt, vt, attn_mask=mask, **gqa))
         case["library_note"] = ("scaled_dot_product_attention with a "
                                 "boolean length mask on (B, KV, S, hd) "
                                 "copies made beforehand")
@@ -3163,59 +3256,107 @@ def phase_attn_kernel(dev) -> dict:
     return out
 
 
-def _attn_launches() -> dict:
+def _serve_launches() -> dict:
+    """The launch counts of every kernel a served model can run."""
     return {"flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches}
+            "decode_attention": decode_attention.launches,
+            "decode_attention_int8": decode_attention_int8.launches,
+            "ssd_scan": ssd_scan.launches,
+            "mla_decode": mla_decode_attention.launches}
 
 
-def _reset_attn_launches() -> None:
+def _reset_serve_launches() -> None:
     flash_attention.launches = 0
     decode_attention.launches = 0
+    decode_attention_int8.launches = 0
+    ssd_scan.launches = 0
+    mla_decode_attention.launches = 0
 
 
-def _check_per_batch(n_layers: int, gen_tokens: int, batches: int,
-                     launches: dict, what: str) -> None:
-    want = {"flash_attention": n_layers * batches,
-            "decode_attention": n_layers * gen_tokens * batches}
-    check(launches == want, f"{what}: {batches} batches launched "
-          f"{launches}, expected {want}")
+def _launch_counts(**counts) -> dict:
+    """``counts``, with every other kernel of ``_serve_launches`` at 0."""
+    return {**dict.fromkeys(_serve_launches(), 0), **counts}
 
 
-def phase_serve(dev) -> dict:
-    """The port's launch.serve path as a user runs it."""
-    cfg = get_config(SERVE_ARCH)
-    args = serve_cli.parse_args(SERVE_ARGS)
+def _drop_share(eng, b: int) -> dict:
+    """One generate batch of ``b`` with the MoE's routing counted: the
+    share of (token, slot) pairs dropped over capacity, prefill and
+    decode together."""
+    route = moe_module._route
+    counts = [0, 0]
+
+    def counted(logits, moe, capacity):
+        out = route(logits, moe, capacity)
+        counts[0] += out[2].numel()
+        counts[1] += int((~out[2]).sum())
+        return out
+
+    moe_module._route = counted
+    try:
+        eng._fns[b](eng.params, eng._make_batch(b))
+    finally:
+        moe_module._route = route
+    return dict(batch=b, routed=counts[0], dropped=counts[1],
+                dropped_share=counts[1] / counts[0])
+
+
+def _serve_model(dev, name: str, argv, per_batch: dict, cfg=None,
+                 extra=None) -> dict:
+    """``launch.serve``'s run of ``argv`` as a user runs it, on ``cfg``
+    in place of ``--arch``'s config where one is given (a depth cut,
+    say): every job served with finite latencies, τ^[b] > 0, exactly
+    ``per_batch`` launches of each kernel a batch (counted over the run,
+    and over one more batch), tokens in the vocabulary, finite logits
+    and peak memory under the card's; on a MoE model also a positive
+    aux loss and the dropped-token share at b 1 and 32.  ``extra(eng)``
+    runs a phase's own gates on the engine and returns their fields."""
+    args = serve_cli.parse_args(argv)
     torch.cuda.reset_peak_memory_stats(dev)
-    _reset_attn_launches()
+    _reset_serve_launches()
     t0 = time.perf_counter()
-    out = serve_cli.run(args)
+    out = serve_cli.run(args, cfg=cfg)
     seconds = time.perf_counter() - t0
-    launches = _attn_launches()
+    launches = _serve_launches()
     eng, res = out["engine"], out["result"]
-    batches = eng.batches_run
+    cfg, batches = eng.cfg, eng.batches_run
     peak = torch.cuda.max_memory_allocated(dev)
-    _check_per_batch(cfg.num_layers, SERVE_GEN, batches, launches, "serve")
+    want = {k: n * batches for k, n in per_batch.items()}
+    check(launches == want, f"{name}: {batches} batches launched "
+          f"{launches}, expected {want}")
     check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
-          and int(res.batch_sizes.sum()) >= args.jobs,
-          f"serve: {len(res.latencies)} of {args.jobs} jobs served")
-    check(bool(np.all(np.isfinite(res.latencies))
-               and np.all(res.latencies > 0)), "serve: finite latencies")
-    check(all(t > 0 for t in out["tau_s"]), "serve: positive τ^[b]")
-    # one more batch, outside the counted run: exactly 24 and 24 × 4
-    before = _attn_launches()
+          and int(res.batch_sizes.sum()) >= args.jobs
+          and bool(np.all(np.isfinite(res.latencies))
+                   and np.all(res.latencies > 0)),
+          f"{name}: {len(res.latencies)} of {args.jobs} jobs served")
+    check(all(t > 0 for t in out["tau_s"]), f"{name}: positive τ^[b]")
+    before = _serve_launches()
     eng.run_batch(eng.max_batch)
-    one = {k: n - before[k] for k, n in _attn_launches().items()}
-    _check_per_batch(cfg.num_layers, SERVE_GEN, 1, one, "one batch")
+    one = {k: n - before[k] for k, n in _serve_launches().items()}
+    check(one == per_batch, f"{name}: one batch launched {one}, expected "
+          f"{per_batch}")
+    fields = {}
+    if cfg.moe is not None:
+        fields.update(capacity_factor=cfg.moe.capacity_factor,
+                      drops=[_drop_share(eng, b)
+                             for b in (1, eng.max_batch)])
     batch = eng._make_batch(eng.max_batch)
     toks = eng._fns[eng.max_batch](eng.params, batch)
     check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "serve: generated tokens in the vocabulary")
+          f"{name}: generated tokens in the vocabulary")
     with torch.inference_mode():
-        logits, _ = eng.bundle.forward(eng.params, batch)
-    check(bool(torch.isfinite(logits).all()), "serve: finite bf16 logits")
-    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, args=SERVE_ARGS,
-                seconds=seconds, buckets=out["buckets"],
+        logits, aux = eng.bundle.forward(eng.params, batch)
+    check(bool(torch.isfinite(logits).all()), f"{name}: finite logits")
+    if cfg.moe is not None:
+        check(float(aux) > 0, f"{name}: a positive aux loss")
+        fields["aux_loss"] = float(aux)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(peak < total, f"{name}: peak {peak} bytes under the card's "
+          f"{total}")
+    if extra is not None:
+        fields.update(extra(eng))
+    info = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+                args=argv, seconds=seconds, buckets=out["buckets"],
                 tau_ms=[t * 1e3 for t in out["tau_s"]],
                 alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
                 r2=out["r2"], lam_per_s=out["lam"],
@@ -3225,11 +3366,20 @@ def phase_serve(dev) -> dict:
                 mean_batch=res.mean_batch, utilization=res.utilization,
                 jobs=res.n_jobs, served_batches=len(res.batch_sizes),
                 batches_run=batches, launches=launches,
-                peak_mem_bytes=peak)
-    emit("serve", **info)
+                launches_per_batch=per_batch, peak_mem_bytes=peak,
+                device_mem_bytes=total, **fields)
+    emit(name, **info)
     del eng, out, batch, logits
     torch.cuda.empty_cache()
     return info
+
+
+def phase_serve(dev) -> dict:
+    """The port's launch.serve path as a user runs it: 24 B3 and 24 × 4
+    B4 launches a batch."""
+    n = get_config(SERVE_ARCH).num_layers
+    return _serve_model(dev, "serve", SERVE_ARGS, _launch_counts(
+        flash_attention=n, decode_attention=n * SERVE_GEN))
 
 
 def phase_serve_long(dev, jobs: int = 300) -> dict:
@@ -3240,17 +3390,19 @@ def phase_serve_long(dev, jobs: int = 300) -> dict:
     eng = InferenceEngine(cfg, workload="generate", seq_len=LONG_PROMPT,
                           gen_tokens=LONG_GEN, max_batch=32)
     torch.cuda.reset_peak_memory_stats(dev)
-    _reset_attn_launches()
+    _reset_serve_launches()
     t0 = time.perf_counter()
     b, tau = eng.calibrate(samples=3)
     model, r2 = fit_service_model(b, tau)
     lam = 0.5 / model.alpha
     res = eng.serve_poisson(lam, n_jobs=jobs, seed=0, warmup=False)
     seconds = time.perf_counter() - t0
-    launches = _attn_launches()
+    launches = _serve_launches()
     peak = torch.cuda.max_memory_allocated(dev)
-    _check_per_batch(cfg.num_layers, LONG_GEN, eng.batches_run, launches,
-                     "serve_long")
+    n = cfg.num_layers * eng.batches_run
+    want = _launch_counts(flash_attention=n, decode_attention=n * LONG_GEN)
+    check(launches == want, f"serve_long: {eng.batches_run} batches "
+          f"launched {launches}, expected {want}")
     check(bool(np.all(np.isfinite(tau)) and np.all(tau > 0)),
           "serve_long: positive τ^[b]")
     check(len(res.latencies) == jobs
@@ -3273,16 +3425,20 @@ def phase_serve_long(dev, jobs: int = 300) -> dict:
     return info
 
 
-def _consistency(dev, arch: str, prompt: int, extra: int = 3) -> dict:
+def _consistency(dev, arch: str, prompt: int, extra: int = 3,
+                 layers: int = 0) -> dict:
     """``arch`` at full width in float32 from the port's seeded init,
-    batch 2: the logits of prefill(prompt) and ``extra`` decode steps
-    against the forward logits of the whole sequence, within 3e-4 (abs
-    + rel).  A MoE config runs at capacity factor E / k, where no token
-    is dropped (at 1.25 the three passes' group sizes give different
-    capacities, and so different drops)."""
+    batch 2 (its first ``layers`` layers when given): the logits of
+    prefill(prompt) and ``extra`` decode steps against the forward
+    logits of the whole sequence, within 3e-4 (abs + rel).  A MoE
+    config runs at capacity factor E / k, where no token is dropped (at
+    1.25 the three passes' group sizes give different capacities, and
+    so different drops)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
@@ -3306,8 +3462,9 @@ def _consistency(dev, arch: str, prompt: int, extra: int = 3) -> dict:
     diff = (got - want).abs()
     tol = 3e-4
     worst = float((diff / (tol + tol * want.abs())).max())
-    info = dict(arch=arch, dtype="float32", batch=2, prompt=prompt,
-                decode_steps=extra, max_abs_diff=float(diff.max()),
+    info = dict(arch=arch, dtype="float32", layers=cfg.num_layers, batch=2,
+                prompt=prompt, decode_steps=extra,
+                max_abs_diff=float(diff.max()),
                 max_abs_logit=float(want.abs().max()),
                 tolerance=f"|diff| <= {tol} + {tol}*|forward|",
                 worst_over_tol=worst)
@@ -3341,8 +3498,11 @@ def _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed):
             bc[..., g * ds:].reshape(b, s, g, ds))
 
 
-def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False) -> dict:
-    model = get_config(SSM_ARCH)
+def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False,
+               model=None) -> dict:
+    """B5 against its plain version at ``model``'s SSM widths (default
+    mamba2-2.7b's)."""
+    model = model or get_config(SSM_ARCH)
     cfg = model.ssm
     nh, hd, ds = cfg.n_heads(model.d_model), cfg.head_dim, cfg.d_state
     args = _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed)
@@ -3426,67 +3586,12 @@ def phase_ssd_kernel(dev) -> dict:
     return out
 
 
-def _all_launches() -> dict:
-    return {**_attn_launches(), "ssd_scan": ssd_scan.launches}
-
-
 def phase_serve_ssm(dev) -> dict:
-    """The port's launch.serve path on mamba2-2.7b as a user runs it."""
-    cfg = get_config(SSM_ARCH)
-    args = serve_cli.parse_args(SSM_ARGS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _reset_attn_launches()
-    ssd_scan.launches = 0
-    t0 = time.perf_counter()
-    out = serve_cli.run(args)
-    seconds = time.perf_counter() - t0
-    launches = _all_launches()
-    eng, res = out["engine"], out["result"]
-    batches = eng.batches_run
-    peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention": 0, "decode_attention": 0,
-            "ssd_scan": cfg.num_layers * batches}
-    check(launches == want, f"serve_ssm: {batches} batches launched "
-          f"{launches}, expected {want}")
-    check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
-          and int(res.batch_sizes.sum()) >= args.jobs,
-          f"serve_ssm: {len(res.latencies)} of {args.jobs} jobs served")
-    check(bool(np.all(np.isfinite(res.latencies))
-               and np.all(res.latencies > 0)),
-          "serve_ssm: finite latencies")
-    check(all(t > 0 for t in out["tau_s"]), "serve_ssm: positive τ^[b]")
-    # one more batch, outside the counted run: exactly 64 launches
-    before = _all_launches()
-    eng.run_batch(eng.max_batch)
-    one = {k: n - before[k] for k, n in _all_launches().items()}
-    want_one = dict(want, ssd_scan=cfg.num_layers)
-    check(one == want_one, f"serve_ssm: one batch launched {one}, "
-          f"expected {want_one}")
-    batch = eng._make_batch(eng.max_batch)
-    toks = eng._fns[eng.max_batch](eng.params, batch)
-    check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
-          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "serve_ssm: generated tokens in the vocabulary")
-    with torch.inference_mode():
-        logits, _ = eng.bundle.forward(eng.params, batch)
-    check(bool(torch.isfinite(logits).all()),
-          "serve_ssm: finite bf16 logits")
-    info = dict(arch=SSM_ARCH, dtype=cfg.dtype, args=SSM_ARGS,
-                seconds=seconds, buckets=out["buckets"],
-                tau_ms=[t * 1e3 for t in out["tau_s"]],
-                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
-                r2=out["r2"], lam_per_s=out["lam"],
-                mean_latency_ms=res.mean_latency * 1e3,
-                phi_ms=out["phi_s"] * 1e3,
-                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
-                mean_batch=res.mean_batch, utilization=res.utilization,
-                jobs=res.n_jobs, served_batches=len(res.batch_sizes),
-                batches_run=batches, launches=launches,
-                peak_mem_bytes=peak)
-    emit("serve_ssm", **info)
-    del eng, out, batch, logits
-    torch.cuda.empty_cache()
-    return info
+    """The port's launch.serve path on mamba2-2.7b as a user runs it: 64
+    B5 launches a batch and no attention launch."""
+    n = get_config(SSM_ARCH).num_layers
+    return _serve_model(dev, "serve_ssm", SSM_ARGS,
+                        _launch_counts(ssd_scan=n))
 
 
 def phase_ssm_consistency(dev) -> dict:
@@ -3634,16 +3739,6 @@ def phase_kv_int8_kernel(dev) -> dict:
     return out
 
 
-def _serve_launches() -> dict:
-    return {**_attn_launches(),
-            "decode_attention_int8": decode_attention_int8.launches}
-
-
-def _reset_serve_launches() -> None:
-    _reset_attn_launches()
-    decode_attention_int8.launches = 0
-
-
 def _slot_isolation(dev, layers: int = 8, prompt: int = 32,
                     steps: int = 3) -> dict:
     """The continuous pool in float32 at ``layers`` layers: four prompts
@@ -3752,9 +3847,8 @@ def phase_continuous_serve(dev) -> dict:
     launches = _serve_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     n_pre, n_dec = len(prefill_dts), len(steps_log)
-    want = {"flash_attention": cfg.num_layers * n_pre,
-            "decode_attention": cfg.num_layers * n_dec,
-            "decode_attention_int8": 0}
+    want = _launch_counts(flash_attention=cfg.num_layers * n_pre,
+                          decode_attention=cfg.num_layers * n_dec)
     check(launches == want, f"continuous_serve: {n_pre} prefills and "
           f"{n_dec} steps launched {launches}, expected {want}")
     check(res.n_jobs == CONT_JOBS and len(res.latencies) == CONT_JOBS
@@ -3810,76 +3904,12 @@ def phase_continuous_serve(dev) -> dict:
     return info
 
 
-def _drop_share(eng, b: int) -> dict:
-    """One generate batch of ``b`` with the MoE's routing counted: the
-    share of (token, slot) pairs dropped over capacity, prefill and
-    decode together."""
-    route = moe_module._route
-    counts = [0, 0]
-
-    def counted(logits, moe, capacity):
-        out = route(logits, moe, capacity)
-        counts[0] += out[2].numel()
-        counts[1] += int((~out[2]).sum())
-        return out
-
-    moe_module._route = counted
-    try:
-        eng._fns[b](eng.params, eng._make_batch(b))
-    finally:
-        moe_module._route = route
-    return dict(batch=b, routed=counts[0], dropped=counts[1],
-                dropped_share=counts[1] / counts[0])
-
-
 def phase_serve_moe(dev) -> dict:
-    """The port's launch.serve path on olmoe-1b-7b as a user runs it."""
-    cfg = get_config(MOE_ARCH)
-    args = serve_cli.parse_args(MOE_ARGS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _reset_serve_launches()
-    t0 = time.perf_counter()
-    out = serve_cli.run(args)
-    seconds = time.perf_counter() - t0
-    launches = _attn_launches()
-    eng, res = out["engine"], out["result"]
-    batches = eng.batches_run
-    peak = torch.cuda.max_memory_allocated(dev)
-    _check_per_batch(cfg.num_layers, SERVE_GEN, batches, launches,
-                     "serve_moe")
-    check(decode_attention_int8.launches == 0, "serve_moe: no int8 launch")
-    check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
-          and bool(np.all(np.isfinite(res.latencies))
-                   and np.all(res.latencies > 0)),
-          f"serve_moe: {len(res.latencies)} of {args.jobs} jobs served")
-    check(all(t > 0 for t in out["tau_s"]), "serve_moe: positive τ^[b]")
-    drops = [_drop_share(eng, b) for b in (1, eng.max_batch)]
-    batch = eng._make_batch(eng.max_batch)
-    toks = eng._fns[eng.max_batch](eng.params, batch)
-    check(tuple(toks.shape) == (eng.max_batch, SERVE_GEN)
-          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          "serve_moe: generated tokens in the vocabulary")
-    with torch.inference_mode():
-        logits, aux = eng.bundle.forward(eng.params, batch)
-    check(bool(torch.isfinite(logits).all()) and float(aux) > 0,
-          "serve_moe: finite bf16 logits and a positive aux loss")
-    info = dict(arch=MOE_ARCH, dtype=cfg.dtype, args=MOE_ARGS,
-                capacity_factor=cfg.moe.capacity_factor, seconds=seconds,
-                buckets=out["buckets"],
-                tau_ms=[t * 1e3 for t in out["tau_s"]],
-                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
-                r2=out["r2"], lam_per_s=out["lam"],
-                mean_latency_ms=res.mean_latency * 1e3,
-                phi_ms=out["phi_s"] * 1e3,
-                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
-                mean_batch=res.mean_batch, utilization=res.utilization,
-                jobs=res.n_jobs, served_batches=len(res.batch_sizes),
-                batches_run=batches, launches=launches, drops=drops,
-                aux_loss=float(aux), peak_mem_bytes=peak)
-    emit("serve_moe", **info)
-    del eng, out, batch, logits
-    torch.cuda.empty_cache()
-    return info
+    """The port's launch.serve path on olmoe-1b-7b as a user runs it: 16
+    B3 and 16 × 4 B4 launches a batch."""
+    n = get_config(MOE_ARCH).num_layers
+    return _serve_model(dev, "serve_moe", MOE_ARGS, _launch_counts(
+        flash_attention=n, decode_attention=n * SERVE_GEN))
 
 
 def phase_moe_consistency(dev) -> dict:
@@ -3892,29 +3922,12 @@ def phase_moe_consistency(dev) -> dict:
 
 def phase_serve_int8(dev) -> dict:
     """``serve``'s command with the int8 KV cache (REPRO_KV_INT8=1 for
-    this phase only)."""
+    this phase only): 24 B3 and 24 × 4 int8 B4 launches a batch and no
+    float B4, the cache's bytes exact, and the first decode step's
+    logits against the bf16 cache's."""
     cfg = get_config(SERVE_ARCH)
-    args = serve_cli.parse_args(SERVE_ARGS)
-    os.environ["REPRO_KV_INT8"] = "1"
-    try:
-        torch.cuda.reset_peak_memory_stats(dev)
-        _reset_serve_launches()
-        t0 = time.perf_counter()
-        out = serve_cli.run(args)
-        seconds = time.perf_counter() - t0
-        launches = _serve_launches()
-        eng, res = out["engine"], out["result"]
-        batches = eng.batches_run
-        peak = torch.cuda.max_memory_allocated(dev)
-        want = {"flash_attention": cfg.num_layers * batches,
-                "decode_attention": 0,
-                "decode_attention_int8": cfg.num_layers * SERVE_GEN
-                * batches}
-        check(launches == want, f"serve_int8: {batches} batches launched "
-              f"{launches}, expected {want}")
-        check(res.n_jobs == args.jobs and len(res.latencies) == args.jobs
-              and bool(np.all(np.isfinite(res.latencies))),
-              f"serve_int8: {len(res.latencies)} of {args.jobs} jobs served")
+
+    def int8_gates(eng) -> dict:
         # the cache's bytes, counted exactly against the bf16 cache's
         b, s = eng.max_batch, SERVE_PROMPT + SERVE_GEN + 1
         kv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -3939,33 +3952,261 @@ def phase_serve_int8(dev) -> dict:
                 tok = torch.argmax(lg[:, -1:], dim=-1)
                 lg, _ = eng.bundle.decode_step(eng.params, tok, c, lens)
                 first[mode] = lg[:, 0].float()
+        dlogit = float((first["int8"] - first["bf16"]).abs().max())
+        top1 = float((first["int8"].argmax(-1) == first["bf16"].argmax(-1))
+                     .float().mean())
+        # the reference's gate on the int8 cache against the float one
+        check(dlogit < 0.1, f"serve_int8: first-step max |dlogit| {dlogit} "
+              f"against the bf16 cache (top-1 agreement {top1}), gate 0.1")
+        return dict(kv_cache="int8", cache_bytes_int8=int8_bytes,
+                    cache_bytes_bf16=bf16_bytes,
+                    cache_ratio=int8_bytes / bf16_bytes,
+                    first_step_max_abs_dlogit=dlogit,
+                    first_step_top1_agreement=top1,
+                    max_abs_logit=float(first["bf16"].abs().max()))
+
+    n = cfg.num_layers
+    os.environ["REPRO_KV_INT8"] = "1"
+    try:
+        return _serve_model(dev, "serve_int8", SERVE_ARGS, _launch_counts(
+            flash_attention=n, decode_attention_int8=n * SERVE_GEN),
+            extra=int8_gates)
     finally:
         os.environ.pop("REPRO_KV_INT8", None)
-    dlogit = float((first["int8"] - first["bf16"]).abs().max())
-    top1 = float((first["int8"].argmax(-1) == first["bf16"].argmax(-1))
-                 .float().mean())
-    # the reference's gate on the int8 cache against the float one
-    check(dlogit < 0.1, f"serve_int8: first-step max |dlogit| {dlogit} "
-          f"against the bf16 cache (top-1 agreement {top1}), gate 0.1")
-    info = dict(arch=SERVE_ARCH, dtype=cfg.dtype, kv_cache="int8",
-                args=SERVE_ARGS, seconds=seconds, buckets=out["buckets"],
-                tau_ms=[t * 1e3 for t in out["tau_s"]],
-                alpha_ms=out["alpha_s"] * 1e3, tau0_ms=out["tau0_s"] * 1e3,
-                r2=out["r2"], lam_per_s=out["lam"],
-                mean_latency_ms=res.mean_latency * 1e3,
-                phi_ms=out["phi_s"] * 1e3,
-                p50_ms=res.latency_p50 * 1e3, p99_ms=res.latency_p99 * 1e3,
-                mean_batch=res.mean_batch, utilization=res.utilization,
-                jobs=res.n_jobs, batches_run=batches, launches=launches,
-                cache_bytes_int8=int8_bytes, cache_bytes_bf16=bf16_bytes,
-                cache_ratio=int8_bytes / bf16_bytes,
-                first_step_max_abs_dlogit=dlogit,
-                first_step_top1_agreement=top1,
-                max_abs_logit=float(first["bf16"].abs().max()),
-                peak_mem_bytes=peak)
-    emit("serve_int8", **info)
-    del eng, out, batch
-    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Jamba's hybrid interleave and DeepSeek-V2-Lite's MLA
+# ---------------------------------------------------------------------------
+
+def _worst(cases) -> dict:
+    """The largest error by dtype (an MLA decode case's: its cache's)."""
+    out = {}
+    for c in cases:
+        d = c.get("dtype") or c["cache_dtype"]
+        out[d] = max(out.get(d, 0.0), c["max_abs_err"])
+    return out
+
+
+def phase_hybrid_kernels(dev) -> dict:
+    """B5 at Jamba's widths (128 heads of 64, d_state 16, one group)
+    against its plain version: the serve shape, the long shape and batch
+    1 at S 1,024 (split) timed, ragged S 1,000 at B 4 and B 1, float32;
+    every bf16 case twice, bitwise.  B3 and B4 at Jamba's attention heads
+    (32 over 8 kv heads of 128) at the serve path's batches, batch 32
+    timed, and in float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    model = hybrid_config()
+    out = {"ssd_serve": _check_ssd(dev, bf16, 32, SSM_PROMPT, seed=101,
+                                   timed=True, model=model),
+           "ssd_long": _check_ssd(dev, bf16, 32, SSM_LONG, seed=102,
+                                  timed=True, model=model),
+           "ssd_batch1": _check_ssd(dev, bf16, 1, SSM_LONG, seed=103,
+                                    timed=True, model=model)}
+    cases = list(out.values()) + [
+        _check_ssd(dev, bf16, 4, 1000, seed=104, model=model),
+        _check_ssd(dev, bf16, 1, 1000, seed=105, model=model),
+        _check_ssd(dev, f32, 32, SSM_PROMPT, seed=106, model=model),
+        _check_ssd(dev, f32, 2, 300, seed=107, model=model)]
+    h, kv, hd = model.num_heads, model.num_kv_heads, model.head_dim
+    cache = SERVE_PROMPT + SERVE_GEN + 1
+    for b in (1, 2, 4, 8, 16):
+        cases.append(_check_flash(dev, bf16, b, SERVE_PROMPT, h, kv, hd,
+                                  seed=110 + b))
+        cases.append(_check_decode(dev, bf16, b, cache, h, kv, hd,
+                                   [SERVE_PROMPT + i % SERVE_GEN
+                                    for i in range(b)], seed=110 + b))
+    out["flash_serve"] = _check_flash(dev, bf16, 32, SERVE_PROMPT, h, kv, hd,
+                                      seed=132, timed=True)
+    out["decode_serve"] = _check_decode(
+        dev, bf16, 32, cache, h, kv, hd, [SERVE_PROMPT + SERVE_GEN - 1] * 32,
+        seed=132, timed=True)
+    cases += [out["flash_serve"], out["decode_serve"],
+              _check_flash(dev, f32, 2, 303, h, kv, hd, seed=133),
+              _check_decode(dev, f32, 2, 303, h, kv, hd, [300, 302],
+                            seed=134)]
+    emit("hybrid_kernels", arch=HYBRID_ARCH, cases=cases,
+         worst=_worst(cases),
+         ssd_splits={f"{c['batch']}x{c['seq']}": c["splits"] for c in cases
+                     if c["kernel"] == "ssd_scan"
+                     and c["dtype"] == str(bf16)})
+    return out
+
+
+MLA_SCALE = 192 ** -0.5      # (qk_nope 128 + qk_rope 64) ** -0.5
+
+
+def _mla_inputs(dev, dtype, b, s, seed):
+    """q_abs, q_pe (float32) and a c_kv, k_pe cache (``dtype``) at
+    DeepSeek-V2-Lite's widths."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, 16, 512, device=dev, generator=gen),
+            torch.randn(b, 16, 64, device=dev, generator=gen),
+            torch.randn(b, s, 512, device=dev, generator=gen).to(dtype),
+            torch.randn(b, s, 64, device=dev, generator=gen).to(dtype))
+
+
+def _check_mla_decode(dev, dtype, b, s, lengths, *, window=0, seed=0,
+                      timed=False) -> dict:
+    """The MLA decode kernel against its plain version (float32 context
+    within ``MLA_TOL``), twice bitwise, a row of length -1 exactly 0."""
+    args = _mla_inputs(dev, dtype, b, s, seed)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    got = mla_decode_attention(*args, lens, scale=MLA_SCALE, window=window)
+    again = mla_decode_attention(*args, lens, scale=MLA_SCALE, window=window)
+    want = mla_decode_attention_plain(*args, lens, scale=MLA_SCALE,
+                                      window=window)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    splits = mla_splits(b, s, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[0]
+    case = dict(kernel="mla_decode", cache_dtype=str(dtype), batch=b,
+                cache=s, heads=16, rank=512, rope=64, window=window,
+                lengths=[min(lengths), max(lengths)], splits=splits,
+                max_abs_err=err, max_abs_ctx=float(want.abs().max()))
+    check(bool(torch.isfinite(got).all()) and err <= MLA_TOL,
+          f"mla_decode vs plain: {case}")
+    check(torch.equal(got, again),
+          f"mla_decode repeats bitwise (split merge): {case}")
+    empty = [i for i, n in enumerate(lengths) if n < 0]
+    check(bool((got[empty] == 0).all()),
+          f"mla_decode: a row of length -1 gives 0: {case}")
+    if timed:
+        q_abs, q_pe, c_kv, k_pe = args
+        admitted = [max(0, min(s, n + 1) - (max(0, n - window + 1)
+                                            if window else 0))
+                    for n in lengths]
+        elt = torch.finfo(dtype).bits // 8
+        # the admitted latent rows read once; q read and the context
+        # written once; a score (576) and a p·v (512) multiply-add per
+        # head and admitted position
+        bytes_moved = (elt * 576 * sum(admitted) + 4 * (
+            q_abs.numel() + q_pe.numel() + got.numel()) + 4 * b)
+        flops = 2 * 16 * (576 + 512) * sum(admitted)
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        case.update(bytes=bytes_moved, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["kernel_ms"] = time_ms(lambda: mla_decode_attention(
+            *args, lens, scale=MLA_SCALE, window=window))
+        case["plain_ms"] = time_ms(lambda: mla_decode_attention_plain(
+            *args, lens, scale=MLA_SCALE, window=window))
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
+        qt = torch.cat([q_abs, q_pe], -1).to(dtype)[:, :, None, :]
+        kt = torch.cat([c_kv, k_pe], -1)[:, None]
+        vt = c_kv[:, None]
+        case["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=MLA_SCALE,
+                enable_gqa=True))
+        case["library_note"] = (
+            "scaled_dot_product_attention(enable_gqa, scale 192^-0.5) of "
+            "[q_abs ‖ q_pe] in the cache's dtype over [c_kv ‖ k_pe] "
+            "against c_kv with a length mask, copies made beforehand")
+    return case
+
+
+def phase_mla_kernel(dev) -> dict:
+    """B3 at MLA's (192, 128) pair and the MLA decode kernel against
+    their plain versions at DeepSeek-V2-Lite's shapes: the serve path's
+    batches, batch 32 at the serve and the long shapes and batch 1 at
+    the long one timed; windowed, ragged, lengths -1, 0, 63, S - 1,
+    S + 5; a bf16 and a float32 cache; every case twice, bitwise."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, qd, vd = 16, 192, 128
+    cache = SERVE_PROMPT + SERVE_GEN + 1
+    long_cache = LONG_PROMPT + LONG_GEN + 1
+    cases = []
+    for b in (1, 2, 4, 8, 16):
+        cases.append(_check_flash(dev, bf16, b, SERVE_PROMPT, h, h, qd,
+                                  hdv=vd, seed=200 + b))
+        cases.append(_check_mla_decode(dev, bf16, b, cache,
+                                       [SERVE_PROMPT + i % SERVE_GEN
+                                        for i in range(b)], seed=200 + b))
+    out = {
+        "flash_serve": _check_flash(dev, bf16, 32, SERVE_PROMPT, h, h, qd,
+                                    hdv=vd, seed=232, timed=True),
+        "flash_long": _check_flash(dev, bf16, 32, LONG_PROMPT, h, h, qd,
+                                   hdv=vd, seed=233, timed=True),
+        "flash_batch1": _check_flash(dev, bf16, 1, LONG_PROMPT, h, h, qd,
+                                     hdv=vd, seed=234, timed=True),
+        "decode_serve": _check_mla_decode(
+            dev, bf16, 32, cache, [SERVE_PROMPT + SERVE_GEN - 1] * 32,
+            seed=232, timed=True),
+        "decode_long": _check_mla_decode(
+            dev, bf16, 32, long_cache, [LONG_PROMPT + LONG_GEN - 1] * 32,
+            seed=233, timed=True),
+        "decode_batch1": _check_mla_decode(
+            dev, bf16, 1, long_cache, [LONG_PROMPT + LONG_GEN - 1],
+            seed=234, timed=True)}
+    cases += list(out.values())
+    ragged = [0, 1, 250, 299, 511, 300, 17, 400]
+    edges = [-1, 0, 63, long_cache - 1, long_cache + 5]
+    for dt in (bf16, f32):
+        cases.append(_check_flash(dev, dt, 2, 200, h, h, qd, hdv=vd,
+                                  window=64, seed=240))
+        cases.append(_check_flash(dev, dt, 2, 303, h, h, qd, hdv=vd,
+                                  seed=241))
+        cases.append(_check_mla_decode(dev, dt, 8, 523, ragged, window=100,
+                                       seed=242))
+        for i, n in enumerate(edges):
+            cases.append(_check_mla_decode(dev, dt, 1, long_cache, [n],
+                                           seed=250 + i))
+        cases.append(_check_mla_decode(dev, dt, 6, long_cache,
+                                       edges + [500], seed=256))
+        cases.append(_check_mla_decode(
+            dev, dt, 32, long_cache,
+            [(37 * i) % (long_cache + 6) - 1 for i in range(32)], seed=257))
+    cases.append(_check_flash(dev, f32, 32, SERVE_PROMPT, h, h, qd, hdv=vd,
+                              seed=260))
+    emit("mla_kernel", arch=MLA_ARCH, cases=cases, worst=_worst(cases),
+         decode_splits={k: out[k]["splits"] for k in out
+                        if k.startswith("decode")})
+    return out
+
+
+def phase_serve_mla(dev) -> dict:
+    """``launch.serve --arch deepseek-v2-lite-16b --full --workload
+    generate``: 27 B3 (at (192, 128)) and 27 × 4 MLA decode launches a
+    batch, no B4 and no B5."""
+    n = get_config(MLA_ARCH).num_layers
+    return _serve_model(dev, "serve_mla", MLA_ARGS, _launch_counts(
+        flash_attention=n, mla_decode=n * SERVE_GEN))
+
+
+def phase_mla_consistency(dev) -> dict:
+    """deepseek-v2-lite-16b in float32, its first 8 layers (the dense
+    lead and 7 MoE layers; all 27 would be ≈ 63 GB), at capacity factor
+    E / k: prefill(300) + 3 decode steps against forward(303)."""
+    info = _consistency(dev, MLA_ARCH, 300, layers=8)
+    emit("mla_consistency", **info)
+    return info
+
+
+def phase_serve_hybrid(dev) -> dict:
+    """``launch.serve``'s run on jamba-v0.1-52b at full width, its first
+    16 layers, bf16: 2 B3, 2 × 4 B4 and 14 B5 launches a batch."""
+    cfg = hybrid_config()
+    kinds = cfg.layer_kinds()
+    n_attn = kinds.count("attn")
+    return _serve_model(dev, "serve_hybrid", HYBRID_ARGS, _launch_counts(
+        flash_attention=n_attn, decode_attention=n_attn * SERVE_GEN,
+        ssd_scan=kinds.count("ssm")), cfg=cfg)
+
+
+def phase_hybrid_consistency(dev) -> dict:
+    """jamba-v0.1-52b in float32, its first 8 layers (one period:
+    attention at 4, MoE at 1, 3, 5, 7; ≈ 53 GB), at capacity factor
+    E / k: prefill(300), which crosses the 256 chunk, + 3 decode steps
+    against forward(303)."""
+    info = _consistency(dev, HYBRID_ARCH, 300, layers=8)
+    emit("hybrid_consistency", **info)
     return info
 
 
@@ -4095,6 +4336,12 @@ def main() -> int:
     served_moe = phase("serve_moe", phase_serve_moe, dev)
     phase("moe_consistency", phase_moe_consistency, dev)
     served_int8 = phase("serve_int8", phase_serve_int8, dev)
+    hybrid = phase("hybrid_kernels", phase_hybrid_kernels, dev)
+    mla = phase("mla_kernel", phase_mla_kernel, dev)
+    served_mla = phase("serve_mla", phase_serve_mla, dev)
+    phase("mla_consistency", phase_mla_consistency, dev)
+    served_hybrid = phase("serve_hybrid", phase_serve_hybrid, dev)
+    phase("hybrid_consistency", phase_hybrid_consistency, dev)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
@@ -4189,9 +4436,22 @@ def main() -> int:
             moe_launches=served_moe["launches"][name],
             **{f"moe_{k}": attn[f"{short}_moe"][key]
                for k, key in batch1_keys},
-            moe_bound_by=attn[f"{short}_moe"]["bound_by"], **extra)
+            moe_bound_by=attn[f"{short}_moe"]["bound_by"],
+            # Jamba-16's attention layers, timed at their serve shape
+            hybrid_launches=served_hybrid["launches"][name],
+            **{f"hybrid_{k}": hybrid[f"{short}_serve"][key]
+               for k, key in batch1_keys},
+            hybrid_bound_by=hybrid[f"{short}_serve"]["bound_by"], **extra)
           for name, short, extra in (
-              ("flash_attention", "flash", {}),
+              ("flash_attention", "flash", {
+                  # MLA's (192, 128) pair on serve_mla
+                  "mla_launches": served_mla["launches"]["flash_attention"],
+                  **{f"mla_{case}{k}": mla[f"flash_{shape}"][key]
+                     for case, shape in (("", "serve"), ("long_", "long"),
+                                         ("batch1_", "batch1"))
+                     for k, key in batch1_keys + (("bound_by",
+                                                   "bound_by"),)},
+                  "mla_library_note": mla["flash_serve"]["library_note"]}),
               ("decode_attention", "decode",
                {"splits": {k: attn[f"decode_{k}"]["splits"]
                            for k in ("serve", "long", "batch1",
@@ -4222,7 +4482,29 @@ def main() -> int:
             **{f"batch1_{k}": ssd["batch1"][key] for k, key in batch1_keys},
             batch1_bound_by=ssd["batch1"]["bound_by"],
             splits={k: ssd[k]["splits"] for k in ("serve", "long",
-                                                   "batch1")}),
+                                                   "batch1")},
+            # Jamba-16's Mamba2 layers at (64, 16)
+            hybrid_launches=served_hybrid["launches"]["ssd_scan"],
+            **{f"hybrid_{case}{k}": hybrid[f"ssd_{shape}"][key]
+               for case, shape in (("", "serve"), ("long_", "long"),
+                                   ("batch1_", "batch1"))
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)},
+            hybrid_splits={k: hybrid[f"ssd_{k}"]["splits"]
+                           for k in ("serve", "long", "batch1")}),
+        # a kernel of the port with no TPU counterpart: the reference's
+        # float32 einsum chain of MLA decode, timed at serve_mla's last
+        # decode step (B 32 over the 37-slot cache)
+        _kernel_row(
+            "mla_decode", "serve_mla",
+            served_mla["launches"]["mla_decode"], mla["decode_serve"],
+            note="no TPU kernel: replaces the reference's einsum chain",
+            library_note=mla["decode_serve"]["library_note"],
+            **_path_keys(mla["decode_serve"]),
+            **{f"{case}{k}": mla[f"decode_{shape}"][key]
+               for case, shape in (("long_", "long"), ("batch1_", "batch1"))
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)},
+            splits={k: mla[f"decode_{k}"]["splits"]
+                    for k in ("serve", "long", "batch1")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

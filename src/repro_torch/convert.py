@@ -111,8 +111,10 @@ def model_params_from_jax(cfg: ModelConfig, params: Dict,
     stacked ``params["stack"][j]`` leaves is layer ``lead + i·p + j``,
     with the ``(d, h, hd)`` and ``(h, hd, d)`` projection layouts kept;
     a MoE ``ffn`` keeps its float32 ``router``, its ``(E, d, f)`` /
-    ``(E, f, d)`` expert stacks and its nested ``shared`` dict, and
-    q/k norms their ``(hd,)`` scales."""
+    ``(E, f, d)`` expert stacks and its nested ``shared`` dict, q/k
+    norms their ``(hd,)`` scales, an MLA ``attn`` its ``wq``, ``w_dkv``,
+    ``w_kpe``, ``norm_ckv``, ``w_uk``, ``w_uv`` and ``wo``, and a
+    hybrid's period (Jamba: 8 layers) its ``attn`` / ``ssm`` blocks."""
     require_supported(cfg)
     lead, p, r = split_pattern(cfg)
     layers = [nn.ModuleDict({name: _params(sub, device)

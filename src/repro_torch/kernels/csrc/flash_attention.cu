@@ -1,9 +1,9 @@
 // Blocked causal / sliding-window GQA prefill attention with an online
-// softmax, for the port's dense transformer.
+// softmax, for the port's transformers (GQA, and MLA's expanded form).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_kernel
-// (reached through flash_attention).  For q (B, S, H, hd) and k, v
-// (B, S, KV, hd), float32 or bfloat16, query head h reads kv head
+// (reached through flash_attention).  For q (B, S, H, hd), k (B, S, KV,
+// hd) and v (B, S, KV, hdv), float32 or bfloat16, query head h reads kv head
 // h / (H / KV) and, for every query position pq,
 //     out[b, pq, h] = sum_pk p(pq, pk) v[b, pk, h / G]
 // over the keys the mask admits: pk < S, pk <= pq when causal, and
@@ -61,6 +61,17 @@
 // for every key, two xor-shuffles give all four the full score, and
 // each then updates its slice of acc.
 //
+// Widths.  Both kernels take a (query/key width, value width) pair:
+// (32, 32), (64, 64) and (128, 128) for GQA, and (192, 128) for
+// DeepSeek-V2's MLA prefill (src/repro/models/attention.py, mla_forward:
+// q, k (B, S, 16, 192) of nope 128 + rope 64, v (B, S, 16, 128), scale
+// 192^-0.5).  Q . K^T then takes 12 k-steps and O 16 n-tiles; the K ring
+// holds 192-wide rows and the V ring 128-wide ones (86 KB in two
+// stages).  The q fragments take 16 more registers than at hd 128, so
+// the bf16 kernel runs at the 255-register ceiling there and spills 20
+// bytes a thread (ptxas -v): right first; staging q in shared memory
+// and reading its fragments by ldmatrix would free them.
+//
 // Bound.  At the long serve prompt (B 32, S 1,024, H 16, hd 64, bf16)
 // the kernel must read q, k, v and write o, 268 MB, ~0.080 ms at
 // 3.35 TB/s, and do 4 * B * H * hd * S (S + 1) / 2 ~ 69 GFLOP, ~0.069
@@ -95,18 +106,22 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-template <int HD>
+// HDQ is q's and k's width, HDV v's and the output's
+template <int HDQ, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int S, int H, int KV, float scale, int causal,
                        int window) {
-  constexpr int kChunks = HD / 4;          // float4 chunks in a head row
+  constexpr int kChunks = HDQ / 4;         // float4 chunks in a q/k row
   constexpr int kMine = kChunks / kLanes;  // chunks a thread holds
-  static_assert(kChunks % kLanes == 0, "head_dim must be a multiple of 16");
+  constexpr int kVChunks = HDV / 4;        // float4 chunks in a v row
+  constexpr int kVMine = kVChunks / kLanes;
+  static_assert(kChunks % kLanes == 0 && kVChunks % kLanes == 0,
+                "head widths must be multiples of 16");
   __shared__ float4 ks[kKeys][kChunks];
-  __shared__ float4 vs[kKeys][kChunks];
+  __shared__ float4 vs[kKeys][kVChunks];
 
   const int tid = threadIdx.x;
   const int row = tid / kLanes;
@@ -118,14 +133,14 @@ flash_attention_kernel(const float* __restrict__ q,
   const int pq = q0 + row;
 
   float4 qr[kMine];
-  float4 acc[kMine];
-  const float* qrow = q + ((static_cast<int64_t>(b) * S + pq) * H + h) * HD;
+  float4 acc[kVMine];
+  const float* qrow = q + ((static_cast<int64_t>(b) * S + pq) * H + h) * HDQ;
 #pragma unroll
-  for (int i = 0; i < kMine; ++i) {
+  for (int i = 0; i < kMine; ++i)
     qr[i] = pq < S ? load4(qrow + 4 * (lane + kLanes * i))
                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+#pragma unroll
+  for (int i = 0; i < kVMine; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   float m = kNegInf;
   float l = 0.f;
 
@@ -143,16 +158,17 @@ flash_attention_kernel(const float* __restrict__ q,
       const int j = e / kChunks;
       const int c = e % kChunks;
       const int pk = t0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (pk < S) {
-        const int64_t off =
-            ((static_cast<int64_t>(b) * S + pk) * KV + kvh) * HD + 4 * c;
-        kk = load4(k + off);
-        vv = load4(v + off);
-      }
-      ks[j][c] = kk;
-      vs[j][c] = vv;
+      ks[j][c] = pk < S ? load4(k + ((static_cast<int64_t>(b) * S + pk) *
+                                         KV + kvh) * HDQ + 4 * c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int e = tid; e < kKeys * kVChunks; e += kThreads) {
+      const int j = e / kVChunks;
+      const int c = e % kVChunks;
+      const int pk = t0 + j;
+      vs[j][c] = pk < S ? load4(v + ((static_cast<int64_t>(b) * S + pk) *
+                                         KV + kvh) * HDV + 4 * c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
 
@@ -191,7 +207,7 @@ flash_attention_kernel(const float* __restrict__ q,
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int i = 0; i < kMine; ++i) {
+    for (int i = 0; i < kVMine; ++i) {
       acc[i].x *= alpha;
       acc[i].y *= alpha;
       acc[i].z *= alpha;
@@ -201,7 +217,7 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int j = 0; j < kKeys; ++j) {
       const float p = s[j];
 #pragma unroll
-      for (int i = 0; i < kMine; ++i) {
+      for (int i = 0; i < kVMine; ++i) {
         const float4 vv = vs[j][lane + kLanes * i];
         acc[i].x = fmaf(p, vv.x, acc[i].x);
         acc[i].y = fmaf(p, vv.y, acc[i].y);
@@ -215,9 +231,9 @@ flash_attention_kernel(const float* __restrict__ q,
 
   if (pq < S) {
     const float denom = l + 1e-30f;
-    float* orow = out + ((static_cast<int64_t>(b) * S + pq) * H + h) * HD;
+    float* orow = out + ((static_cast<int64_t>(b) * S + pq) * H + h) * HDV;
 #pragma unroll
-    for (int i = 0; i < kMine; ++i) {
+    for (int i = 0; i < kVMine; ++i) {
       store4(orow + 4 * (lane + kLanes * i),
              make_float4(acc[i].x / denom, acc[i].y / denom,
                          acc[i].z / denom, acc[i].w / denom));
@@ -231,13 +247,15 @@ constexpr int kBlockRows = 64;             // query rows per block
 constexpr int kTileKeys = 64;              // keys per kv tile
 constexpr int kWarpThreads = 128;          // 4 warps, 16 rows each
 
-template <int HD>
+template <int HDQ, int HDV>
 struct Bf16Tile {
-  static constexpr int kStride = HD + 8;   // bf16 per padded smem row
-  static constexpr int kElems = 64 * kStride;
-  static constexpr int kStages = HD == 128 ? 2 : 3;
+  static constexpr int kKStride = HDQ + 8; // bf16 per padded smem row
+  static constexpr int kVStride = HDV + 8;
+  static constexpr int kKElems = 64 * kKStride;
+  static constexpr int kVElems = 64 * kVStride;
+  static constexpr int kStages = HDQ + HDV >= 256 ? 2 : 3;
   // the K ring, then the V ring (q goes straight to registers)
-  static constexpr int kSmemBytes = 2 * kStages * kElems * 2;
+  static constexpr int kSmemBytes = kStages * (kKElems + kVElems) * 2;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -314,7 +332,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           int S, int heads, int head,
                                           int row0) {
   constexpr int kChunks = HD / 8;          // 16-byte chunks per row
-  constexpr int kStride = Bf16Tile<HD>::kStride;
+  constexpr int kStride = HD + 8;          // bf16 per padded smem row
   static_assert(64 * kChunks % kWarpThreads == 0, "tile split");
 #pragma unroll
   for (int i = 0; i < 64 * kChunks / kWarpThreads; ++i) {
@@ -331,9 +349,10 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 }
 
 // at hd 32 and 64, four blocks an SM (at most 128 registers a thread,
-// which the hd 64 kernel fits without spilling); hd 128 needs 250
-template <int HD>
-__global__ void __launch_bounds__(kWarpThreads, HD == 128 ? 1 : 4)
+// which the hd 64 kernel fits without spilling); hd 128 needs 250.
+// HDQ is q's and k's width, HDV v's and the output's.
+template <int HDQ, int HDV>
+__global__ void __launch_bounds__(kWarpThreads, HDQ + HDV >= 256 ? 1 : 4)
 flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -341,14 +360,15 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             int KV, float scale_log2, int causal,
                             int window) {
   // scores stay unscaled until the exponent: p = exp2(s * c - m * c)
-  using Tile = Bf16Tile<HD>;
-  constexpr int kStride = Tile::kStride;
+  using Tile = Bf16Tile<HDQ, HDV>;
+  constexpr int kKStride = Tile::kKStride;
+  constexpr int kVStride = Tile::kVStride;
   constexpr int kStages = Tile::kStages;
-  constexpr int kK = HD / 16;              // k-steps of Q . K^T
-  constexpr int kD = HD / 8;               // n-tiles of O
+  constexpr int kK = HDQ / 16;             // k-steps of Q . K^T
+  constexpr int kD = HDV / 8;              // n-tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kStages * Tile::kElems;
+  __nv_bfloat16* vs = ks + kStages * Tile::kKElems;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -370,10 +390,10 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_tiles) {
-      load_rows<HD>(ks + st * Tile::kElems, k, b, S, KV, kvh,
-                    lo + st * kTileKeys);
-      load_rows<HD>(vs + st * Tile::kElems, v, b, S, KV, kvh,
-                    lo + st * kTileKeys);
+      load_rows<HDQ>(ks + st * Tile::kKElems, k, b, S, KV, kvh,
+                     lo + st * kTileKeys);
+      load_rows<HDV>(vs + st * Tile::kVElems, v, b, S, KV, kvh,
+                     lo + st * kTileKeys);
     }
     cp_async_commit();
   }
@@ -387,8 +407,8 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   uint32_t qf[kK][4];
   {
     const __nv_bfloat16* r0 =
-        q + ((static_cast<int64_t>(b) * S + pq0) * H + h) * HD + col;
-    const __nv_bfloat16* r1 = r0 + static_cast<int64_t>(8) * H * HD;
+        q + ((static_cast<int64_t>(b) * S + pq0) * H + h) * HDQ + col;
+    const __nv_bfloat16* r1 = r0 + static_cast<int64_t>(8) * H * HDQ;
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk) {
       qf[kk][0] = pq0 < S ? *reinterpret_cast<const uint32_t*>(r0 + kk * 16)
@@ -417,15 +437,15 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       const int nxt = i + kStages - 1;
       if (nxt < n_tiles) {
         const int st = nxt % kStages;
-        load_rows<HD>(ks + st * Tile::kElems, k, b, S, KV, kvh,
-                      lo + nxt * kTileKeys);
-        load_rows<HD>(vs + st * Tile::kElems, v, b, S, KV, kvh,
-                      lo + nxt * kTileKeys);
+        load_rows<HDQ>(ks + st * Tile::kKElems, k, b, S, KV, kvh,
+                       lo + nxt * kTileKeys);
+        load_rows<HDV>(vs + st * Tile::kVElems, v, b, S, KV, kvh,
+                       lo + nxt * kTileKeys);
       }
       cp_async_commit();
     }
-    const __nv_bfloat16* kt = ks + (i % kStages) * Tile::kElems;
-    const __nv_bfloat16* vt = vs + (i % kStages) * Tile::kElems;
+    const __nv_bfloat16* kt = ks + (i % kStages) * Tile::kKElems;
+    const __nv_bfloat16* vt = vs + (i % kStages) * Tile::kVElems;
     const int t0 = lo + i * kTileKeys;
 
     // scores: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
@@ -437,7 +457,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t r[4];
-        ldsm_x4(r, kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kStride +
+        ldsm_x4(r, kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKStride +
                        kk * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * jp], qf[kk], r[0], r[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], r[2], r[3]);
@@ -512,7 +532,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       for (int dp = 0; dp < kD / 2; ++dp) {
         uint32_t r[4];
         ldsm_x4_trans(r, vt + (js * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  kStride + dp * 16 + (lane >> 4) * 8);
+                                  kVStride + dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], ph, r[0], r[1]);
         mma_bf16(o[2 * dp], pl, r[0], r[1]);
         mma_bf16(o[2 * dp + 1], ph, r[2], r[3]);
@@ -529,7 +549,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const float d1 = l1 + 1e-30f;
   if (pq0 < S) {
     __nv_bfloat16* orow =
-        out + ((static_cast<int64_t>(b) * S + pq0) * H + h) * HD + col;
+        out + ((static_cast<int64_t>(b) * S + pq0) * H + h) * HDV + col;
 #pragma unroll
     for (int t = 0; t < kD; ++t)
       *reinterpret_cast<uint32_t*>(orow + t * 8) =
@@ -537,7 +557,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   }
   if (pq1 < S) {
     __nv_bfloat16* orow =
-        out + ((static_cast<int64_t>(b) * S + pq1) * H + h) * HD + col;
+        out + ((static_cast<int64_t>(b) * S + pq1) * H + h) * HDV + col;
 #pragma unroll
     for (int t = 0; t < kD; ++t)
       *reinterpret_cast<uint32_t*>(orow + t * 8) =
@@ -547,20 +567,20 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 
 // ----------------------------------------------------------------- launch
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int KV, float scale, int causal, int window,
-               cudaStream_t stream) {
+template <int HDQ, int HDV>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int B, int S, int H, int KV, float scale, int causal,
+               int window, cudaStream_t stream) {
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_attention_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<HDQ, HDV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, KV,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <int HDQ, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int S, int H, int KV, float scale, int causal,
                 int window, cudaStream_t stream) {
@@ -569,14 +589,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                          kBlockRows;
   if (heads > 0x7fffffff || blocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Bf16Tile<HD>::kSmemBytes;
+  constexpr int smem = Bf16Tile<HDQ, HDV>::kSmemBytes;
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_kernel_bf16<HD>,
+      flash_attention_kernel_bf16<HDQ, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(static_cast<unsigned>(heads),
                   static_cast<unsigned>(blocks));
-  flash_attention_kernel_bf16<HD><<<grid, kWarpThreads, smem, stream>>>(
+  flash_attention_kernel_bf16<HDQ, HDV><<<grid, kWarpThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -589,41 +609,43 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // dtype 0 (float32) launches flash_attention_kernel over a (ceil(S /
 // 32), H, B) grid; dtype 1 (bfloat16) flash_attention_kernel_bf16 over
-// a (B * H, ceil(S / 64)) grid; head_dim 32, 64 or 128; on `stream`.
-// Returns the first CUDA error of setting the shared-memory size or of
-// the launch, 0 if none.
+// a (B * H, ceil(S / 64)) grid; (hd, hdv) is (32, 32), (64, 64),
+// (128, 128) or (192, 128), hd q's and k's width, hdv v's and the
+// output's; on `stream`.  Returns the
+// first CUDA error of setting the shared-memory size or of the launch, 0
+// if none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
-                                      int S, int H, int KV, int hd,
+                                      int S, int H, int KV, int hd, int hdv,
                                       int dtype, float scale, int causal,
                                       int window, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+#define FA_ARGS q, k, v, out, B, S, H, KV, scale, causal, window, st
+  if (hd == 192 && hdv == 128) {
+    if (dtype == 0) return launch_f32<192, 128>(FA_ARGS);
+    if (dtype == 1) return launch_bf16<192, 128>(FA_ARGS);
+  }
+  if (hd == hdv && dtype == 0) {
     switch (hd) {
       case 32:
-        return launch_f32<32>(q, k, v, out, B, S, H, KV, scale, causal,
-                              window, st);
+        return launch_f32<32, 32>(FA_ARGS);
       case 64:
-        return launch_f32<64>(q, k, v, out, B, S, H, KV, scale, causal,
-                              window, st);
+        return launch_f32<64, 64>(FA_ARGS);
       case 128:
-        return launch_f32<128>(q, k, v, out, B, S, H, KV, scale, causal,
-                               window, st);
+        return launch_f32<128, 128>(FA_ARGS);
     }
-  } else if (dtype == 1) {
+  } else if (hd == hdv && dtype == 1) {
     switch (hd) {
       case 32:
-        return launch_bf16<32>(q, k, v, out, B, S, H, KV, scale, causal,
-                               window, st);
+        return launch_bf16<32, 32>(FA_ARGS);
       case 64:
-        return launch_bf16<64>(q, k, v, out, B, S, H, KV, scale, causal,
-                               window, st);
+        return launch_bf16<64, 64>(FA_ARGS);
       case 128:
-        return launch_bf16<128>(q, k, v, out, B, S, H, KV, scale, causal,
-                                window, st);
+        return launch_bf16<128, 128>(FA_ARGS);
     }
   }
+#undef FA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -35,6 +35,9 @@
 // in distinct banks), two stages deep, so the next tile loads while
 // this one computes; at (64, 128) and T 64 a block takes 109,056 bytes
 // of shared memory, so two blocks share an SM (T 32: 50,432, four).
+// Jamba's (64, 16) is the same layout with one 16-wide k-step of d_state
+// (rows of B and C padded from 32 to 48 bytes, still 8 distinct bank
+// groups an ldmatrix phase): 51,712 bytes at T 64.
 // Every product is mma.sync m16n8k16 bf16 -> float32 with ldmatrix
 // fragments:
 //   (a) scores = C B^T, 16 query rows per warp; M = scores o exp(cum_i -
@@ -855,7 +858,8 @@ int launch_f32(int hd, int ds, const void* x, const void* dt, const void* a,
     return launch_shape<float, HD, DS>(x, dt, a, bm, cm, y, y_f32, h_out, B, \
                                        S, nh, g, bc_sb, bc_ss, st);
   SSD_SHAPE(64, 128)  // mamba2-2.7b
-  SSD_SHAPE(32, 16)   // its reduced config
+  SSD_SHAPE(64, 16)   // jamba-v0.1-52b's Mamba layers
+  SSD_SHAPE(32, 16)   // their reduced configs
 #undef SSD_SHAPE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -925,7 +929,7 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* bm,
 // float32 may be null.  B and C share the strides bc_sb (batch) and
 // bc_ss (time step), in elements, with the group and state axes packed;
 // for bfloat16 every row of x, B and C starts 16-byte aligned.  (hd, ds)
-// is (64, 128) or (32, 16).  Returns the first CUDA error of setting the
+// is (64, 128), (64, 16) or (32, 16).  Returns the first CUDA error of setting the
 // shared-memory size or of a launch, 0 if none.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm, void* y,
@@ -946,6 +950,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
     if (hd == 64 && ds == 128)
       return launch_bf16<64, 128>(x, dt, a, bm, cm, y, y_f32, h_out, ws, B,
                                   S, nh, g, bc_sb, bc_ss, piece, splits, st);
+    if (hd == 64 && ds == 16)
+      return launch_bf16<64, 16>(x, dt, a, bm, cm, y, y_f32, h_out, ws, B,
+                                 S, nh, g, bc_sb, bc_ss, piece, splits, st);
     if (hd == 32 && ds == 16)
       return launch_bf16<32, 16>(x, dt, a, bm, cm, y, y_f32, h_out, ws, B, S,
                                  nh, g, bc_sb, bc_ss, piece, splits, st);

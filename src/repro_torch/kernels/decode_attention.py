@@ -45,9 +45,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import (DTYPE_CODE, NEG_INF,
+from repro_torch.kernels._launch import DTYPE_CODE, kernel_device, sm_count
+from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  check_attention_inputs,
-                                                 kernel_device, launchable)
+                                                 launchable)
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_int8", "decode_attention_int8_plain",
@@ -64,8 +65,7 @@ BLOCKS_PER_SM = 2
 # the CUDA merge holds at most this many splits' statistics
 MAX_SPLITS = 64
 
-# per device: the SM count, and the split workspace and ticket counters
-_SMS: Dict[torch.device, int] = {}
+# per device: the split workspace and ticket counters
 _WORK: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -216,13 +216,6 @@ def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
                                                        hd).to(dtype)
 
 
-def _sm_count(dev: torch.device) -> int:
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _SMS[dev]
-
-
 def _workspace(dev: torch.device, floats: int,
                counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The device's split workspace and ticket counters, grown (and
@@ -252,7 +245,7 @@ def _launch(q, k, v, lengths, out, window: int, scales=None) -> None:
     if max(b, kv) > 65535 or s >= 1 << 30 or abs(window) >= 1 << 31:
         raise ValueError(f"shape {tuple(k.shape)} / window {window} too "
                          f"large for one launch")
-    splits, chunk = decode_splits(b, kv, s, hd, _sm_count(q.device))
+    splits, chunk = decode_splits(b, kv, s, hd, sm_count(q.device))
     ws = tickets = 0
     if splits > 1:
         # m, l and acc[hd] for each (row, kv head, split, query head)

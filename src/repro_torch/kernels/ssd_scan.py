@@ -25,7 +25,8 @@ other than float32 / bfloat16 for x, B, C (one dtype) or float32 for
 dt, A, on ``nh % g != 0``, and, on the card, on a non-contiguous x, dt
 or A, on B or C whose two inner axes are not packed, on bf16 rows that
 do not start 16-byte aligned, and on head and state widths the kernel
-is not built for (``WIDTHS``: mamba2-2.7b's and its reduced config's).
+is not built for (``WIDTHS``: mamba2-2.7b's, jamba-v0.1-52b's and
+their reduced configs').
 B and C may be slices of one activation: the kernel takes their batch
 and time strides.  bfloat16 inputs run the tensor-core kernel
 ``ssd_scan_kernel_bf16`` and float32 inputs the CUDA-core
@@ -50,16 +51,16 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention import _sm_count
-from repro_torch.kernels.flash_attention import DTYPE_CODE, kernel_device
+from repro_torch.kernels._launch import (DTYPE_CODE, float_workspace,
+                                         kernel_device, sm_count)
 
 __all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
            "ssd_scan_plain", "ssd_splits", "ssd_piece_states_plain",
            "ssd_combine_plain", "ssd_piece_plain"]
 
 # (head_dim, d_state) pairs the CUDA kernel is compiled for:
-# mamba2-2.7b's and its reduced config's
-WIDTHS = ((64, 128), (32, 16))
+# mamba2-2.7b's, jamba-v0.1-52b's and their reduced configs'
+WIDTHS = ((64, 128), (64, 16), (32, 16))
 # time steps per tile of the bf16 kernel on a row longer than 32; a
 # piece of a split row is a whole number of them
 TILE = 64
@@ -252,12 +253,8 @@ def launchable(x, dt, A, B, C) -> None:
 
 
 def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
-    """The device's split workspace, grown when a launch needs more;
-    never allocated per call (the kernel writes every float it reads)."""
-    have = _WORK.get(dev)
-    if have is None or have.numel() < floats:
-        _WORK[dev] = torch.empty(floats, dtype=torch.float32, device=dev)
-    return _WORK[dev]
+    """This kernel's split workspace on ``dev`` (``_WORK``)."""
+    return float_workspace(_WORK, dev, floats)
 
 
 def _launch(x, dt, A, B, C, y, h_out) -> None:
@@ -268,7 +265,7 @@ def _launch(x, dt, A, B, C, y, h_out) -> None:
     g, ds = B.shape[2], B.shape[3]
     splits, piece, ws = 1, max(s, 1), None
     if x.dtype == torch.bfloat16:
-        splits, piece = ssd_splits(b, s, nh, _sm_count(x.device))
+        splits, piece = ssd_splits(b, s, nh, sm_count(x.device))
         if splits > 1:
             # each piece's state and total, but the last one's
             ws = _workspace(x.device,

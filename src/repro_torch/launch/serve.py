@@ -16,6 +16,7 @@ import argparse
 from typing import List, Optional
 
 from repro_torch.configs import get_config, list_archs, reduced as reduce_cfg
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (BatchAllWaiting, CappedBatch, TimeoutBatch,
                               fit_service_model, phi)
 from repro_torch.serving import InferenceEngine
@@ -41,10 +42,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace, device=None) -> dict:
+def run(args: argparse.Namespace, device=None,
+        cfg: Optional[ModelConfig] = None) -> dict:
     """Calibrate, fit and serve; returns τ^[b] per bucket (s), α, τ0, R²,
-    λ, E[W], φ and the served trace's statistics."""
-    cfg = get_config(args.arch)
+    λ, E[W], φ and the served trace's statistics.  ``cfg``, when given,
+    is served in place of ``--arch``'s config (a depth cut of it, say:
+    the command line has no flag for that, as the reference's has
+    none)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
     if not args.full:
         cfg = reduce_cfg(cfg)
     eng = InferenceEngine(cfg, workload=args.workload, seq_len=32,

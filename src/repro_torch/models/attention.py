@@ -1,6 +1,6 @@
-"""GQA attention of the port's dense transformer.
+"""GQA and MLA attention of the port's transformers.
 
-Port of the GQA part of the reference package's
+Port of the GQA and MLA parts of the reference package's
 ``repro.models.attention``:
 
 - Full-sequence path (forward / prefill): ``gqa_forward`` returns
@@ -21,6 +21,17 @@ Port of the GQA part of the reference package's
   ``kernels.decode_attention_int8``, which reads the codes as they are.
 - q/k norms (``cfg.qk_norm``, OLMoE): an rmsnorm over the head width
   after the bias and before RoPE.
+- DeepSeek-V2's multi-head latent attention (``cfg.mla``): ``init_mla``
+  with the reference's parameter names and layouts; ``mla_forward``
+  expands the latent ``c_kv`` through ``w_uk`` / ``w_uv`` and attends
+  q, k of width nope + rope against v of width ``v_head_dim`` through
+  ``kernels.flash_attention`` (on the card its (192, 128) pair);
+  ``mla_decode`` writes ``c_kv`` and ``k_pe`` into the latent cache at
+  ``lengths`` (as ``gqa_decode`` writes K/V), absorbs ``w_uk`` into the
+  query in float32 and attends in the latent space through
+  ``kernels.mla_decode``, then lifts the float32 context through
+  ``w_uv`` and ``wo``, as the reference does; its cache stays in the
+  model's dtype under ``REPRO_KV_INT8=1``.
 
 Both are causal, with RoPE positions (the port has no encoder and no
 learned positions).  The attention cores follow the Pallas kernels'
@@ -29,7 +40,7 @@ arithmetic: on bf16 inputs the reference model rounds the probabilities
 before P·V and the port does not, so the two differ in the last bits
 there; in float32 they agree to rounding.  The reference's
 ``REPRO_SHARD_*`` sharding hints have no numerical effect and are not
-read.  MLA and cross-attention are not ported (see
+read.  Cross-attention is not ported (see
 ``transformer.require_supported``).
 """
 from __future__ import annotations
@@ -44,11 +55,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mla_decode import mla_decode_attention
 from repro_torch.models.layers import _init_w, apply_norm, param
 from repro_torch.models.rope import apply_rope
 
 __all__ = ["init_gqa", "gqa_forward", "gqa_decode", "kv_quantized",
-           "quantize_kv"]
+           "quantize_kv", "init_mla", "mla_forward", "mla_decode"]
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig,
@@ -162,3 +174,80 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, idx] = torch.where(ok, new[:, 0].to(cache.dtype),
                                    cache[rows, idx])
     return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> nn.ParameterDict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return nn.ParameterDict({
+        "wq": _init_w(gen, (d, h, qd), dtype),
+        "w_dkv": _init_w(gen, (d, m.kv_lora_rank), dtype),
+        "w_kpe": _init_w(gen, (d, m.qk_rope_head_dim), dtype),
+        "norm_ckv": param(torch.ones(m.kv_lora_rank, dtype=dtype,
+                                     device=gen.device)),
+        "w_uk": _init_w(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim), dtype),
+        "w_uv": _init_w(gen, (m.kv_lora_rank, h, m.v_head_dim), dtype),
+        "wo": _init_w(gen, (h, m.v_head_dim, d), dtype,
+                      scale=(h * m.v_head_dim) ** -0.5),
+    })
+
+
+def _mla_q(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    nope = cfg.mla.qk_nope_head_dim
+    q = _proj(x, p["wq"])
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    c_kv = apply_norm({"scale": p["norm_ckv"]}, x @ p["w_dkv"], "rmsnorm")
+    k_pe = apply_rope((x @ p["w_kpe"])[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_forward(p, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, window: int = 0
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence MLA in the expanded form, causal.  positions: (S,).
+    Returns (out, (c_kv, k_pe))."""
+    q_nope, q_pe = _mla_q(p, cfg, x, positions)
+    c_kv, k_pe = _mla_latent(p, cfg, x, positions)
+    k_nope = _proj(c_kv, p["w_uk"])
+    v = _proj(c_kv, p["w_uv"])
+    k_pe_h = k_pe[:, :, None, :].expand(*k_nope.shape[:3], k_pe.shape[-1])
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe_h], dim=-1)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(out, p["wo"]), (c_kv, k_pe)
+
+
+def mla_decode(p, cfg: ModelConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], lengths: torch.Tensor, *,
+               window: int = 0
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Absorbed-form MLA decode.  x: (B,1,d); cache ``c_kv`` (B,S,rank)
+    and ``k_pe`` (B,S,rope), updated in place at ``lengths`` (int32
+    (B,); a row outside [0, S) writes nothing); returns (out, cache).
+    The query absorbs ``w_uk`` and the context is lifted through
+    ``w_uv`` in float32, as the reference computes them."""
+    m = cfg.mla
+    q_nope, q_pe = _mla_q(p, cfg, x, lengths[:, None])
+    c_new, kpe_new = _mla_latent(p, cfg, x, lengths[:, None])
+    _scatter_time(cache["c_kv"], c_new, lengths)
+    _scatter_time(cache["k_pe"], kpe_new, lengths)
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0].float(),
+                         p["w_uk"].float())
+    ctx = mla_decode_attention(
+        q_abs.contiguous(), q_pe[:, 0].float().contiguous(), cache["c_kv"],
+        cache["k_pe"], lengths,
+        scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5,
+        window=window)
+    out = torch.einsum("bhr,rhk->bhk", ctx, p["w_uv"].float()).to(x.dtype)
+    return _out_proj(out[:, None], p["wo"]), cache

@@ -1,21 +1,27 @@
-"""The port's decoder stack: dense and MoE transformers and Mamba2 SSMs.
+"""The port's decoder stack: dense and MoE transformers, Mamba2 SSMs and
+their hybrid interleave.
 
-Port of the dense, MoE and SSM families of the reference package's
-``repro.models.transformer``.  The parameters are ``nn.Module``s: a
-``Transformer`` holds the embedding table, the final norm and one
-``nn.ModuleDict`` block per layer, keyed as the reference's pytree is:
-``norm1``, ``attn`` or ``ssm`` by the layer's kind
-(``cfg.layer_kinds()``), and ``norm2``, ``ffn`` when the layer has an
-FFN: the MoE FFN of ``models.moe`` on the layers ``cfg.moe_layers()``
-flags (after ``first_dense`` lead layers, every ``moe_layer_period``-th),
-a dense MLP on the others.  The reference stacks the layers and runs
-them under ``lax.scan``; here the stack is a Python loop over the
-blocks, which sums the MoE layers' aux losses.  The cache is a list with
-one dict per layer: ``{"k", "v"}`` of ``(B, cache_len, KV, hd)``
+Port of the dense, MoE, SSM and hybrid families of the reference
+package's ``repro.models.transformer``.  The parameters are
+``nn.Module``s: a ``Transformer`` holds the embedding table, the final
+norm and one ``nn.ModuleDict`` block per layer, keyed as the
+reference's pytree is: ``norm1``, ``attn`` or ``ssm`` by the layer's
+kind (``cfg.layer_kinds()``), and ``norm2``, ``ffn`` when the layer has
+an FFN: the MoE FFN of ``models.moe`` on the layers ``cfg.moe_layers()``
+flags (after ``first_dense`` lead layers, every
+``moe_layer_period``-th), a dense MLP on the others.  An attention
+layer's ``attn`` is GQA, or DeepSeek-V2's MLA when ``cfg.mla`` is set;
+a hybrid (Jamba) puts an attention layer every ``attn_layer_period``
+layers and Mamba2 layers between them.  The reference stacks the layers
+and runs them under ``lax.scan``; here the stack is a Python loop over
+the blocks, which sums the MoE layers' aux losses.  The cache is a list
+with one dict per layer: ``{"k", "v"}`` of ``(B, cache_len, KV, hd)``
 tensors for an attention layer (with ``REPRO_KV_INT8=1``: int8 codes
 beside float32 ``k_scale`` / ``v_scale`` of ``(B, cache_len, KV, 1)``),
-``{"conv_x", "conv_bc", "ssm"}`` for a Mamba2 layer (which ignores
-``cache_len`` and ``lengths``); ``decode_step`` updates it in place.
+``{"c_kv", "k_pe"}`` of ``(B, cache_len, rank | rope)`` in the model's
+dtype for an MLA layer (int8 or not), ``{"conv_x", "conv_bc", "ssm"}``
+for a Mamba2 layer (which ignores ``cache_len`` and ``lengths``);
+``decode_step`` updates it in place.
 
 Public API (used by registry / serving):
     init_params(cfg, generator)                -> Transformer
@@ -25,11 +31,11 @@ Public API (used by registry / serving):
                                                -> (logits, cache)
     init_cache(cfg, batch, cache_len, device)  -> cache
 
-The dense and MoE families with rotary positions (q/k norms included)
-and the attention-free SSM family are ported.  Hybrid, MLA, enc-dec and
-VLM configurations and learned positions raise ``NotImplementedError``
-(from ``build``, ``init_params``, ``init_cache`` and the weight
-conversion) naming the ROADMAP item that adds them.
+The dense and MoE families with rotary positions (q/k norms and MLA
+included), the attention-free SSM family and the hybrid interleave are
+ported.  Enc-dec and VLM configurations and learned positions raise
+``NotImplementedError`` (from ``build``, ``init_params``, ``init_cache``
+and the weight conversion) naming the ROADMAP item that adds them.
 """
 from __future__ import annotations
 
@@ -59,13 +65,8 @@ def require_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port,
     naming its ROADMAP item."""
     missing = []
-    if cfg.family not in ("dense", "moe", "ssm"):
-        missing.append(f"the {cfg.family} family")
-    if cfg.attn_layer_period:
-        missing.append("the hybrid Mamba2 / attention interleave "
-                       "(ROADMAP Queue A 8b-hybrid, Jamba)")
-    if cfg.mla is not None:
-        missing.append("MLA attention (ROADMAP Queue A 8c)")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        missing.append(f"the {cfg.family} family (ROADMAP Queue A 8e)")
     if cfg.encoder is not None:
         missing.append("enc-dec / VLM stacks and cross-attention "
                        "(ROADMAP Queue A 8e)")
@@ -128,7 +129,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                moe_flag: bool, dtype: torch.dtype) -> nn.ModuleDict:
     blk = {"norm1": init_norm(gen, cfg.d_model, cfg.norm, dtype)}
     if kind == "attn":
-        blk["attn"] = attn.init_gqa(gen, cfg, dtype)
+        blk["attn"] = (attn.init_mla(gen, cfg, dtype) if cfg.mla is not None
+                       else attn.init_gqa(gen, cfg, dtype))
     else:
         blk["ssm"] = ssm.init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)
     if moe_flag or cfg.d_ff:
@@ -156,6 +158,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    if kind == "attn" and cfg.mla is not None:
+        # before the int8 switch, as the reference: the latent cache stays
+        # in the model's dtype
+        m = cfg.mla
+        return {"c_kv": torch.zeros(batch, cache_len, m.kv_lora_rank,
+                                    dtype=dtype, device=device),
+                "k_pe": torch.zeros(batch, cache_len, m.qk_rope_head_dim,
+                                    dtype=dtype, device=device)}
     if kind == "attn":
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         if attn.kv_quantized():
@@ -191,11 +201,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _pad_time(x: torch.Tensor, target: int) -> torch.Tensor:
-    """Pad axis 1 (time) of a (B, S, KV, hd | 1) tensor up to
-    ``target``."""
+    """Pad axis 1 (time) of a (B, S, ...) tensor up to ``target``."""
     if x.shape[1] == target:
         return x
-    return F.pad(x, (0, 0, 0, 0, 0, target - x.shape[1]))
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, target - x.shape[1]))
 
 
 def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
@@ -218,6 +227,15 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
             a, sc = ssm.mamba2_forward(bp["ssm"], cfg.d_model, cfg.ssm, h)
             if mode == "prefill":
                 new_cache = sc
+    elif cfg.mla is not None and mode == "decode":
+        a, new_cache = attn.mla_decode(bp["attn"], cfg, h, cache, lengths,
+                                       window=window)
+    elif cfg.mla is not None:
+        a, (c_kv, k_pe) = attn.mla_forward(bp["attn"], cfg, h, positions,
+                                           window=window)
+        if mode == "prefill":
+            new_cache = {"c_kv": _pad_time(c_kv, cache_len),
+                         "k_pe": _pad_time(k_pe, cache_len)}
     elif mode == "decode":
         a, new_cache = attn.gqa_decode(bp["attn"], cfg, h, cache, lengths,
                                        window=window)

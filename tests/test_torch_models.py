@@ -1,5 +1,6 @@
 """The port's models against the reference's, on the same weights: two
-dense transformers and the Mamba2 SSM.
+dense transformers, the Mamba2 SSM, DeepSeek-V2-Lite (MLA beside a
+dense lead layer and MoE layers) and the Jamba hybrid.
 
 Each reduced config's weights come from the reference ``init_params``
 and cross through ``convert.model_params_from_jax``; both models then
@@ -9,8 +10,11 @@ and SSD scan take their kernels' plain versions.  ``forward``,
 and three ``decode_step``s (logits and caches) agree to 1e-4 absolute
 (measured: ≤ 1.6e-6 on the dense models' logits of magnitude ≤ 1.6,
 ≤ 5e-6 on their caches; ≤ 7e-6 on Mamba2's logits of magnitude ≤ 5.1,
-≤ 5e-6 on its caches).  Mamba2's prompt is 70 tokens, so that the scan
-carries its state across chunks of 32.  The port's own prefill + decode
+≤ 5e-6 on its caches).  Mamba2's and Jamba's prompts are 70 tokens, so
+that the scan carries its state across chunks of 32.  DeepSeek's cache
+is the latent ``c_kv`` / ``k_pe``, Jamba's K/V on its attention layer
+beside the Mamba2 layer's windows and state; the reference keeps
+DeepSeek's dense lead layer apart (``"lead"``) and stacks the rest.  The port's own prefill + decode
 is held against its forward at the reference's 3e-4
 (tests/test_arch_smoke.py).
 """
@@ -35,13 +39,16 @@ from repro_torch.models import layers as pt_layers
 from repro_torch.models import rope as pt_rope
 from repro_torch.models import transformer as tfm
 
-# MHA + QKV bias; GQA + 0.75 rope; attention-free SSD
-ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b", "mamba2-2.7b"]
+# MHA + QKV bias; GQA + 0.75 rope; attention-free SSD; MLA + MoE; the
+# Mamba2 / attention hybrid
+ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b", "mamba2-2.7b",
+         "deepseek-v2-lite-16b", "jamba-v0.1-52b"]
 ATTN_ARCHS = ARCHS[:2]
 ATOL = 1e-4
 B, EXTRA = 2, 3
-# prompt length per arch: Mamba2's crosses its reduced chunk of 32
-PROMPT = {"mamba2-2.7b": 70}
+# prompt length per arch: the SSM layers' crosses their reduced chunk
+# of 32
+PROMPT = {"mamba2-2.7b": 70, "jamba-v0.1-52b": 70}
 
 
 @pytest.fixture(scope="module")
@@ -66,16 +73,24 @@ def _t(a):
     return torch.from_numpy(np.asarray(a)).long()
 
 
-def _ref_cache(cache, layer, name):
-    return np.asarray(cache["stack"][0][name][layer])
+def _ref_layer(cfg, tree, i):
+    """Layer ``i``'s entry of a reference pytree of ``{"lead",
+    "stack"}`` (parameters or cache): repeat ``(i - lead) // p`` of
+    stack entry ``(i - lead) % p``."""
+    lead, p, _ = tfm.split_pattern(cfg)
+    if i < lead:
+        return tree["lead"][i]
+    j, r = (i - lead) % p, (i - lead) // p
+    return jax.tree.map(lambda a: np.asarray(a)[r], tree["stack"][j])
 
 
-def _check_caches(pc, rc, n_layers):
+def _check_caches(cfg, pc, rc, n_layers):
     assert len(pc) == n_layers
     for i in range(n_layers):
-        assert set(pc[i]) == set(rc["stack"][0])
+        ref_layer = _ref_layer(cfg, rc, i)
+        assert set(pc[i]) == set(ref_layer)
         for name, got in pc[i].items():
-            want = _ref_cache(rc, i, name)
+            want = np.asarray(ref_layer[name])
             assert got.shape == want.shape, name
             assert got.numpy().dtype == want.dtype, name
             np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
@@ -96,23 +111,31 @@ def test_port_registry_lists_the_reference_archs():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_converted_weights_are_the_reference_weights(arch, rigs):
-    _, params, _, pparams, _ = rigs[arch]
+    _, params, port, pparams, _ = rigs[arch]
     np.testing.assert_array_equal(pparams.embed.numpy(), params["embed"])
-    stack = params["stack"][0]
     for i, blk in enumerate(pparams.layers):
-        for name, sub in blk.items():
-            for key, w in sub.items():
-                np.testing.assert_array_equal(
-                    w.numpy(), np.asarray(stack[name][key][i]))
+        want = _ref_layer(port.cfg, params, i)
+        assert set(blk) == set(want)
+        flat = jax.tree_util.tree_flatten_with_path(want)[0]
+        got = dict(blk.named_parameters())
+        assert len(got) == len(flat)
+        for path, w in flat:
+            key = ".".join(str(getattr(k, "key", k)) for k in path)
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference(arch, rigs):
     ref, params, port, pparams, toks = rigs[arch]
-    want, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    want, want_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})
     with torch.inference_mode():
         got, aux = port.forward(pparams, {"tokens": _t(toks)})
-    assert got.shape == want.shape and float(aux) == 0.0
+    assert got.shape == want.shape
+    if port.cfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL)
 
@@ -129,7 +152,7 @@ def test_prefill_and_decode_match_reference(arch, rigs):
                                S + EXTRA)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL)
-    _check_caches(pc, rc, cfg.num_layers)
+    _check_caches(cfg, pc, rc, cfg.num_layers)
     if arch in ATTN_ARCHS:
         assert pc[0]["k"].shape == (B, S + EXTRA, cfg.num_kv_heads,
                                     cfg.head_dim)
@@ -142,7 +165,7 @@ def test_prefill_and_decode_match_reference(arch, rigs):
             got, pc = port.decode_step(pparams, _t(tok), pc, plens)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL)
-        _check_caches(pc, rc, cfg.num_layers)
+        _check_caches(cfg, pc, rc, cfg.num_layers)
         lens, plens = lens + 1, plens + 1
 
 
@@ -206,8 +229,9 @@ def _hybrid_without_moe():
 
 
 def _unported(arch):
-    """A config of each kind the port does not serve yet.  OLMoE itself
-    is ported; its case is OLMoE with learned positions (8e)."""
+    """A config of each kind the port did not serve before MLA and the
+    hybrid interleave were ported.  OLMoE itself is ported; its case is
+    OLMoE with learned positions (8e)."""
     if arch == "jamba-interleave":
         return _hybrid_without_moe()
     cfg = pt_reduced(pt_get_config(arch))
@@ -216,12 +240,37 @@ def _unported(arch):
     return cfg
 
 
+# ported since: they build and match the reference
+NOW_PORTED = ("jamba-interleave", "deepseek-v2-lite-16b", "jamba-v0.1-52b")
+
+
 @pytest.mark.parametrize("arch", ["jamba-interleave", "olmoe-1b-7b",
                                   "deepseek-v2-lite-16b", "whisper-medium",
                                   "internvl2-1b", "jamba-v0.1-52b"])
 def test_unported_families_raise_and_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(_unported(arch))
+    """The enc-dec, VLM and learned-position cases (ROADMAP 8e) raise
+    and name their item; the interleave alone, DeepSeek-V2-Lite and
+    Jamba, ported since, build and give the reference's forward logits
+    on its weights."""
+    cfg = _unported(arch)
+    if arch not in NOW_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(cfg)
+        return
+    rcfg = reduced(get_config(cfg.name.removesuffix("-reduced")))
+    if arch == "jamba-interleave":
+        rcfg = dataclasses.replace(rcfg, moe=None)
+    ref = ref_build(rcfg)
+    params = ref.init(jax.random.PRNGKey(3))
+    port = build(cfg)
+    pparams = model_params_from_jax(cfg, jax.tree.map(np.asarray, params),
+                                    device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, 40))
+    want, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    with torch.inference_mode():
+        got, _ = port.forward(pparams, {"tokens": _t(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
 
 
 def test_int8_kv_cache_raises(monkeypatch):

@@ -259,9 +259,33 @@ def test_prefill_and_decode_match_reference(name, rigs):
 
 
 def test_still_unported_features_raise_on_the_moe_family():
+    """Learned positions (8e) raise; the attention interleave (8b-hybrid,
+    ported since) builds on the MoE family, here OLMoE's MoE and q/k
+    norms on a period-2 interleave with reduced Jamba's Mamba2 layers,
+    and gives the reference's forward logits and aux loss."""
     cfg = pt_reduced(pt_get_config("olmoe-1b-7b"))
     tfm.require_supported(cfg)
     for kw, item in ((dict(learned_positions=True), "8e"),
                      (dict(attn_layer_period=2), "8b-hybrid")):
-        with pytest.raises(NotImplementedError, match=item):
-            build(dataclasses.replace(cfg, **kw))
+        if item == "8e":
+            with pytest.raises(NotImplementedError, match=item):
+                build(dataclasses.replace(cfg, **kw))
+            continue
+        ssm = pt_reduced(pt_get_config("jamba-v0.1-52b")).ssm
+        pcfg = dataclasses.replace(cfg, ssm=ssm, **kw)
+        rcfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
+                                   ssm=ssm, **kw)
+        assert pcfg.layer_kinds() == ["attn", "ssm"]
+        ref = ref_build(rcfg)
+        params = ref.init(jax.random.PRNGKey(4))
+        pparams = model_params_from_jax(
+            pcfg, jax.tree.map(np.asarray, params), device="cpu")
+        toks = np.random.default_rng(4).integers(0, pcfg.vocab_size,
+                                                 size=(B, 40))
+        want, want_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})
+        with torch.inference_mode():
+            got, aux = build(pcfg).forward(
+                pparams, {"tokens": torch.from_numpy(toks).long()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)

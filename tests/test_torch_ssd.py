@@ -229,8 +229,9 @@ def test_launch_guards_without_the_card():
     c_view = bcc[..., 32:].reshape(2, 40, 2, 16)
     assert not b_view.is_contiguous()
     ss.launchable(x, dt, a, b_view, c_view)
+    ss.launchable(*_args(hd=64))             # jamba-v0.1-52b's (64, 16)
     with pytest.raises(ValueError, match="head_dim"):
-        ss.launchable(*_args(hd=64))
+        ss.launchable(*_args(hd=48))
     with pytest.raises(ValueError, match="d_state"):
         ss.launchable(*_args(ds=32))
     with pytest.raises(ValueError, match="contiguous"):

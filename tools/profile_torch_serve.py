@@ -5,8 +5,10 @@
 
 Builds ``InferenceEngine(ARCH, workload="generate")`` (default
 qwen1.5-0.5b; mamba2-2.7b for the SSM serve path, olmoe-1b-7b for the
-MoE one) at full width (bf16,
-the port's seeded init) at two sizes — ``serve``
+MoE one, deepseek-v2-lite-16b for MLA, jamba-v0.1-52b for the hybrid,
+cut to its first 16 of 32 layers as ``chip_smoke.py``'s
+``serve_hybrid`` cuts it) at full width (bf16, the port's seeded init)
+at two sizes — ``serve``
 (``launch.serve``'s prompt of 32 and 4 generated tokens) and
 ``serve_long`` (a 1,024-token prompt and 32 tokens) — and, for batch 1
 and batch 32 of each, runs one batch to warm up, three on the host
@@ -21,9 +23,10 @@ per (size, batch):
   the batch the card waits on the host;
 - ``kernels`` — kernel launches per batch;
 - ``top_kernels`` — device time by kernel name;
-- ``flash_attention_ms`` / ``decode_attention_ms`` / ``ssd_scan_ms``
-  — the port's model kernels' time in the batch, their launches, and
-  their share of the kernel time;
+- ``flash_attention_ms`` / ``decode_attention_ms`` / ``ssd_scan_ms`` /
+  ``mla_decode_ms`` — the port's model kernels' time in the batch, their
+  launches (MLA decode: its kernel and, when the cache is split, its
+  merge), and their share of the kernel time;
 - ``moe_ms`` / ``moe_share`` / ``moe_calls`` (MoE configs) — the
   kernel time of every ``apply_moe`` call (router, routing, dispatch,
   the experts' products, combine), read off a ``record_function`` range
@@ -48,7 +51,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import nvidia_smi  # noqa: E402
+from chip_smoke import HYBRID_ARCH, hybrid_config, nvidia_smi  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
@@ -104,8 +107,11 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
            "kernels": sum(e.count for e in kernels),
            "top_kernels": [{"name": e.key[:80], "count": e.count,
                             "ms": _device_us(e) / 1e3} for e in top]}
-    for name in ("flash_attention", "decode_attention", "ssd_scan"):
-        ms, n = _kernel_sum(kernels, f"{name}_kernel")
+    for name, pattern in (("flash_attention", "flash_attention_kernel"),
+                          ("decode_attention", "decode_attention_kernel"),
+                          ("ssd_scan", "ssd_scan_kernel"),
+                          ("mla_decode", "mla_decode_")):
+        ms, n = _kernel_sum(kernels, pattern)
         out[f"{name}_ms"] = ms
         out[f"{name}_launches"] = n
         out[f"{name}_share"] = ms / busy_ms if busy_ms else None
@@ -128,7 +134,8 @@ def main() -> int:
         return 1
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    cfg = get_config(args.arch)
+    cfg = hybrid_config() if args.arch == HYBRID_ARCH else get_config(
+        args.arch)
     # a profiler range around each MoE FFN call
     transformer.apply_moe = _annotated(transformer.apply_moe, MOE_RANGE)
     rows = {}
@@ -142,7 +149,8 @@ def main() -> int:
             rows[f"{label}/b{b}"] = profile_batch(eng, b, trace)
         del eng
         torch.cuda.empty_cache()
-    print(json.dumps({"arch": cfg.name, "dtype": cfg.dtype, "sizes": SIZES,
+    print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
+                      "dtype": cfg.dtype, "sizes": SIZES,
                       "rows": rows,
                       "seconds": time.perf_counter() - t0,
                       "nvidia_smi": nvidia_smi()}), flush=True)
