@@ -390,6 +390,38 @@ printing one JSON line per phase:
                    (one period), capacity factor E / k: prefill(300),
                    which crosses the 256-token chunk, + 3 decode steps
                    against forward(303) within 3e-4.
+41. encdec_kernels — B3 and B4 at whisper-medium's and internvl2-1b's
+                   shapes against their plain versions at 2e-2 / 2e-5,
+                   every case twice bitwise: B3 unmasked at the
+                   encoder's S 1,500 (16 × 64, float32 as the engine's
+                   frames make it; B 32 and 1 timed against SDPA), B3
+                   with 32 queries over 1,500 keys (B 32 and 1 timed)
+                   and a ragged 7 over 1,499 in both dtypes, B4 over
+                   the float32 cross cache at lengths 1,499 (B 32 and B
+                   1, which splits, timed against SDPA with no mask),
+                   B3 causal at InternVL2's 288 positions (14 over 2 ×
+                   64) and B4 at its group of 7 over the 293-slot cache
+                   (B 32 timed; ragged lengths -1 … S + 5), the float32
+                   consistency runs' shapes; and B3 refusing ``causal``
+                   with a key length of its own.
+42. serve_audio  — ``launch.serve --arch whisper-medium --full
+                   --workload generate`` through its ``run`` (bf16
+                   weights, the engine's float32 zero frames): as
+                   ``serve``, exactly 72 ``flash_attention`` (24
+                   encoder, 24 self, 24 cross) and 192
+                   ``decode_attention`` (24 × 4 self, 24 × 4 cross)
+                   launches per batch, and the encoder's ms and share
+                   of a batch at b 1 and 32 (host clock, synchronised
+                   around ``transformer.encode``).
+43. serve_vlm    — the same on internvl2-1b (256 patch rows before the
+                   32-token prompt, decoding from position 288 over a
+                   293-slot cache): exactly 24 ``flash_attention`` and
+                   24 × 4 ``decode_attention`` launches per batch.
+44. audio_consistency / vlm_consistency — each whole in float32, batch
+                   2, with frames (whisper) or patch embeddings at the
+                   token table's scale (InternVL2) drawn after the
+                   tokens from the same ``default_rng(5)``: prefill(300)
+                   + 3 decode steps against forward(303) within 3e-4.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -411,7 +443,10 @@ B4's ``float_cache_ms`` beside; the ``flash_attention`` row adds
 (launches on ``serve_hybrid``, times at Jamba's shapes); the
 ``mla_decode`` row, a kernel with no TPU counterpart, is timed at
 ``serve_mla``'s last decode step with ``path_*``, ``long_*`` and
-``batch1_*``), the nvidia-smi line, and the last
+``batch1_*``; the ``flash_attention`` and ``decode_attention`` rows
+add ``audio_launches`` and ``vlm_launches`` from ``serve_audio`` and
+``serve_vlm`` and ``audio_*`` / ``vlm_*`` times at their shapes), the
+nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
 any phase.  Imports nothing of JAX or of the reference package.
@@ -475,6 +510,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import quantize_kv  # noqa: E402
 from repro_torch.serving import (ContinuousEngine,  # noqa: E402
                                  InferenceEngine)
@@ -559,6 +595,21 @@ HYBRID_ARCH = "jamba-v0.1-52b"
 HYBRID_LAYERS = 16
 HYBRID_ARGS = ["--arch", HYBRID_ARCH, "--full", "--workload", "generate",
                "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+
+
+# the enc-dec serve path: launch.serve's arguments on whisper-medium
+# (whole: 24 encoder and 24 decoder layers, 16 heads of 64, n_ctx 1,500;
+# the engine's frames are float32 zeros, so the encoder and the cross
+# K/V run in float32, the decoder's self-attention in bf16)
+AUDIO_ARCH = "whisper-medium"
+AUDIO_ARGS = ["--arch", AUDIO_ARCH, "--full", "--workload", "generate",
+              "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+# the VLM serve path: internvl2-1b (Qwen2-0.5B's 24 layers, 14 query
+# heads over 2 kv heads of 64) with its 256 patch rows in front of the
+# prompt
+VLM_ARCH = "internvl2-1b"
+VLM_ARGS = ["--arch", VLM_ARCH, "--full", "--workload", "generate",
+            "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
 
 
 def hybrid_config(layers: int = HYBRID_LAYERS):
@@ -3031,11 +3082,14 @@ def phase_campaign_user_size(dev, n_fracs: int = 1024, chunk: int = 8192,
 
 
 def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False,
-                 hdv=None):
+                 hdv=None, sk=None):
+    """q, k, v; ``sk``: a key length other than the query length."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     qshape = (b, h, hd) if decode else (b, s, h, hd)
+    sk = sk or s
     q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
-               for shape in (qshape, (b, s, kv, hd), (b, s, kv, hdv or hd)))
+               for shape in (qshape, (b, sk, kv, hd),
+                             (b, sk, kv, hdv or hd)))
     return q, k, v
 
 
@@ -3054,10 +3108,13 @@ def _attn_bound(dtype, io_elems: int, pairs: int, hd: int) -> dict:
 
 
 def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
-                 seed=0, timed=False, hdv=None) -> dict:
+                 seed=0, timed=False, hdv=None, sk=None) -> dict:
     """B3 against its plain version; ``hdv``: a value width other than
-    the query/key width (MLA's pair)."""
-    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, hdv=hdv)
+    the query/key width (MLA's pair); ``sk``: a key length other than
+    the query length (cross-attention, unmasked)."""
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, hdv=hdv,
+                           sk=sk)
+    sk = k.shape[1]
     got = flash_attention(q, k, v, causal=causal, window=window)
     again = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -3066,16 +3123,19 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
     case = dict(kernel="flash_attention", dtype=str(dtype), batch=b, seq=s,
                 heads=h, kv_heads=kv, head_dim=hd, value_dim=v.shape[3],
                 causal=causal, window=window, max_abs_err=err)
+    if sk != s:
+        case["key_seq"] = sk
     check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
           f"flash_attention vs plain: {case}")
     check(torch.equal(got, again), f"flash_attention repeats bitwise: {case}")
     if timed:
-        pos = torch.arange(s)
-        adm = torch.ones(s, s, dtype=torch.bool)
+        pos = torch.arange(max(s, sk))
+        pq, pk = pos[:s, None], pos[None, :sk]
+        adm = torch.ones(s, sk, dtype=torch.bool)
         if causal:
-            adm &= pos[None, :] <= pos[:, None]
+            adm &= pk <= pq
         if window:
-            adm &= pos[:, None] - pos[None, :] < window
+            adm &= pq - pk < window
         # q, k, v read once, the output written once; q·k over hd and
         # p·v over the value width per admitted pair
         case.update(_attn_bound(dtype, q.numel() + k.numel() + v.numel()
@@ -3090,13 +3150,17 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
         case["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, **gqa))
-        case["library_note"] = ("scaled_dot_product_attention(is_causal) "
-                                "on (B, H, S, hd) copies made beforehand")
+        case["library_note"] = (f"scaled_dot_product_attention(is_causal="
+                                f"{causal}) on (B, H, S, hd) copies made "
+                                f"beforehand")
     return case
 
 
 def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
-                  seed=0, timed=False) -> dict:
+                  seed=0, timed=False, unmasked=False) -> dict:
+    """B4 against its plain version; ``unmasked``: every row admits the
+    whole cache (cross-attention's decode), and SDPA is timed with no
+    mask."""
     q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=True)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     got = decode_attention(q, k, v, lens, window=window)
@@ -3131,15 +3195,20 @@ def _check_decode(dev, dtype, b, s, h, kv, hd, lengths, *, window=0,
             q, k, v, lens, window=window))
         pos = torch.arange(s, device=dev)
         mask = (pos[None, :] <= lens.long()[:, None])[:, None, None, :]
+        if unmasked:
+            check(bool(mask.all()), f"decode_attention: an unmasked case "
+                  f"admits every position: {case}")
+            mask = None
         qt = q[:, :, None, :]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         gqa = {"enable_gqa": True} if h != kv else {}
         case["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, **gqa))
-        case["library_note"] = ("scaled_dot_product_attention with a "
-                                "boolean length mask on (B, KV, S, hd) "
-                                "copies made beforehand")
+        case["library_note"] = (
+            "scaled_dot_product_attention " + (
+                "with no mask" if unmasked else "with a boolean length "
+                "mask") + " on (B, KV, S, hd) copies made beforehand")
     return case
 
 
@@ -3426,14 +3495,16 @@ def phase_serve_long(dev, jobs: int = 300) -> dict:
 
 
 def _consistency(dev, arch: str, prompt: int, extra: int = 3,
-                 layers: int = 0) -> dict:
+                 layers: int = 0, inputs=None) -> dict:
     """``arch`` at full width in float32 from the port's seeded init,
     batch 2 (its first ``layers`` layers when given): the logits of
     prefill(prompt) and ``extra`` decode steps against the forward
     logits of the whole sequence, within 3e-4 (abs + rel).  A MoE
     config runs at capacity factor E / k, where no token is dropped (at
     1.25 the three passes' group sizes give different capacities, and
-    so different drops)."""
+    so different drops).  ``inputs(cfg, rng)``, drawn after the tokens
+    from the same generator, returns the batch's other inputs and the
+    positions they take in front of the prompt (a VLM's patch rows)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
@@ -3444,26 +3515,31 @@ def _consistency(dev, arch: str, prompt: int, extra: int = 3,
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     bundle = build_model(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(5))
-    toks = torch.as_tensor(np.random.default_rng(5).integers(
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, size=(2, prompt + extra)), device=dev)
+    more, front = ({}, 0) if inputs is None else inputs(cfg, rng)
+    more = {k: torch.as_tensor(a, device=dev) for k, a in more.items()}
     with torch.inference_mode():
-        ref, _ = bundle.forward(params, {"tokens": toks})
-        lg, cache = bundle.prefill(params, {"tokens": toks[:, :prompt]},
-                                   prompt + extra)
+        ref, _ = bundle.forward(params, {"tokens": toks, **more})
+        lg, cache = bundle.prefill(params, {"tokens": toks[:, :prompt],
+                                            **more}, front + prompt + extra)
         got = [lg[:, 0]]
-        lengths = torch.full((2,), prompt, dtype=torch.int32, device=dev)
+        lengths = torch.full((2,), front + prompt, dtype=torch.int32,
+                             device=dev)
         for t in range(extra):
             lg, cache = bundle.decode_step(
                 params, toks[:, prompt + t:prompt + t + 1], cache, lengths)
             got.append(lg[:, 0])
             lengths = lengths + 1
-    want = ref[:, prompt - 1:]
+    want = ref[:, front + prompt - 1:]
     got = torch.stack(got, dim=1)
     diff = (got - want).abs()
     tol = 3e-4
     worst = float((diff / (tol + tol * want.abs())).max())
     info = dict(arch=arch, dtype="float32", layers=cfg.num_layers, batch=2,
-                prompt=prompt, decode_steps=extra,
+                prompt=prompt, decode_steps=extra, front_positions=front,
+                inputs=sorted(more),
                 max_abs_diff=float(diff.max()),
                 max_abs_logit=float(want.abs().max()),
                 tolerance=f"|diff| <= {tol} + {tol}*|forward|",
@@ -4210,6 +4286,165 @@ def phase_hybrid_consistency(dev) -> dict:
     return info
 
 
+def phase_encdec_kernels(dev) -> dict:
+    """B3 and B4 at the enc-dec and VLM paths' shapes against their
+    plain versions, every case twice, bitwise: whisper's encoder (B3
+    unmasked at S 1,500, 16 heads of 64, float32 as the engine runs it;
+    batch 32 and 1 timed against SDPA), its cross-attention prefill (B3
+    with 32 queries over 1,500 keys, batch 32 and 1 timed, and a ragged
+    7 over 1,499) and decode (B4 over the 1,500-row cross cache at
+    lengths 1,499, so every key; batch 32 and 1 timed against SDPA with
+    no mask; batch 1 splits the cache), InternVL2's prefill (B3 causal
+    at S 256 + 32 = 288, 14 query heads over 2 kv heads) and decode (B4
+    at group 7 over its 293-slot cache, batch 32 timed, ragged lengths
+    -1…S+5); bf16 where the path runs bf16, float32 where the
+    consistency runs do; and B3's refusal of ``causal`` with a key
+    length of its own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    audio, vlm = get_config(AUDIO_ARCH), get_config(VLM_ARCH)
+    h, hd, n_ctx = audio.num_heads, audio.head_dim, audio.encoder.n_ctx
+    vh, vkv, vhd = vlm.num_heads, vlm.num_kv_heads, vlm.head_dim
+    front = vlm.encoder.n_ctx + SERVE_PROMPT
+    vcache = front + SERVE_GEN + 1
+    full = [n_ctx - 1]
+    out = {
+        "audio_encoder": _check_flash(dev, f32, 32, n_ctx, h, h, hd,
+                                      causal=False, seed=300, timed=True),
+        "audio_encoder_batch1": _check_flash(dev, f32, 1, n_ctx, h, h, hd,
+                                             causal=False, seed=301,
+                                             timed=True),
+        "audio_cross": _check_flash(dev, f32, 32, SERVE_PROMPT, h, h, hd,
+                                    causal=False, sk=n_ctx, seed=302,
+                                    timed=True),
+        "audio_cross_batch1": _check_flash(dev, f32, 1, SERVE_PROMPT, h, h,
+                                           hd, causal=False, sk=n_ctx,
+                                           seed=303, timed=True),
+        "audio_cross_decode": _check_decode(dev, f32, 32, n_ctx, h, h, hd,
+                                            full * 32, seed=304, timed=True,
+                                            unmasked=True),
+        "audio_cross_decode_batch1": _check_decode(
+            dev, f32, 1, n_ctx, h, h, hd, full, seed=305, timed=True,
+            unmasked=True),
+        "vlm_prefill": _check_flash(dev, bf16, 32, front, vh, vkv, vhd,
+                                    seed=306, timed=True),
+        "vlm_prefill_batch1": _check_flash(dev, bf16, 1, front, vh, vkv, vhd,
+                                           seed=307, timed=True),
+        "vlm_decode": _check_decode(dev, bf16, 32, vcache, vh, vkv, vhd,
+                                    [front + SERVE_GEN - 1] * 32, seed=308,
+                                    timed=True)}
+    cases = list(out.values())
+    for dt in (bf16, f32):
+        cases.append(_check_flash(dev, dt, 2, 7, h, h, hd, causal=False,
+                                  sk=n_ctx - 1, seed=310))
+        cases.append(_check_flash(dev, dt, 2, n_ctx, h, h, hd, causal=False,
+                                  seed=311))
+        cases.append(_check_decode(dev, dt, 3, n_ctx, h, h, hd, full * 3,
+                                   seed=312))
+        cases.append(_check_decode(dev, dt, 8, vcache, vh, vkv, vhd,
+                                   [-1, 0, 1, 255, front, vcache - 1, vcache,
+                                    vcache + 5], seed=313))
+    # the float32 consistency runs' shapes: whisper's cross prefill and
+    # InternVL2's forward over 256 + 303 positions
+    cases.append(_check_flash(dev, f32, 2, 300, h, h, hd, causal=False,
+                              sk=n_ctx, seed=314))
+    cases.append(_check_flash(dev, f32, 2, vlm.encoder.n_ctx + 303, vh, vkv,
+                              vhd, seed=315))
+    q, k, v = _attn_inputs(dev, bf16, 1, 8, h, h, hd, 316, sk=16)
+    try:
+        flash_attention(q, k, v, causal=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "flash_attention refuses causal with S_k != S")
+    emit("encdec_kernels", archs=[AUDIO_ARCH, VLM_ARCH], cases=cases,
+         worst=_worst(cases),
+         decode_splits={k: out[k]["splits"] for k in out
+                        if "decode" in k})
+    return out
+
+
+def _encoder_share(eng, b: int, samples: int = 3) -> dict:
+    """Whisper's encoder in a batch of ``b``: the median host-clock
+    time of ``transformer.encode`` (synchronised on both sides) inside
+    ``samples`` runs of the batch, and its share of the median batch."""
+    encode = transformer.encode
+    spent = []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    transformer.encode = timed
+    try:
+        walls = [eng.run_batch(b) for _ in range(samples)]
+    finally:
+        transformer.encode = encode
+    wall, enc = float(np.median(walls)), float(np.median(spent))
+    return dict(batch=b, batch_ms=wall * 1e3, encoder_ms=enc * 1e3,
+                encoder_share=enc / wall)
+
+
+def phase_serve_audio(dev) -> dict:
+    """``launch.serve --arch whisper-medium --full --workload generate``:
+    72 B3 (24 encoder, 24 self, 24 cross) and 192 B4 (24 × 4 self, 24 ×
+    4 cross) launches a batch, no B5, MLA decode or int8 B4; the
+    encoder's share of a batch at b 1 and 32."""
+    cfg = get_config(AUDIO_ARCH)
+    n, e = cfg.num_layers, cfg.encoder.num_layers
+    return _serve_model(
+        dev, "serve_audio", AUDIO_ARGS,
+        _launch_counts(flash_attention=e + 2 * n,
+                       decode_attention=2 * n * SERVE_GEN),
+        extra=lambda eng: {"encoder": [_encoder_share(eng, b)
+                                       for b in (1, eng.max_batch)]})
+
+
+def phase_serve_vlm(dev) -> dict:
+    """``launch.serve --arch internvl2-1b --full --workload generate``:
+    the 256 patch rows in front of the 32-token prompt, decoding from
+    position 288 over a 293-slot cache: 24 B3 and 24 × 4 B4 a batch."""
+    n = get_config(VLM_ARCH).num_layers
+    return _serve_model(dev, "serve_vlm", VLM_ARGS, _launch_counts(
+        flash_attention=n, decode_attention=n * SERVE_GEN))
+
+
+def _frames(cfg, rng) -> tuple:
+    """Whisper's encoder input: standard normal frames."""
+    return {"frames": rng.standard_normal(
+        (2, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32)}, 0
+
+
+def _patches(cfg, rng) -> tuple:
+    """InternVL2's patch embeddings at the token table's init scale, in
+    front of the prompt."""
+    n = cfg.encoder.n_ctx
+    return {"patch_embeds": 0.02 * rng.standard_normal(
+        (2, n, cfg.d_model)).astype(np.float32)}, n
+
+
+def phase_audio_consistency(dev) -> dict:
+    """whisper-medium whole in float32 with frames: prefill(300) + 3
+    decode steps against forward(303)."""
+    info = _consistency(dev, AUDIO_ARCH, 300, inputs=_frames)
+    emit("audio_consistency", **info)
+    return info
+
+
+def phase_vlm_consistency(dev) -> dict:
+    """internvl2-1b whole in float32 with its 256 patch rows in front:
+    prefill(300) + 3 decode steps from position 556 against
+    forward(303)."""
+    info = _consistency(dev, VLM_ARCH, 300, inputs=_patches)
+    emit("vlm_consistency", **info)
+    return info
+
+
 def _kernel_row(name: str, path: str, launches: int, k: dict,
                 **extra) -> dict:
     source, replaces, tpu_ref = KERNELS[name]
@@ -4342,6 +4577,11 @@ def main() -> int:
     phase("mla_consistency", phase_mla_consistency, dev)
     served_hybrid = phase("serve_hybrid", phase_serve_hybrid, dev)
     phase("hybrid_consistency", phase_hybrid_consistency, dev)
+    encdec = phase("encdec_kernels", phase_encdec_kernels, dev)
+    served_audio = phase("serve_audio", phase_serve_audio, dev)
+    served_vlm = phase("serve_vlm", phase_serve_vlm, dev)
+    phase("audio_consistency", phase_audio_consistency, dev)
+    phase("vlm_consistency", phase_vlm_consistency, dev)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
@@ -4441,9 +4681,18 @@ def main() -> int:
             hybrid_launches=served_hybrid["launches"][name],
             **{f"hybrid_{k}": hybrid[f"{short}_serve"][key]
                for k, key in batch1_keys},
-            hybrid_bound_by=hybrid[f"{short}_serve"]["bound_by"], **extra)
-          for name, short, extra in (
-              ("flash_attention", "flash", {
+            hybrid_bound_by=hybrid[f"{short}_serve"]["bound_by"],
+            # whisper's and InternVL2's serve runs, and their shapes
+            audio_launches=served_audio["launches"][name],
+            vlm_launches=served_vlm["launches"][name],
+            **{f"{shape}_{k}": encdec[shape][key]
+               for shape in shapes
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)},
+            **extra)
+          for name, short, shapes, extra in (
+              ("flash_attention", "flash",
+               ("audio_encoder", "audio_encoder_batch1", "audio_cross",
+                "audio_cross_batch1", "vlm_prefill", "vlm_prefill_batch1"), {
                   # MLA's (192, 128) pair on serve_mla
                   "mla_launches": served_mla["launches"]["flash_attention"],
                   **{f"mla_{case}{k}": mla[f"flash_{shape}"][key]
@@ -4453,9 +4702,15 @@ def main() -> int:
                                                    "bound_by"),)},
                   "mla_library_note": mla["flash_serve"]["library_note"]}),
               ("decode_attention", "decode",
-               {"splits": {k: attn[f"decode_{k}"]["splits"]
-                           for k in ("serve", "long", "batch1",
-                                     "continuous", "moe")}}))),
+               ("audio_cross_decode", "audio_cross_decode_batch1",
+                "vlm_decode"),
+               {"splits": {**{k: attn[f"decode_{k}"]["splits"]
+                              for k in ("serve", "long", "batch1",
+                                        "continuous", "moe")},
+                           **{k: encdec[k]["splits"]
+                              for k in ("audio_cross_decode",
+                                        "audio_cross_decode_batch1",
+                                        "vlm_decode")}}}))),
         # B4 over the int8 cache, timed at serve_int8's largest batch;
         # the pool_*, long_* and batch1_* shapes run on no int8 path
         _kernel_row(

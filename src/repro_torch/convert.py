@@ -16,7 +16,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.grid import GenGrid, SweepGrid
 from repro_torch.models.layers import param
-from repro_torch.models.transformer import (Transformer, require_supported,
+from repro_torch.models.transformer import (Encoder, Transformer,
+                                            require_supported,
                                             split_pattern)
 
 __all__ = ["BASE_FIELDS", "GEN_BASE_FIELDS", "grid_from_arrays",
@@ -113,8 +114,12 @@ def model_params_from_jax(cfg: ModelConfig, params: Dict,
     a MoE ``ffn`` keeps its float32 ``router``, its ``(E, d, f)`` /
     ``(E, f, d)`` expert stacks and its nested ``shared`` dict, q/k
     norms their ``(hd,)`` scales, an MLA ``attn`` its ``wq``, ``w_dkv``,
-    ``w_kpe``, ``norm_ckv``, ``w_uk``, ``w_uv`` and ``wo``, and a
-    hybrid's period (Jamba: 8 layers) its ``attn`` / ``ssm`` blocks."""
+    ``w_kpe``, ``norm_ckv``, ``w_uk``, ``w_uv`` and ``wo``, a hybrid's
+    period (Jamba: 8 layers) its ``attn`` / ``ssm`` blocks, and an
+    enc-dec decoder block its ``norm_x`` / ``xattn``.  Learned positions
+    carry ``pos_embed``; an enc-dec model's ``encoder`` carries ``pos``,
+    ``norm`` and its stacked ``stack`` (encoder layer ``i`` is index
+    ``i`` on the leading axis)."""
     require_supported(cfg)
     lead, p, r = split_pattern(cfg)
     layers = [nn.ModuleDict({name: _params(sub, device)
@@ -126,7 +131,19 @@ def model_params_from_jax(cfg: ModelConfig, params: Dict,
             layers[lead + i * p + j] = nn.ModuleDict(
                 {name: _params(sub, device, i)
                  for name, sub in stack.items()})
-    unembed = (param(_tensor(params["unembed"], device))
-               if "unembed" in params else None)
+    unembed, pos_embed = (
+        param(_tensor(params[k], device)) if k in params else None
+        for k in ("unembed", "pos_embed"))
+    encoder = None
+    if "encoder" in params:
+        enc = params["encoder"]
+        depth = cfg.encoder.num_layers
+        encoder = Encoder(
+            param(_tensor(enc["pos"], device)),
+            [nn.ModuleDict({name: _params(sub, device, i)
+                            for name, sub in enc["stack"].items()})
+             for i in range(depth)],
+            _params(enc["norm"], device))
     return Transformer(param(_tensor(params["embed"], device)),
-                       _params(params["norm_f"], device), layers, unembed)
+                       _params(params["norm_f"], device), layers, unembed,
+                       pos_embed, encoder)

@@ -2,12 +2,15 @@
 // softmax, for the port's transformers (GQA, and MLA's expanded form).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_kernel
-// (reached through flash_attention).  For q (B, S, H, hd), k (B, S, KV,
-// hd) and v (B, S, KV, hdv), float32 or bfloat16, query head h reads kv head
-// h / (H / KV) and, for every query position pq,
+// (reached through flash_attention).  For q (B, S, H, hd), k (B, SK, KV,
+// hd) and v (B, SK, KV, hdv), float32 or bfloat16, query head h reads kv
+// head h / (H / KV) and, for every query position pq,
 //     out[b, pq, h] = sum_pk p(pq, pk) v[b, pk, h / G]
-// over the keys the mask admits: pk < S, pk <= pq when causal, and
-// pq - pk < window when window != 0.  The softmax is the Pallas
+// over the keys the mask admits: pk < SK, pk <= pq when causal, and
+// pq - pk < window when window != 0.  The key length SK is S for
+// self-attention; cross-attention (whisper's decoder over its encoder's
+// 1,500 frames) attends S queries to SK = n_ctx keys with no mask, and
+// the launcher refuses causal with SK != S.  The softmax is the Pallas
 // kernel's, in float32: scores (q . k) * scale, masked scores NEG_INF
 // = -0.7 * FLT_MAX, a running max m, p = exp(s - m) (0 where masked),
 // a running sum l and accumulator rescaled by exp(m_old - m_new), and
@@ -79,7 +82,11 @@
 // kernel's P . V is two products (hi and lo), so it issues 1.5 times
 // the tensor-core work the bound counts, and recomputes nothing else;
 // K and V are read once per 64-row query block (16 times at S 1,024),
-// mostly from L2.
+// mostly from L2.  Whisper's encoder (B 32, S 1,500, 16 x 64, unmasked,
+// float32 under the engine's float32 frames, so on the CUDA cores) does
+// 4 * B * H * hd * S^2 ~ 295 GFLOP, ~4.4 ms at 67 TFLOP/s; its
+// cross-attention (32 queries over SK = 1,500 keys) is bound by reading
+// K and V once, 393 MB in float32, ~0.12 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,8 +119,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int S, int H, int KV, float scale, int causal,
-                       int window) {
+                       int S, int SK, int H, int KV, float scale,
+                       int causal, int window) {
   constexpr int kChunks = HDQ / 4;         // float4 chunks in a q/k row
   constexpr int kMine = kChunks / kLanes;  // chunks a thread holds
   constexpr int kVChunks = HDV / 4;        // float4 chunks in a v row
@@ -145,12 +152,12 @@ flash_attention_kernel(const float* __restrict__ q,
   float l = 0.f;
 
   // keys any row of this block admits: [lo, hi)
-  int hi = S;
-  if (causal) hi = min(S, q0 + kRows);
+  int hi = SK;
+  if (causal) hi = min(SK, q0 + kRows);
   int lo = 0;
   if (window != 0) {
     const int64_t reach = static_cast<int64_t>(q0) - window + 1;
-    lo = reach <= 0 ? 0 : reach >= S ? S : static_cast<int>(reach);
+    lo = reach <= 0 ? 0 : reach >= SK ? SK : static_cast<int>(reach);
   }
 
   for (int t0 = lo; t0 < hi; t0 += kKeys) {
@@ -158,16 +165,16 @@ flash_attention_kernel(const float* __restrict__ q,
       const int j = e / kChunks;
       const int c = e % kChunks;
       const int pk = t0 + j;
-      ks[j][c] = pk < S ? load4(k + ((static_cast<int64_t>(b) * S + pk) *
-                                         KV + kvh) * HDQ + 4 * c)
+      ks[j][c] = pk < SK ? load4(k + ((static_cast<int64_t>(b) * SK + pk) *
+                                          KV + kvh) * HDQ + 4 * c)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     for (int e = tid; e < kKeys * kVChunks; e += kThreads) {
       const int j = e / kVChunks;
       const int c = e % kVChunks;
       const int pk = t0 + j;
-      vs[j][c] = pk < S ? load4(v + ((static_cast<int64_t>(b) * S + pk) *
-                                         KV + kvh) * HDV + 4 * c)
+      vs[j][c] = pk < SK ? load4(v + ((static_cast<int64_t>(b) * SK + pk) *
+                                          KV + kvh) * HDV + 4 * c)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
@@ -189,7 +196,7 @@ flash_attention_kernel(const float* __restrict__ q,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int pk = t0 + j;
-      bool ok = pk < S;
+      bool ok = pk < SK;
       if (causal) ok = ok && pk <= pq;
       if (window != 0) ok = ok && pq - pk < window;
       s[j] = ok ? part * scale : kNegInf;
@@ -325,7 +332,8 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 }
 
 // 64 rows of head `head` from row `row0` of a (B, S, heads, HD) tensor
-// into a padded shared tile; rows at or past S are zero-filled
+// into a padded shared tile; rows at or past S are zero-filled (S is the
+// key length SK where the kernel stages k and v)
 template <int HD>
 __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int b,
@@ -356,8 +364,8 @@ __global__ void __launch_bounds__(kWarpThreads, HDQ + HDV >= 256 ? 1 : 4)
 flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int S, int H,
-                            int KV, float scale_log2, int causal,
+                            __nv_bfloat16* __restrict__ out, int S, int SK,
+                            int H, int KV, float scale_log2, int causal,
                             int window) {
   // scores stay unscaled until the exponent: p = exp2(s * c - m * c)
   using Tile = Bf16Tile<HDQ, HDV>;
@@ -379,20 +387,20 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   const int kvh = h / (H / KV);
 
   // keys any row of this block admits: [lo, hi)
-  const int hi = causal ? min(S, q0 + kBlockRows) : S;
+  const int hi = causal ? min(SK, q0 + kBlockRows) : SK;
   int lo = 0;
   if (window != 0) {
     const int64_t reach = static_cast<int64_t>(q0) - window + 1;
-    lo = reach <= 0 ? 0 : reach >= S ? S : static_cast<int>(reach);
+    lo = reach <= 0 ? 0 : reach >= SK ? SK : static_cast<int>(reach);
   }
   const int n_tiles = hi > lo ? (hi - lo + kTileKeys - 1) / kTileKeys : 0;
 
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_tiles) {
-      load_rows<HDQ>(ks + st * Tile::kKElems, k, b, S, KV, kvh,
+      load_rows<HDQ>(ks + st * Tile::kKElems, k, b, SK, KV, kvh,
                      lo + st * kTileKeys);
-      load_rows<HDV>(vs + st * Tile::kVElems, v, b, S, KV, kvh,
+      load_rows<HDV>(vs + st * Tile::kVElems, v, b, SK, KV, kvh,
                      lo + st * kTileKeys);
     }
     cp_async_commit();
@@ -437,9 +445,9 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       const int nxt = i + kStages - 1;
       if (nxt < n_tiles) {
         const int st = nxt % kStages;
-        load_rows<HDQ>(ks + st * Tile::kKElems, k, b, S, KV, kvh,
+        load_rows<HDQ>(ks + st * Tile::kKElems, k, b, SK, KV, kvh,
                        lo + nxt * kTileKeys);
-        load_rows<HDV>(vs + st * Tile::kVElems, v, b, S, KV, kvh,
+        load_rows<HDV>(vs + st * Tile::kVElems, v, b, SK, KV, kvh,
                        lo + nxt * kTileKeys);
       }
       cp_async_commit();
@@ -466,7 +474,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 
     // mask only a tile the mask cuts
     const bool cut =
-        t0 + kTileKeys > S || (causal && t0 + kTileKeys - 1 > q0) ||
+        t0 + kTileKeys > SK || (causal && t0 + kTileKeys - 1 > q0) ||
         (window != 0 && static_cast<int64_t>(t0) <=
                             static_cast<int64_t>(q0) + kBlockRows - 1 -
                                 window);
@@ -479,7 +487,7 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
         if (cut) {
           const int pk = t0 + t * 8 + 2 * (lane & 3) + (e & 1);
           const int pq = e < 2 ? pq0 : pq1;
-          bool ok = pk < S;
+          bool ok = pk < SK;
           if (causal) ok = ok && pk <= pq;
           if (window != 0) ok = ok && pq - pk < window;
           x = ok ? x : kNegInf;
@@ -569,20 +577,20 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int HDQ, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int S, int H, int KV, float scale, int causal,
+               int B, int S, int SK, int H, int KV, float scale, int causal,
                int window, cudaStream_t stream) {
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_attention_kernel<HDQ, HDV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KV,
+      static_cast<const float*>(v), static_cast<float*>(out), S, SK, H, KV,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HDQ, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int KV, float scale, int causal,
+                int B, int S, int SK, int H, int KV, float scale, int causal,
                 int window, cudaStream_t stream) {
   const int64_t heads = static_cast<int64_t>(B) * H;
   const int64_t blocks = (static_cast<int64_t>(S) + kBlockRows - 1) /
@@ -600,8 +608,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, H, KV, scale * kLog2e, causal,
-      window);
+      static_cast<__nv_bfloat16*>(out), S, SK, H, KV, scale * kLog2e,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,20 +617,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // dtype 0 (float32) launches flash_attention_kernel over a (ceil(S /
 // 32), H, B) grid; dtype 1 (bfloat16) flash_attention_kernel_bf16 over
-// a (B * H, ceil(S / 64)) grid; (hd, hdv) is (32, 32), (64, 64),
+// a (B * H, ceil(S / 64)) grid; S is q's length and SK k's and v's
+// (SK == S unless causal is 0); (hd, hdv) is (32, 32), (64, 64),
 // (128, 128) or (192, 128), hd q's and k's width, hdv v's and the
 // output's; on `stream`.  Returns the
 // first CUDA error of setting the shared-memory size or of the launch, 0
 // if none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
-                                      int S, int H, int KV, int hd, int hdv,
-                                      int dtype, float scale, int causal,
-                                      int window, void* stream) {
+                                      int S, int SK, int H, int KV, int hd,
+                                      int hdv, int dtype, float scale,
+                                      int causal, int window, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KV <= 0 || H % KV != 0 || SK < 0 || (causal && SK != S))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, out, B, S, H, KV, scale, causal, window, st
+#define FA_ARGS q, k, v, out, B, S, SK, H, KV, scale, causal, window, st
   if (hd == 192 && hdv == 128) {
     if (dtype == 0) return launch_f32<192, 128>(FA_ARGS);
     if (dtype == 1) return launch_bf16<192, 128>(FA_ARGS);

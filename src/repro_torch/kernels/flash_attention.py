@@ -2,9 +2,13 @@
 ``csrc/flash_attention.cu`` and its plain torch version.
 
 ``flash_attention(q, k, v, causal=, window=)`` computes blocked causal /
-sliding-window GQA attention for q, k ``(B, S, H | KV, hd)`` and v
-``(B, S, KV, hdv)``: query head h reads kv head ``h // (H // KV)``; the
-scores are scaled by ``hd ** -0.5``; the softmax runs in float32 with
+sliding-window / unmasked GQA attention for q ``(B, S, H, hd)``, k
+``(B, S_k, KV, hd)`` and v ``(B, S_k, KV, hdv)``: query head h reads kv
+head ``h // (H // KV)``; the key length ``S_k`` is ``S`` for
+self-attention and the encoder's ``n_ctx`` for cross-attention (no
+mask; ``causal=True`` with ``S_k != S`` raises: no path needs it and
+the reference defines no alignment for it); the scores are scaled by
+``hd ** -0.5``; the softmax runs in float32 with
 masked scores ``NEG_INF = -0.7 * f32max`` and ``out = acc / (l +
 1e-30)``, so a row with no admitted key is 0; the output is ``(B, S, H,
 hdv)`` in q's dtype.  The value width is q's for GQA; MLA's expanded
@@ -19,7 +23,8 @@ CUDA kernel carries them as two bf16 terms (about 16 bits).
 The wrapper launches a kernel for CUDA tensors and takes
 ``flash_attention_plain`` for CPU tensors; it raises on any other
 device, on a dtype other than float32 / bfloat16, on non-contiguous or
-misaligned inputs and on ``H % KV != 0``.  On the card the dtype picks
+misaligned inputs, on ``H % KV != 0`` and on ``causal`` with
+``S_k != S``.  On the card the dtype picks
 the kernel: bfloat16 runs ``flash_attention_kernel_bf16`` (tensor-core
 tiles, P carried as two bf16 terms), float32 runs
 ``flash_attention_kernel`` (CUDA cores, no TF32 rounding), at every
@@ -83,17 +88,20 @@ def launchable(name: str, hd: int, *tensors: torch.Tensor) -> None:
     check_aligned(name, *tensors)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, causal: bool) -> None:
     if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
             or k.shape[:3] != v.shape[:3]):
         raise ValueError(f"flash_attention takes q (B,S,H,hd), k "
-                         f"(B,S,KV,hd) and v (B,S,KV,hdv), got "
+                         f"(B,S_k,KV,hd) and v (B,S_k,KV,hdv), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, s, _, hd = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd):
+    if (k.shape[0], k.shape[3]) != (b, hd):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    if causal and k.shape[1] != s:
+        raise ValueError(f"causal flash_attention takes as many keys as "
+                         f"queries, got S {s} and S_k {k.shape[1]}")
     check_attention_inputs(q, k, v)
 
 
@@ -102,12 +110,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: int = 0) -> torch.Tensor:
     """The plain torch version, on any device: the Pallas kernel's
     arithmetic in float32 with the whole key axis as one tile."""
-    _check(q, k, v)
+    _check(q, k, v, causal)
     b, s, h, hd = q.shape
-    kv, hdv = k.shape[2], v.shape[3]
+    sk, kv, hdv = k.shape[1], k.shape[2], v.shape[3]
     g = h // kv
     kf, vf = k.float(), v.float()
-    pos = torch.arange(s, device=q.device)
+    pos = torch.arange(max(s, sk), device=q.device)
     out = q.new_empty(b, s, h, hdv)
     for c0 in range(0, s, Q_CHUNK):
         qc = q[:, c0:c0 + Q_CHUNK].float()
@@ -115,8 +123,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc = torch.einsum("bskgh,btkh->bkgst", qc.reshape(b, n, kv, g, hd),
                           kf) * (hd ** -0.5)
         pq = pos[c0:c0 + n, None]
-        pk = pos[None, :]
-        mask = torch.ones(n, s, dtype=torch.bool, device=q.device)
+        pk = pos[None, :sk]
+        mask = torch.ones(n, sk, dtype=torch.bool, device=q.device)
         if causal:
             mask &= pk <= pq
         if window:
@@ -135,24 +143,24 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
     from repro_torch.kernels._build import library
 
     b, s, h, hd = q.shape
-    kv, hdv = k.shape[2], v.shape[3]
+    sk, kv, hdv = k.shape[1], k.shape[2], v.shape[3]
     if (hd, hdv) not in WIDTHS:
         raise ValueError(f"the CUDA flash_attention is built for (head_dim, "
                          f"value width) in {WIDTHS}, got {(hd, hdv)}")
     check_aligned("flash_attention", q, k, v, out)
     # grid limits: (B*H, ceil(S/64)) in bf16, (ceil(S/32), H, B) in f32
-    if (max(b, h) > 65535 or -(-s // 64) > 65535
+    if (max(b, h) > 65535 or -(-s // 64) > 65535 or sk >= 1 << 31
             or abs(window) >= 1 << 31):
         raise ValueError(f"shape {tuple(q.shape)} / window {window} too "
                          f"large for one launch")
     fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, h, kv, hd, hdv, DTYPE_CODE[q.dtype], hd ** -0.5,
+                 b, s, sk, h, kv, hd, hdv, DTYPE_CODE[q.dtype], hd ** -0.5,
                  int(bool(causal)), int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -161,10 +169,11 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Prefill attention: q ``(B, S, H, hd)``, k ``(B, S, KV, hd)``, v
-    ``(B, S, KV, hdv)`` → ``(B, S, H, hdv)`` in q's dtype.  The CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check(q, k, v)
+    """Prefill attention: q ``(B, S, H, hd)``, k ``(B, S_k, KV, hd)``, v
+    ``(B, S_k, KV, hdv)`` → ``(B, S, H, hdv)`` in q's dtype (``S_k ==
+    S`` when ``causal``).  The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check(q, k, v, causal)
     if not kernel_device(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     out = q.new_empty(q.shape[:3] + v.shape[3:])

@@ -1,7 +1,6 @@
-"""GQA and MLA attention of the port's transformers.
+"""GQA, MLA and cross-attention of the port's transformers.
 
-Port of the GQA and MLA parts of the reference package's
-``repro.models.attention``:
+Port of the reference package's ``repro.models.attention``:
 
 - Full-sequence path (forward / prefill): ``gqa_forward`` returns
   ``(out, (k, v))`` so the caller can fill a KV cache.  Its attention
@@ -33,15 +32,30 @@ Port of the GQA and MLA parts of the reference package's
   ``w_uv`` and ``wo``, as the reference does; its cache stays in the
   model's dtype under ``REPRO_KV_INT8=1``.
 
-Both are causal, with RoPE positions (the port has no encoder and no
-learned positions).  The attention cores follow the Pallas kernels'
+- Learned positions (whisper): ``rope=False`` skips RoPE in
+  ``gqa_forward`` / ``gqa_decode``; ``causal=False`` (whisper's encoder)
+  goes through to the kernel.
+- Cross-attention (enc-dec): ``init_gqa(cross=True)`` (biases when
+  ``cfg.qkv_bias``, never q/k norms), ``cross_kv`` projects the
+  encoder's output to K/V once a prefill, and ``cross_attend`` attends
+  the decoder's queries to all of them, unmasked: through
+  ``kernels.flash_attention`` with a key length of its own (``S_k =
+  n_ctx``, ``causal=False``) in forward and prefill, and through
+  ``kernels.decode_attention`` at ``lengths = n_ctx - 1`` on every row
+  (which admits every key) in decode.  Where K/V are float32 under a
+  bf16 query (the engine's float32 frames make the encoder float32, as
+  in the reference) the query is cast to K's dtype for the kernel and
+  the output back to the query's, which is the reference's arithmetic:
+  its score einsum promotes to float32 and ``sdpa`` casts back.
+
+Self-attention is causal with RoPE positions unless the config has
+learned positions.  The attention cores follow the Pallas kernels'
 arithmetic: on bf16 inputs the reference model rounds the probabilities
 (on the int8 cache: the probabilities times the value scales) to bf16
 before P·V and the port does not, so the two differ in the last bits
 there; in float32 they agree to rounding.  The reference's
 ``REPRO_SHARD_*`` sharding hints have no numerical effect and are not
-read.  Cross-attention is not ported (see
-``transformer.require_supported``).
+read.
 """
 from __future__ import annotations
 
@@ -56,15 +70,16 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode_attention
-from repro_torch.models.layers import _init_w, apply_norm, param
+from repro_torch.models.layers import _init_w, apply_norm, matmul, param
 from repro_torch.models.rope import apply_rope
 
 __all__ = ["init_gqa", "gqa_forward", "gqa_decode", "kv_quantized",
-           "quantize_kv", "init_mla", "mla_forward", "mla_decode"]
+           "quantize_kv", "cross_kv", "cross_attend", "init_mla",
+           "mla_forward", "mla_decode"]
 
 
-def init_gqa(gen: torch.Generator, cfg: ModelConfig,
-             dtype: torch.dtype) -> nn.ParameterDict:
+def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             *, cross: bool = False) -> nn.ParameterDict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
@@ -77,7 +92,7 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig,
         p["bq"] = param(torch.zeros(h, hd, dtype=dtype, device=dev))
         p["bk"] = param(torch.zeros(kv, hd, dtype=dtype, device=dev))
         p["bv"] = param(torch.zeros(kv, hd, dtype=dtype, device=dev))
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = param(torch.ones(hd, dtype=dtype, device=dev))
         p["k_norm"] = param(torch.ones(hd, dtype=dtype, device=dev))
     return nn.ParameterDict(p)
@@ -86,47 +101,51 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, *, rope: bool = True):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "q_norm" in p:
         q = apply_norm({"scale": p["q_norm"]}, q, "rmsnorm")
         k = apply_norm({"scale": p["k_norm"]}, k, "rmsnorm")
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta,
+                       cfg.partial_rotary_factor)
+        k = apply_rope(k, positions, cfg.rope_theta,
+                       cfg.partial_rotary_factor)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    return matmul(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
 def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, window: int = 0
+                positions: torch.Tensor, *, causal: bool = True,
+                window: int = 0, rope: bool = True
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention. positions: (S,). Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=window)
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     return _out_proj(out, p["wo"]), (k, v)
 
 
 def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor,
                cache: Dict[str, torch.Tensor], lengths: torch.Tensor, *,
-               window: int = 0
+               window: int = 0, rope: bool = True
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode. x: (B,1,d); cache k/v: (B,S_max,KV,hd) in
     the model's dtype, or int8 codes beside float32 ``k_scale`` /
     ``v_scale`` (B,S_max,KV,1); updated in place at ``lengths`` (int32
     (B,); a row outside [0, S_max) writes nothing); returns (out,
     cache)."""
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], rope=rope)
     if "k_scale" in cache:
         for name, new in (("k", k_new), ("v", v_new)):
             codes, scale = quantize_kv(new)
@@ -174,6 +193,38 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, idx] = torch.where(ok, new[:, 0].to(cache.dtype),
                                    cache[rows, idx])
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's output ``(B, n_ctx, d)`` as cross K/V ``(B, n_ctx,
+    KV, hd)`` in the promoted dtype of ``enc`` and the weights."""
+    k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.contiguous(), v.contiguous()
+
+
+def cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 decode: bool = False) -> torch.Tensor:
+    """The decoder's ``x (B, S, d)`` attending to every row of the cross
+    K/V ``(B, n_ctx, KV, hd)``, unmasked: B3 with ``S_k = n_ctx``, or
+    with ``decode`` (S = 1) B4 at ``lengths = n_ctx - 1``.  The kernels
+    take q in K's dtype; the output returns to x's before ``wo``."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    qk = q.to(k.dtype).contiguous()
+    if decode:
+        full = torch.full((x.shape[0],), k.shape[1] - 1, dtype=torch.int32,
+                          device=x.device)
+        out = decode_attention(qk[:, 0], k, v, full)[:, None]
+    else:
+        out = flash_attention(qk, k, v, causal=False)
+    return _out_proj(out.to(q.dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["_dtype", "_init_w", "init_norm", "apply_norm", "init_mlp",
-           "apply_mlp", "init_embedding", "embed", "unembed", "param"]
+           "apply_mlp", "init_embedding", "embed", "unembed", "param",
+           "matmul"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -74,6 +75,17 @@ def _init_w(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     return param((torch.randn(*shape, **_gen_kw(gen)) * scale).to(dtype))
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the two operands' promoted dtype: the reference's
+    einsum takes a bf16 weight against float32 activations (whisper's
+    encoder over the engine's float32 frames) as float32, where torch's
+    product takes one dtype."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
              dtype: torch.dtype) -> nn.ParameterDict:
     if activation == "swiglu":
@@ -93,11 +105,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
 
 def apply_mlp(p, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "swiglu":
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
-        return (F.silu(g) * u) @ p["w_down"]
-    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
-    return h @ p["w_down"] + p["b_down"]
+        g = matmul(x, p["w_gate"])
+        u = matmul(x, p["w_up"])
+        return matmul(F.silu(g) * u, p["w_down"])
+    h = F.gelu(matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return matmul(h, p["w_down"]) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------

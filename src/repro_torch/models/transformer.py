@@ -1,20 +1,19 @@
-"""The port's decoder stack: dense and MoE transformers, Mamba2 SSMs and
-their hybrid interleave.
+"""The port's model stacks: dense and MoE transformers, Mamba2 SSMs,
+their hybrid interleave, the enc-dec (audio) and VLM stacks.
 
-Port of the dense, MoE, SSM and hybrid families of the reference
-package's ``repro.models.transformer``.  The parameters are
-``nn.Module``s: a ``Transformer`` holds the embedding table, the final
-norm and one ``nn.ModuleDict`` block per layer, keyed as the
-reference's pytree is: ``norm1``, ``attn`` or ``ssm`` by the layer's
-kind (``cfg.layer_kinds()``), and ``norm2``, ``ffn`` when the layer has
-an FFN: the MoE FFN of ``models.moe`` on the layers ``cfg.moe_layers()``
-flags (after ``first_dense`` lead layers, every
-``moe_layer_period``-th), a dense MLP on the others.  An attention
-layer's ``attn`` is GQA, or DeepSeek-V2's MLA when ``cfg.mla`` is set;
-a hybrid (Jamba) puts an attention layer every ``attn_layer_period``
-layers and Mamba2 layers between them.  The reference stacks the layers
+Port of the reference package's ``repro.models.transformer``. The
+parameters are ``nn.Module``s: a ``Transformer`` holds the embedding
+table, the final norm and one ``nn.ModuleDict`` block per layer, keyed
+as the reference's pytree is: ``norm1``, ``attn`` or ``ssm`` by the
+layer's kind (``cfg.layer_kinds()``), and ``norm2``, ``ffn`` when the
+layer has an FFN: the MoE FFN of ``models.moe`` on the layers
+``cfg.moe_layers()`` flags (after ``first_dense`` lead layers, every
+``moe_layer_period``-th), a dense MLP on the others. An attention
+layer's ``attn`` is GQA, or DeepSeek-V2's MLA when ``cfg.mla`` is set; a
+hybrid (Jamba) puts an attention layer every ``attn_layer_period``
+layers and Mamba2 layers between them. The reference stacks the layers
 and runs them under ``lax.scan``; here the stack is a Python loop over
-the blocks, which sums the MoE layers' aux losses.  The cache is a list
+the blocks, which sums the MoE layers' aux losses. The cache is a list
 with one dict per layer: ``{"k", "v"}`` of ``(B, cache_len, KV, hd)``
 tensors for an attention layer (with ``REPRO_KV_INT8=1``: int8 codes
 beside float32 ``k_scale`` / ``v_scale`` of ``(B, cache_len, KV, 1)``),
@@ -22,6 +21,22 @@ beside float32 ``k_scale`` / ``v_scale`` of ``(B, cache_len, KV, 1)``),
 dtype for an MLA layer (int8 or not), ``{"conv_x", "conv_bc", "ssm"}``
 for a Mamba2 layer (which ignores ``cache_len`` and ``lengths``);
 ``decode_step`` updates it in place.
+
+Enc-dec (whisper, ``cfg.encoder.num_layers > 0``): the ``Transformer``
+also holds ``encoder`` (its learned ``pos (n_ctx, d)``, one block per
+encoder layer, ``norm``), and each decoder block a cross-attention
+``norm_x`` / ``xattn``.  ``encode`` runs the encoder's blocks
+unmasked over ``frames + pos`` (the frames' dtype promotes against the
+table's, as in the reference: the engine's float32 frames make the
+encoder, the cross K/V and their cache float32), and a decoder layer's
+cache adds ``cross_k`` / ``cross_v`` of ``(B, n_ctx, H, hd)``, which
+stay float under ``REPRO_KV_INT8=1``.  Learned positions
+(``cfg.learned_positions``) add ``pos_embed`` (at most 65,536 rows, the
+reference's cap) at the token positions in place of RoPE; decode clips
+the position to the table's last row.  The VLM (InternVL2) puts its
+``patch_embeds (B, n_ctx, d)``, cast to the model's dtype, in front of
+the prompt, at positions ``0 … n_ctx - 1``; without them it runs on the
+text alone.
 
 Public API (used by registry / serving):
     init_params(cfg, generator)                -> Transformer
@@ -31,11 +46,8 @@ Public API (used by registry / serving):
                                                -> (logits, cache)
     init_cache(cfg, batch, cache_len, device)  -> cache
 
-The dense and MoE families with rotary positions (q/k norms and MLA
-included), the attention-free SSM family and the hybrid interleave are
-ported.  Enc-dec and VLM configurations and learned positions raise
-``NotImplementedError`` (from ``build``, ``init_params``, ``init_cache``
-and the weight conversion) naming the ROADMAP item that adds them.
+Every family of the registry is ported; ``require_supported`` raises
+``NotImplementedError`` for any other.
 """
 from __future__ import annotations
 
@@ -54,28 +66,25 @@ from repro_torch.models.layers import (_dtype, _init_w, apply_mlp,
                                        init_mlp, init_norm, unembed)
 from repro_torch.models.moe import apply_moe, init_moe
 
-__all__ = ["Transformer", "init_params", "init_cache", "forward", "prefill",
-           "decode_step", "layer_specs", "split_pattern",
-           "require_supported"]
+__all__ = ["Transformer", "Encoder", "init_params", "init_cache", "forward",
+           "prefill", "decode_step", "encode", "encoder_cfg", "layer_specs",
+           "split_pattern", "require_supported"]
 
 Cache = List[Dict[str, torch.Tensor]]
 
+# the model families the port runs: every family of the registry
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the reference's cap on the learned position table's rows
+MAX_POSITION_ROWS = 65536
+
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port,
-    naming its ROADMAP item."""
-    missing = []
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        missing.append(f"the {cfg.family} family (ROADMAP Queue A 8e)")
-    if cfg.encoder is not None:
-        missing.append("enc-dec / VLM stacks and cross-attention "
-                       "(ROADMAP Queue A 8e)")
-    if cfg.learned_positions:
-        missing.append("learned positions (ROADMAP Queue A 8e)")
-    if missing:
+    """Raise ``NotImplementedError`` for a family the port does not
+    run."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet: "
-            + "; ".join(missing))
+            f"{cfg.name}: the {cfg.family} family is not ported to "
+            f"repro_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -109,28 +118,67 @@ def split_pattern(cfg: ModelConfig) -> Tuple[int, int, int]:
 # Parameters
 # ---------------------------------------------------------------------------
 
+class Encoder(nn.Module):
+    """An enc-dec model's encoder: the learned ``pos`` (n_ctx, d), one
+    ``ModuleDict(norm1, attn, norm2, ffn)`` per layer, ``norm``."""
+
+    def __init__(self, pos: nn.Parameter, layers: List[nn.ModuleDict],
+                 norm: nn.ParameterDict):
+        super().__init__()
+        self.pos = pos
+        self.layers = nn.ModuleList(layers)
+        self.norm = norm
+
+
 class Transformer(nn.Module):
-    """A decoder's weights: ``embed`` (V, d), ``norm_f``, an optional
-    untied ``unembed`` (d, V) and ``layers``, one ``ModuleDict(norm1,
-    attn | ssm[, norm2, ffn])`` per layer (a MoE layer's ``ffn`` nests
-    its ``shared`` experts' dict)."""
+    """A model's weights: ``embed`` (V, d), ``norm_f``, an optional
+    untied ``unembed`` (d, V), ``layers``, one ``ModuleDict(norm1,
+    attn | ssm[, norm_x, xattn][, norm2, ffn])`` per layer (a MoE
+    layer's ``ffn`` nests its ``shared`` experts' dict), and for the
+    configs that have them the learned ``pos_embed`` (rows, d) and the
+    ``encoder``."""
 
     def __init__(self, embed_table: nn.Parameter, norm_f: nn.ParameterDict,
                  layers: List[nn.ModuleDict],
-                 unembed_w: Optional[nn.Parameter] = None):
+                 unembed_w: Optional[nn.Parameter] = None,
+                 pos_embed: Optional[nn.Parameter] = None,
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         self.embed = embed_table
         self.norm_f = norm_f
         self.layers = nn.ModuleList(layers)
         self.unembed = unembed_w
+        self.pos_embed = pos_embed
+        self.encoder = encoder
+
+
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.encoder is not None and cfg.encoder.num_layers > 0
+
+
+def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's own config: a dense stack at the encoder's widths,
+    with learned positions (no RoPE)."""
+    e = cfg.encoder
+    d = e.d_model or cfg.d_model
+    h = e.num_heads or cfg.num_heads
+    return ModelConfig(
+        name="enc", family="dense", source="", num_layers=e.num_layers,
+        d_model=d, num_heads=h, num_kv_heads=h, head_dim=d // h,
+        d_ff=e.d_ff or cfg.d_ff, vocab_size=0, qkv_bias=cfg.qkv_bias,
+        activation=cfg.activation, norm=cfg.norm, learned_positions=True)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               moe_flag: bool, dtype: torch.dtype) -> nn.ModuleDict:
+               moe_flag: bool, dtype: torch.dtype, *,
+               cross: bool = False) -> nn.ModuleDict:
     blk = {"norm1": init_norm(gen, cfg.d_model, cfg.norm, dtype)}
     if kind == "attn":
         blk["attn"] = (attn.init_mla(gen, cfg, dtype) if cfg.mla is not None
                        else attn.init_gqa(gen, cfg, dtype))
+        if cross:
+            blk["norm_x"] = init_norm(gen, cfg.d_model, cfg.norm, dtype)
+            blk["xattn"] = attn.init_gqa(gen, cfg, dtype, cross=True)
     else:
         blk["ssm"] = ssm.init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)
     if moe_flag or cfg.d_ff:
@@ -151,13 +199,37 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     norm_f = init_norm(gen, cfg.d_model, cfg.norm, dtype)
     unembed_w = (None if cfg.tie_embeddings else
                  _init_w(gen, (cfg.d_model, cfg.vocab_size), dtype))
-    layers = [init_block(gen, cfg, kind, moe_flag, dtype)
+    cross = _is_encdec(cfg)
+    layers = [init_block(gen, cfg, kind, moe_flag, dtype, cross=cross)
               for kind, moe_flag in layer_specs(cfg)]
-    return Transformer(table, norm_f, layers, unembed_w)
+    pos_embed = (init_embedding(gen, min(cfg.max_position_embeddings,
+                                         MAX_POSITION_ROWS),
+                                cfg.d_model, dtype)
+                 if cfg.learned_positions else None)
+    encoder = None
+    if cross:
+        ecfg = encoder_cfg(cfg)
+        blocks = [init_block(gen, ecfg, "attn", False, dtype)
+                  for _ in range(ecfg.num_layers)]
+        encoder = Encoder(
+            init_embedding(gen, cfg.encoder.n_ctx, ecfg.d_model, dtype),
+            blocks, init_norm(gen, ecfg.d_model, cfg.norm, dtype))
+    return Transformer(table, norm_f, layers, unembed_w, pos_embed, encoder)
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    c = _self_cache(cfg, kind, batch, cache_len, dtype, device)
+    if kind == "attn" and _is_encdec(cfg):
+        # the cross K/V stay float whatever the int8 switch says
+        shape = (batch, cfg.encoder.n_ctx, cfg.num_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
+
+
+def _self_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     if kind == "attn" and cfg.mla is not None:
         # before the int8 switch, as the reference: the latent cache stays
         # in the model's dtype
@@ -201,9 +273,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _pad_time(x: torch.Tensor, target: int) -> torch.Tensor:
-    """Pad axis 1 (time) of a (B, S, ...) tensor up to ``target``."""
+    """Pad axis 1 (time) of a (B, S, ...) tensor up to ``target``; a
+    ``target`` under S raises, as the reference's pad does."""
     if x.shape[1] == target:
         return x
+    if target < x.shape[1]:
+        raise ValueError(f"a cache of {target} positions cannot hold "
+                         f"{x.shape[1]}")
     return F.pad(x, (0, 0) * (x.dim() - 2) + (0, target - x.shape[1]))
 
 
@@ -212,12 +288,16 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
                 mode: str, positions: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                cache_len: int = 0, window: int = 0
+                cache_len: int = 0, window: int = 0, causal: bool = True,
+                cross_enc: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]],
                            Optional[torch.Tensor]]:
     """Apply one block. mode: 'full' | 'prefill' | 'decode'.  Returns
-    (x, new cache, the MoE aux loss or None)."""
+    (x, new cache, the MoE aux loss or None).  ``cross_enc``: the
+    encoder's output, which a block with ``xattn`` attends to outside
+    decode (in decode it reads the cache's ``cross_k`` / ``cross_v``)."""
     new_cache, aux = None, None
+    rope = not cfg.learned_positions
     h = apply_norm(bp["norm1"], x, cfg.norm)
     if kind == "ssm":
         if mode == "decode":
@@ -238,10 +318,10 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
                          "k_pe": _pad_time(k_pe, cache_len)}
     elif mode == "decode":
         a, new_cache = attn.gqa_decode(bp["attn"], cfg, h, cache, lengths,
-                                       window=window)
+                                       window=window, rope=rope)
     else:
         a, (k, v) = attn.gqa_forward(bp["attn"], cfg, h, positions,
-                                     window=window)
+                                     causal=causal, window=window, rope=rope)
         if mode == "prefill" and attn.kv_quantized():
             new_cache = {}
             for name, t in (("k", k), ("v", v)):
@@ -252,6 +332,16 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
             new_cache = {"k": _pad_time(k, cache_len),
                          "v": _pad_time(v, cache_len)}
     x = x + a
+    if "xattn" in bp:
+        hx = apply_norm(bp["norm_x"], x, cfg.norm)
+        if mode == "decode":
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        else:
+            ck, cv = attn.cross_kv(bp["xattn"], cross_enc)
+            if mode == "prefill":
+                new_cache["cross_k"], new_cache["cross_v"] = ck, cv
+        x = x + attn.cross_attend(bp["xattn"], hx, ck, cv,
+                                  decode=mode == "decode")
     if "ffn" in bp:
         h2 = apply_norm(bp["norm2"], x, cfg.norm)
         if moe_flag:
@@ -265,7 +355,7 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                mode: str, positions=None, lengths=None,
                cache: Optional[Cache] = None, cache_len: int = 0,
-               window: int = 0
+               window: int = 0, cross_enc: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     new_cache: Cache = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -274,7 +364,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
         x, nc, aux = apply_block(
             cfg, bp, kind, moe_flag, x, mode=mode, positions=positions,
             lengths=lengths, cache=cache[i] if cache is not None else None,
-            cache_len=cache_len, window=window)
+            cache_len=cache_len, window=window, cross_enc=cross_enc)
         new_cache.append(nc)
         if aux is not None:
             aux_total = aux_total + aux
@@ -290,20 +380,70 @@ def _logits(cfg: ModelConfig, params: Transformer,
 
 
 # ---------------------------------------------------------------------------
+# Encoder and inputs
+# ---------------------------------------------------------------------------
+
+def encode(cfg: ModelConfig, params: Transformer,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over ``frames (B, T, d)``: learned positions added
+    (in the promoted dtype of the frames and the table), the encoder's
+    blocks unmasked, its final norm."""
+    enc = params.encoder
+    ecfg = encoder_cfg(cfg)
+    x = frames + enc.pos[None, :frames.shape[1]]
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    for bp in enc.layers:
+        x, _, _ = apply_block(ecfg, bp, "attn", False, x, mode="full",
+                              positions=positions, causal=False)
+    return apply_norm(enc.norm, x, cfg.norm)
+
+
+def _embed_in(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    x = embed(params.embed, tokens)
+    if cfg.learned_positions:
+        x = x + params.pos_embed[positions]
+    return x
+
+
+def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    if "frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                         f"batch needs the encoder's input 'frames' "
+                         f"(B, {cfg.encoder.n_ctx}, d) beside 'tokens'")
+    return batch["frames"]
+
+
+# ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params: Transformer,
             batch: Dict[str, torch.Tensor], *, window: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: tokens (B,S). Returns (logits
-    (B,S,V), aux_loss: the MoE layers' load-balance losses summed, 0
-    without MoE)."""
+    """Full-sequence forward. batch: tokens (B,S) [+ frames (enc-dec) /
+    patch_embeds (VLM)]. Returns (logits (B,S',V), aux_loss: the MoE
+    layers' load-balance losses summed, 0 without MoE); S' = n_ctx + S
+    with patch embeddings in front."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embed(params.embed, tokens)
+    s = tokens.shape[1]
+    cross_enc = None
+    if _is_encdec(cfg):
+        cross_enc = encode(cfg, params, _frames(cfg, batch))
+        positions = torch.arange(s, device=tokens.device)
+        x = _embed_in(cfg, params, tokens, positions)
+    elif cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        positions = torch.arange(pe.shape[1] + s, device=tokens.device)
+        x = torch.cat([pe.to(_dtype(cfg.dtype)),
+                       _embed_in(cfg, params, tokens,
+                                 positions[pe.shape[1]:])], dim=1)
+    else:
+        positions = torch.arange(s, device=tokens.device)
+        x = _embed_in(cfg, params, tokens, positions)
     x, _, aux = _run_stack(cfg, params, x, mode="full", positions=positions,
-                           window=window)
+                           window=window, cross_enc=cross_enc)
     return _logits(cfg, params, x), aux
 
 
@@ -311,13 +451,22 @@ def prefill(cfg: ModelConfig, params: Transformer,
             batch: Dict[str, torch.Tensor], cache_len: int, *,
             window: int = 0) -> Tuple[torch.Tensor, Cache]:
     """Prompt pass: logits of the last position (B,1,V) and the KV
-    cache padded to ``cache_len``."""
+    cache padded to ``cache_len`` (which must hold the patch rows too on
+    a VLM: n_ctx + S positions are written)."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embed(params.embed, tokens)
+    s = tokens.shape[1]
+    cross_enc = None
+    if _is_encdec(cfg):
+        cross_enc = encode(cfg, params, _frames(cfg, batch))
+    positions = torch.arange(s, device=tokens.device)
+    x = _embed_in(cfg, params, tokens, positions)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        positions = torch.arange(pe.shape[1] + s, device=tokens.device)
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
     x, cache, _ = _run_stack(cfg, params, x, mode="prefill",
                              positions=positions, cache_len=cache_len,
-                             window=window)
+                             window=window, cross_enc=cross_enc)
     return _logits(cfg, params, x[:, -1:]), cache
 
 
@@ -326,7 +475,10 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B,1); lengths: int32 (B,), the current fill of each
     cache row.  The cache is updated in place and returned."""
-    x = embed(params.embed, tokens)
+    positions = lengths[:, None]
+    if cfg.learned_positions:
+        positions = positions.clamp(0, params.pos_embed.shape[0] - 1)
+    x = _embed_in(cfg, params, tokens, positions)
     x, new_cache, _ = _run_stack(cfg, params, x, mode="decode",
                                  lengths=lengths, cache=cache,
                                  window=window)

@@ -20,7 +20,10 @@ cache into the pool row of every layer's tensors (K/V, their int8
 scales, or Mamba2's conv windows and state), and the warm-up's decode
 step runs on a copy of the pool, which the reference's functional step
 leaves unchanged.  Prompts are drawn from ``np.random.default_rng(seed)``
-in admission order, as the reference draws them.
+in admission order, as the reference draws them.  As in the reference,
+a prefill takes the prompt's tokens alone: the VLM runs on its text,
+and whisper, whose encoder has no frames then, raises ``ValueError``
+at its first prefill, before any layer runs.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Dynamic-batching inference engine — the system the paper characterizes.
 
 Port of the reference package's ``repro.serving.engine``.  The engine
-executes a real torch model (a dense GQA transformer or a Mamba2 SSM;
-on the card their attention and SSD scan run through the hand-written
-CUDA kernels) under the paper's batch-service discipline:
+executes a real torch model (every family of the registry: dense, MoE,
+MLA, Mamba2, the hybrid, whisper's enc-dec and the VLM; on the card
+their attention and SSD scan run through the hand-written CUDA
+kernels) under the paper's batch-service discipline:
 
 - requests arrive (Poisson load generator, MLPerf-Server-Scenario style),
 - whenever the server is free, a batching policy (default: the paper's
@@ -19,13 +20,20 @@ durations are the measured wall-clock times of the real executions.
 ``run_batch`` times the model's execution only: the batch's tokens are
 drawn and copied to the device, and the device synchronised, before the
 clock starts, and the clock stops after ``torch.cuda.synchronize()``
-(the reference's ``block_until_ready``).
+(the reference's ``block_until_ready``).  As the reference does, a VLM's
+batch carries float32 zero ``patch_embeds`` and whisper's float32 zero
+``frames``, each ``(b, n_ctx, d_model)``.
 
 Workloads:
   'forward'  — one full forward pass over a fixed-length input, then
                the argmax of the last position's logits
   'generate' — prefill(prompt_len) + gen_tokens greedy KV-cache decode
-               steps (a Python loop where the reference scans)
+               steps (a Python loop where the reference scans); on
+               the VLM, decoding starts at ``seq_len + n_ctx``, after
+               the patch rows, as in the reference, and the cache holds
+               ``n_ctx + seq_len + gen_tokens + 1`` positions where the
+               reference's holds ``seq_len + gen_tokens + 1`` and so
+               cannot take the prefill's n_ctx + seq_len (ROADMAP C-R4)
 """
 from __future__ import annotations
 
@@ -99,10 +107,14 @@ class InferenceEngine:
     def _make_batch(self, b: int) -> Dict[str, torch.Tensor]:
         """The reference's draw, as a batch on the device (the copy is
         complete when this returns)."""
-        toks = self._rng.integers(0, self.cfg.vocab_size,
-                                  size=(b, self.seq_len))
+        cfg = self.cfg
+        toks = self._rng.integers(0, cfg.vocab_size, size=(b, self.seq_len))
         batch = {"tokens": torch.as_tensor(toks, dtype=torch.long).to(
             self.device)}
+        extra = {"vlm": "patch_embeds", "audio": "frames"}.get(cfg.family)
+        if extra is not None and cfg.encoder is not None:
+            batch[extra] = torch.zeros(b, cfg.encoder.n_ctx, cfg.d_model,
+                                       device=self.device)
         self._sync()
         return batch
 
@@ -118,14 +130,20 @@ class InferenceEngine:
                 logits, _ = bundle.forward(params, batch)
                 return torch.argmax(logits[:, -1], dim=-1)
         elif self.workload == "generate":
-            cache_len = self.seq_len + self.gen_tokens + 1
+            # the VLM's patch rows, in front of the prompt
+            cfg = self.cfg
+            offset = (cfg.encoder.n_ctx
+                      if cfg.family == "vlm" and cfg.encoder is not None
+                      else 0)
+            cache_len = offset + self.seq_len + self.gen_tokens + 1
             gen_tokens = self.gen_tokens
 
             def run(params, batch):
                 logits, cache = bundle.prefill(params, batch, cache_len)
                 tok = torch.argmax(logits[:, -1:], dim=-1)
                 bsz = tok.shape[0]
-                lengths = torch.full((bsz,), batch["tokens"].shape[1],
+                lengths = torch.full((bsz,),
+                                     batch["tokens"].shape[1] + offset,
                                      dtype=torch.int32, device=tok.device)
                 toks = []
                 for _ in range(gen_tokens):

@@ -4,17 +4,19 @@ decode write at lengths outside the cache.
 Both engines serve the same Poisson trace on the same weights (the
 reference's, carried across by ``convert.model_params_from_jax``) with
 ``_timed`` replaced by a fixed step of 10 ms, so the virtual clock is
-the same in both, and with the reference's ``_write_slot`` indexing
-its pool rows on the batch axis (its own indexes the stacked layers'
-axis, ROADMAP C-R3, shown by a test of its own): every
+the same in both, and with the reference's ``_write_slot`` indexing its
+pool rows on the batch axis (its own indexes the stacked layers' axis,
+ROADMAP C-R3, shown by a test of its own): every
 ``ContinuousServeResult`` field is equal (latencies bit for bit) and the
-pool's greedy tokens are equal after every decode step.  The models run in float32 on the CPU (reduced
-qwen1.5-0.5b, mamba2-2.7b, OLMoE, DeepSeek-V2-Lite (its latent cache
-rows ``(B, S, r)``) and Jamba (K/V beside Mamba2 state rows); prompt 8,
-4 tokens, 4 slots, 40 jobs); at λ = 12/s most steps have one or two active slots, so the
-higher slots stay idle for more than ``cache_len`` = 13 steps and their
-lengths run past the cache, which the port's decode must then leave
-alone, as the reference's mask-select does.
+pool's greedy tokens are equal after every decode step. The models run
+in float32 on the CPU (reduced qwen1.5-0.5b, mamba2-2.7b, OLMoE,
+DeepSeek-V2-Lite (its latent cache rows ``(B, S, r)``), Jamba (K/V
+beside Mamba2 state rows) and the InternVL2 VLM on its text alone (both
+engines prefill the tokens only); prompt 8, 4 tokens, 4 slots, 40 jobs);
+at λ = 12/s most steps have one or two active slots, so the higher slots
+stay idle for more than ``cache_len`` = 13 steps and their lengths run
+past the cache, which the port's decode must then leave alone, as the
+reference's mask-select does.
 """
 import jax
 import jax.numpy as jnp
@@ -32,7 +34,7 @@ from repro_torch.models import attention as pt_attn
 from repro_torch.serving import ContinuousEngine, ContinuousServeResult
 
 ARCHS = ["qwen1.5-0.5b", "mamba2-2.7b", "olmoe-1b-7b",
-         "deepseek-v2-lite-16b", "jamba-v0.1-52b"]
+         "deepseek-v2-lite-16b", "jamba-v0.1-52b", "internvl2-1b"]
 PROMPT, GEN, SLOTS, JOBS, LAM, DT = 8, 4, 4, 40, 12.0, 0.01
 
 

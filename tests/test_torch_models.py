@@ -229,9 +229,9 @@ def _hybrid_without_moe():
 
 
 def _unported(arch):
-    """A config of each kind the port did not serve before MLA and the
-    hybrid interleave were ported.  OLMoE itself is ported; its case is
-    OLMoE with learned positions (8e)."""
+    """A config of each kind the port did not serve before MLA, the
+    hybrid interleave and the enc-dec / VLM stacks were ported.  OLMoE
+    itself is ported; its case is OLMoE with learned positions."""
     if arch == "jamba-interleave":
         return _hybrid_without_moe()
     cfg = pt_reduced(pt_get_config(arch))
@@ -241,34 +241,40 @@ def _unported(arch):
 
 
 # ported since: they build and match the reference
-NOW_PORTED = ("jamba-interleave", "deepseek-v2-lite-16b", "jamba-v0.1-52b")
+NOW_PORTED = ("jamba-interleave", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+              "whisper-medium", "internvl2-1b", "jamba-v0.1-52b")
 
 
-@pytest.mark.parametrize("arch", ["jamba-interleave", "olmoe-1b-7b",
-                                  "deepseek-v2-lite-16b", "whisper-medium",
-                                  "internvl2-1b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", NOW_PORTED)
 def test_unported_families_raise_and_name_their_item(arch):
-    """The enc-dec, VLM and learned-position cases (ROADMAP 8e) raise
-    and name their item; the interleave alone, DeepSeek-V2-Lite and
-    Jamba, ported since, build and give the reference's forward logits
-    on its weights."""
+    """The cases that once raised and named their ROADMAP item (8b-hybrid,
+    8c, 8e) are all ported: the interleave alone, OLMoE with learned
+    positions, DeepSeek-V2-Lite, whisper (its frames), InternVL2 (its
+    patch embeddings) and Jamba build and give the reference's forward
+    logits on its weights."""
     cfg = _unported(arch)
-    if arch not in NOW_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg)
-        return
     rcfg = reduced(get_config(cfg.name.removesuffix("-reduced")))
     if arch == "jamba-interleave":
         rcfg = dataclasses.replace(rcfg, moe=None)
+    if arch == "olmoe-1b-7b":
+        rcfg = dataclasses.replace(rcfg, learned_positions=True)
     ref = ref_build(rcfg)
     params = ref.init(jax.random.PRNGKey(3))
     port = build(cfg)
     pparams = model_params_from_jax(cfg, jax.tree.map(np.asarray, params),
                                     device="cpu")
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, 40))
-    want, _ = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, size=(1, 40))
+    batch = {"tokens": toks}
+    extra = {"audio": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+    if extra is not None:
+        batch[extra] = rng.standard_normal(
+            (1, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32)
+    want, _ = ref.forward(params, jax.tree.map(jnp.asarray, batch))
     with torch.inference_mode():
-        got, _ = port.forward(pparams, {"tokens": _t(toks)})
+        got, _ = port.forward(pparams, {
+            k: _t(a) if k == "tokens" else torch.from_numpy(a)
+            for k, a in batch.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL)
 

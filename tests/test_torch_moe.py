@@ -259,27 +259,24 @@ def test_prefill_and_decode_match_reference(name, rigs):
 
 
 def test_still_unported_features_raise_on_the_moe_family():
-    """Learned positions (8e) raise; the attention interleave (8b-hybrid,
-    ported since) builds on the MoE family, here OLMoE's MoE and q/k
-    norms on a period-2 interleave with reduced Jamba's Mamba2 layers,
-    and gives the reference's forward logits and aux loss."""
+    """Learned positions (8e) and the attention interleave (8b-hybrid),
+    once unported, both build on the MoE family and give the reference's
+    forward logits and aux loss: OLMoE's MoE and q/k norms with a
+    learned position table in place of RoPE, and on a period-2
+    interleave with reduced Jamba's Mamba2 layers."""
     cfg = pt_reduced(pt_get_config("olmoe-1b-7b"))
     tfm.require_supported(cfg)
-    for kw, item in ((dict(learned_positions=True), "8e"),
-                     (dict(attn_layer_period=2), "8b-hybrid")):
-        if item == "8e":
-            with pytest.raises(NotImplementedError, match=item):
-                build(dataclasses.replace(cfg, **kw))
-            continue
-        ssm = pt_reduced(pt_get_config("jamba-v0.1-52b")).ssm
-        pcfg = dataclasses.replace(cfg, ssm=ssm, **kw)
-        rcfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
-                                   ssm=ssm, **kw)
-        assert pcfg.layer_kinds() == ["attn", "ssm"]
+    ssm = pt_reduced(pt_get_config("jamba-v0.1-52b")).ssm
+    for kw, kinds in ((dict(learned_positions=True), ["attn", "attn"]),
+                      (dict(attn_layer_period=2, ssm=ssm), ["attn", "ssm"])):
+        pcfg = dataclasses.replace(cfg, **kw)
+        rcfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")), **kw)
+        assert pcfg.layer_kinds() == kinds
         ref = ref_build(rcfg)
         params = ref.init(jax.random.PRNGKey(4))
         pparams = model_params_from_jax(
             pcfg, jax.tree.map(np.asarray, params), device="cpu")
+        assert (pparams.pos_embed is not None) == pcfg.learned_positions
         toks = np.random.default_rng(4).integers(0, pcfg.vocab_size,
                                                  size=(B, 40))
         want, want_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})

@@ -7,7 +7,10 @@ Builds ``InferenceEngine(ARCH, workload="generate")`` (default
 qwen1.5-0.5b; mamba2-2.7b for the SSM serve path, olmoe-1b-7b for the
 MoE one, deepseek-v2-lite-16b for MLA, jamba-v0.1-52b for the hybrid,
 cut to its first 16 of 32 layers as ``chip_smoke.py``'s
-``serve_hybrid`` cuts it) at full width (bf16, the port's seeded init)
+``serve_hybrid`` cuts it, whisper-medium for the enc-dec path with the
+engine's float32 zero frames, internvl2-1b for the VLM with its 256
+zero patch rows in front of the prompt) at full width (bf16, the port's
+seeded init)
 at two sizes — ``serve``
 (``launch.serve``'s prompt of 32 and 4 generated tokens) and
 ``serve_long`` (a 1,024-token prompt and 32 tokens) — and, for batch 1
@@ -30,7 +33,18 @@ per (size, batch):
 - ``moe_ms`` / ``moe_share`` / ``moe_calls`` (MoE configs) — the
   kernel time of every ``apply_moe`` call (router, routing, dispatch,
   the experts' products, combine), read off a ``record_function`` range
-  around it, and its share of the kernel time.
+  around it, and its share of the kernel time;
+- ``encoder_ms`` / ``encoder_share`` / ``encoder_calls`` (enc-dec
+  configs) — the kernel time of the ``encode`` call (whisper's 24
+  encoder layers over 1,500 frames, in float32 under the engine's
+  frames), read off a range around it, and its share of the kernel
+  time;
+- ``moe_span_ms`` / ``encoder_span_ms`` and their ``_span_share`` — the
+  same ranges read off the device timeline instead: the kernels that
+  start inside the range's device-side span.  A range's own figure
+  counts only kernels the profiler ties to a CPU call inside it; on
+  whisper's float32 encoder it misses most of the CUTLASS products, and
+  the span figure is the one to read.
 
 With ``--out`` it also writes the Chrome traces there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
@@ -38,6 +52,7 @@ device; imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import statistics
 import sys
@@ -57,8 +72,10 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
 
 SIZES = {"serve": (32, 4), "serve_long": (1024, 32)}
-# the profiler range around each MoE FFN call
+# the profiler ranges around each MoE FFN call and each encoder pass
 MOE_RANGE = "apply_moe"
+ENCODER_RANGE = "encode"
+RANGES = {"moe": MOE_RANGE, "encoder": ENCODER_RANGE}
 
 
 def _device_us(evt, prefix: str = "self_") -> float:
@@ -84,6 +101,25 @@ def _kernel_sum(kernels, name: str):
             sum(e.count for e in hits))
 
 
+def _span_ms(prof, name: str) -> float:
+    """Kernel time on the device timeline inside the spans of the
+    device-side annotation ``name`` (one stream, so the spans hold
+    exactly the kernels the range enqueued)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == name)
+    starts = [s for s, _ in spans]
+    total = 0.0
+    for e in events:
+        if e.name in RANGES.values():
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            total += e.time_range.elapsed_us()
+    return total / 1e3
+
+
 def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
     eng.run_batch(b)                                # warm this shape
     wall_ms = statistics.median(eng.run_batch(b) * 1e3 for _ in range(3))
@@ -93,11 +129,11 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn(eng.params, batch)
         torch.cuda.synchronize()
-    # the device's kernels (the MoE range's own device-side annotation
-    # is a span, not a kernel)
+    # the device's kernels (a range's own device-side annotation is a
+    # span, not a kernel)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != MOE_RANGE]
+               and e.key not in RANGES.values()]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:10]
     if trace is not None:
@@ -115,12 +151,21 @@ def profile_batch(eng: InferenceEngine, b: int, trace: Path = None) -> dict:
         out[f"{name}_ms"] = ms
         out[f"{name}_launches"] = n
         out[f"{name}_share"] = ms / busy_ms if busy_ms else None
-    if eng.cfg.moe is not None:
-        moe = [e for e in prof.key_averages() if e.key == MOE_RANGE
-               and e.device_type == torch.autograd.DeviceType.CPU]
-        moe_ms = sum(_device_us(e, prefix="") for e in moe) / 1e3
-        out.update(moe_ms=moe_ms, moe_calls=sum(e.count for e in moe),
-                   moe_share=moe_ms / busy_ms if busy_ms else None)
+    ranged = {"moe": eng.cfg.moe is not None,
+              "encoder": transformer._is_encdec(eng.cfg)}
+    for label, key in RANGES.items():
+        if not ranged[label]:
+            continue
+        hits = [e for e in prof.key_averages() if e.key == key
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        ms = sum(_device_us(e, prefix="") for e in hits) / 1e3
+        span = _span_ms(prof, key)
+        out.update({f"{label}_ms": ms,
+                    f"{label}_calls": sum(e.count for e in hits),
+                    f"{label}_share": ms / busy_ms if busy_ms else None,
+                    f"{label}_span_ms": span,
+                    f"{label}_span_share": (span / busy_ms if busy_ms
+                                            else None)})
     return out
 
 
@@ -136,8 +181,9 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     cfg = hybrid_config() if args.arch == HYBRID_ARCH else get_config(
         args.arch)
-    # a profiler range around each MoE FFN call
+    # a profiler range around each MoE FFN call and each encoder pass
     transformer.apply_moe = _annotated(transformer.apply_moe, MOE_RANGE)
+    transformer.encode = _annotated(transformer.encode, ENCODER_RANGE)
     rows = {}
     t0 = time.perf_counter()
     for label, (prompt, gen) in SIZES.items():
