@@ -8,7 +8,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 printing one JSON line per phase:
 
 1. build         — compile ``hist_update.cu``, ``fifo_compact.cu``,
-                   ``flash_attention.cu``, ``decode_attention.cu``,
+                   ``flash_attention.cu``,
+                   ``flash_attention_backward.cu``,
+                   ``decode_attention.cu``,
                    ``decode_attention_int8.cu``, ``ssd_scan.cu``,
                    ``mla_decode.cu`` and ``campaign_fold.cu``; the
                    card's name and power limit from nvidia-smi.
@@ -422,6 +424,45 @@ printing one JSON line per phase:
                    token table's scale (InternVL2) drawn after the
                    tokens from the same ``default_rng(5)``: prefill(300)
                    + 3 decode steps against forward(303) within 3e-4.
+45. attn_backward — B3's backward kernels (``flash_attention_backward``
+                   on the forward kernel's own ``out`` and ``lse``)
+                   against ``flash_attention_backward_plain`` (float32
+                   within 2e-5 of each gradient's largest value, bf16
+                   within 2^-7 of it) and against autograd of the plain
+                   forward (bf16 within 2^-6: autograd's D uses the
+                   output before its bf16 rounding), dq, dk and dv
+                   apart, each case launched twice and held bitwise:
+                   qwen's training shape (B 8, S 512, 16 × 64, causal,
+                   bf16, and in float32), B 1 at S 4,096 and at 512,
+                   GQA (32 over 8 × 128, window 64), OLMoE's 16 × 128,
+                   MLA's (192, 128), 32 queries over 1,500 keys
+                   (unmasked, float32), ragged S 500 and 1,023; each
+                   timed against its plain version and SDPA's forward +
+                   backward; bound: q, k, v, o, dO, dq, dk, dv and lse
+                   once over 3.35 TB/s, or 2.5 × the forward's flops
+                   over the peak, whichever is larger.  Also the
+                   forward with ``lse`` at the training shape.
+46. train        — ``launch.train --arch qwen1.5-0.5b --steps 20 --batch
+                   8 --seq 512`` through its ``run`` (bf16, full width,
+                   the chunked cross-entropy in one chunk): exactly 24
+                   B3 forward and 24 B3 backward calls a step and no
+                   B4, B5 or MLA decode; finite losses with the last
+                   under the first; every grad_norm finite and > 0; the
+                   peak under the card's; then one ``--remat`` step with
+                   the same first loss and 48 forward, 24 backward
+                   calls.  Warm step ms (median of steps 2–20), tokens/s
+                   and peaks.
+47. train_consistency — qwen1.5-0.5b whole in float32 (TF32 off), batch
+                   2 × 512, one train step through the kernels against
+                   the same step with B3's forward and backward
+                   replaced, here, by autograd of the plain forward on
+                   the card: the loss at rel 1e-6; every gradient at
+                   max|Δg| <= 1e-4 · max|g| + 1e-6; the parameters after
+                   AdamW at the same bound where the gradient is
+                   resolved (|g| >= 1e-6: Adam's first step divides by
+                   |g| + 1e-8, so an unresolved gradient's update is
+                   rounding either way), and every parameter within
+                   twice the step's learning rate.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -445,7 +486,12 @@ B4's ``float_cache_ms`` beside; the ``flash_attention`` row adds
 ``serve_mla``'s last decode step with ``path_*``, ``long_*`` and
 ``batch1_*``; the ``flash_attention`` and ``decode_attention`` rows
 add ``audio_launches`` and ``vlm_launches`` from ``serve_audio`` and
-``serve_vlm`` and ``audio_*`` / ``vlm_*`` times at their shapes), the
+``serve_vlm`` and ``audio_*`` / ``vlm_*`` times at their shapes; the
+``flash_attention`` row adds ``train_launches`` and ``train_*`` times
+of the forward with ``lse`` at the training shape; the
+``flash_attention_backward`` row, a kernel of the port with no TPU
+counterpart, is timed at the training shape with ``long_*``,
+``batch1_*`` and ``f32_*``), the
 nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -502,18 +548,25 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_int8, decode_attention_int8_plain,
     decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_backward,
+    flash_attention_backward_plain, flash_attention_plain,
+    flash_attention_with_lse)
 from repro_torch.kernels.mla_decode import (  # noqa: E402
     mla_decode_attention, mla_decode_attention_plain, mla_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunked, ssd_scan, ssd_scan_plain, ssd_splits)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import attention as attn_module  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import quantize_kv  # noqa: E402
 from repro_torch.serving import (ContinuousEngine,  # noqa: E402
                                  InferenceEngine)
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.train.data import DataConfig, SyntheticCorpus  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
@@ -548,6 +601,11 @@ KERNELS = {
     "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                    "src/repro/models/attention.py:380",
                    "src/repro/models/attention.py:mla_decode"),
+    # no TPU kernel: the reference trains through jax.grad of its sdpa
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
+        "src/repro/models/attention.py:142",
+        "src/repro/models/attention.py:sdpa (jax.grad)"),
     # no TPU kernel: the reference folds a chunk with a jitted lax.scan
     "campaign_fold": ("src/repro_torch/kernels/csrc/campaign_fold.cu",
                       "src/repro/core/campaign.py:391",
@@ -610,6 +668,20 @@ AUDIO_ARGS = ["--arch", AUDIO_ARCH, "--full", "--workload", "generate",
 VLM_ARCH = "internvl2-1b"
 VLM_ARGS = ["--arch", VLM_ARCH, "--full", "--workload", "generate",
             "--rho", "0.5", "--jobs", "300", "--max-batch", "32"]
+# the training path: launch.train on qwen1.5-0.5b at full width, 8 ×
+# 512 tokens a step (S · V = 77.8 M >= 2^26: the chunked cross-entropy,
+# one chunk of 512)
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "20", "--batch", "8",
+              "--seq", "512"]
+TRAIN_B, TRAIN_S = 8, 512
+# B3's backward against its plain version, relative to each gradient's
+# largest magnitude: both compute in float32 from the same inputs, and
+# a bf16 gradient is rounded once (half an ulp, 2^-8 of a value, is at
+# most 2^-8 of the largest); against autograd of the plain forward bf16
+# takes twice that, since autograd's D uses the output before rounding
+BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2e-5}
+BWD_AUTOGRAD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-5}
 
 
 def hybrid_config(layers: int = HYBRID_LAYERS):
@@ -3328,6 +3400,7 @@ def phase_attn_kernel(dev) -> dict:
 def _serve_launches() -> dict:
     """The launch counts of every kernel a served model can run."""
     return {"flash_attention": flash_attention.launches,
+            "flash_attention_backward": flash_attention.backward_launches,
             "decode_attention": decode_attention.launches,
             "decode_attention_int8": decode_attention_int8.launches,
             "ssd_scan": ssd_scan.launches,
@@ -3336,6 +3409,7 @@ def _serve_launches() -> dict:
 
 def _reset_serve_launches() -> None:
     flash_attention.launches = 0
+    flash_attention.backward_launches = 0
     decode_attention.launches = 0
     decode_attention_int8.launches = 0
     ssd_scan.launches = 0
@@ -4445,6 +4519,293 @@ def phase_vlm_consistency(dev) -> dict:
     return info
 
 
+def _admitted(s: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head's mask admits."""
+    pq = torch.arange(s)[:, None]
+    pk = torch.arange(sk)[None, :]
+    adm = torch.ones(s, sk, dtype=torch.bool)
+    if causal:
+        adm &= pk <= pq
+    if window:
+        adm &= pq - pk < window
+    return int(adm.sum())
+
+
+def _sdpa_mask(dev, s, sk, causal, window):
+    """SDPA's arguments for B3's mask: ``is_causal`` alone, or a boolean
+    mask for a window, or nothing when every key is admitted."""
+    if window:
+        pq = torch.arange(s, device=dev)[:, None]
+        pk = torch.arange(sk, device=dev)[None, :]
+        adm = pq - pk < window
+        if causal:
+            adm &= pk <= pq
+        return {"attn_mask": adm}
+    return {"is_causal": causal}
+
+
+def _check_flash_backward(dev, dtype, b, s, h, kv, hd, *, causal=True,
+                          window=0, seed=0, timed=False, hdv=None,
+                          sk=None) -> dict:
+    """B3's backward on the forward kernel's own ``out`` and ``lse``:
+    against its plain version and autograd of the plain forward, dq, dk
+    and dv apart, launched twice and held bitwise; ``timed``: kernel,
+    plain, SDPA forward + backward and bound times."""
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, hdv=hdv,
+                           sk=sk)
+    sk, hdv = k.shape[1], v.shape[3]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    do = torch.randn(b, s, h, hdv, device=dev, generator=gen).to(dtype)
+    mode = dict(causal=causal, window=window)
+    out, lse = flash_attention_with_lse(q, k, v, **mode)
+    got = flash_attention_backward(q, k, v, out, lse, do, **mode)
+    again = flash_attention_backward(q, k, v, out, lse, do, **mode)
+    want = flash_attention_backward_plain(q, k, v, out, lse, do, **mode)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention_plain(*leaves, **mode).backward(do)
+    torch.cuda.synchronize()
+    case = dict(kernel="flash_attention_backward", dtype=str(dtype),
+                batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
+                value_dim=hdv, causal=causal, window=window)
+    if sk != s:
+        case["key_seq"] = sk
+    worst = 0.0
+    for name, x, y, w, leaf in zip(("dq", "dk", "dv"), got, again, want,
+                                   leaves):
+        scale = max(float(w.float().abs().max()), 1e-6)
+        err = float((x.float() - w.float()).abs().max())
+        auto = float((x.float() - leaf.grad.float()).abs().max())
+        case.update({f"{name}_max_abs_err": err, f"{name}_scale": scale,
+                     f"{name}_vs_autograd": auto})
+        worst = max(worst, err / (BWD_TOL[dtype] * scale))
+        check(bool(torch.isfinite(x).all()) and x.dtype == dtype
+              and err <= BWD_TOL[dtype] * scale
+              and auto <= BWD_AUTOGRAD_TOL[dtype] * scale,
+              f"flash_attention_backward {name} vs plain: {case}")
+        check(torch.equal(x, y),
+              f"flash_attention_backward repeats bitwise: {case}")
+    case["max_abs_err"] = max(case[f"{n}_max_abs_err"]
+                              for n in ("dq", "dk", "dv"))
+    case["worst_over_tol"] = worst
+    if timed:
+        pairs = b * h * _admitted(s, sk, causal, window)
+        elt = torch.finfo(dtype).bits // 8
+        nbytes = (elt * (2 * (q.numel() + k.numel() + v.numel())
+                         + 2 * out.numel()) + 4 * lse.numel())
+        flops = 2.5 * 4 * (hd + hdv) / 2 * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        case.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["kernel_ms"] = time_ms(
+            lambda: flash_attention_backward(q, k, v, out, lse, do, **mode))
+        case["plain_ms"] = time_ms(
+            lambda: flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                   **mode), reps=3, warm=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        extra = _sdpa_mask(dev, s, sk, causal, window)
+        if h != kv:
+            extra["enable_gqa"] = True
+
+        def library():
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, **extra)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        case["library_ms"] = time_ms(library)
+        case["library_note"] = (
+            "scaled_dot_product_attention forward + backward ("
+            + ", ".join(sorted(k for k in extra)) + ") on (B, H, S, hd) "
+            "copies made beforehand")
+    return case
+
+
+def phase_attn_backward(dev) -> dict:
+    """B3's backward kernels against their plain version at the training
+    path's shapes and every mode the forward takes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(TRAIN_ARCH)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"train": _check_flash_backward(dev, bf16, TRAIN_B, TRAIN_S, h, kv,
+                                          hd, seed=70, timed=True),
+           "long": _check_flash_backward(dev, bf16, 1, 4096, h, kv, hd,
+                                         seed=71, timed=True),
+           "batch1": _check_flash_backward(dev, bf16, 1, TRAIN_S, h, kv, hd,
+                                           seed=72, timed=True),
+           "f32": _check_flash_backward(dev, f32, TRAIN_B, TRAIN_S, h, kv, hd,
+                                        seed=73, timed=True)}
+    moe = get_config(MOE_ARCH)
+    timed = dict(timed=True)
+    cases = list(out.values()) + [
+        _check_flash_backward(dev, bf16, 2, 300, 32, 8, 128, window=64,
+                              seed=74, **timed),
+        _check_flash_backward(dev, bf16, 2, TRAIN_S, moe.num_heads,
+                              moe.num_kv_heads, moe.head_dim, seed=75,
+                              **timed),
+        _check_flash_backward(dev, bf16, 2, 300, 16, 16, 192, hdv=128,
+                              seed=76, **timed),
+        _check_flash_backward(dev, f32, 2, 300, 16, 16, 192, hdv=128,
+                              seed=77, **timed),
+        _check_flash_backward(dev, f32, 2, 32, h, kv, hd, causal=False,
+                              sk=1500, seed=78, **timed),
+        _check_flash_backward(dev, bf16, 2, 500, h, kv, hd, seed=79,
+                              **timed),
+        _check_flash_backward(dev, f32, 1, 1023, 6, 2, 32, seed=80,
+                              **timed)]
+    # the forward the training step runs: B3 with lse, at its shape
+    fwd = _check_flash(dev, bf16, TRAIN_B, TRAIN_S, h, kv, hd, seed=81,
+                       timed=True)
+    q, k, v = _attn_inputs(dev, bf16, TRAIN_B, TRAIN_S, h, kv, hd, 81)
+    fwd["lse_ms"] = time_ms(lambda: flash_attention_with_lse(q, k, v))
+    out["forward"] = fwd
+    emit("attn_backward", cases=cases, forward=fwd,
+         worst_over_tol=max(c["worst_over_tol"] for c in cases))
+    return out
+
+
+def phase_train(dev) -> dict:
+    """``launch.train`` on qwen1.5-0.5b at full width as a user runs it:
+    24 B3 forward and backward calls a step, the loss falling; then one
+    step with ``--remat``: 48 forward calls, the same first loss."""
+    n = get_config(TRAIN_ARCH).num_layers
+    args = train_cli.parse_args(TRAIN_ARGS)
+    _reset_serve_launches()
+    t0 = time.perf_counter()
+    res = train_cli.run(args, device=dev, log=False)
+    seconds = time.perf_counter() - t0
+    launches = _serve_launches()
+    want = _launch_counts(flash_attention=n * args.steps,
+                          flash_attention_backward=n * args.steps)
+    check(launches == want, f"train: {args.steps} steps launched "
+          f"{launches}, expected {want}")
+    losses, norms = res["losses"], res["grad_norms"]
+    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+          f"train: finite losses that fall: {losses}")
+    check(bool(np.all(np.isfinite(norms))) and min(norms) > 0,
+          f"train: finite positive grad norms: {norms}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(res["peak_bytes"] < total, f"train: peak {res['peak_bytes']} "
+          f"bytes under the card's {total}")
+    step_ms = float(np.median(res["step_ms"][1:]))
+    _reset_serve_launches()
+    rargs = train_cli.parse_args(TRAIN_ARGS[:2] + ["--steps", "1"]
+                                 + TRAIN_ARGS[4:] + ["--remat"])
+    remat = train_cli.run(rargs, device=dev, log=False)
+    rlaunch = _serve_launches()
+    rwant = _launch_counts(flash_attention=2 * n,
+                           flash_attention_backward=n)
+    check(rlaunch == rwant, f"train --remat: one step launched {rlaunch}, "
+          f"expected {rwant}")
+    diff = abs(remat["losses"][0] - losses[0])
+    check(diff <= 1e-6 * abs(losses[0]), f"train --remat: first loss "
+          f"{remat['losses'][0]} against {losses[0]}")
+    info = dict(arch=res["arch"], layers=res["layers"], dtype=res["dtype"],
+                args=TRAIN_ARGS, seconds=seconds, losses=losses,
+                grad_norms=norms, step_ms=res["step_ms"],
+                step_ms_warm_median=step_ms,
+                tokens_per_s=res["tokens_per_step"] / (step_ms / 1e3),
+                peak_bytes=res["peak_bytes"], device_mem_bytes=total,
+                launches=launches,
+                launches_per_step={k: v // args.steps
+                                   for k, v in launches.items()},
+                remat_launches=rlaunch,
+                remat_first_loss_diff=diff,
+                remat_step_ms=remat["step_ms"][0],
+                remat_peak_bytes=remat["peak_bytes"])
+    emit("train", **info)
+    torch.cuda.empty_cache()
+    return info
+
+
+def _plain_attention(q, k, v, *, causal=True, window=0):
+    """B3's plain version, which autograd differentiates as it is."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def phase_train_consistency(dev) -> dict:
+    """One train step of qwen1.5-0.5b whole in float32 through B3's
+    kernels against the same step with B3 replaced by its plain version
+    (autograd through it) on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    batch = next(SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=2,
+        seed=5)).batches())
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+             for k, v in batch.items()}
+    # launch.train's optimizer at its 20 steps (warm-up 2)
+    o = train_opt.AdamWConfig(total_steps=20, warmup_steps=2)
+    lr = float(train_opt.schedule(o, torch.tensor(0)))
+    real = train_loop.apply_updates
+    runs = {}
+    for label in ("kernel", "plain"):
+        model = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(5))
+        grads = {}
+
+        def captured(c, params, g, state, decay):
+            grads.update({n: t.detach().clone() for n, t in g.items()})
+            return real(c, params, g, state, decay)
+
+        train_loop.apply_updates = captured
+        if label == "plain":
+            attn_module.flash_attention = _plain_attention
+        try:
+            _reset_serve_launches()
+            model, _, m = train_loop.make_train_step(cfg, o)(
+                model, train_opt.init_state(model), batch)
+            torch.cuda.synchronize()
+            launches = _serve_launches()
+        finally:
+            train_loop.apply_updates = real
+            attn_module.flash_attention = flash_attention
+        runs[label] = (float(m["loss"]), grads,
+                       {n: p.detach() for n, p in model.named_parameters()},
+                       launches)
+        del model
+    (lk, gk, pk, nk), (lp, gp, pp, np_) = runs["kernel"], runs["plain"]
+    n = cfg.num_layers
+    check(nk == _launch_counts(flash_attention=n,
+                               flash_attention_backward=n)
+          and np_ == _launch_counts(),
+          f"train_consistency: launches {nk} (kernels), {np_} (plain)")
+    loss_worst = abs(lk - lp) / (1e-6 * abs(lp))
+    grad_worst = param_worst = 0.0
+    unresolved = far = 0
+    for name, g in gp.items():
+        tol = 1e-4 * float(g.abs().max()) + 1e-6
+        grad_worst = max(grad_worst, float((gk[name] - g).abs().max()) / tol)
+        diff = (pk[name] - pp[name]).abs()
+        firm = g.abs() >= 1e-6
+        unresolved += int((~firm).sum())
+        if firm.any():
+            ptol = 1e-4 * float(pp[name].abs().max()) + 1e-6
+            param_worst = max(param_worst, float(diff[firm].max()) / ptol)
+        far = max(far, float(diff.max()) / (2 * lr))
+    info = dict(arch=TRAIN_ARCH, dtype="float32", layers=n, batch=2,
+                seq=TRAIN_S, loss_kernel=lk, loss_plain=lp,
+                loss_worst_over_tol=loss_worst,
+                grad_worst_over_tol=grad_worst,
+                param_worst_over_tol=param_worst,
+                unresolved_elements=unresolved,
+                unresolved_worst_over_2lr=far, lr=lr,
+                tolerance="loss rel 1e-6; grads and resolved params "
+                          "max|diff| <= 1e-4*max|x| + 1e-6; all params "
+                          "within 2 lr",
+                launches_kernel=nk)
+    check(loss_worst <= 1.0 and grad_worst <= 1.0 and param_worst <= 1.0
+          and far <= 1.0, f"train_consistency: {info}")
+    emit("train_consistency", **info)
+    del runs, gk, gp, pk, pp
+    torch.cuda.empty_cache()
+    return info
+
+
 def _kernel_row(name: str, path: str, launches: int, k: dict,
                 **extra) -> dict:
     source, replaces, tpu_ref = KERNELS[name]
@@ -4582,6 +4943,9 @@ def main() -> int:
     served_vlm = phase("serve_vlm", phase_serve_vlm, dev)
     phase("audio_consistency", phase_audio_consistency, dev)
     phase("vlm_consistency", phase_vlm_consistency, dev)
+    bwd = phase("attn_backward", phase_attn_backward, dev)
+    trained = phase("train", phase_train, dev)
+    phase("train_consistency", phase_train_consistency, dev)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
@@ -4700,7 +5064,17 @@ def main() -> int:
                                          ("batch1_", "batch1"))
                      for k, key in batch1_keys + (("bound_by",
                                                    "bound_by"),)},
-                  "mla_library_note": mla["flash_serve"]["library_note"]}),
+                  "mla_library_note": mla["flash_serve"]["library_note"],
+                  # the training path: the forward with lse at its shape
+                  "train_launches": trained["launches"]["flash_attention"],
+                  "train_ms": bwd["forward"]["lse_ms"],
+                  "train_no_lse_ms": bwd["forward"]["kernel_ms"],
+                  **{f"train_{k}": bwd["forward"][key]
+                     for k, key in (("plain_ms", "plain_ms"),
+                                    ("bound_ms", "bound_ms"),
+                                    ("library_ms", "library_ms"),
+                                    ("bound_by", "bound_by"),
+                                    ("max_abs_err", "max_abs_err"))}}),
               ("decode_attention", "decode",
                ("audio_cross_decode", "audio_cross_decode_batch1",
                 "vlm_decode"),
@@ -4746,6 +5120,21 @@ def main() -> int:
                for k, key in batch1_keys + (("bound_by", "bound_by"),)},
             hybrid_splits={k: hybrid[f"ssd_{k}"]["splits"]
                            for k in ("serve", "long", "batch1")}),
+        # a kernel of the port with no TPU counterpart: the reference
+        # trains through jax.grad of its sdpa; timed at the training
+        # shape, with the long, batch-1 and float32 shapes beside
+        _kernel_row(
+            "flash_attention_backward", "train",
+            trained["launches"]["flash_attention_backward"], bwd["train"],
+            note="no TPU kernel: replaces jax.grad through the reference's "
+                 "sdpa",
+            train_launches=trained["launches"]["flash_attention_backward"],
+            launches_per_step=trained["launches_per_step"][
+                "flash_attention_backward"],
+            library_note=bwd["train"]["library_note"],
+            **{f"{case}_{k}": bwd[case][key]
+               for case in ("long", "batch1", "f32")
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)}),
         # a kernel of the port with no TPU counterpart: the reference's
         # float32 einsum chain of MLA decode, timed at serve_mla's last
         # decode step (B 32 over the 37-slot cache)

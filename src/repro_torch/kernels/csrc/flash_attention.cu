@@ -24,6 +24,12 @@
 // VMEM scratch; on Hopper blocks run in no order, so the kv axis is a
 // loop inside the block.
 //
+// The row log-sum-exp.  Given a float32 lse (B, H, S) (a null pointer
+// writes none, and the kernels run as without it), each row also writes
+// lse = m * scale + log(l) in natural-log units of the scaled scores, or
+// +inf for a row with no admitted key; the backward
+// (flash_attention_backward.cu) recomputes P = exp(s * scale - lse).
+//
 // Which kernel runs.  bfloat16 inputs run flash_attention_kernel_bf16,
 // on the tensor cores; float32 inputs run flash_attention_kernel, on
 // the CUDA cores (the tensor cores would round float32 through TF32,
@@ -91,12 +97,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- float32
 
@@ -119,8 +127,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int S, int SK, int H, int KV, float scale,
-                       int causal, int window) {
+                       float* __restrict__ lse, int S, int SK, int H, int KV,
+                       float scale, int causal, int window) {
   constexpr int kChunks = HDQ / 4;         // float4 chunks in a q/k row
   constexpr int kMine = kChunks / kLanes;  // chunks a thread holds
   constexpr int kVChunks = HDV / 4;        // float4 chunks in a v row
@@ -245,6 +253,9 @@ flash_attention_kernel(const float* __restrict__ q,
              make_float4(acc[i].x / denom, acc[i].y / denom,
                          acc[i].z / denom, acc[i].w / denom));
     }
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + pq] =
+          l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
@@ -364,8 +375,9 @@ __global__ void __launch_bounds__(kWarpThreads, HDQ + HDV >= 256 ? 1 : 4)
 flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int S, int SK,
-                            int H, int KV, float scale_log2, int causal,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int S, int SK, int H,
+                            int KV, float scale_log2, int causal,
                             int window) {
   // scores stay unscaled until the exponent: p = exp2(s * c - m * c)
   using Tile = Bf16Tile<HDQ, HDV>;
@@ -553,6 +565,13 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + (static_cast<int64_t>(b) * H + h) * S;
+    if (pq0 < S)
+      lrow[pq0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : INFINITY;
+    if (pq1 < S)
+      lrow[pq1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : INFINITY;
+  }
   const float d0 = l0 + 1e-30f;
   const float d1 = l1 + 1e-30f;
   if (pq0 < S) {
@@ -577,21 +596,21 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int HDQ, int HDV>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int S, int SK, int H, int KV, float scale, int causal,
-               int window, cudaStream_t stream) {
+               float* lse, int B, int S, int SK, int H, int KV, float scale,
+               int causal, int window, cudaStream_t stream) {
   if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_attention_kernel<HDQ, HDV><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, SK, H, KV,
-      scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, SK, H,
+      KV, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HDQ, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int SK, int H, int KV, float scale, int causal,
-                int window, cudaStream_t stream) {
+                float* lse, int B, int S, int SK, int H, int KV, float scale,
+                int causal, int window, cudaStream_t stream) {
   const int64_t heads = static_cast<int64_t>(B) * H;
   const int64_t blocks = (static_cast<int64_t>(S) + kBlockRows - 1) /
                          kBlockRows;
@@ -608,7 +627,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, SK, H, KV, scale * kLog2e,
+      static_cast<__nv_bfloat16*>(out), lse, S, SK, H, KV, scale * kLog2e,
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -620,19 +639,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // a (B * H, ceil(S / 64)) grid; S is q's length and SK k's and v's
 // (SK == S unless causal is 0); (hd, hdv) is (32, 32), (64, 64),
 // (128, 128) or (192, 128), hd q's and k's width, hdv v's and the
-// output's; on `stream`.  Returns the
+// output's; on `stream`.  A non-null lse (B, H, S) float32 takes each
+// row's log-sum-exp (+inf where no key is admitted).  Returns the
 // first CUDA error of setting the shared-memory size or of the launch, 0
 // if none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int S, int SK, int H, int KV, int hd,
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int SK, int H, int KV, int hd,
                                       int hdv, int dtype, float scale,
                                       int causal, int window, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KV <= 0 || H % KV != 0 || SK < 0 || (causal && SK != S))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, out, B, S, SK, H, KV, scale, causal, window, st
+#define FA_ARGS                                                          \
+  q, k, v, out, static_cast<float*>(lse), B, S, SK, H, KV, scale, causal, \
+      window, st
   if (hd == 192 && hdv == 128) {
     if (dtype == 0) return launch_f32<192, 128>(FA_ARGS);
     if (dtype == 1) return launch_bf16<192, 128>(FA_ARGS);

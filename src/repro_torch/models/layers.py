@@ -4,8 +4,10 @@ Port of the reference package's ``repro.models.layers``.  Parameters
 live in ``nn.ParameterDict``s keyed as the reference's pytrees are, so
 every ``apply_*`` reads ``p["w_gate"]`` where the reference reads the
 same key; every ``init_*`` draws from an explicit ``torch.Generator``
-on the device the parameters are made on.  The weights are for
-inference only (``requires_grad`` is off).
+on the device the parameters are made on.  The weights are built with
+``requires_grad`` off, so serving runs no autograd; a trainer turns
+gradients on for its own model (``model.requires_grad_(True)``, as
+``repro_torch.train`` does).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference weight."""
+    """A weight, built frozen (``requires_grad`` off)."""
     return nn.Parameter(t, requires_grad=False)
 
 

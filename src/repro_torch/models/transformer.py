@@ -38,9 +38,21 @@ the position to the table's last row.  The VLM (InternVL2) puts its
 the prompt, at positions ``0 … n_ctx - 1``; without them it runs on the
 text alone.
 
-Public API (used by registry / serving):
+Training (``remat=True`` on ``forward``, ``forward_hidden`` and
+``encode``): each repeated layer (index ``lead`` and past, one period of
+``split_pattern`` at a time) and each encoder layer runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
+and recomputes it in the backward; ``REPRO_REMAT_GROUP`` (read at each
+call, as the reference reads it) groups the periods two-level, as the
+reference's ``_remat_group``.  The values are unchanged; B3's forward
+runs twice a checkpointed layer.
+
+Public API (used by registry / serving / training):
     init_params(cfg, generator)                -> Transformer
-    forward(cfg, params, batch, window=0)      -> (logits, aux_loss)
+    forward(cfg, params, batch, window=0, remat=False)
+                                               -> (logits, aux_loss)
+    forward_hidden(cfg, params, batch, window=0, remat=False)
+                                               -> (hidden, aux_loss)
     prefill(cfg, params, batch, cache_len, window=0) -> (logits, cache)
     decode_step(cfg, params, tokens, cache, lengths, window=0)
                                                -> (logits, cache)
@@ -52,10 +64,12 @@ Every family of the registry is ported; ``require_supported`` raises
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -67,8 +81,9 @@ from repro_torch.models.layers import (_dtype, _init_w, apply_mlp,
 from repro_torch.models.moe import apply_moe, init_moe
 
 __all__ = ["Transformer", "Encoder", "init_params", "init_cache", "forward",
-           "prefill", "decode_step", "encode", "encoder_cfg", "layer_specs",
-           "split_pattern", "require_supported"]
+           "forward_hidden", "prefill", "decode_step", "encode",
+           "encoder_cfg", "layer_specs", "split_pattern",
+           "require_supported"]
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -112,6 +127,24 @@ def split_pattern(cfg: ModelConfig) -> Tuple[int, int, int]:
         if s != rest[i % p]:
             raise ValueError(f"{cfg.name}: stack not periodic at {i}")
     return lead, p, len(rest) // p
+
+
+def _remat_group(r: int) -> int:
+    """The group of layer periods a two-level remat checkpoints together:
+    the largest divisor of ``r`` not above ``REPRO_REMAT_GROUP`` (read at
+    each call); 1 (single level) when it is unset, 0 or 1, or ``r <=
+    2``, as the reference's ``_remat_group``."""
+    want = int(os.environ.get("REPRO_REMAT_GROUP", "0") or 0)
+    if want <= 1 or r <= 2:
+        return 1
+    g = min(want, r)
+    while r % g:
+        g -= 1
+    return g
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -352,11 +385,63 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
     return x, new_cache, aux
 
 
+def _run_layers(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
+                lo: int, hi: int, positions, window: int,
+                cross_enc: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers ``lo … hi - 1`` in full mode; returns (x, their aux sum)."""
+    specs = layer_specs(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(lo, hi):
+        kind, moe_flag = specs[i]
+        x, _, aux = apply_block(cfg, params.layers[i], kind, moe_flag, x,
+                                mode="full", positions=positions,
+                                window=window, cross_enc=cross_enc)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _run_stack_remat(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
+                     positions, window: int,
+                     cross_enc: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-mode stack with each period of the repeated layers
+    checkpointed, and with ``REPRO_REMAT_GROUP`` groups of periods
+    checkpointed around them."""
+    lead, p, r = split_pattern(cfg)
+    x, aux_total = _run_layers(cfg, params, x, 0, lead, positions, window,
+                               cross_enc)
+
+    def periods(x, j0: int, n: int):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(j0, j0 + n):
+            x, a = _checkpoint(_run_layers, cfg, params, x, lead + j * p,
+                               lead + (j + 1) * p, positions, window,
+                               cross_enc)
+            aux = aux + a
+        return x, aux
+
+    group = _remat_group(r)
+    for j0 in range(0, r, group):
+        if group > 1:
+            x, a = _checkpoint(periods, x, j0, group)
+        else:
+            x, a = periods(x, j0, 1)
+        aux_total = aux_total + a
+    return x, aux_total
+
+
 def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                mode: str, positions=None, lengths=None,
                cache: Optional[Cache] = None, cache_len: int = 0,
-               window: int = 0, cross_enc: Optional[torch.Tensor] = None
+               window: int = 0, cross_enc: Optional[torch.Tensor] = None,
+               remat: bool = False
                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    if remat and mode == "full":
+        x, aux = _run_stack_remat(cfg, params, x, positions, window,
+                                  cross_enc)
+        return x, None, aux
     new_cache: Cache = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, ((kind, moe_flag), bp) in enumerate(zip(layer_specs(cfg),
@@ -383,18 +468,27 @@ def _logits(cfg: ModelConfig, params: Transformer,
 # Encoder and inputs
 # ---------------------------------------------------------------------------
 
-def encode(cfg: ModelConfig, params: Transformer,
-           frames: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(ecfg: ModelConfig, bp: nn.ModuleDict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return apply_block(ecfg, bp, "attn", False, x, mode="full",
+                       positions=positions, causal=False)[0]
+
+
+def encode(cfg: ModelConfig, params: Transformer, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """The encoder over ``frames (B, T, d)``: learned positions added
     (in the promoted dtype of the frames and the table), the encoder's
-    blocks unmasked, its final norm."""
+    blocks unmasked (each checkpointed with ``remat``), its final
+    norm."""
     enc = params.encoder
     ecfg = encoder_cfg(cfg)
     x = frames + enc.pos[None, :frames.shape[1]]
     positions = torch.arange(frames.shape[1], device=frames.device)
     for bp in enc.layers:
-        x, _, _ = apply_block(ecfg, bp, "attn", False, x, mode="full",
-                              positions=positions, causal=False)
+        if remat:
+            x = _checkpoint(_encoder_layer, ecfg, bp, x, positions)
+        else:
+            x = _encoder_layer(ecfg, bp, x, positions)
     return apply_norm(enc.norm, x, cfg.norm)
 
 
@@ -419,18 +513,19 @@ def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: Transformer,
-            batch: Dict[str, torch.Tensor], *, window: int = 0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. batch: tokens (B,S) [+ frames (enc-dec) /
-    patch_embeds (VLM)]. Returns (logits (B,S',V), aux_loss: the MoE
-    layers' load-balance losses summed, 0 without MoE); S' = n_ctx + S
-    with patch embeddings in front."""
+def forward_hidden(cfg: ModelConfig, params: Transformer,
+                   batch: Dict[str, torch.Tensor], *, window: int = 0,
+                   remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` up to the unembedding: the final hidden states (B, S',
+    d) before ``norm_f`` (a VLM's patch rows kept) and the aux loss.
+    The chunked cross-entropy computes the logits a chunk at a time from
+    these."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     cross_enc = None
     if _is_encdec(cfg):
-        cross_enc = encode(cfg, params, _frames(cfg, batch))
+        cross_enc = encode(cfg, params, _frames(cfg, batch), remat=remat)
         positions = torch.arange(s, device=tokens.device)
         x = _embed_in(cfg, params, tokens, positions)
     elif cfg.family == "vlm" and "patch_embeds" in batch:
@@ -443,7 +538,19 @@ def forward(cfg: ModelConfig, params: Transformer,
         positions = torch.arange(s, device=tokens.device)
         x = _embed_in(cfg, params, tokens, positions)
     x, _, aux = _run_stack(cfg, params, x, mode="full", positions=positions,
-                           window=window, cross_enc=cross_enc)
+                           window=window, cross_enc=cross_enc, remat=remat)
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params: Transformer,
+            batch: Dict[str, torch.Tensor], *, window: int = 0,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. batch: tokens (B,S) [+ frames (enc-dec) /
+    patch_embeds (VLM)]. Returns (logits (B,S',V), aux_loss: the MoE
+    layers' load-balance losses summed, 0 without MoE); S' = n_ctx + S
+    with patch embeddings in front.  ``remat``: checkpoint the repeated
+    layers (training)."""
+    x, aux = forward_hidden(cfg, params, batch, window=window, remat=remat)
     return _logits(cfg, params, x), aux
 
 

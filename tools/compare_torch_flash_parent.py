@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """B3 (``flash_attention``) against an earlier checkout's B3, bitwise, on
-every self-attention shape ``chip_smoke.py`` launched before B3 took a
-key length of its own.
+the shapes ``chip_smoke.py`` launches for serving: the forward as
+serving runs it (no ``lse``) and, on CUDA tensors that require grad,
+the forward of the autograd path (which also writes ``lse``).
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/compare_torch_flash_parent.py --parent build/parent
 
 Builds the parent's ``src/repro_torch/kernels/csrc/flash_attention.cu``
 with the port's ``nvcc`` flags into ``build/parent_flash/``, calls its
-``flash_attention_launch`` with the argument list it exports (no key
-length: q, k, v, out, B, S, H, KV, hd, hdv, dtype, scale, causal,
-window, stream) and the current ``flash_attention`` on the same random
-inputs, and requires the two outputs equal bit for bit: the serve,
-long, batch-1 and continuous shapes at 16 × 64, phi4-mini's 24 over 8
-× 128, OLMoE's 16 × 128, MLA's (192, 128) pair, Jamba's 32 over 8 ×
-128, windowed, unmasked and float32 cases.  Prints one JSON line with
+``flash_attention_launch`` with the argument list it exports (with a
+key length and no ``lse``: q, k, v, out, B, S, SK, H, KV, hd, hdv,
+dtype, scale, causal, window, stream) and the current
+``flash_attention`` on the same random inputs, once under
+``inference_mode`` and once with grad on inputs that require it, and
+requires the outputs equal bit for bit: the serve, long, batch-1 and
+continuous shapes at 16 × 64, phi4-mini's 24 over 8 × 128, OLMoE's 16 ×
+128, MLA's (192, 128) pair, Jamba's 32 over 8 × 128, windowed, unmasked
+and float32 cases, whisper's and InternVL2's shapes (a key length of its
+own: 32 queries over 1,500 keys) and the training shapes.  Prints one JSON line with
 the count of cases and of bitwise-equal ones, and exits 1 if any
 differs.  Needs one CUDA device and ``nvcc``; imports nothing of JAX.
 """
@@ -40,8 +44,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 def cases() -> list:
-    """(dtype, B, S, H, KV, hd, hdv, causal, window) of the earlier
-    phases' B3 launches."""
+    """(dtype, B, S, H, KV, hd, hdv, causal, window, SK) of the phases'
+    B3 launches (SK 0: the query length)."""
     out = []
     for b in (1, 2, 4, 8, 16, 32):
         out += [(BF16, b, 32, 16, 16, 64, 64, True, 0),
@@ -65,6 +69,18 @@ def cases() -> list:
                 (dt, 2, 303, 16, 16, 192, 128, True, 0),
                 (dt, 2, 37, 6, 2, 32, 32, False, 0),
                 (dt, 2, 300, 16, 16, 64, 64, False, 0)]
+    out = [c + (0,) for c in out]
+    # a key length of its own (whisper's cross-attention), the encoder,
+    # InternVL2's prefill and the training shapes
+    out += [(F32, 32, 32, 16, 16, 64, 64, False, 0, 1500),
+            (F32, 1, 32, 16, 16, 64, 64, False, 0, 1500),
+            (F32, 2, 7, 16, 16, 64, 64, False, 0, 1499),
+            (F32, 2, 1500, 16, 16, 64, 64, False, 0, 0),
+            (BF16, 2, 1500, 16, 16, 64, 64, False, 0, 0),
+            (BF16, 32, 288, 14, 2, 64, 64, True, 0, 0),
+            (BF16, 8, 512, 16, 16, 64, 64, True, 0, 0),
+            (F32, 2, 512, 16, 16, 64, 64, True, 0, 0),
+            (BF16, 1, 4096, 16, 16, 64, 64, True, 0, 0)]
     return out
 
 
@@ -76,7 +92,7 @@ def parent_launch(parent: Path):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(src)], check=True)
     fn = ctypes.CDLL(str(so)).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -94,21 +110,30 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, same = [], 0
-    for i, (dt, b, s, h, kv, hd, hdv, causal, window) in enumerate(cases()):
+    for i, (dt, b, s, h, kv, hd, hdv, causal, window, sk) in enumerate(
+            cases()):
+        sk = sk or s
         gen = torch.Generator(device=dev).manual_seed(500 + i)
         q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dt)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd),
-                                 (b, s, kv, hdv)))
-        new = flash_attention(q, k, v, causal=causal, window=window)
-        ref = torch.empty_like(new)
+                   for shape in ((b, s, h, hd), (b, sk, kv, hd),
+                                 (b, sk, kv, hdv)))
+        with torch.inference_mode():
+            served = flash_attention(q, k, v, causal=causal, window=window)
+        grads = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        trained = flash_attention(*grads, causal=causal,
+                                  window=window).detach()
+        ref = torch.empty_like(served)
         err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), ref.data_ptr(),
-                  b, s, h, kv, hd, hdv, DTYPE_CODE[dt], hd ** -0.5,
+                  b, s, sk, h, kv, hd, hdv, DTYPE_CODE[dt], hd ** -0.5,
                   int(causal), window, stream)
         torch.cuda.synchronize()
-        ok = err == 0 and torch.equal(new, ref)
+        ok = (err == 0 and torch.equal(served, ref)
+              and torch.equal(trained, ref))
         same += ok
         if not ok:
-            rows.append([str(dt), b, s, h, kv, hd, hdv, causal, window, err])
+            rows.append([str(dt), b, s, h, kv, hd, hdv, causal, window, sk,
+                         err, torch.equal(served, ref),
+                         torch.equal(trained, ref)])
     print(json.dumps({"cases": len(cases()), "bitwise_equal": same,
                       "differ": rows,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
