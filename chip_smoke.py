@@ -12,8 +12,9 @@ printing one JSON line per phase:
                    ``flash_attention_backward.cu``,
                    ``decode_attention.cu``,
                    ``decode_attention_int8.cu``, ``ssd_scan.cu``,
-                   ``mla_decode.cu`` and ``campaign_fold.cu``; the
-                   card's name and power limit from nvidia-smi.
+                   ``ssd_scan_backward.cu``, ``mla_decode.cu`` and
+                   ``campaign_fold.cu``; the card's name and power limit
+                   from nvidia-smi.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version on random blocks (lognormal latencies, an
                    i.i.d. 50% mask) of each path's user-size shape: the
@@ -463,6 +464,50 @@ printing one JSON line per phase:
                    |g| + 1e-8, so an unresolved gradient's update is
                    rounding either way), and every parameter within
                    twice the step's learning rate.
+48. ssd_backward — B5's backward kernels (``ssd_scan_backward``)
+                   against ``ssd_scan_backward_plain`` on the card, each
+                   of dx, ddt, dA, dB and dC apart (1e-4 of its largest
+                   magnitude in float32, 2^-7 where it is returned in
+                   bf16), twice bitwise: mamba2-2.7b's training shape (B
+                   2 × 512, 80 × 64, ds 128) in bf16 and float32, B 1 ×
+                   4,096 and Jamba's (64, 16) with 128 heads at B 2 ×
+                   512 (all timed against the plain backward; bound: x,
+                   dt, B, C, dy in and dx, ddt, dB, dC out once over
+                   3.35 TB/s, or 8 · hd · ds flops a step and head over
+                   the float32 CUDA cores' 67 TFLOP/s, whichever is
+                   larger), a ragged (32, 16) case at B 1 × 1,023 with 8
+                   heads over 2 groups, and a non-zero gradient of the
+                   final state at both widths.
+49. train_ssm    — ``launch.train --arch mamba2-2.7b --steps 10 --batch
+                   2 --seq 512`` through its ``run`` (whole: 64 layers,
+                   full width, bf16): exactly 64 B5 forward and 64 B5
+                   backward calls a step and no other kernel, finite
+                   losses that fall, finite positive grad norms, the
+                   peak under the card's; then one ``--remat`` step: 128
+                   forward and 64 backward calls, the same first loss.
+50. train_hybrid — Jamba at full width without its experts, one period
+                   of 8 layers (7 Mamba2 and the attention layer at
+                   offset 4), 5 steps at 2 × 512 through
+                   ``launch.train``'s ``run(args, cfg=...)``: exactly 7
+                   B5 forward and backward calls and 1 B3 forward and
+                   backward call a step; finite losses and grad norms,
+                   the peak under the card's.
+51. train_ssm_consistency — one float32 train step through B5's kernels
+                   against the same step with ``ssd_chunked`` replaced
+                   by ``ssd_scan_plain`` (autograd through it) on the
+                   card, ``train_consistency``'s gates: mamba2-2.7b at
+                   full width (its first 8 of 64 layers), then
+                   ``train_hybrid``'s config.
+52. train_families — two train steps each at 2 × 256 of olmoe-1b-7b (4
+                   of 16 layers), deepseek-v2-lite-16b (its dense lead
+                   and two MoE layers), whisper-medium (the reference
+                   trainer's zero frames) and internvl2-1b (seeded
+                   0.02 · N(0, 1) patch rows: zero rows overflow the
+                   gradient at depth 24, ROADMAP C-R5) whole: exact B3
+                   forward and backward counts from the
+                   config (whisper: encoder self, decoder self and
+                   cross), finite losses and grad norms, the peak under
+                   the card's.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -491,7 +536,10 @@ add ``audio_launches`` and ``vlm_launches`` from ``serve_audio`` and
 of the forward with ``lse`` at the training shape; the
 ``flash_attention_backward`` row, a kernel of the port with no TPU
 counterpart, is timed at the training shape with ``long_*``,
-``batch1_*`` and ``f32_*``), the
+``batch1_*`` and ``f32_*``; the ``ssd_scan_backward`` row, also with
+no TPU counterpart, takes its launches from ``train_ssm`` and its times
+at mamba2-2.7b's training shape, with ``f32_*``, ``long_*`` and
+``hybrid_*`` beside), the
 nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -539,6 +587,7 @@ from repro_torch.core.loss_ref import (  # noqa: E402
     simulate_fleet_loss_numpy, simulate_gen_loss_numpy, simulate_loss_numpy)
 from repro_torch.core.replicas import simulate_jsq_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import reduced as reduce_config  # noqa: E402
 from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import superstep as ss  # noqa: E402
@@ -554,11 +603,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.mla_decode import (  # noqa: E402
     mla_decode_attention, mla_decode_attention_plain, mla_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_chunked, ssd_scan, ssd_scan_plain, ssd_splits)
+    ssd_chunked, ssd_scan, ssd_scan_backward, ssd_scan_backward_plain,
+    ssd_scan_plain, ssd_splits)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import attention as attn_module  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import mamba2 as mamba2_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import quantize_kv  # noqa: E402
@@ -606,6 +657,12 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/flash_attention_backward.cu",
         "src/repro/models/attention.py:142",
         "src/repro/models/attention.py:sdpa (jax.grad)"),
+    # no TPU kernel: the reference trains Mamba2 through jax.grad of its
+    # _ssd_chunked
+    "ssd_scan_backward": (
+        "src/repro_torch/kernels/csrc/ssd_scan_backward.cu",
+        "src/repro/models/mamba2.py:85",
+        "src/repro/models/mamba2.py:_ssd_chunked (jax.grad)"),
     # no TPU kernel: the reference folds a chunk with a jitted lax.scan
     "campaign_fold": ("src/repro_torch/kernels/csrc/campaign_fold.cu",
                       "src/repro/core/campaign.py:391",
@@ -682,6 +739,31 @@ TRAIN_B, TRAIN_S = 8, 512
 # takes twice that, since autograd's D uses the output before rounding
 BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2e-5}
 BWD_AUTOGRAD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-5}
+# SSM training: launch.train on mamba2-2.7b whole, 2 × 512 tokens a step
+# (bf16 weights and gradients and float32 moments ≈ 32 GB, the
+# activations of 64 layers at 1,024 tokens the rest; PERF.md reckons the
+# peak)
+TRAIN_SSM_ARGS = ["--arch", SSM_ARCH, "--steps", "10", "--batch", "2",
+                  "--seq", "512"]
+# the hybrid: Jamba at full width, one period of 8 layers without its
+# experts, 2.7 B parameters (with its 4 MoE layers a period holds 13.3 B,
+# ≈ 159 GB with bf16 gradients and float32 moments; split_pattern needs a
+# whole period)
+HYBRID_TRAIN_LAYERS = 8
+TRAIN_HYBRID_ARGS = ["--arch", HYBRID_ARCH, "--steps", "5", "--batch", "2",
+                     "--seq", "512"]
+# the float32 consistency step on mamba2-2.7b at full width: 8 of its 64
+# layers (float32 weights, gradients and moments of all 64 take 45 GB,
+# and the plain scan's saved chunk matrices and activations of 64
+# layers in float32 would not fit beside them)
+SSM_CONSISTENCY_LAYERS = 8
+# (arch, layers) trained two steps each in train_families; 0 = whole.
+# Depth cuts keep bf16 weights and gradients and float32 moments (12
+# bytes a parameter) with the activations under 80 GB: OLMoE's 16 layers
+# hold 6.9 B parameters (83 GB), DeepSeek-V2-Lite's 27 hold 15.7 B
+# (188 GB); its first layer is the dense lead, then two MoE layers
+TRAIN_FAMILIES = (("olmoe-1b-7b", 4), ("deepseek-v2-lite-16b", 3),
+                  ("whisper-medium", 0), ("internvl2-1b", 0))
 
 
 def hybrid_config(layers: int = HYBRID_LAYERS):
@@ -3404,6 +3486,7 @@ def _serve_launches() -> dict:
             "decode_attention": decode_attention.launches,
             "decode_attention_int8": decode_attention_int8.launches,
             "ssd_scan": ssd_scan.launches,
+            "ssd_scan_backward": ssd_scan.backward_launches,
             "mla_decode": mla_decode_attention.launches}
 
 
@@ -3413,6 +3496,7 @@ def _reset_serve_launches() -> None:
     decode_attention.launches = 0
     decode_attention_int8.launches = 0
     ssd_scan.launches = 0
+    ssd_scan.backward_launches = 0
     mla_decode_attention.launches = 0
 
 
@@ -4667,58 +4751,81 @@ def phase_attn_backward(dev) -> dict:
     return out
 
 
-def phase_train(dev) -> dict:
-    """``launch.train`` on qwen1.5-0.5b at full width as a user runs it:
-    24 B3 forward and backward calls a step, the loss falling; then one
-    step with ``--remat``: 48 forward calls, the same first loss."""
-    n = get_config(TRAIN_ARCH).num_layers
-    args = train_cli.parse_args(TRAIN_ARGS)
-    _reset_serve_launches()
-    t0 = time.perf_counter()
-    res = train_cli.run(args, device=dev, log=False)
-    seconds = time.perf_counter() - t0
-    launches = _serve_launches()
-    want = _launch_counts(flash_attention=n * args.steps,
-                          flash_attention_backward=n * args.steps)
-    check(launches == want, f"train: {args.steps} steps launched "
+def _check_train_run(name: str, res: dict, want: dict, launches: dict,
+                     total: int, falling: bool = True) -> None:
+    """A train run's gates: exactly ``want`` launches, finite losses
+    (the last under the first when ``falling``), finite positive grad
+    norms, the peak under the card's ``total`` bytes."""
+    check(launches == want, f"{name}: {res['steps']} steps launched "
           f"{launches}, expected {want}")
     losses, norms = res["losses"], res["grad_norms"]
-    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
-          f"train: finite losses that fall: {losses}")
+    check(bool(np.all(np.isfinite(losses)))
+          and (not falling or losses[-1] < losses[0]),
+          f"{name}: finite losses{' that fall' if falling else ''}: "
+          f"{losses}")
     check(bool(np.all(np.isfinite(norms))) and min(norms) > 0,
-          f"train: finite positive grad norms: {norms}")
-    total = torch.cuda.get_device_properties(dev).total_memory
-    check(res["peak_bytes"] < total, f"train: peak {res['peak_bytes']} "
+          f"{name}: finite positive grad norms: {norms}")
+    check(res["peak_bytes"] < total, f"{name}: peak {res['peak_bytes']} "
           f"bytes under the card's {total}")
-    step_ms = float(np.median(res["step_ms"][1:]))
+
+
+def _train_model(dev, name: str, argv, per_step: dict, cfg=None,
+                 remat_per_step=None, falling: bool = True) -> dict:
+    """``launch.train``'s ``run`` of ``argv`` as a user runs it (on
+    ``cfg`` in place of ``--arch``'s config where one is given: a depth
+    cut), with ``_check_train_run``'s gates and exactly ``per_step``
+    launches of each kernel a step; then, where ``remat_per_step`` is
+    given, one ``--remat`` step with those launches and the same first
+    loss (rel 1e-6)."""
+    args = train_cli.parse_args(argv)
+    total = torch.cuda.get_device_properties(dev).total_memory
     _reset_serve_launches()
-    rargs = train_cli.parse_args(TRAIN_ARGS[:2] + ["--steps", "1"]
-                                 + TRAIN_ARGS[4:] + ["--remat"])
-    remat = train_cli.run(rargs, device=dev, log=False)
-    rlaunch = _serve_launches()
-    rwant = _launch_counts(flash_attention=2 * n,
-                           flash_attention_backward=n)
-    check(rlaunch == rwant, f"train --remat: one step launched {rlaunch}, "
-          f"expected {rwant}")
-    diff = abs(remat["losses"][0] - losses[0])
-    check(diff <= 1e-6 * abs(losses[0]), f"train --remat: first loss "
-          f"{remat['losses'][0]} against {losses[0]}")
+    t0 = time.perf_counter()
+    res = train_cli.run(args, cfg=cfg, device=dev, log=False)
+    seconds = time.perf_counter() - t0
+    launches = _serve_launches()
+    want = {k: n * args.steps for k, n in per_step.items()}
+    _check_train_run(name, res, want, launches, total, falling)
+    step_ms = float(np.median(res["step_ms"][1:]))
     info = dict(arch=res["arch"], layers=res["layers"], dtype=res["dtype"],
-                args=TRAIN_ARGS, seconds=seconds, losses=losses,
-                grad_norms=norms, step_ms=res["step_ms"],
+                args=argv, seconds=seconds, losses=res["losses"],
+                grad_norms=res["grad_norms"], step_ms=res["step_ms"],
                 step_ms_warm_median=step_ms,
                 tokens_per_s=res["tokens_per_step"] / (step_ms / 1e3),
                 peak_bytes=res["peak_bytes"], device_mem_bytes=total,
                 launches=launches,
                 launches_per_step={k: v // args.steps
-                                   for k, v in launches.items()},
-                remat_launches=rlaunch,
-                remat_first_loss_diff=diff,
-                remat_step_ms=remat["step_ms"][0],
-                remat_peak_bytes=remat["peak_bytes"])
-    emit("train", **info)
+                                   for k, v in launches.items()})
+    if remat_per_step is not None:
+        _reset_serve_launches()
+        i = argv.index("--steps")
+        rargs = train_cli.parse_args(argv[:i] + ["--steps", "1"]
+                                     + argv[i + 2:] + ["--remat"])
+        remat = train_cli.run(rargs, cfg=cfg, device=dev, log=False)
+        rlaunch = _serve_launches()
+        check(rlaunch == remat_per_step, f"{name} --remat: one step "
+              f"launched {rlaunch}, expected {remat_per_step}")
+        diff = abs(remat["losses"][0] - res["losses"][0])
+        check(diff <= 1e-6 * abs(res["losses"][0]), f"{name} --remat: "
+              f"first loss {remat['losses'][0]} against {res['losses'][0]}")
+        info.update(remat_launches=rlaunch, remat_first_loss_diff=diff,
+                    remat_step_ms=remat["step_ms"][0],
+                    remat_peak_bytes=remat["peak_bytes"])
+    emit(name, **info)
     torch.cuda.empty_cache()
     return info
+
+
+def phase_train(dev) -> dict:
+    """``launch.train`` on qwen1.5-0.5b at full width as a user runs it:
+    24 B3 forward and backward calls a step, the loss falling; then one
+    step with ``--remat``: 48 forward calls, the same first loss."""
+    n = get_config(TRAIN_ARCH).num_layers
+    return _train_model(
+        dev, "train", TRAIN_ARGS,
+        _launch_counts(flash_attention=n, flash_attention_backward=n),
+        remat_per_step=_launch_counts(flash_attention=2 * n,
+                                      flash_attention_backward=n))
 
 
 def _plain_attention(q, k, v, *, causal=True, window=0):
@@ -4726,13 +4833,38 @@ def _plain_attention(q, k, v, *, causal=True, window=0):
     return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
-def phase_train_consistency(dev) -> dict:
-    """One train step of qwen1.5-0.5b whole in float32 through B3's
-    kernels against the same step with B3 replaced by its plain version
-    (autograd through it) on the card."""
+def _plain_ssd(x, dt, A, B, C, chunk):
+    """B5's plain version, which autograd differentiates as it is."""
+    return ssd_scan_plain(x, dt, A, B, C, chunk)
+
+
+def _zero_moments(model) -> train_opt.AdamWState:
+    """``init_state``'s zero moments as stride-0 views of one zero: the
+    same first AdamW step (β·0 + (1 − β)·g is (1 − β)·g bit for bit)
+    without 8 bytes a parameter that AdamW, which builds its new moments
+    beside the old, would otherwise hold twice."""
+    zero = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+    moments = {n: zero.expand(p.shape) for n, p in model.named_parameters()}
+    return train_opt.AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=zero.device),
+        mu=moments, nu=dict(moments))
+
+
+def _step_consistency(dev, name: str, cfg, swap, want_kernel: dict,
+                      want_plain: dict) -> dict:
+    """One train step of ``cfg`` (float32, batch 2 × ``TRAIN_S``, TF32
+    off) through the kernels against the same step with ``swap = (module,
+    attribute, plain)`` in place, the plain version that autograd
+    differentiates on the card: the loss at rel 1e-6; every gradient at
+    max|Δg| <= 1e-4 · max|g| + 1e-6; the parameters after AdamW at the
+    same bound where the gradient is resolved (|g| >= 1e-6), and every
+    parameter within twice the step's learning rate; exactly
+    ``want_kernel`` and ``want_plain`` launches.  The kernel run's
+    gradients and parameters wait on the host while the plain run takes
+    the card (Jamba's 2.7 B float32 parameters: 21.6 GB of them), and
+    the optimizer starts from ``_zero_moments``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
     batch = next(SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_S, global_batch=2,
         seed=5)).batches())
@@ -4742,55 +4874,61 @@ def phase_train_consistency(dev) -> dict:
     o = train_opt.AdamWConfig(total_steps=20, warmup_steps=2)
     lr = float(train_opt.schedule(o, torch.tensor(0)))
     real = train_loop.apply_updates
+    module, attr, plain = swap
+    kernel = getattr(module, attr)
     runs = {}
     for label in ("kernel", "plain"):
         model = transformer.init_params(
             cfg, torch.Generator(device=dev).manual_seed(5))
         grads = {}
 
+        home = "cpu" if label == "kernel" else dev
+
         def captured(c, params, g, state, decay):
-            grads.update({n: t.detach().clone() for n, t in g.items()})
+            grads.update({n: t.detach().to(home, copy=True)
+                          for n, t in g.items()})
             return real(c, params, g, state, decay)
 
         train_loop.apply_updates = captured
         if label == "plain":
-            attn_module.flash_attention = _plain_attention
+            setattr(module, attr, plain)
         try:
             _reset_serve_launches()
             model, _, m = train_loop.make_train_step(cfg, o)(
-                model, train_opt.init_state(model), batch)
+                model, _zero_moments(model), batch)
             torch.cuda.synchronize()
             launches = _serve_launches()
         finally:
             train_loop.apply_updates = real
-            attn_module.flash_attention = flash_attention
+            setattr(module, attr, kernel)
         runs[label] = (float(m["loss"]), grads,
-                       {n: p.detach() for n, p in model.named_parameters()},
-                       launches)
-        del model
+                       {n: p.detach().to(home)
+                        for n, p in model.named_parameters()}, launches)
+        del model, m
+        torch.cuda.empty_cache()
     (lk, gk, pk, nk), (lp, gp, pp, np_) = runs["kernel"], runs["plain"]
-    n = cfg.num_layers
-    check(nk == _launch_counts(flash_attention=n,
-                               flash_attention_backward=n)
-          and np_ == _launch_counts(),
-          f"train_consistency: launches {nk} (kernels), {np_} (plain)")
+    check(nk == want_kernel and np_ == want_plain,
+          f"{name}: launches {nk} (kernels), {np_} (plain)")
     loss_worst = abs(lk - lp) / (1e-6 * abs(lp))
     grad_worst = param_worst = 0.0
+    worst_grad = ""
     unresolved = far = 0
-    for name, g in gp.items():
+    for n, g in gp.items():
         tol = 1e-4 * float(g.abs().max()) + 1e-6
-        grad_worst = max(grad_worst, float((gk[name] - g).abs().max()) / tol)
-        diff = (pk[name] - pp[name]).abs()
+        w = float((gk[n].to(dev) - g).abs().max()) / tol
+        if w > grad_worst:
+            grad_worst, worst_grad = w, n
+        diff = (pk[n].to(dev) - pp[n]).abs()
         firm = g.abs() >= 1e-6
         unresolved += int((~firm).sum())
         if firm.any():
-            ptol = 1e-4 * float(pp[name].abs().max()) + 1e-6
+            ptol = 1e-4 * float(pp[n].abs().max()) + 1e-6
             param_worst = max(param_worst, float(diff[firm].max()) / ptol)
         far = max(far, float(diff.max()) / (2 * lr))
-    info = dict(arch=TRAIN_ARCH, dtype="float32", layers=n, batch=2,
-                seq=TRAIN_S, loss_kernel=lk, loss_plain=lp,
+    info = dict(arch=cfg.name, dtype="float32", layers=cfg.num_layers,
+                batch=2, seq=TRAIN_S, loss_kernel=lk, loss_plain=lp,
                 loss_worst_over_tol=loss_worst,
-                grad_worst_over_tol=grad_worst,
+                grad_worst_over_tol=grad_worst, worst_grad=worst_grad,
                 param_worst_over_tol=param_worst,
                 unresolved_elements=unresolved,
                 unresolved_worst_over_2lr=far, lr=lr,
@@ -4799,11 +4937,261 @@ def phase_train_consistency(dev) -> dict:
                           "within 2 lr",
                 launches_kernel=nk)
     check(loss_worst <= 1.0 and grad_worst <= 1.0 and param_worst <= 1.0
-          and far <= 1.0, f"train_consistency: {info}")
-    emit("train_consistency", **info)
+          and far <= 1.0, f"{name}: {info}")
     del runs, gk, gp, pk, pp
     torch.cuda.empty_cache()
     return info
+
+
+def phase_train_consistency(dev) -> dict:
+    """One train step of qwen1.5-0.5b whole in float32 through B3's
+    kernels against the same step with B3 replaced by its plain version
+    (autograd through it) on the card."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    n = cfg.num_layers
+    info = _step_consistency(
+        dev, "train_consistency", cfg,
+        (attn_module, "flash_attention", _plain_attention),
+        _launch_counts(flash_attention=n, flash_attention_backward=n),
+        _launch_counts())
+    emit("train_consistency", **info)
+    return info
+
+
+# ---------------------------------------------------------------------------
+# SSM and hybrid training: B5's backward
+# ---------------------------------------------------------------------------
+
+def _check_ssd_backward(dev, dtype, b, s, *, g=1, seed=0, timed=False,
+                        with_dh=False, model=None, heads=None) -> dict:
+    """B5's backward against its plain version at ``model``'s SSM widths
+    (default mamba2-2.7b's; ``heads`` to cut the head count), each
+    gradient apart against its own tolerance: 1e-4 of its largest
+    magnitude in float32, 2^-7 where it is returned in bf16 (both
+    compute in float32; a bf16 gradient is rounded once); twice,
+    bitwise; ``timed``: kernel, plain and bound times."""
+    model = model or get_config(SSM_ARCH)
+    cfg = model.ssm
+    nh = heads or cfg.n_heads(model.d_model)
+    hd, ds = cfg.head_dim, cfg.d_state
+    x, dt, a, bm, cm = _ssd_inputs(dev, dtype, b, s, nh, g, hd, ds, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    dy = torch.randn(b, s, nh, hd, device=dev, generator=gen)
+    dh = (torch.randn(b, nh, hd, ds, device=dev, generator=gen)
+          if with_dh else None)
+    args = (x, dt, a, bm, cm, dy, dh, cfg.chunk_size)
+    got = ssd_scan_backward(*args)
+    again = ssd_scan_backward(*args)
+    want = ssd_scan_backward_plain(*args)
+    torch.cuda.synchronize()
+    grads = {}
+    for name, k, k2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                              want):
+        tol = (2.0 ** -7 if k.dtype == torch.bfloat16 else 1e-4) * max(
+            float(w.float().abs().max()), 1e-30)
+        err = float((k.float() - w.float()).abs().max())
+        grads[name] = dict(dtype=str(k.dtype), max_abs_err=err,
+                           max_abs=float(w.float().abs().max()),
+                           worst_over_tol=err / tol)
+        check(bool(torch.isfinite(k).all()) and k.shape == w.shape
+              and err <= tol, f"ssd_scan_backward {name} vs plain at "
+              f"{dtype} {b}x{s}: {grads[name]}")
+        check(torch.equal(k, k2), f"ssd_scan_backward {name} repeats "
+              f"bitwise at {dtype} {b}x{s}")
+    case = dict(kernel="ssd_scan_backward", dtype=str(dtype), batch=b,
+                seq=s, heads=nh, groups=g, head_dim=hd, d_state=ds,
+                dh_end=with_dh, grads=grads,
+                max_abs_err=max(v["max_abs_err"] for v in grads.values()),
+                worst_over_tol=max(v["worst_over_tol"]
+                                   for v in grads.values()))
+    if timed:
+        elt = torch.finfo(dtype).bits // 8
+        # x, B, C in and dx, dB, dC out in the inputs' type; dt, dy in
+        # and ddt out in float32 (dA and A are nh floats)
+        bytes_moved = (2 * elt * (x.numel() + bm.numel() + cm.numel())
+                       + 4 * (2 * dt.numel() + dy.numel() + 2 * nh))
+        # the recurrence's backward: dh B, xᵀ dh, dyᵀ h and dy ⊗ C, two
+        # flops a multiply-add, a step and head
+        flops = 8 * b * s * nh * hd * ds
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        case.update(bytes=bytes_moved, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["kernel_ms"] = time_ms(lambda: ssd_scan_backward(*args))
+        case["plain_ms"] = time_ms(lambda: ssd_scan_backward_plain(*args),
+                                   reps=3, warm=1)
+        case["library_ms"] = None
+        case["library_note"] = ("no single PyTorch call computes the SSD "
+                                "scan's gradients")
+    del x, dt, a, bm, cm, dy, dh, got, again, want
+    torch.cuda.empty_cache()
+    return case
+
+
+def phase_ssd_backward(dev) -> dict:
+    """B5's backward kernels against their plain version at mamba2-2.7b's
+    training shape (B 2 × 512) in bf16 and float32, at B 1 × 4,096 and at
+    Jamba's (64, 16) (all timed), on a ragged grouped (32, 16) case and
+    with a non-zero gradient of the final state."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"train": _check_ssd_backward(dev, bf16, 2, 512, seed=90,
+                                        timed=True),
+           "f32": _check_ssd_backward(dev, f32, 2, 512, seed=91,
+                                      timed=True),
+           "long": _check_ssd_backward(dev, bf16, 1, 4096, seed=92,
+                                       timed=True),
+           "hybrid": _check_ssd_backward(dev, bf16, 2, 512, seed=93,
+                                         timed=True,
+                                         model=get_config(HYBRID_ARCH))}
+    cases = list(out.values()) + [
+        _check_ssd_backward(dev, bf16, 1, 1023, g=2, seed=94, heads=8,
+                            model=reduce_config(get_config(SSM_ARCH))),
+        _check_ssd_backward(dev, f32, 2, 300, seed=95, with_dh=True),
+        _check_ssd_backward(dev, bf16, 2, 300, seed=96, with_dh=True,
+                            model=get_config(HYBRID_ARCH))]
+    emit("ssd_backward", cases=cases,
+         worst_over_tol=max(c["worst_over_tol"] for c in cases))
+    return out
+def phase_train_ssm(dev) -> dict:
+    """``launch.train`` on mamba2-2.7b whole (64 layers, full width,
+    bf16) as a user runs it: exactly 64 B5 forward and 64 B5 backward
+    calls a step and no other kernel, the loss falling; then one
+    ``--remat`` step: 128 forward calls, 64 backward, the same first
+    loss."""
+    n = get_config(SSM_ARCH).num_layers
+    return _train_model(
+        dev, "train_ssm", TRAIN_SSM_ARGS,
+        _launch_counts(ssd_scan=n, ssd_scan_backward=n),
+        remat_per_step=_launch_counts(ssd_scan=2 * n, ssd_scan_backward=n))
+
+
+def hybrid_train_config(dtype: str = "bfloat16"):
+    """Jamba at full width without its experts, one period of 8 layers:
+    7 Mamba2 layers and the attention layer at offset 4."""
+    return dataclasses.replace(get_config(HYBRID_ARCH), moe=None,
+                               num_layers=HYBRID_TRAIN_LAYERS, dtype=dtype)
+
+
+def phase_train_hybrid(dev) -> dict:
+    """Jamba's interleave trained at full width through ``launch.train``'s
+    ``run`` on ``hybrid_train_config()``: 7 B5 forward and backward calls
+    and 1 B3 forward and backward call a step."""
+    kinds = hybrid_train_config().layer_kinds()
+    n_ssm, n_attn = kinds.count("ssm"), kinds.count("attn")
+    check((n_ssm, n_attn) == (7, 1), f"train_hybrid: layer kinds {kinds}")
+    return _train_model(
+        dev, "train_hybrid", TRAIN_HYBRID_ARGS,
+        _launch_counts(ssd_scan=n_ssm, ssd_scan_backward=n_ssm,
+                       flash_attention=n_attn,
+                       flash_attention_backward=n_attn),
+        cfg=hybrid_train_config(), falling=False)
+
+
+def phase_train_ssm_consistency(dev) -> dict:
+    """One float32 train step through B5's kernels against the same step
+    with ``ssd_chunked`` replaced by ``ssd_scan_plain`` (autograd through
+    it) on the card: mamba2-2.7b at full width (its first 8 of 64
+    layers), then ``train_hybrid``'s Jamba config (whose attention layer
+    runs B3's kernels in both runs)."""
+    swap = (mamba2_module, "ssd_chunked", _plain_ssd)
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32",
+                              num_layers=SSM_CONSISTENCY_LAYERS)
+    n = cfg.num_layers
+    ssm = _step_consistency(
+        dev, "train_ssm_consistency", cfg, swap,
+        _launch_counts(ssd_scan=n, ssd_scan_backward=n), _launch_counts())
+    cfg = hybrid_train_config("float32")
+    kinds = cfg.layer_kinds()
+    attn = dict(flash_attention=kinds.count("attn"),
+                flash_attention_backward=kinds.count("attn"))
+    hybrid = _step_consistency(
+        dev, "train_ssm_consistency", cfg, swap,
+        _launch_counts(ssd_scan=kinds.count("ssm"),
+                       ssd_scan_backward=kinds.count("ssm"), **attn),
+        _launch_counts(**attn))
+    info = dict(ssm=ssm, hybrid=hybrid,
+                worst_over_tol=max(v for r in (ssm, hybrid)
+                                   for k, v in r.items()
+                                   if k.endswith("_worst_over_tol")))
+    emit("train_ssm_consistency", **info)
+    return info
+
+
+def _attention_calls(cfg) -> int:
+    """B3 calls of one forward: each attention layer's self-attention,
+    and on an enc-dec model the encoder's layers and each decoder
+    layer's cross-attention."""
+    n = cfg.layer_kinds().count("attn")
+    if cfg.family == "audio":
+        n += cfg.encoder.num_layers + cfg.num_layers
+    return n
+
+
+def phase_train_families(dev, steps: int = 2, b: int = 2,
+                         s: int = 256) -> dict:
+    """Two train steps of each family ``train`` does not cover, at ``b``
+    × ``s`` (bf16, seeded weights, the synthetic corpus through
+    ``device_batch``: whisper's zero frames, as the reference trainer
+    feeds them): exact B3 forward and backward counts from the config,
+    finite losses and grad norms, the peak under the card's.  The MoE
+    models are cut in depth so that bf16 weights and gradients and
+    float32 moments (12 bytes a parameter) fit 80 GB; whisper-medium and
+    internvl2-1b run whole.  InternVL2's patch rows are 0.02 · N(0, 1)
+    from a seeded generator, as ``tests/test_torch_train.py`` draws
+    them: on the reference trainer's zero rows every one of its 48
+    RMSNorms multiplies those rows' gradient by rsqrt(1e-6) = 1,000,
+    which overflows float32 and leaves NaN weight gradients, in the
+    reference as in the port (ROADMAP C-R5)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    for arch, layers in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        n = _attention_calls(cfg)
+        want = _launch_counts(flash_attention=n * steps,
+                              flash_attention_backward=n * steps)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        state = train_opt.init_state(model)
+        step = train_loop.make_train_step(cfg, train_opt.AdamWConfig(
+            total_steps=steps, warmup_steps=1))
+        data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=s, global_batch=b))
+        _reset_serve_launches()
+        losses, norms, step_ms = [], [], []
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for _, batch in zip(range(steps), data.batches()):
+            batch = train_loop.device_batch(cfg, batch, dev)
+            if cfg.family == "vlm":
+                batch["patch_embeds"] = 0.02 * torch.randn(
+                    batch["patch_embeds"].shape, generator=gen, device=dev)
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        res = dict(steps=steps, losses=losses, grad_norms=norms,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        launches = _serve_launches()
+        _check_train_run(f"train_families {arch}", res, want, launches,
+                         total, falling=False)
+        params = sum(p.numel() for p in model.parameters())
+        out[arch] = dict(layers=cfg.num_layers,
+                         of_layers=get_config(arch).num_layers,
+                         params=params, batch=b, seq=s, losses=losses,
+                         grad_norms=norms, step_ms=step_ms,
+                         peak_bytes=res["peak_bytes"],
+                         attention_calls_per_step=n, launches=launches,
+                         aux=float(m["aux"]))
+        del model, state, m
+        torch.cuda.empty_cache()
+    emit("train_families", device_mem_bytes=total, runs=out)
+    return out
 
 
 def _kernel_row(name: str, path: str, launches: int, k: dict,
@@ -4946,6 +5334,11 @@ def main() -> int:
     bwd = phase("attn_backward", phase_attn_backward, dev)
     trained = phase("train", phase_train, dev)
     phase("train_consistency", phase_train_consistency, dev)
+    ssd_bwd = phase("ssd_backward", phase_ssd_backward, dev)
+    trained_ssm = phase("train_ssm", phase_train_ssm, dev)
+    phase("train_hybrid", phase_train_hybrid, dev)
+    phase("train_ssm_consistency", phase_train_ssm_consistency, dev)
+    phase("train_families", phase_train_families, dev)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
@@ -5134,6 +5527,23 @@ def main() -> int:
             library_note=bwd["train"]["library_note"],
             **{f"{case}_{k}": bwd[case][key]
                for case in ("long", "batch1", "f32")
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)}),
+        # a kernel of the port with no TPU counterpart: the reference
+        # trains Mamba2 through jax.grad of its _ssd_chunked; timed at
+        # mamba2-2.7b's training shape, with the float32, long and
+        # Jamba shapes beside
+        _kernel_row(
+            "ssd_scan_backward", "train_ssm",
+            trained_ssm["launches"]["ssd_scan_backward"], ssd_bwd["train"],
+            note="no TPU kernel: replaces jax.grad through the reference's "
+                 "_ssd_chunked",
+            launches_per_step=trained_ssm["launches_per_step"][
+                "ssd_scan_backward"],
+            library_note=ssd_bwd["train"]["library_note"],
+            worst_over_tol=max(ssd_bwd[k]["worst_over_tol"]
+                               for k in ssd_bwd),
+            **{f"{case}_{k}": ssd_bwd[case][key]
+               for case in ("f32", "long", "hybrid")
                for k, key in batch1_keys + (("bound_by", "bound_by"),)}),
         # a kernel of the port with no TPU counterpart: the reference's
         # float32 einsum chain of MLA decode, timed at serve_mla's last

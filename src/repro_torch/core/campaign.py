@@ -764,7 +764,7 @@ def campaign(grid, *, chunk_size: int = 4096, mode: str = "pipelined",
                          f"(got {fault_retries})")
     # raised here, never inside the dispatch retry (NotImplementedError
     # and a missing device are RuntimeErrors it would quarantine)
-    _require_ported_options(shard)
+    _require_ported_options(shard, c_size, device)
     dev = resolve_device(device)
     if sketch:
         n_bins = SKETCH_BINS

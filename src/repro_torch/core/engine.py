@@ -484,8 +484,8 @@ class KernelPlan(NamedTuple):
 
 def dispatch_device(kernel: Callable, params: Dict[str, Any], keys):
     """Run a plan's kernel and keep its outputs on the device (one
-    device: multi-GPU dispatch, ``shard`` > 1, is ROADMAP Queue A item
-    3f and raises in the plan)."""
+    device: a ``shard`` that would use several devices is ROADMAP Queue
+    A item 3f and raises in the plan)."""
     return kernel(params, keys)
 
 

@@ -42,8 +42,9 @@ and its global index.
 ``fleet_plan`` is the run's plan (``engine.KernelPlan``, device
 outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
 per-lane counters back once a superstep, the queue summed over a
-fleet's replicas.  Not in this slice, as in ``sweep``: ``shard`` > 1
-(ROADMAP Queue A 3f) raises ``NotImplementedError``.
+fleet's replicas.  ``shard`` is clamped as in ``sweep``: one that would
+use more than one device (ROADMAP Queue A 3f) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -217,7 +218,7 @@ def fleet_plan(grid: FleetGrid, *, n_steps: int = 6000,
                         "(see FleetGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard)
+    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
     n_steps = -(-int(n_steps) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:

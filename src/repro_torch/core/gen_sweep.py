@@ -64,9 +64,9 @@ whole-grid dispatch bit for bit.
 
 ``gen_plan`` is the run's plan (``engine.KernelPlan``, device
 outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
-per-lane counters back once a superstep.  Not in this slice: ``shard``
-> 1 (multi-GPU dispatch) raises ``NotImplementedError`` naming ROADMAP
-Queue A item 3f.
+per-lane counters back once a superstep.  ``shard`` is clamped as in
+``sweep``: a ``shard`` that would use more than one device raises
+``NotImplementedError`` naming ROADMAP Queue A item 3f.
 """
 from __future__ import annotations
 
@@ -232,7 +232,7 @@ def gen_plan(grid: GenGrid, *, n_steps: int = 4096,
                         "(see GenGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard)
+    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
     n_steps = -(-int(n_steps) // _STEP_BUCKET) * _STEP_BUCKET
     if warmup is None:

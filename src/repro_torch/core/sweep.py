@@ -59,8 +59,10 @@ The k-replica ``fleet_sweep`` and its ``fleet_caps`` live in
 ``core.fleet`` and are re-exported here, as the reference's module
 holds both kernels.
 
-Not in this slice: ``shard`` > 1 (multi-GPU dispatch) raises
-``NotImplementedError`` naming ROADMAP Queue A item 3f.
+``shard`` is resolved as the reference resolves it, clamped to the
+visible devices and the point count; one device runs every call, and a
+``shard`` that would use several raises ``NotImplementedError`` naming
+ROADMAP Queue A item 3f (multi-GPU dispatch).
 """
 from __future__ import annotations
 
@@ -224,13 +226,26 @@ class FailParams:
                     trunc=trunc.to(torch.int32))
 
 
-def _require_ported_options(shard) -> None:
-    if shard not in (None, True, False) and int(shard) != 1:
-        if int(shard) < 1:
-            raise ValueError(f"shard must be >= 1 (got {shard})")
+def _require_ported_options(shard, n_points: int, device=None) -> None:
+    """Resolve ``shard`` as the reference's ``engine.resolve_shards``
+    does for an integer: clamped to the visible devices
+    (``torch.cuda.device_count()`` on a CUDA request, 1 on the CPU) and
+    to ``n_points``, so ``shard=2`` on one device runs as one shard, bit
+    for bit.  ``None``, ``True`` and ``False`` run on one device.  Raises
+    ``ValueError`` below 1 and ``NotImplementedError`` (ROADMAP Queue A
+    item 3f) only where more than one device would be used."""
+    if shard is None or shard is True or shard is False:
+        return
+    n_dev = int(shard)
+    if n_dev < 1:
+        raise ValueError(f"shard must be >= 1 (got {shard})")
+    dev = torch.device("cuda" if device is None else device)
+    avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if min(n_dev, avail, n_points) > 1:
         raise NotImplementedError(
-            "multi-GPU dispatch (shard > 1) is not ported yet: ROADMAP "
-            "Queue A item 3f")
+            f"shard={shard} would dispatch over {min(n_dev, avail, n_points)}"
+            f" devices: multi-GPU dispatch is not ported yet (ROADMAP "
+            f"Queue A item 3f)")
 
 
 def _require_pinned_caps(entry: str, key_offset: int, **pinned) -> None:
@@ -355,7 +370,7 @@ def sweep_plan(grid: SweepGrid, *, n_batches: int = 3000,
         raise ValueError("empty grid")
     if warmup is not None and not 0 <= warmup < int(n_batches):
         raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
-    _require_ported_options(shard)
+    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:

@@ -39,9 +39,32 @@ and a second pass that combines their states in piece order, through a
 workspace kept per device (``ssd_piece_states_plain``,
 ``ssd_combine_plain`` and ``ssd_piece_plain`` are that algebra in plain
 torch, for the tests).  A failed build or launch raises: there is no
-fallback.  ``ssd_scan.launches`` counts the wrapper calls that launch
-the kernel, one per call of either wrapper, however many kernel
-launches a split call issues.
+fallback.
+
+Gradients.  On CPU tensors autograd differentiates the plain version as
+it is.  On CUDA tensors with grad enabled and an input that requires
+grad, ``ssd_chunked`` (and ``ssd_scan``) go through ``_SSDChunkedFn``:
+its forward is the same single launch, it saves ``x, dt, A, B, C``, and
+its backward runs the hand-written kernels of
+``csrc/ssd_scan_backward.cu`` through ``ssd_scan_backward``: a state
+pass that recomputes, in float32, the state entering each 64-step tile,
+a reverse pass over the tiles per (batch, head) that carries the state's
+gradient and writes dx, ddt and each head's part of dB, dC and dA, and a
+fixed-order sum over a group's heads and the batch (float32 arithmetic
+on the CUDA cores, no atomics: repeats are bitwise).  Nothing of the
+forward is kept for it, so serving's launches stay as they were, and the
+split time axis needs no backward of its own.  It replaces XLA's
+autodiff of the reference's ``_ssd_chunked``
+(``src/repro/models/mamba2.py:85``); the Pallas kernel has no backward.
+``ssd_scan_backward_plain`` is the same algebra in plain torch, for the
+tests and the smoke script.  Under ``no_grad`` / ``inference_mode``, or
+with no input that requires grad (serving), the call is one launch that
+saves nothing.
+
+Counters.  ``ssd_scan.launches`` counts the wrapper calls that launch
+the forward kernel, one per call of either wrapper, however many kernel
+launches a split call issues; ``ssd_scan.backward_launches`` the calls
+that launch the backward (one per call, for its three kernels).
 """
 from __future__ import annotations
 
@@ -50,13 +73,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._launch import (DTYPE_CODE, float_workspace,
                                          kernel_device, sm_count)
 
 __all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
-           "ssd_scan_plain", "ssd_splits", "ssd_piece_states_plain",
-           "ssd_combine_plain", "ssd_piece_plain"]
+           "ssd_scan_plain", "ssd_scan_backward", "ssd_scan_backward_plain",
+           "ssd_splits", "ssd_piece_states_plain", "ssd_combine_plain",
+           "ssd_piece_plain"]
 
 # (head_dim, d_state) pairs the CUDA kernel is compiled for:
 # mamba2-2.7b's, jamba-v0.1-52b's and their reduced configs'
@@ -162,6 +187,125 @@ def _plain(x, dt, A, B, C, chunk: int, h0: Optional[torch.Tensor]
              * torch.exp(cum).reshape(b, nc, chunk, g, rep, 1))
     y = y.reshape(b, nc * chunk, nh, hd)[:, :s0]
     return y, h.reshape(b, nh, hd, ds)
+
+
+def ssd_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                            A: torch.Tensor, B: torch.Tensor,
+                            C: torch.Tensor, dy: torch.Tensor,
+                            dh_end: Optional[torch.Tensor] = None,
+                            chunk: int = 256
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``ssd_scan_plain``'s ``(y, h_S)`` against ``dy
+    (B, S, nh, hd)`` and ``dh_end (B, nh, hd, ds)`` (None: zero), in
+    plain torch and float32, written out as the backward kernel computes
+    them: the state entering each chunk from the forward recurrence,
+    then a reverse walk over the chunks carrying ``dh``, the gradient of
+    the state leaving the chunk.  With ``cum`` the chunk's prefix sum of
+    ``a = dt·A``, ``total`` its last value, ``L_ij = exp(cum_i - cum_j)``
+    for ``j <= i`` (masked before the exp), ``S_ij = C_i·B_j``, ``P_ij =
+    dy_i·x_j`` and ``w_j = exp(total - cum_j)·dt_j``, a chunk gives
+
+    - ``dx_j = Σ_i S_ij L_ij dt_j dy_i + w_j dh B_j``;
+    - ``dC_i = Σ_j P_ij L_ij dt_j B_j + exp(cum_i) dy_iᵀ h_in``;
+    - ``dB_j = Σ_i P_ij L_ij dt_j C_i + w_j x_jᵀ dh``;
+    - ``da_m``, the gradient of ``a_m`` (the reverse cumulative sum of
+      the gradient of ``cum``), summed without cancellation: the pairs'
+      ``Q_ij = S_ij L_ij P_ij dt_j`` over ``j < m <= i``, plus ``exp(cum_i)
+      dy_i·(h_in C_i)`` over ``i >= m``, plus ``w_j x_j·(dh B_j)`` over
+      ``j < m``, plus ``exp(total) <dh, h_in>``;
+    - ``ddt_j = A·da_j + Σ_i S_ij L_ij P_ij + exp(total - cum_j) x_j·(dh
+      B_j)``, and ``dA = Σ dt·da`` over batch and time;
+    - ``dh ← exp(total)·dh + Σ_i exp(cum_i) dy_i ⊗ C_i`` for the chunk
+      before.
+
+    Steps past S are the reference's padding, dt = 0 identity steps,
+    whose gradients are dropped.  Returns ``dx`` in x's dtype, ``ddt
+    (B, S, nh)`` and ``dA (nh,)`` in float32, ``dB`` and ``dC (B, S, g,
+    ds)`` in B's dtype (each rounded once); B and C's gradients are the
+    sums over the heads of their group."""
+    _check(x, dt, A, B, C, chunk)
+    b, s0, nh, hd = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    rep = nh // g
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    pad = (-s0) % chunk
+    nc = (s0 + pad) // chunk
+
+    def chunks(t, heads: bool = False):
+        # float32, padded with zeros to whole chunks, (b, nc, chunk, ...);
+        # B and C repeated over the heads of their group
+        t = t.float()
+        if heads:
+            t = t.repeat_interleave(rep, dim=2)
+        t = F.pad(t, (0,) * (2 * (t.dim() - 2)) + (0, pad))
+        return t.reshape((b, nc, chunk) + t.shape[2:])
+
+    xc, dyc, Bc, Cc = chunks(x), chunks(dy), chunks(B, True), chunks(C, True)
+    dtc = chunks(dt)                                    # (b,nc,cs,nh)
+    A = A.float()
+    cum = torch.cumsum(dtc * A, dim=2)
+    total = cum[:, :, -1]                               # (b,nc,nh)
+    w = dtc * torch.exp(total[:, :, None] - cum)        # (b,nc,cs,nh)
+
+    # the state entering each chunk, as the forward carries it
+    h = torch.zeros(b, nh, hd, ds, dtype=torch.float32, device=x.device)
+    h_in = []
+    for n in range(nc):
+        h_in.append(h)
+        h = (h * torch.exp(total[:, n])[..., None, None]
+             + torch.einsum("bjhd,bjhs->bhds", xc[:, n] * w[:, n, ..., None],
+                            Bc[:, n]))
+
+    tri = torch.ones(chunk, chunk, dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    dh = (torch.zeros_like(h) if dh_end is None
+          else dh_end.float().reshape(b, nh, hd, ds))
+    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (xc, dtc, Bc, Cc))
+    dA = torch.zeros(nh, dtype=torch.float32, device=x.device)
+    for n in reversed(range(nc)):
+        xn, dyn, Bn, Cn = xc[:, n], dyc[:, n], Bc[:, n], Cc[:, n]
+        dtn, cn, tn, wn, hn = dtc[:, n], cum[:, n], total[:, n], w[:, n], \
+            h_in[n]
+        # (b, i, j, nh); the mask before exp
+        L = torch.exp(torch.where(tri, cn[:, :, None] - cn[:, None], -torch.inf))
+        Sij = torch.einsum("bihs,bjhs->bijh", Cn, Bn)
+        Pij = torch.einsum("bihd,bjhd->bijh", dyn, xn)
+        K = Sij * L * Pij
+        E = Pij * L * dtn[:, None]
+        dhB = torch.einsum("bjhs,bhds->bjhd", Bn, dh)
+        dyh = torch.einsum("bihd,bhds->bihs", dyn, hn)
+        ecum = torch.exp(cn)
+        dx[:, n] = (torch.einsum("bijh,bihd->bjhd", Sij * L * dtn[:, None], dyn)
+                    + wn[..., None] * dhB)
+        dC[:, n] = torch.einsum("bijh,bjhs->bihs", E, Bn) + ecum[..., None] * dyh
+        dB[:, n] = (torch.einsum("bijh,bihs->bjhs", E, Cn)
+                    + wn[..., None] * torch.einsum("bjhd,bhds->bjhs", xn, dh))
+        v = torch.exp(tn[:, None] - cn) * (xn * dhB).sum(-1)     # (b,j,nh)
+        # da_m, the reverse cumulative sum of dcum, summed without
+        # cancellation: the pairs' terms with j < m <= i, the read-out
+        # terms from m on, the state terms before m and exp(total)
+        # <dh, h_in>
+        q = K * dtn[:, None]
+        pairs = ((torch.cumsum(q, 2) - q) * tri).sum(1)     # (b,m,nh)
+        r = ecum * (dyh * Cn).sum(-1)
+        u = dtn * v
+        da = (pairs + r.flip(1).cumsum(1).flip(1) + (u.cumsum(1) - u)
+              + (torch.exp(tn) * (dh * hn).sum((-2, -1)))[:, None])
+        ddt[:, n] = A * da + K.sum(1) + v
+        dA += (dtn * da).sum((0, 1))
+        dh = (torch.exp(tn)[..., None, None] * dh
+              + torch.einsum("bihd,bihs->bhds", dyn * ecum[..., None], Cn))
+
+    def unchunk(t):
+        return t.reshape((b, nc * chunk) + t.shape[3:])[:, :s0]
+
+    def grouped(t):
+        return unchunk(t).reshape(b, s0, g, rep, ds).sum(3).to(B.dtype)
+
+    return (unchunk(dx).to(x.dtype), unchunk(ddt), dA, grouped(dB),
+            grouped(dC))
 
 
 def ssd_splits(b: int, s: int, nh: int, sms: int) -> Tuple[int, int]:
@@ -288,15 +432,103 @@ def _launch(x, dt, A, B, C, y, h_out) -> None:
                            f"{err}")
 
 
-def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                B: torch.Tensor, C: torch.Tensor, chunk: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The model's SSD: y ``(B, S, nh, hd)`` and the final state ``(B,
-    nh, hd, ds)``, both float32.  The CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
+                     dC) -> None:
+    from repro_torch.kernels._build import library
+
+    launchable(x, dt, A, B, C)
+    b, s, nh, hd = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    tiles = -(-s // TILE)
+    # transient: the state entering each tile, and each head's own part
+    # of dB, dC and dA before the sums over a group's heads and the batch
+    f32 = dict(dtype=torch.float32, device=x.device)
+    states = torch.empty(b * nh * tiles * hd * ds, **f32)
+    db_part = torch.empty(b * s * nh * ds, **f32)
+    dc_part = torch.empty(b * s * nh * ds, **f32)
+    da_part = torch.empty(b * nh, **f32)
+    fn = library("ssd_scan_backward").ssd_scan_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), dy.data_ptr(),
+                 None if dh_end is None else dh_end.data_ptr(),
+                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                 dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
+                 db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
+                 b, s, nh, g, hd, ds, DTYPE_CODE[x.dtype], B.stride(0),
+                 B.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                      dh_end: Optional[torch.Tensor] = None,
+                      chunk: int = 256) -> Tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dA, dB, dC)``, the gradients of ``ssd_chunked``'s ``(y,
+    h_S)`` against ``dy (B, S, nh, hd)`` and ``dh_end (B, nh, hd, ds)``
+    (None: zero): ``dx`` in x's dtype, ``ddt`` and ``dA`` float32, ``dB``
+    and ``dC`` contiguous in B's dtype.  The backward kernels of
+    ``csrc/ssd_scan_backward.cu`` on CUDA tensors (one count of
+    ``ssd_scan.backward_launches``; they walk 64-step tiles whatever
+    ``chunk`` is), the plain version on CPU tensors."""
     _check(x, dt, A, B, C, chunk)
+    if tuple(dy.shape) != tuple(x.shape) or (
+            dh_end is not None and tuple(dh_end.shape)
+            != (x.shape[0], x.shape[2], x.shape[3], B.shape[3])):
+        raise ValueError(f"dy must be {tuple(x.shape)} and dh_end "
+                         f"{(x.shape[0], x.shape[2], x.shape[3], B.shape[3])}"
+                         f", got {tuple(dy.shape)} and "
+                         f"{None if dh_end is None else tuple(dh_end.shape)}")
     if not kernel_device(x, "ssd_scan"):
-        return ssd_scan_plain(x, dt, A, B, C, chunk)
+        return ssd_scan_backward_plain(x, dt, A, B, C, dy, dh_end, chunk)
+    dy = dy.to(torch.float32).contiguous()
+    if dh_end is not None:
+        dh_end = dh_end.to(torch.float32).contiguous()
+    b, s, nh, _ = x.shape
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    ddt = torch.empty(b, s, nh, dtype=torch.float32, device=x.device)
+    dA = torch.zeros(nh, dtype=torch.float32, device=x.device)
+    dB = torch.empty(B.shape, dtype=B.dtype, device=x.device)
+    dC = torch.empty(C.shape, dtype=C.dtype, device=x.device)
+    if b == 0 or s == 0:
+        return dx, ddt, dA, dB, dC
+    _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB, dC)
+    ssd_scan.backward_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class _SSDChunkedFn(torch.autograd.Function):
+    """B5 under autograd: the forward kernel as serving runs it, the
+    saved ``x, dt, A, B, C``, and the backward kernels, which recompute
+    the states the forward carried."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, h = _forward(x, dt, A, B, C)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_end):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_backward(x, dt, A, B, C, dy, dh_end, ctx.chunk)
+        return (*(g if t.requires_grad else None
+                  for g, t in zip(grads, (x, dt, A, B, C))), None)
+
+
+def _forward(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch: y and the final state, both float32."""
     b, _, nh, hd = x.shape
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     h = torch.empty(b, nh, hd, B.shape[3], dtype=torch.float32,
@@ -306,14 +538,38 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's SSD: y ``(B, S, nh, hd)`` and the final state ``(B,
+    nh, hd, ds)``, both float32.  The plain version for CPU tensors,
+    which autograd differentiates as it is.  On CUDA tensors the kernel:
+    with grad enabled and an input that requires grad, through
+    ``_SSDChunkedFn`` (the backward runs the backward kernels);
+    otherwise one launch that saves nothing, as serving runs it."""
+    _check(x, dt, A, B, C, chunk)
+    if not kernel_device(x, "ssd_scan"):
+        return ssd_scan_plain(x, dt, A, B, C, chunk)
+    if _needs_grad(x, dt, A, B, C):
+        return _SSDChunkedFn.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              bmat: torch.Tensor, cmat: torch.Tensor, *,
              chunk: int = 256) -> torch.Tensor:
     """The reference kernel's API: y ``(B, S, nh, hd)`` in x's dtype,
-    without the final state."""
+    without the final state; under grad on CUDA tensors through
+    ``ssd_chunked``'s autograd route."""
     _check(x, dt, a, bmat, cmat, chunk)
     if not kernel_device(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
+    if _needs_grad(x, dt, a, bmat, cmat):
+        return ssd_chunked(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     _launch(x, dt, a, bmat, cmat, y, None)
     ssd_scan.launches += 1
@@ -321,3 +577,4 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0

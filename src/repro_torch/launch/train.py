@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --steps 20 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --steps 10 --batch 2 --seq 512
 
 Port of the reference package's ``repro.launch.train`` with its options:
 the full config unless ``--reduced``, the port's seeded weights (seed 0),
@@ -9,9 +11,13 @@ AdamW with a cosine schedule over ``--steps`` (warm-up a tenth of them),
 the synthetic corpus (tokens and labels only, as the reference's
 launcher feeds), ``--remat`` checkpointing the repeated layers.  The
 reference's meshes (``--production``, ``--multi-pod``) belong to ROADMAP
-A11 and raise ``NotImplementedError``.  ``run(args)`` returns the losses,
-the host-clock ms of each step (each ended by reading its loss) and the
-peak device bytes as a dict.  It runs on CUDA and raises without a GPU
+A11 and raise ``NotImplementedError``.  On the card the attention
+layers train through B3 and its backward kernels, and the Mamba2 layers
+of the SSM and hybrid families through B5 and its backward kernels; a
+depth cut (one period of Jamba, say) goes in through ``run(args,
+cfg=...)``.  ``run(args)`` returns the losses, the host-clock ms of each
+step (each ended by reading its loss) and the peak device bytes as a
+dict.  It runs on CUDA and raises without a GPU
 unless ``device="cpu"``.
 """
 from __future__ import annotations

@@ -3,13 +3,15 @@
 Port of the reference package's ``repro.models.mamba2``.  The forward
 pass (train / prefill) runs the SSD scan, on the card through the
 hand-written CUDA kernel (``kernels.ssd_scan.ssd_chunked``), which also
-gives the final state; decode is the exact diagonal SSM recurrence
-``h <- exp(dt·A)·h + dt·(x ⊗ B)``, ``y = C·h + D·x``, in plain torch
-ops, as in the reference.  Parameters live in an ``nn.ParameterDict``
-under the reference's keys; ``A_log``, ``D`` and ``dt_bias`` stay
-float32 whatever the model's dtype.  The head-sharding constraint of
-the reference (``_shard_dim``) belongs to the launch slice and is left
-out.
+gives the final state; in training its gradients come from the
+hand-written backward kernels behind the same call on the card, and from
+autograd of the plain version on the CPU.  Decode is the exact diagonal
+SSM recurrence ``h <- exp(dt·A)·h + dt·(x ⊗ B)``, ``y = C·h + D·x``, in
+plain torch ops, as in the reference.  Parameters live in an
+``nn.ParameterDict`` under the reference's keys; ``A_log``, ``D`` and
+``dt_bias`` stay float32 whatever the model's dtype.  The
+head-sharding constraint of the reference (``_shard_dim``) belongs to
+the launch slice and is left out.
 
 Cache layout per layer: ``conv_x (B, d_conv-1, d_inner)`` and
 ``conv_bc (B, d_conv-1, 2·g·ds)`` in the model's dtype, ``ssm (B, nh,

@@ -10,13 +10,12 @@ the logits ``CE_CHUNK`` positions at a time, each chunk under
 never exist whole (the unembedding stays a torch product, as the
 reference's is outside any Pallas kernel).  Both constants are read at
 each call.  A step differentiates the loss with autograd, through the
-hand-written B3 backward on the card (``kernels.flash_attention``), and
-applies ``optimizer.apply_updates`` in place.
-
-On CUDA a family whose forward runs B5 (``ssm``, ``hybrid``) raises
-``NotImplementedError`` before any step: B5 has no backward kernel yet
-(ROADMAP A10b), and the port does not train through a plain version on
-the card.  On the CPU every family trains through the plain versions.
+hand-written backward kernels on the card (B3's in
+``kernels.flash_attention``, B5's in ``kernels.ssd_scan``), and applies
+``optimizer.apply_updates`` in place.  Every family of the registry
+trains on the card, the SSM and hybrid ones included; on the CPU every
+family trains through the plain versions, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -41,8 +40,6 @@ __all__ = ["CE_CHUNK", "CE_CHUNK_THRESHOLD", "cross_entropy",
 
 CE_CHUNK = 512
 CE_CHUNK_THRESHOLD = 1 << 26     # S·V at and above which the loss chunks
-# the families whose forward runs B5, which has no backward kernel yet
-B5_FAMILIES = ("ssm", "hybrid")
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor,
@@ -110,13 +107,9 @@ def loss_fn(cfg: ModelConfig, params: tfm.Transformer,
 
 def require_trainable(cfg: ModelConfig, device) -> None:
     """Raise ``NotImplementedError`` where the port cannot train ``cfg``
-    on ``device``: a B5 family on CUDA (A10b)."""
+    on ``device``: a family outside the registry.  Every registered
+    family trains on CUDA and on the CPU."""
     tfm.require_supported(cfg)
-    if torch.device(device).type == "cuda" and cfg.family in B5_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family on the card "
-            f"needs B5's backward kernel (ROADMAP A10b); on the CPU it "
-            f"trains through the plain versions")
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,

@@ -642,8 +642,15 @@ def test_fleet_sweep_guards_as_the_reference(monkeypatch):
     a = fleet_sweep(g, n_steps=64, seed=3, **CPU)
     b = fleet_sweep(g, n_steps=64, seed=3, metrics_tap=tap, **CPU)
     assert np.array_equal(a.hist, b.hist) and tap.supersteps == 2
-    with pytest.raises(NotImplementedError, match="3f"):
-        fleet_sweep(g, shard=2, **CPU)
+    # shard > 1 (3f) raised here too: on one device it now runs as one
+    # shard, bitwise, as the reference's clamped shard=2 does
+    c = fleet_sweep(g, n_steps=64, seed=3, shard=2, **CPU)
+    assert np.array_equal(a.hist, c.hist)
+    assert np.array_equal(a.mean_latency, c.mean_latency)
+    rg = RefFleetGrid.from_points([1.0], 0.1, 1.0, k=2)
+    r1, r2 = (ref_sweep_mod.fleet_sweep(rg, n_steps=64, seed=3, shard=n)
+              for n in (1, 2))
+    assert np.array_equal(np.asarray(r1.hist), np.asarray(r2.hist))
     with pytest.raises(ValueError, match="hist_every"):
         fleet_sweep(g, hist_every=0, **CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

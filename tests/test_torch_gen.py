@@ -366,10 +366,12 @@ def test_backends_guard_their_grids():
 
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard"])
 def test_unported_features_raise(what):
-    """shard > 1 (3f) raises, naming its ROADMAP item.  Failure grids,
-    with and without a loss regime, and the metrics tap (3e) raised here
-    until they were ported; their cases now hold the grid's accounting
-    and a tapped run bitwise equal to an untapped one."""
+    """Failure grids, with and without a loss regime, the metrics tap
+    (3e) and ``shard`` > 1 (3f) raised here until they were ported;
+    their cases now hold the grid's accounting, a tapped run bitwise
+    equal to an untapped one, and ``shard=2`` on one device bitwise
+    equal to ``shard=1``, as the reference's own ``shard=2`` is (its
+    ``resolve_shards`` clamps to the visible devices)."""
     kw = dict(n_steps=64, **CPU)
     if what in ("loss", "fail"):
         extra = dict(mtbf=50.0, mttr=1.0)
@@ -396,9 +398,13 @@ def test_unported_features_raise(what):
         assert np.array_equal(a.mean_latency, b.mean_latency)
         assert tap.supersteps == 2048 // 16
         return
-    kw["shard"] = 2
-    with pytest.raises(NotImplementedError, match="3f"):
-        gen_sweep(g, **kw)
+    one, two = (gen_sweep(g, seed=3, shard=n, **kw) for n in (1, 2))
+    for f in ("hist", "mean_latency", "n_jobs"):
+        assert np.array_equal(getattr(one, f), getattr(two, f)), f
+    rg = RefGenGrid.from_points([0.05], *CONST.values())
+    r1, r2 = (ref_gen_sweep(rg, n_steps=64, seed=3, shard=n)
+              for n in (1, 2))
+    assert np.array_equal(np.asarray(r1.hist), np.asarray(r2.hist))
 
 
 def test_simulate_wrappers_run_the_port_kernel():

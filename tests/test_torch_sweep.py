@@ -211,12 +211,13 @@ def test_sweep_runs_the_superstep_update_once_per_block(monkeypatch):
 @pytest.mark.parametrize("what", ["loss", "fail", "tap", "shard",
                                   "markov"])
 def test_unported_features_raise(what):
-    """shard > 1 (3f) raises, naming its ROADMAP item.  Failure grids,
-    with and without a loss regime, the "markov" backend and the
-    metrics tap (3e) raised here until they were ported; their cases
-    now hold what runs: the failure grid's accounting, the exact
-    chain's answer equal to the reference's, and a tapped run bitwise
-    equal to an untapped one."""
+    """Failure grids, with and without a loss regime, the "markov"
+    backend, the metrics tap (3e) and ``shard`` > 1 (3f) raised here
+    until they were ported; their cases now hold what runs: the failure
+    grid's accounting, the exact chain's answer equal to the
+    reference's, a tapped run bitwise equal to an untapped one, and
+    ``shard=2`` on one device bitwise equal to ``shard=1``, as in the
+    reference, whose ``resolve_shards`` clamps to the visible devices."""
     g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0)
     kw = dict(n_batches=64, **CPU)
     if what in ("loss", "fail"):
@@ -250,9 +251,43 @@ def test_unported_features_raise(what):
         assert np.array_equal(a.mean_latency, b.mean_latency)
         assert tap.supersteps == 2
         return
-    kw["shard"] = 2
+    one, two = sweep(g, seed=3, shard=1, **kw), sweep(g, seed=3, shard=2,
+                                                      **kw)
+    for f in ("hist", "mean_latency", "mean_batch", "n_jobs"):
+        assert np.array_equal(getattr(one, f), getattr(two, f)), f
+    rg = RefGrid.from_rhos([0.5], V100.alpha, V100.tau0)
+    r1, r2 = (ref_sweep(rg, n_batches=64, seed=3, shard=n) for n in (1, 2))
+    assert np.array_equal(np.asarray(r1.hist), np.asarray(r2.hist))
+    assert np.array_equal(np.asarray(r1.mean_latency),
+                          np.asarray(r2.mean_latency))
+
+
+@pytest.mark.parametrize("entry", ["sweep", "gen_sweep", "fleet_sweep",
+                                   "campaign"])
+def test_shard_over_two_visible_gpus_raises_3f(monkeypatch, entry):
+    """With two CUDA devices visible, ``shard=2`` would dispatch over
+    both: multi-GPU dispatch is ROADMAP 3f and raises before any run
+    (and before the missing device is noticed); on the CPU the same
+    call runs on one device."""
+    from repro_torch.core import fleet_sweep, gen_sweep
+    from repro_torch.core.campaign import campaign
+    from repro_torch.core.grid import FleetGrid, GenGrid
+    grids = {"sweep": SweepGrid.from_rhos([0.3, 0.5], V100.alpha,
+                                          V100.tau0),
+             "gen_sweep": GenGrid.from_points([0.05, 0.06], 0.1, 1.0, 0.1,
+                                              1.0),
+             "fleet_sweep": FleetGrid.from_points([1.0, 1.2], 0.1, 1.0,
+                                                  k=2)}
+    fns = {"sweep": sweep, "gen_sweep": gen_sweep,
+           "fleet_sweep": fleet_sweep, "campaign": campaign}
+    g = grids.get(entry, grids["sweep"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="3f"):
-        sweep(g, **kw)
+        fns[entry](g, shard=2)
+    with pytest.raises(NotImplementedError, match="3f"):
+        fns[entry](g, shard=2, device="cuda")
+    with pytest.raises(ValueError, match="shard must be >= 1"):
+        fns[entry](g, shard=0, device="cpu")
 
 
 def test_default_device_raises_without_gpu(monkeypatch):

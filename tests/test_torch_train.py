@@ -11,7 +11,8 @@ its clip and float32 moments, and its weight decay, which follows the
 reference's stacked tree (the norms of repeated and encoder layers
 decay, ``norm_f`` and a lead layer's do not); the corpus bit for bit;
 the cross-entropy, chunked and plain; the loss and every gradient of
-five families against ``jax.grad`` at 1e-4.
+six families (reduced Jamba at 4 layers and without its experts)
+against ``jax.grad`` at 1e-4.
 """
 import dataclasses
 
@@ -37,16 +38,22 @@ from repro_torch.train.data import DataConfig, SyntheticCorpus
 
 LOSS_ARCHS = ["qwen1.5-0.5b", "olmoe-1b-7b", "internvl2-1b",
               "whisper-medium", "mamba2-2.7b"]
+# reduced Jamba, the hybrid interleave: at 4 layers (two periods, each
+# with its attention layer and a MoE layer) and without its experts
+HYBRID_VARIANTS = {"jamba-4-layers": dict(layers=4),
+                   "jamba-no-moe": dict(moe=None)}
 DECAY_ARCHS = ["qwen1.5-0.5b", "olmoe-1b-7b", "whisper-medium",
                "deepseek-v2-lite-16b"]
 TOL = 1e-4
 
 
-def _rig(arch, layers=None, seed=0):
+def _rig(arch, layers=None, seed=0, **replace):
     cfg, pcfg = reduced(get_config(arch)), pt_reduced(pt_get_config(arch))
     if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-        pcfg = dataclasses.replace(pcfg, num_layers=layers)
+        replace["num_layers"] = layers
+    if replace:
+        cfg = dataclasses.replace(cfg, **replace)
+        pcfg = dataclasses.replace(pcfg, **replace)
     params = ref_tfm.init_params(cfg, jax.random.PRNGKey(seed))
     return cfg, params, pcfg, _port(pcfg, params)
 
@@ -234,9 +241,13 @@ def test_chunked_cross_entropy_equals_the_plain_path(monkeypatch):
     assert float(l_chunk) == pytest.approx(float(ref_l), rel=1e-5)
 
 
-@pytest.mark.parametrize("arch", LOSS_ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS + list(HYBRID_VARIANTS))
 def test_loss_and_every_gradient_match_jax_grad(arch):
-    cfg, params, pcfg, model = _rig(arch)
+    if arch in HYBRID_VARIANTS:
+        cfg, params, pcfg, model = _rig("jamba-v0.1-52b",
+                                        **HYBRID_VARIANTS[arch])
+    else:
+        cfg, params, pcfg, model = _rig(arch)
     jb, tb = _batches(cfg)
     (ref_l, ref_parts), ref_g = jax.jit(jax.value_and_grad(
         lambda p: ref_loop.loss_fn(cfg, p, jb), has_aux=True))(params)

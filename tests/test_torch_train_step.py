@@ -6,12 +6,15 @@ this file shares).
 Held: one train step's parameters against the reference's;
 microbatching, remat and ``REPRO_REMAT_GROUP`` against the plain step;
 whisper's encoder under remat; checkpoints bitwise in float32 and bf16;
-the driver's loss falling; ``launch.train`` on the CPU; the A10b and A11
+``train``'s loss falling; ``launch.train`` on the CPU; the SSM and
+hybrid families admitted on CUDA (A10b), the reference's zero VLM patch
+rows overflowing the gradient at depth in both packages (C-R5), the A11
 refusals, and the card's entry points refusing a machine without one.
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -184,17 +187,42 @@ def test_launch_train_runs_on_the_cpu_when_asked():
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
 def test_b5_families_refuse_the_card(arch):
-    """SSM and hybrid training on the card waits for B5's backward
-    (A10b); the refusal comes before any step or device check."""
+    """SSM and hybrid training on the card was refused until B5 had a
+    backward kernel (A10b).  Now ``require_trainable`` admits both
+    families on CUDA, reduced and whole, and without a GPU the only
+    refusal left is the missing device."""
     pcfg = pt_reduced(pt_get_config(arch))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        loop.require_trainable(pcfg, "cuda")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        loop.train(pcfg, steps=1, device="cuda")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        launch_train.run(launch_train.parse_args(
-            ["--arch", arch, "--reduced", "--steps", "1"]), device="cuda")
-    loop.require_trainable(pcfg, "cpu")
+    for cfg in (pcfg, pt_get_config(arch)):
+        loop.require_trainable(cfg, "cuda")
+        loop.require_trainable(cfg, "cpu")
+    assert not hasattr(loop, "B5_FAMILIES")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="GPU"):
+            loop.train(pcfg, steps=1, device="cuda")
+        with pytest.raises(RuntimeError, match="GPU"):
+            launch_train.run(launch_train.parse_args(
+                ["--arch", arch, "--reduced", "--steps", "1"]),
+                device="cuda")
+
+
+@pytest.mark.parametrize("patches", ["zero", "random"])
+def test_vlm_zero_patch_rows_overflow_the_gradient_in_both(patches):
+    """ROADMAP C-R5, the reference's own: on all-zero patch rows at
+    InternVL2's depth (24 layers) each RMSNorm multiplies those rows'
+    gradient by rsqrt(1e-6) = 1,000, float32 overflows, and inf · 0 in
+    the weight gradients gives NaN, in the reference's ``jax.grad`` as in
+    the port; 0.02 · N(0, 1) rows, as ``_batches`` draws them, train."""
+    cfg, params, pcfg, model = _rig("internvl2-1b", layers=24)
+    jb, tb = _batches(cfg)
+    if patches == "zero":
+        jb["patch_embeds"] = jnp.zeros_like(jb["patch_embeds"])
+        tb["patch_embeds"] = torch.zeros_like(tb["patch_embeds"])
+    ref = jax.grad(lambda p: ref_loop.loss_fn(cfg, p, jb)[0])(params)
+    ref_finite = all(bool(np.isfinite(np.asarray(x)).all())
+                     for x in jax.tree.leaves(ref))
+    _, _, grads = _grads(pcfg, model, tb)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert ref_finite == finite == (patches == "random")
 
 
 @pytest.mark.parametrize("flag", ["--production", "--multi-pod"])

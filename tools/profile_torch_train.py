@@ -4,7 +4,8 @@
     python3 tools/profile_torch_train.py [--arch ARCH] [--remat]
         [--batch 8] [--seq 512] [--out DIR]
 
-Builds ARCH (default qwen1.5-0.5b) at full width in its config's dtype
+Builds ARCH (default qwen1.5-0.5b; ``mamba2-2.7b`` for the SSM step,
+whole at full width) at full width in its config's dtype
 from the port's seeded init, and the train step of ``launch.train``
 (AdamW, the chunked cross-entropy where ``S · V`` asks for it, remat
 with ``--remat``) on the synthetic corpus; runs two steps to warm up,
@@ -17,6 +18,10 @@ three on the host clock (each ended by reading its loss) and one under
 - ``b3_forward_*`` / ``b3_backward_*`` — B3's forward kernels and its
   backward's three (``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``):
   ms, launches and share of the kernel time;
+- ``b5_forward_*`` / ``b5_backward_*`` — B5's forward kernel and its
+  backward's three (``ssd_state_kernel``, ``ssd_backward_kernel``,
+  ``ssd_reduce_kernel``): ms, launches and share (on SSM and hybrid
+  models);
 - ``products_*`` — the matrix products (cuBLAS / CUTLASS kernels, by
   name), forward and backward: the projections, the MLP and the tied
   unembedding;
@@ -27,7 +32,12 @@ three on the host clock (each ended by reading its loss) and one under
   log-sum-exp, the recompute and the two products of its backward)
   timed apart by CUDA events on the step's own shapes, and its share of
   the profiled step's kernel time; the profiler cannot tell its
-  backward kernels from the model's.
+  backward kernels from the model's;
+- ``conv_ms`` / ``conv_share`` (SSM and hybrid models) — the Mamba2
+  layers' causal convolutions (``models.mamba2._causal_conv``, its
+  float32 tap loop over the x and the B/C channels), forward and
+  backward, timed apart in the same way on the step's shapes, for all
+  the model's Mamba2 layers.
 
 With ``--out`` it also writes the Chrome trace there.  Needs one CUDA
 device; imports nothing of JAX or of the reference package.
@@ -53,6 +63,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import nvidia_smi  # noqa: E402
 from profile_torch_serve import _device_us  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -61,6 +72,9 @@ from repro_torch.train.data import DataConfig, SyntheticCorpus  # noqa: E402
 OPT_RANGE = "apply_updates"
 B3_FORWARD = ("flash_attention_kernel",)
 B3_BACKWARD = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+B5_FORWARD = ("ssd_scan_kernel",)
+B5_BACKWARD = ("ssd_state_kernel", "ssd_backward_kernel",
+               "ssd_reduce_kernel")
 PRODUCTS = ("gemm", "cutlass", "xmma", "nvjet", "sm90_")
 
 
@@ -114,6 +128,36 @@ def _ce_ms(cfg, model, batch: int, seq: int, dev) -> float:
     end.synchronize()
     model.zero_grad(set_to_none=True)
     return start.elapsed_time(end) / 3
+
+
+def _conv_ms(cfg, model, batch: int, seq: int, dev) -> float:
+    """All the Mamba2 layers' causal convolutions of one step, forward
+    and backward, by CUDA events on the step's shapes (mean of 3 after 1
+    warm-up); 0 without Mamba2 layers."""
+    layers = [layer["ssm"] for layer in model.layers if "ssm" in layer]
+    if not layers:
+        return 0.0
+    p = layers[0]
+    ins = [torch.randn(batch, seq, w.shape[1], device=dev, dtype=w.dtype,
+                       requires_grad=True)
+           for w in (p["conv_wx"], p["conv_wbc"])]
+
+    def once():
+        out = (mamba2._causal_conv(ins[0], p["conv_wx"], p["conv_bx"]).sum()
+               + mamba2._causal_conv(ins[1], p["conv_wbc"],
+                                     p["conv_bbc"]).sum())
+        out.backward()
+
+    once()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        once()
+    end.record()
+    end.synchronize()
+    model.zero_grad(set_to_none=True)
+    return start.elapsed_time(end) / 3 * len(layers)
 
 
 def main() -> int:
@@ -178,6 +222,8 @@ def main() -> int:
                             "ms": _device_us(e) / 1e3} for e in top]}
     for label, patterns in (("b3_forward", B3_FORWARD),
                             ("b3_backward", B3_BACKWARD),
+                            ("b5_forward", B5_FORWARD),
+                            ("b5_backward", B5_BACKWARD),
                             ("products", PRODUCTS)):
         ms, n = _matching(kernels, patterns)
         out.update({f"{label}_ms": ms, f"{label}_launches": n,
@@ -186,6 +232,8 @@ def main() -> int:
     out.update({"optimizer_ms": opt_ms, "optimizer_share": opt_ms / busy_ms})
     ce = _ce_ms(cfg, model, args.batch, args.seq, dev)
     out.update({"ce_chunk_ms": ce, "ce_chunk_share": ce / busy_ms})
+    conv = _conv_ms(cfg, model, args.batch, args.seq, dev)
+    out.update({"conv_ms": conv, "conv_share": conv / busy_ms})
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.out / f"{cfg.name}_train.json"))
