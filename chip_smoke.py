@@ -508,6 +508,30 @@ printing one JSON line per phase:
                    config (whisper: encoder self, decoder self and
                    cross), finite losses and grad norms, the peak under
                    the card's.
+53. mesh_train   — ``launch.train``'s ``run(distribute=True)`` on the
+                   one-rank NCCL host mesh (``make_host_mesh``: its own
+                   group over a ``HashStore``, destroyed after), where
+                   ``shard_model``, ``shard_opt_state`` and
+                   ``shard_batch`` make every parameter, moment and
+                   batch a DTensor and B3, B5 and their backwards run
+                   under ``local_map``; each run against the plain run
+                   of the same seed and steps in the same phase:
+                   qwen1.5-0.5b whole, 5 steps at 8 × 512, and
+                   mamba2-2.7b at full width cut to 8 of its 64 layers,
+                   3 steps at 2 × 512, both bf16.  Losses and grad norms
+                   bitwise equal, launches a step exactly the plain
+                   step's (24 B3 and 24 B3 backward; 8 B5 and 8 B5
+                   backward), the median warm step of each run beside
+                   the card's name and power limit.
+54. dryrun       — ``python -m repro_torch.launch.dryrun --mesh both``
+                   in three processes, started right after ``build``
+                   with the GPU hidden from them (they run on ``meta``
+                   tensors over a fake group of 256 / 512 ranks) and
+                   read here: qwen1.5-0.5b at decode_32k and train_4k,
+                   mamba2-2.7b at train_4k.  Every record ``ok``; at
+                   decode_32k the cache's bytes a device are the total
+                   over 256 (16 × 16) and over 512 (2 × 16 × 16); each
+                   record printed on a line of its own.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -757,6 +781,18 @@ TRAIN_HYBRID_ARGS = ["--arch", HYBRID_ARCH, "--steps", "5", "--batch", "2",
 # and the plain scan's saved chunk matrices and activations of 64
 # layers in float32 would not fit beside them)
 SSM_CONSISTENCY_LAYERS = 8
+# mesh_train: the training runs again on the one-rank NCCL host mesh,
+# every tensor a DTensor; mamba2-2.7b at full width cut to 8 layers
+MESH_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "5", "--batch", "8",
+                   "--seq", "512"]
+MESH_TRAIN_SSM_LAYERS = 8
+MESH_TRAIN_SSM_ARGS = ["--arch", SSM_ARCH, "--steps", "3", "--batch", "2",
+                       "--seq", "512"]
+# the dry runs (launch.dryrun --mesh both), each in a process of its own
+DRYRUNS = (("qwen1.5-0.5b", "decode_32k"), ("qwen1.5-0.5b", "train_4k"),
+           ("mamba2-2.7b", "train_4k"))
+# the processes this script starts, stopped before it returns
+_CHILDREN: list = []
 # (arch, layers) trained two steps each in train_families; 0 = whole.
 # Depth cuts keep bf16 weights and gradients and float32 moments (12
 # bytes a parameter) with the activations under 80 GB: OLMoE's 16 layers
@@ -5225,7 +5261,127 @@ def path_hist(dev, captured, block: str) -> dict:
                        emit_as="path_kernel")
 
 
+def start_dryruns() -> list:
+    """``launch.dryrun`` for each of ``DRYRUNS`` in a process of its own,
+    the GPU hidden from it, its records appended to a file of its own;
+    returns the (combo, process, file) list."""
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape in DRYRUNS:
+        path = out / f"{arch}_{shape}.jsonl"
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "both", "--out", str(path)],
+            env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        _CHILDREN.append(proc)
+        runs.append(((arch, shape), proc, path))
+    return runs
+
+
+def phase_dryrun(runs, timeout: float = 900.0) -> dict:
+    """Wait for ``start_dryruns``' processes and gate their records."""
+    end = time.monotonic() + timeout
+    records = []
+    for (arch, shape), proc, path in runs:
+        try:
+            _, err = proc.communicate(timeout=max(1.0, end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            check(False, f"dryrun {arch} {shape}: past {timeout} s")
+        check(proc.returncode == 0, f"dryrun {arch} {shape}: exit "
+              f"{proc.returncode}: {err[-2000:]}")
+        got = [json.loads(line) for line in path.read_text().splitlines()]
+        check([r["mesh"] for r in got] == ["16x16", "2x16x16"],
+              f"dryrun {arch} {shape}: records {[r['mesh'] for r in got]}")
+        for rec in got:
+            check(rec["ok"], f"dryrun {arch} {shape} {rec['mesh']}: "
+                  f"{rec.get('error')}\n{rec.get('traceback', '')}")
+            if shape == "decode_32k":
+                mem = rec["memory"]
+                ranks = 256 if rec["mesh"] == "16x16" else 512
+                check(mem["cache_size_in_bytes"] * ranks
+                      == mem["cache_total_bytes"],
+                      f"dryrun {arch} {shape} {rec['mesh']}: cache "
+                      f"{mem['cache_size_in_bytes']} bytes a device of "
+                      f"{mem['cache_total_bytes']}")
+            emit("dryrun", **rec)
+            records.append(rec)
+    return {"records": len(records)}
+
+
+def phase_mesh_train(dev, smi: str) -> dict:
+    """``launch.train`` on the one-rank NCCL host mesh (every tensor a
+    DTensor) against the plain run: losses and grad norms bitwise, the
+    same launches a step."""
+    out = {}
+    n_ssm = MESH_TRAIN_SSM_LAYERS
+    for name, argv, cfg, per_step in (
+            ("qwen", MESH_TRAIN_ARGS, None,
+             _launch_counts(flash_attention=get_config(
+                 TRAIN_ARCH).num_layers, flash_attention_backward=get_config(
+                     TRAIN_ARCH).num_layers)),
+            ("mamba2", MESH_TRAIN_SSM_ARGS,
+             dataclasses.replace(get_config(SSM_ARCH), num_layers=n_ssm),
+             _launch_counts(ssd_scan=n_ssm, ssd_scan_backward=n_ssm))):
+        args = train_cli.parse_args(argv)
+        runs = {}
+        for mode in ("plain", "mesh"):
+            _reset_serve_launches()
+            res = train_cli.run(args, cfg=cfg, device=dev, log=False,
+                                distribute=mode == "mesh")
+            launches = _serve_launches()
+            want = {k: v * args.steps for k, v in per_step.items()}
+            check(launches == want, f"mesh_train {name} {mode}: launched "
+                  f"{launches}, expected {want}")
+            check(bool(np.all(np.isfinite(res["losses"]))),
+                  f"mesh_train {name} {mode}: losses {res['losses']}")
+            runs[mode] = dict(res, launches=launches)
+            torch.cuda.empty_cache()
+        plain, mesh = runs["plain"], runs["mesh"]
+        check(mesh["mesh"] == {"data": 1, "model": 1},
+              f"mesh_train {name}: mesh {mesh['mesh']}")
+        check(mesh["losses"] == plain["losses"],
+              f"mesh_train {name}: losses {mesh['losses']} against "
+              f"{plain['losses']}")
+        check(mesh["grad_norms"] == plain["grad_norms"],
+              f"mesh_train {name}: grad norms {mesh['grad_norms']} against "
+              f"{plain['grad_norms']}")
+        info = {
+            "arch": mesh["arch"], "layers": mesh["layers"],
+            "dtype": mesh["dtype"], "args": argv, "mesh": mesh["mesh"],
+            "losses": mesh["losses"], "grad_norms": mesh["grad_norms"],
+            "launches_per_step": {k: v // args.steps
+                                  for k, v in mesh["launches"].items()},
+            "step_ms_warm_median": float(np.median(mesh["step_ms"][1:])),
+            "plain_step_ms_warm_median": float(np.median(
+                plain["step_ms"][1:])),
+            "step_ms": mesh["step_ms"], "plain_step_ms": plain["step_ms"],
+            "peak_bytes": mesh["peak_bytes"],
+            "plain_peak_bytes": plain["peak_bytes"], "nvidia_smi": smi}
+        print(f"mesh_train {name}: median warm step "
+              f"{info['step_ms_warm_median']:.1f} ms on the 1 x 1 DTensor "
+              f"mesh, {info['plain_step_ms_warm_median']:.1f} ms plain "
+              f"({smi})", flush=True)
+        emit("mesh_train", **info)
+        out[name] = info
+    return out
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
               "an NVIDIA GPU", file=sys.stderr)
@@ -5240,6 +5396,8 @@ def main() -> int:
         return out
 
     smi = phase("build", phase_build)
+    # the dry runs need no GPU: they run beside the phases below
+    dry = start_dryruns()
     grid = gen_grid()
     # each path's own hist_update block: the sweep's 32 × 768 and the
     # generate sweep's 16 × s_cap (one 16-step superstep, hist_every=1)
@@ -5339,6 +5497,8 @@ def main() -> int:
     phase("train_hybrid", phase_train_hybrid, dev)
     phase("train_ssm_consistency", phase_train_ssm_consistency, dev)
     phase("train_families", phase_train_families, dev)
+    phase("mesh_train", phase_mesh_train, dev, smi)
+    phase("dryrun", phase_dryrun, dry)
     emit("phase_seconds", **seconds)
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")

@@ -1,15 +1,24 @@
 """Launch helpers shared by the port's attention and scan wrappers: the
 dtype codes their CUDA sources take, the device rule (a CUDA tensor
-launches the kernel, a CPU tensor takes the plain version, any other
-device raises), the 16-byte alignment check, the per-device float32
-split workspace and the SM count that sizes a split."""
+launches the kernel, a CPU tensor takes the plain version, a ``meta``
+tensor takes the kernel's shape function, any other device raises), the
+16-byte alignment check, the per-device float32 split workspace and the
+SM count that sizes a split.
+
+The shape function (``shape_only``) is what a wrapper does on ``meta``
+tensors (the dry run): it makes the kernel's outputs, empty, in their
+shapes and dtypes, does no arithmetic and launches nothing; it counts in
+the wrapper's own ``meta_calls`` (``meta_backward_calls`` for a
+backward), never in ``launches``.  A CUDA call whose outputs have no
+element (a mesh rank whose shard holds no head) launches nothing either:
+a zero-size grid is a launch error."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-__all__ = ["DTYPE_CODE", "kernel_device", "check_aligned",
+__all__ = ["DTYPE_CODE", "kernel_device", "shape_only", "check_aligned",
            "float_workspace", "sm_count"]
 
 # the dtype argument of every ``*_launch`` entry point
@@ -19,14 +28,32 @@ _SMS: Dict[torch.device, int] = {}
 
 
 def kernel_device(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU one
-    (take the plain version); any other device raises."""
-    if t.device.type == "cuda":
+    """True for a CUDA tensor (launch the kernel) or a ``meta`` one (the
+    kernel's shape function, ``shape_only``), False for a CPU one (take
+    the plain version); any other device raises."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{name} runs on CUDA (kernel) or CPU (plain "
                      f"version), got device {t.device}")
+
+
+def shape_only(fn, t: torch.Tensor, *outs: torch.Tensor,
+               backward: bool = False, ops: float = 0.0) -> bool:
+    """True where the wrapper ``fn`` returns ``outs`` as they are, with no
+    launch: on ``meta`` (one more ``fn.meta_calls``, or
+    ``fn.meta_backward_calls`` with ``backward``; ``ops``, the kernel's
+    operation count for these shapes, added to ``fn.meta_ops``, which
+    the dry run reads since the shape function does no arithmetic), or
+    when an output has no element; False where it launches its
+    kernel."""
+    if t.device.type == "meta":
+        name = "meta_backward_calls" if backward else "meta_calls"
+        setattr(fn, name, getattr(fn, name, 0) + 1)
+        fn.meta_ops = getattr(fn, "meta_ops", 0.0) + float(ops)
+        return True
+    return any(o.numel() == 0 for o in outs)
 
 
 def check_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -37,6 +37,21 @@ registers, so the cache is never dequantized into a copy; it takes the
 same split rule and merge.
 ``decode_attention_int8_plain`` is its plain version, and
 ``decode_attention_int8.launches`` counts its launches.
+
+``meta`` tensors (the dry run) take the kernels' shape function: the
+output, empty, counted in ``meta_calls`` and not as a launch.  DTensors
+(a device mesh) go through ``local_map`` (``kernels._mesh``): q and
+``lengths`` follow the cache's batch shards.  Where the cache's sequence
+is sharded (``launch.sharding.cache_specs``: over "model", or over
+"data" and "model" at long_500k) each rank attends its own slice of the
+keys, with ``lengths`` shifted by the slice's offset (the window needs
+no shift), into float32 partials ``m``, ``l``, ``acc``, and the ranks
+merge them with a max and two sum all-reduces: the arithmetic of
+``decode_partials_plain`` and ``merge_partials_plain`` across ranks.
+That route runs the plain partials on the CPU and the shape function on
+``meta``; the CUDA kernel has no partials entry, so a sequence split
+over more than one GPU raises ``NotImplementedError`` (ROADMAP 3f).  On a
+split of one the kernel runs on each rank's shard as it does today.
 """
 from __future__ import annotations
 
@@ -44,8 +59,12 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
-from repro_torch.kernels._launch import DTYPE_CODE, kernel_device, sm_count
+from repro_torch.kernels._launch import (DTYPE_CODE, kernel_device,
+                                         shape_only, sm_count)
+from repro_torch.kernels._mesh import (all_reduce, is_dtensor, local_call,
+                                       seq_dims, seq_offset)
 from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  check_attention_inputs,
                                                  launchable)
@@ -109,6 +128,16 @@ def _attend_plain(q, k, v, lengths, window, k_scale=None, v_scale=None):
     the int8 cache's scales, the score takes ``k_scale`` and the p·v sum
     reads ``p·v_scale`` while ``l`` sums ``p``."""
     b, h, hd = q.shape
+    _, l, acc = _partials_plain(q, k, v, lengths, window, k_scale, v_scale)
+    return (acc / (l + 1e-30)).reshape(b, h, hd).to(q.dtype)
+
+
+def _partials_plain(q, k, v, lengths, window, k_scale=None, v_scale=None):
+    """``_attend_plain`` before its division: the float32 statistics ``m``
+    and ``l`` ``(B, KV, G, 1)`` and ``acc`` ``(B, KV, G, hd)`` over the
+    whole cache (a row with no admitted key: ``m = NEG_INF``, ``l = 0``,
+    ``acc = 0``)."""
+    b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     g = h // kv
     sc = torch.einsum("bkgh,btkh->bkgt", q.float().reshape(b, kv, g, hd),
@@ -128,7 +157,7 @@ def _attend_plain(q, k, v, lengths, window, k_scale=None, v_scale=None):
     if v_scale is not None:
         p = p * v_scale[..., 0].transpose(1, 2)[:, :, None, :]
     acc = torch.einsum("bkgt,btkh->bkgh", p, v.float())
-    return (acc / (l + 1e-30)).reshape(b, h, hd).to(q.dtype)
+    return m, l, acc
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -230,6 +259,15 @@ def _workspace(dev: torch.device, floats: int,
     return _WORK[dev]
 
 
+def _ops(q, k, window: int) -> float:
+    """B4's operation count on these shapes with every cache position
+    (or the window) admitted: q·k and p·v, two flops a multiply-add, a
+    head and position (the shape function does not see ``lengths``)."""
+    b, h, hd = q.shape
+    s = k.shape[1]
+    return 4.0 * hd * h * b * (min(s, window) if window else s)
+
+
 def _launch(q, k, v, lengths, out, window: int, scales=None) -> None:
     """One launch of the float kernel, or of the int8 one when
     ``scales`` holds the cache's (k_scale, v_scale)."""
@@ -278,16 +316,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention: q ``(B, H, hd)``, cache k/v ``(B, S, KV, hd)``,
     int32 ``lengths (B,)`` → ``(B, H, hd)`` in q's dtype.  The CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
+    if is_dtensor(k):
+        return _on_mesh(decode_attention, q, k, v, lengths, window)
     _check(q, k, v, lengths)
     if not kernel_device(q, "decode_attention"):
         return decode_attention_plain(q, k, v, lengths, window=window)
     out = torch.empty_like(q)
-    _launch(q, k, v, lengths, out, window)
-    decode_attention.launches += 1
+    if not shape_only(decode_attention, q, out, ops=_ops(q, k, window)):
+        _launch(q, k, v, lengths, out, window)
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.meta_calls = 0
 
 
 def decode_attention_int8(q: torch.Tensor, k: torch.Tensor,
@@ -298,14 +340,69 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor,
     int8 ``(B, S, KV, hd)``, scales float32 ``(B, S, KV, 1)``, int32
     ``lengths (B,)`` → ``(B, H, hd)`` in q's dtype.  The CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
+    if is_dtensor(k):
+        return _on_mesh(decode_attention_int8, q, k, v, lengths, window,
+                        (k_scale, v_scale))
     _check_int8(q, k, k_scale, v, v_scale, lengths)
     if not kernel_device(q, "decode_attention_int8"):
         return decode_attention_int8_plain(q, k, k_scale, v, v_scale,
                                            lengths, window=window)
     out = torch.empty_like(q)
-    _launch(q, k, v, lengths, out, window, scales=(k_scale, v_scale))
-    decode_attention_int8.launches += 1
+    if not shape_only(decode_attention_int8, q, out,
+                      ops=_ops(q, k, window)):
+        _launch(q, k, v, lengths, out, window, scales=(k_scale, v_scale))
+        decode_attention_int8.launches += 1
     return out
 
 
 decode_attention_int8.launches = 0
+decode_attention_int8.meta_calls = 0
+
+
+def _on_mesh(fn, q, k, v, lengths, window: int, scales=None):
+    """B4 (``fn``: the float or the int8 wrapper) on DTensors; see the
+    module's docstring."""
+    mesh = k.device_mesh
+    sd = seq_dims(k)
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in k.placements]
+    cache = [Shard(1) if i in sd else p for i, p in enumerate(rows)]
+    tail = () if scales is None else tuple(scales)
+    split = 1
+    for d in sd:
+        split *= mesh.size(d)
+    if split == 1:
+        def local(q, k, v, lengths, *sc):
+            if sc:
+                return fn(q, k, sc[0], v, sc[1], lengths, window=window)
+            return fn(q, k, v, lengths, window=window)
+    elif k.device.type == "cuda":
+        raise NotImplementedError(
+            f"decode attention over a cache sequence split across "
+            f"{split} GPUs: the CUDA kernel has no partials entry (ROADMAP "
+            f"3f)")
+    else:
+        s_all = k.shape[1]
+
+        def local(q, k, v, lengths, *sc):
+            b, h, hd = q.shape
+            kv = k.shape[2]
+            if q.device.type == "meta":
+                fn.meta_calls += 1
+                fn.meta_ops = getattr(fn, "meta_ops", 0.0) + _ops(q, k,
+                                                                  window)
+                m = torch.empty(b, kv, h // kv, 1, device="meta")
+                l, acc = torch.empty_like(m), torch.empty(
+                    b, kv, h // kv, hd, device="meta")
+            else:
+                off = seq_offset(mesh, sd, s_all)
+                m, l, acc = _partials_plain(q, k, v, lengths - off, window,
+                                            *sc)
+            top = all_reduce(m, "max", mesh, sd)
+            w = torch.exp(m - top)
+            lsum = all_reduce(l * w, "sum", mesh, sd)
+            asum = all_reduce(acc * w, "sum", mesh, sd)
+            return (asum / (lsum + 1e-30)).reshape(b, h, hd).to(q.dtype)
+
+    return local_call(local, mesh, (rows, cache, cache, rows)
+                      + (cache,) * len(tail), rows, q, k, v, lengths, *tail,
+                      out_shapes=q.shape)

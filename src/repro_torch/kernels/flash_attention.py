@@ -53,6 +53,16 @@ Counters.  ``flash_attention.launches`` counts the wrapper calls that
 launch the forward kernel (one per call, whichever kernel it runs, with
 or without ``lse``); ``flash_attention.backward_launches`` the calls
 that launch the backward (one per call, for its three kernels).
+
+``meta`` tensors (the dry run) take the kernels' shape functions: the
+outputs, empty, in their shapes and dtypes, counted in
+``flash_attention.meta_calls`` / ``meta_backward_calls`` and not as
+launches; autograd goes through ``_FlashAttentionFn`` as on the card.
+DTensors (a device mesh) go through ``local_map`` (``kernels._mesh``):
+q, k and v keep a sharded batch, and their heads where every rank's
+query heads read its own kv heads (H and KV both divide the head
+shards, or H == KV, as qwen1.5-4b's 20 heads chunk unevenly over 16),
+and are replicated otherwise; each rank runs this wrapper on its shard.
 """
 from __future__ import annotations
 
@@ -63,9 +73,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._launch import (DTYPE_CODE, check_aligned,
-                                         kernel_device)
+                                         kernel_device, shape_only)
+from repro_torch.kernels._mesh import (head_placements, is_dtensor,
+                                       local_call, remap)
 
-__all__ = ["NEG_INF", "Q_CHUNK", "HEAD_DIMS", "WIDTHS", "flash_attention",
+__all__ = ["NEG_INF", "Q_CHUNK", "HEAD_DIMS", "WIDTHS", "admitted_pairs",
+           "flash_attention",
            "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_with_lse", "flash_attention_backward",
            "flash_attention_backward_plain"]
@@ -129,6 +142,27 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal flash_attention takes as many keys as "
                          f"queries, got S {s} and S_k {k.shape[1]}")
     check_attention_inputs(q, k, v)
+
+
+def admitted_pairs(s: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head's mask admits, in closed form: query row
+    q admits key t when ``t <= q`` (causal) and ``q - t < window`` (a
+    window)."""
+    if causal:
+        if not window or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if not window:
+        return s * sk
+    # row q admits the keys past q - window
+    return sum(sk - min(sk, max(0, q - window + 1)) for q in range(s))
+
+
+def _ops(q, k, v, causal: bool, window: int, per_pair: float) -> float:
+    """B3's operation count on these shapes: ``per_pair`` flops a head
+    and admitted pair."""
+    b, s, h, _ = q.shape
+    return per_pair * b * h * admitted_pairs(s, k.shape[1], causal, window)
 
 
 def _mask(c0: int, n: int, sk: int, causal: bool, window: int,
@@ -305,6 +339,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     S)`` float32, from one kernel launch on CUDA tensors, from the plain
     versions on CPU tensors.  No autograd: the saved state of the
     backward."""
+    if is_dtensor(q):
+        return _on_mesh(q, k, v, causal, window, with_lse=True)
     _check(q, k, v, causal)
     if not kernel_device(q, "flash_attention"):
         return (flash_attention_plain(q, k, v, causal=causal, window=window),
@@ -313,8 +349,11 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     out = q.new_empty(q.shape[:3] + v.shape[3:])
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                       dtype=torch.float32, device=q.device)
-    _launch(q, k, v, out, causal, window, lse)
-    flash_attention.launches += 1
+    if not shape_only(flash_attention, q, out, lse,
+                      ops=_ops(q, k, v, causal, window,
+                               2 * (q.shape[3] + v.shape[3]))):
+        _launch(q, k, v, out, causal, window, lse)
+        flash_attention.launches += 1
     return out, lse
 
 
@@ -343,8 +382,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                          f"{q.dtype} and a contiguous float32 lse "
                          f"{(q.shape[0], q.shape[2], q.shape[1])}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _launch_backward(q, k, v, out, lse, dout, dq, dk, dv, causal, window)
-    flash_attention.backward_launches += 1
+    if not shape_only(flash_attention, q, dq, dk, dv, backward=True,
+                      ops=_ops(q, k, v, causal, window,
+                               5 * (q.shape[3] + v.shape[3]))):
+        _launch_backward(q, k, v, out, lse, dout, dq, dk, dv, causal,
+                         window)
+        flash_attention.backward_launches += 1
     return dq, dk, dv
 
 
@@ -379,16 +422,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``_FlashAttentionFn`` (the kernel also writes ``lse``, and the
     backward runs the backward kernels); otherwise one launch that saves
     nothing, as serving runs it."""
+    if is_dtensor(q):
+        return _on_mesh(q, k, v, causal, window, with_lse=False)
     _check(q, k, v, causal)
     if not kernel_device(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttentionFn.apply(q, k, v, causal, window)
     out = q.new_empty(q.shape[:3] + v.shape[3:])
-    _launch(q, k, v, out, causal, window)
-    flash_attention.launches += 1
+    if not shape_only(flash_attention, q, out,
+                      ops=_ops(q, k, v, causal, window,
+                               2 * (q.shape[3] + v.shape[3]))):
+        _launch(q, k, v, out, causal, window)
+        flash_attention.launches += 1
     return out
+
+
+def _on_mesh(q, k, v, causal: bool, window: int, with_lse: bool):
+    """B3 on DTensors: ``local_map`` over q, k, v placed alike (batch, and
+    heads where each rank's query heads read its own kv heads)."""
+    h, kv = q.shape[2], k.shape[2]
+    pl = head_placements(
+        q, 2, lambda n: (h % n == 0 and kv % n == 0) or h == kv)
+    if with_lse:
+        def fn(a, b, c):
+            return flash_attention_with_lse(a, b, c, causal=causal,
+                                            window=window)
+        outs = (pl, remap(pl, {0: 0, 2: 1}))
+        shapes = (q.shape[:3] + v.shape[3:],
+                  (q.shape[0], q.shape[2], q.shape[1]))
+    else:
+        def fn(a, b, c):
+            return flash_attention(a, b, c, causal=causal, window=window)
+        outs = pl
+        shapes = q.shape[:3] + v.shape[3:]
+    return local_call(fn, q.device_mesh, (pl, pl, pl), outs, q, k, v,
+                      out_shapes=shapes)
 
 
 flash_attention.launches = 0
 flash_attention.backward_launches = 0
+flash_attention.meta_calls = 0
+flash_attention.meta_backward_calls = 0

@@ -26,7 +26,9 @@ misaligned pointers.  On the card the cache axis is split across blocks
 order, through a workspace kept per device.  A failed build or launch
 raises: there is no fallback.  ``mla_decode_attention.launches`` counts
 the wrapper calls that launch the kernel, one per call however many
-kernels it issues.
+kernels it issues.  A ``meta`` tensor takes the shape function (the
+output, empty; ``meta_calls``); a DTensor (a device mesh) raises
+``NotImplementedError``: the latent cache's merge is ROADMAP A11b.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODE, check_aligned,
                                          float_workspace, kernel_device,
-                                         sm_count)
+                                         shape_only, sm_count)
+from repro_torch.kernels._mesh import is_dtensor
 from repro_torch.kernels.flash_attention import NEG_INF
 
 __all__ = ["SHAPES", "TILE", "mla_decode_attention",
@@ -172,14 +175,23 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
                          window: int = 0) -> torch.Tensor:
     """The latent context ``(B, H, R)`` in float32.  The CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
+    if is_dtensor(c_kv):
+        raise NotImplementedError(
+            "MLA decode on a device mesh (the latent cache's merge across "
+            "ranks) is ROADMAP A11b, not ported")
     _check(q_abs, q_pe, c_kv, k_pe, lengths)
     if not kernel_device(q_abs, "mla_decode_attention"):
         return mla_decode_attention_plain(q_abs, q_pe, c_kv, k_pe, lengths,
                                           scale=scale, window=window)
     out = torch.empty_like(q_abs)
-    _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale, window)
-    mla_decode_attention.launches += 1
+    b, h, r = q_abs.shape
+    if not shape_only(mla_decode_attention, q_abs, out,
+                      ops=2.0 * b * h * (2 * r + q_pe.shape[2])
+                      * c_kv.shape[1]):
+        _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale, window)
+        mla_decode_attention.launches += 1
     return out
 
 
 mla_decode_attention.launches = 0
+mla_decode_attention.meta_calls = 0

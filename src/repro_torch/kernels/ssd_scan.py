@@ -65,6 +65,15 @@ Counters.  ``ssd_scan.launches`` counts the wrapper calls that launch
 the forward kernel, one per call of either wrapper, however many kernel
 launches a split call issues; ``ssd_scan.backward_launches`` the calls
 that launch the backward (one per call, for its three kernels).
+
+``meta`` tensors (the dry run) take the kernels' shape functions: y and
+the final state, or the gradients, empty, counted in
+``ssd_scan.meta_calls`` / ``meta_backward_calls`` and not as launches.
+DTensors (a device mesh) go through ``local_map`` (``kernels._mesh``):
+the batch stays sharded, the heads too where each rank's heads read its
+own groups (one group: B and C replicated over the head shards, their
+gradients summed across them), anything else is replicated first; A's
+gradient is summed over the batch shards.
 """
 from __future__ import annotations
 
@@ -74,9 +83,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+from torch.distributed.tensor import Partial, Shard
 
 from repro_torch.kernels._launch import (DTYPE_CODE, float_workspace,
-                                         kernel_device, sm_count)
+                                         kernel_device, shape_only, sm_count)
+from repro_torch.kernels._mesh import (head_placements, is_dtensor,
+                                       local_call, remap)
 
 __all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
            "ssd_scan_plain", "ssd_scan_backward", "ssd_scan_backward_plain",
@@ -496,7 +508,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.zeros(nh, dtype=torch.float32, device=x.device)
     dB = torch.empty(B.shape, dtype=B.dtype, device=x.device)
     dC = torch.empty(C.shape, dtype=C.dtype, device=x.device)
-    if b == 0 or s == 0:
+    if b == 0 or s == 0 or shape_only(ssd_scan, x, dx, dB, backward=True,
+                                      ops=2 * _ops(x, B)):
         return dx, ddt, dA, dB, dC
     _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB, dC)
     ssd_scan.backward_launches += 1
@@ -527,14 +540,23 @@ class _SSDChunkedFn(torch.autograd.Function):
                   for g, t in zip(grads, (x, dt, A, B, C))), None)
 
 
+def _ops(x, B) -> float:
+    """B5's forward operation count on these shapes: the recurrence's two
+    products (x ⊗ B into the state, the state against C), two flops a
+    multiply-add, a step and head; the backward does twice as many."""
+    b, s, nh, hd = x.shape
+    return 4.0 * b * s * nh * hd * B.shape[3]
+
+
 def _forward(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     """One counted launch: y and the final state, both float32."""
     b, _, nh, hd = x.shape
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     h = torch.empty(b, nh, hd, B.shape[3], dtype=torch.float32,
                     device=x.device)
-    _launch(x, dt, A, B, C, y, h)
-    ssd_scan.launches += 1
+    if not shape_only(ssd_scan, x, y, h, ops=_ops(x, B)):
+        _launch(x, dt, A, B, C, y, h)
+        ssd_scan.launches += 1
     return y, h
 
 
@@ -551,6 +573,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with grad enabled and an input that requires grad, through
     ``_SSDChunkedFn`` (the backward runs the backward kernels);
     otherwise one launch that saves nothing, as serving runs it."""
+    if is_dtensor(x):
+        return _on_mesh(x, dt, A, B, C, chunk)
     _check(x, dt, A, B, C, chunk)
     if not kernel_device(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, A, B, C, chunk)
@@ -565,16 +589,45 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """The reference kernel's API: y ``(B, S, nh, hd)`` in x's dtype,
     without the final state; under grad on CUDA tensors through
     ``ssd_chunked``'s autograd route."""
+    if is_dtensor(x):
+        return _on_mesh(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
     _check(x, dt, a, bmat, cmat, chunk)
     if not kernel_device(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
     if _needs_grad(x, dt, a, bmat, cmat):
         return ssd_chunked(x, dt, a, bmat, cmat, chunk)[0].to(x.dtype)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    _launch(x, dt, a, bmat, cmat, y, None)
-    ssd_scan.launches += 1
+    if not shape_only(ssd_scan, x, y, ops=_ops(x, bmat)):
+        _launch(x, dt, a, bmat, cmat, y, None)
+        ssd_scan.launches += 1
     return y
+
+
+def _on_mesh(x, dt, A, B, C, chunk: int):
+    """B5 on DTensors: ``local_map`` over x, dt, A, B, C (see the module's
+    docstring for the placements), returning (y, h) as DTensors."""
+    nh, g = x.shape[2], B.shape[2]
+    pl = head_placements(
+        x, 2, lambda n: g == 1 or (nh % n == 0 and g % n == 0))
+    pa = remap(pl, {2: 0})
+    pbc = pl if g > 1 else remap(pl, {0: 0})
+    # the gradients each rank returns for its replicated inputs are sums
+    # over its own rows (A) or its own heads (B and C of one group)
+    ga = [Partial() if p == Shard(0) else q for p, q in zip(pl, pa)]
+    gbc = [Partial() if p == Shard(2) and g == 1 else q
+           for p, q in zip(pl, pbc)]
+
+    def fn(x, dt, A, B, C):
+        return ssd_chunked(x, dt, A, B, C, chunk)
+
+    return local_call(fn, x.device_mesh, (pl, pl, pa, pbc, pbc),
+                      (pl, remap(pl, {0: 0, 2: 1})), x, dt, A, B, C,
+                      out_shapes=(x.shape, (x.shape[0], nh, x.shape[3],
+                                            B.shape[3])),
+                      in_grad_placements=(pl, pl, ga, gbc, gbc))
 
 
 ssd_scan.launches = 0
 ssd_scan.backward_launches = 0
+ssd_scan.meta_calls = 0
+ssd_scan.meta_backward_calls = 0

@@ -53,9 +53,17 @@ learned positions.  The attention cores follow the Pallas kernels'
 arithmetic: on bf16 inputs the reference model rounds the probabilities
 (on the int8 cache: the probabilities times the value scales) to bf16
 before P·V and the port does not, so the two differ in the last bits
-there; in float32 they agree to rounding.  The reference's
-``REPRO_SHARD_*`` sharding hints have no numerical effect and are not
-read.
+there; in float32 they agree to rounding.
+
+On a device mesh (DTensor weights and activations) the reference's
+layout hints act, read at each call as the reference reads them; on
+plain tensors they do nothing.  ``REPRO_SHARD_HEADS_AXIS`` (the
+reference's §Perf T1, ``_shard_heads``) shards the head axis of q, k and
+v over that mesh axis, and (§Perf T5) repeats k and v to the full head
+count before the attention kernel when KV < H and KV does not divide the
+axis, so every rank's query heads find their kv heads on the same rank;
+the cache keeps the compact k and v.  The cache write and the decode
+kernels follow the cache's own layout (``launch.sharding.cache_specs``).
 """
 from __future__ import annotations
 
@@ -64,13 +72,18 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mla_decode import mla_decode_attention
-from repro_torch.models.layers import _init_w, apply_norm, matmul, param
+from repro_torch.kernels._mesh import (is_dtensor, local_call, seq_dims,
+                                       seq_offset)
+from repro_torch.models.layers import (_init_w, apply_norm, batch_rows,
+                                       matmul, param, shard_hint)
 from repro_torch.models.rope import apply_rope
 
 __all__ = ["init_gqa", "gqa_forward", "gqa_decode", "kv_quantized",
@@ -99,14 +112,72 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk", x, w) as one matrix product."""
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product.  On a DTensor
+    weight, each rank multiplies its own rows of ``x`` by its own heads
+    (or head widths) of ``w`` (``local_map``): DTensor would have to
+    flatten (H, hd) with hd sharded (qwen1.5-4b's fallback)."""
+    if is_dtensor(w):
+        return _proj_mesh(x, w)
     d, h, k = w.shape
     return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
+def _proj_mesh(x, w):
+    mesh = w.device_mesh
+    if not is_dtensor(x):
+        x = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+    wl = [p if p in (Shard(1), Shard(2)) else Replicate()
+          for p in w.placements]
+    rows = [p if p == Shard(0) and wl[i] == Replicate() else Replicate()
+            for i, p in enumerate(x.placements)]
+    out = [Shard(wl[i].dim + 1) if wl[i] != Replicate() else rows[i]
+           for i in range(mesh.ndim)]
+    # w's gradient on a rank covers only its own rows of x, and x's only
+    # its own heads of w: each a sum across the other's shards
+    wg = [Partial() if rows[i] != Replicate() else wl[i]
+          for i in range(mesh.ndim)]
+    xg = [Partial() if wl[i] != Replicate() else rows[i]
+          for i in range(mesh.ndim)]
+
+    def local(a, b):
+        d, h, k = b.shape
+        return matmul(a, b.reshape(d, h * k)).reshape(*a.shape[:-1], h, k)
+
+    return local_call(local, mesh, (rows, wl), out, x, w,
+                      out_shapes=tuple(x.shape[:-1]) + tuple(w.shape[1:]),
+                      in_grad_placements=(xg, wg))
+
+
+def _heads_axis():
+    return os.environ.get("REPRO_SHARD_HEADS_AXIS")
+
+
+def _shard_heads(x: torch.Tensor) -> torch.Tensor:
+    """The reference's §Perf T1 hint: the head axis of a (B, S, H, hd)
+    activation over ``REPRO_SHARD_HEADS_AXIS``, on DTensors."""
+    return shard_hint(x, x.dim() - 2, _heads_axis())
+
+
+def _repeat_kv(q, k) -> bool:
+    """The reference's §Perf T5 case: under the head hint, on DTensors,
+    fewer kv heads than query heads and a kv head count that does not
+    divide the hint's mesh axis."""
+    axis = _heads_axis()
+    if not (axis and is_dtensor(q) and k.shape[2] < q.shape[2]):
+        return False
+    names = q.device_mesh.mesh_dim_names or ()
+    return (axis in names
+            and k.shape[2] % q.device_mesh.size(names.index(axis)) != 0)
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, rope: bool = True):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    x = batch_rows(x)           # on a mesh: one gather for q, k and v
+    q, k, v = (_proj(x, p[n]) for n in ("wq", "wk", "wv"))
+    q = _shard_heads(q)
+    if not _repeat_kv(q, k):
+        # (kv heads that are repeated take the hint after the repeat)
+        k, v = _shard_heads(k), _shard_heads(v)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "q_norm" in p:
@@ -121,9 +192,43 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
+    """einsum("bshk,hkd->bsd", out, wo) as one matrix product.  On a
+    DTensor ``out`` whose heads are sharded, each rank contracts its own
+    heads against its rows of ``wo`` and the ranks' products are summed
+    (``Partial``): DTensor cannot flatten (H, hd) when H is chunked
+    unevenly (qwen1.5-4b's 20 heads over 16 ranks)."""
+    if is_dtensor(out) and _head_dims(out):
+        return _out_proj_mesh(out, wo)
     h, k, d = wo.shape
     return matmul(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
+
+
+def _head_dims(t) -> list:
+    return [i for i, p in enumerate(t.placements)
+            if p == Shard(t.dim() - 2)]
+
+
+def _out_proj_mesh(out, wo):
+    mesh = out.device_mesh
+    heads = _head_dims(out)
+    lead = out.dim() - 2
+    rows = [p if isinstance(p, Shard) and p.dim < lead and i not in heads
+            else Replicate() for i, p in enumerate(out.placements)]
+    lay = [Shard(lead) if i in heads else p for i, p in enumerate(rows)]
+    wlay = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
+    # wo's gradient on a rank covers only its own rows of the batch
+    wgrad = [Shard(0) if i in heads else (Partial() if rows[i] != Replicate()
+                                          else Replicate())
+             for i in range(mesh.ndim)]
+    res = [Partial() if i in heads else p for i, p in enumerate(rows)]
+
+    def local(o, w):
+        h, k, d = w.shape
+        return matmul(o.reshape(*o.shape[:-2], h * k), w.reshape(h * k, d))
+
+    return local_call(local, mesh, (lay, wlay), res, out, wo,
+                      out_shapes=tuple(out.shape[:-2]) + (wo.shape[2],),
+                      in_grad_placements=(lay, wgrad))
 
 
 def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor,
@@ -132,8 +237,15 @@ def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention. positions: (S,). Returns (out, (k, v))."""
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
+    kc, vc = k, v                    # the cache keeps the compact layout
+    if _repeat_kv(q, k):
+        # the reference's §Perf T5: kv heads that do not divide the axis
+        # are repeated to the full head count
+        g = q.shape[2] // k.shape[2]
+        k = _shard_heads(k.repeat_interleave(g, dim=2))
+        v = _shard_heads(v.repeat_interleave(g, dim=2))
     out = flash_attention(q, k, v, causal=causal, window=window)
-    return _out_proj(out, p["wo"]), (k, v)
+    return _out_proj(out, p["wo"]), (kc, vc)
 
 
 def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor,
@@ -184,7 +296,11 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     ``lengths``, in place; returns cache.  As the reference's
     mask-select, a row whose length lies outside [0, S) writes nothing:
     it is written at a clamped index with its old value, so the host
-    never reads ``lengths``."""
+    never reads ``lengths``.  On a DTensor cache each rank writes its own
+    rows and, where the sequence is sharded, its own slice of it, at
+    ``lengths`` shifted by the slice's offset."""
+    if is_dtensor(cache):
+        return _scatter_time_mesh(cache, new, lengths)
     s = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     idx = lengths.long().clamp(0, s - 1)
@@ -193,6 +309,21 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, idx] = torch.where(ok, new[:, 0].to(cache.dtype),
                                    cache[rows, idx])
     return cache
+
+
+def _scatter_time_mesh(cache, new, lengths):
+    mesh = cache.device_mesh
+    sd = seq_dims(cache)
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in cache.placements]
+    layout = [Shard(1) if i in sd else p for i, p in enumerate(rows)]
+    s_all = cache.shape[1]
+
+    def local(c, n, lens):
+        return _scatter_time(c, n, lens - seq_offset(mesh, sd, s_all))
+
+    return local_call(local, mesh, (layout, rows, rows), layout, cache, new,
+                      lengths, out_shapes=cache.shape)
 
 
 # ---------------------------------------------------------------------------

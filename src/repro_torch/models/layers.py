@@ -16,10 +16,14 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.kernels._mesh import is_dtensor, local_call, seq_offset
 
 __all__ = ["_dtype", "_init_w", "init_norm", "apply_norm", "init_mlp",
            "apply_mlp", "init_embedding", "embed", "unembed", "param",
-           "matmul"]
+           "matmul", "shard_hint", "batch_rows"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -33,7 +37,43 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _gen_kw(gen: torch.Generator) -> dict:
+    """The draw's keywords; on the ``meta`` device (``transformer.
+    abstract_params``) there is no generator and nothing is drawn."""
+    if gen.device.type == "meta":
+        return dict(device=gen.device, dtype=torch.float32)
     return dict(generator=gen, device=gen.device, dtype=torch.float32)
+
+
+def shard_hint(x: torch.Tensor, dim: int,
+               axis: Optional[str]) -> torch.Tensor:
+    """The reference's layout hints (``with_sharding_constraint`` of
+    ``P(UNCONSTRAINED…, axis at dim, UNCONSTRAINED…)``) on a DTensor:
+    ``x`` redistributed so that mesh axis ``axis`` shards dimension
+    ``dim``, every other mesh dimension keeping its placement.  A plain
+    tensor, an unset ``axis`` or a mesh without it: ``x`` as it is."""
+    if not axis or not is_dtensor(x) or axis not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return x
+    i = x.device_mesh.mesh_dim_names.index(axis)
+    want = list(x.placements)
+    want[i] = Shard(dim)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def batch_rows(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor sharded on its batch alone (every other placement
+    replicated: a sequence-sharded residual gathered, a ``Partial``
+    reduced); a plain tensor as it is.  The unembedding takes its
+    activations so, and its vocabulary-sharded weight then gives
+    vocabulary-sharded logits with no all-to-all."""
+    if not is_dtensor(x):
+        return x
+    want = [p if p == Shard(0) else Replicate() for p in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 # ---------------------------------------------------------------------------
@@ -48,12 +88,44 @@ def init_norm(gen: torch.Generator, d: int, kind: str,
     return nn.ParameterDict(p)
 
 
+def _split_rows(x: torch.Tensor) -> list:
+    """On a DTensor, the placements of a per-row statistic of ``x`` when a
+    mesh dimension of more than one rank splits ``x``'s last dimension
+    (that dimension replicated); otherwise None."""
+    if not is_dtensor(x):
+        return None
+    last = Shard(x.dim() - 1)
+    mesh = x.device_mesh
+    if not any(p == last and mesh.size(i) > 1
+               for i, p in enumerate(x.placements)):
+        return None
+    return [Replicate() if p == last or p.is_partial() else p
+            for p in x.placements]
+
+
+def _row_sum(t: torch.Tensor, rows: list) -> torch.Tensor:
+    """``t.sum(-1, keepdim=True)`` all-reduced to every shard of the row:
+    DTensor would otherwise often reduce-scatter the statistic onto
+    another dimension and gather the whole activation to apply it."""
+    return t.sum(dim=-1, keepdim=True).redistribute(t.device_mesh, rows)
+
+
 def apply_norm(p, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
     """Normalise in float32, cast to x's dtype, then scale (the
     reference's order)."""
     xf = x.float()
-    if kind == "rmsnorm":
+    rows = _split_rows(xf)
+    if rows is not None:
+        # a mesh splits the normalised axis: sums, all-reduced, over d
+        d = xf.shape[-1]
+        if kind == "rmsnorm":
+            y = xf * torch.rsqrt(_row_sum(xf.square(), rows) / d + eps)
+        else:
+            mean = _row_sum(xf, rows) / d
+            var = _row_sum((xf - mean).square(), rows) / d
+            y = (xf - mean) * torch.rsqrt(var + eps)
+    elif kind == "rmsnorm":
         var = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + eps)
     else:
@@ -106,6 +178,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
 
 
 def apply_mlp(p, x: torch.Tensor, activation: str) -> torch.Tensor:
+    x = batch_rows(x)           # on a mesh: one gather for both products
     if activation == "swiglu":
         g = matmul(x, p["w_gate"])
         u = matmul(x, p["w_up"])
@@ -125,7 +198,47 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a DTensor table, a gather on each rank's
+    own rows (``local_map``); where the vocabulary is sharded (a tied
+    table, ``launch.sharding``), the vocab-parallel lookup: each rank
+    gathers the tokens its rows hold and zeros elsewhere, and the result
+    is a sum across the vocabulary shards (DTensor ``Partial``), never
+    an all-gather of the table."""
+    if is_dtensor(table):
+        return _embed_mesh(table, tokens)
     return table[tokens]
+
+
+def _embed_mesh(table, tokens):
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim)
+    vocab = [i for i, p in enumerate(table.placements)
+             if p == Shard(0) and mesh.size(i) > 1]
+    rows = [p if p in (Shard(0), Shard(1)) and i not in vocab
+            else Replicate() for i, p in enumerate(tokens.placements)]
+    lay = [Shard(0) if i in vocab else (p if p == Shard(1) else Replicate())
+           for i, p in enumerate(table.placements)]
+    out = [Partial() if i in vocab else (Shard(2) if lay[i] == Shard(1)
+                                        else rows[i])
+           for i in range(mesh.ndim)]
+    v_all = table.shape[0]
+
+    def local(t, ids):
+        if not vocab:
+            return t[ids]
+        idx = ids.long() - seq_offset(mesh, vocab, v_all)
+        ok = (idx >= 0) & (idx < t.shape[0])
+        e = t[idx.clamp(0, t.shape[0] - 1)]
+        return torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype))
+
+    # the table's gradient on a rank covers only the rows of its tokens:
+    # a sum across the shards of the batch (or sequence)
+    grad = [Partial() if rows[i] != Replicate() else lay[i]
+            for i in range(mesh.ndim)]
+    return local_call(local, mesh, (lay, rows), out, table, tokens,
+                      out_shapes=tuple(tokens.shape) + (table.shape[1],),
+                      in_grad_placements=(grad, rows))
 
 
 def unembed(table_or_w: torch.Tensor, x: torch.Tensor,

@@ -9,9 +9,12 @@ autograd of the plain version on the CPU.  Decode is the exact diagonal
 SSM recurrence ``h <- exp(dt·A)·h + dt·(x ⊗ B)``, ``y = C·h + D·x``, in
 plain torch ops, as in the reference.  Parameters live in an
 ``nn.ParameterDict`` under the reference's keys; ``A_log``, ``D`` and
-``dt_bias`` stay float32 whatever the model's dtype.  The
-head-sharding constraint of the reference (``_shard_dim``) belongs to
-the launch slice and is left out.
+``dt_bias`` stay float32 whatever the model's dtype.  On a device
+mesh the reference's head hint (§Perf M2, ``_shard_dim``, under
+``REPRO_SHARD_HEADS_AXIS``, read at each call) pins the scan's head
+axis — of x and dt, the kernel's inputs, where the reference pins its
+chunk states — to that mesh axis when the head count is a multiple of
+16; on plain tensors it does nothing.
 
 Cache layout per layer: ``conv_x (B, d_conv-1, d_inner)`` and
 ``conv_bc (B, d_conv-1, 2·g·ds)`` in the model's dtype, ``ssm (B, nh,
@@ -19,15 +22,19 @@ hd, ds)`` float32.  ``mamba2_decode`` updates it in place.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels._mesh import is_dtensor, local_call
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.models.layers import _init_w, apply_norm, param
+from repro_torch.models.layers import (_init_w, apply_norm, batch_rows,
+                                       param, shard_hint)
 
 __all__ = ["conv_dim", "init_mamba2", "mamba2_forward", "mamba2_decode"]
 
@@ -65,17 +72,42 @@ def init_mamba2(gen: torch.Generator, d_model: int, s: SSMConfig,
     })
 
 
+def _shard_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reference's §Perf M2 hint: a head dimension over
+    ``REPRO_SHARD_HEADS_AXIS`` when it is a multiple of 16."""
+    if t.shape[dim] % 16:
+        return t
+    return shard_hint(t, dim, os.environ.get("REPRO_SHARD_HEADS_AXIS"))
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time. xbc: (B,S,C), w: (K,C).  The
     taps accumulate in order in float32, then bias, silu and the cast
-    to xbc's dtype, as in the reference."""
+    to xbc's dtype, as in the reference.  On a mesh each rank convolves
+    its own rows and channels (``local_map``; the time axis whole)."""
+    if is_dtensor(xbc):
+        return _causal_conv_mesh(xbc, w, b)
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    # (new_zeros: on a mesh the accumulator is laid out as xbc is)
+    out = xbc.new_zeros(xbc.shape, dtype=torch.float32)
     for i in range(k):
         out = out + pad[:, i:i + s].float() * w[i].float()
     return F.silu(out + b.float()).to(xbc.dtype)
+
+
+def _causal_conv_mesh(xbc, w, b):
+    lay = [p if p in (Shard(0), Shard(2)) else Replicate()
+           for p in xbc.placements]
+    wl = [Shard(1) if p == Shard(2) else Replicate() for p in lay]
+    bl = [Shard(0) if p == Shard(2) else Replicate() for p in lay]
+    # the weights' gradients on a rank cover only its own rows
+    wg = [Partial() if p == Shard(0) else q for p, q in zip(lay, wl)]
+    bg = [Partial() if p == Shard(0) else q for p, q in zip(lay, bl)]
+    return local_call(_causal_conv, xbc.device_mesh, (lay, wl, bl), lay,
+                      xbc, w, b, out_shapes=xbc.shape,
+                      in_grad_placements=(lay, wg, bg))
 
 
 def _gated_out(p, x: torch.Tensor, y: torch.Tensor,
@@ -94,17 +126,18 @@ def mamba2_forward(p, d_model: int, s: SSMConfig, x: torch.Tensor
     d_in = s.d_inner(d_model)
     nh = s.n_heads(d_model)
     gs = s.n_groups * s.d_state
+    x = batch_rows(x)           # on a mesh: one gather for the projections
     z = x @ p["in_z"]
     xi = x @ p["in_x"]
     bc = x @ p["in_bc"]
     dt_raw = x @ p["in_dt"]
     xc = _causal_conv(xi, p["conv_wx"], p["conv_bx"])
     bcc = _causal_conv(bc, p["conv_wbc"], p["conv_bbc"])
-    xs = xc.reshape(b, S, nh, s.head_dim)
+    xs = _shard_dim(xc.reshape(b, S, nh, s.head_dim), 2)
     # B and C stay strided views of bcc: the kernel takes their strides
     B = bcc[..., :gs].reshape(b, S, s.n_groups, s.d_state)
     C = bcc[..., gs:].reshape(b, S, s.n_groups, s.d_state)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    dt = _shard_dim(F.softplus(dt_raw.float() + p["dt_bias"]), 2)
     A = -torch.exp(p["A_log"])
     y, h_end = ssd_chunked(xs, dt, A, B, C, s.chunk_size)
     y = y + xs.float() * p["D"][:, None]
@@ -149,9 +182,28 @@ def mamba2_decode(p, d_model: int, s: SSMConfig, x: torch.Tensor,
         rep, dim=1)
     dt = F.softplus((x1 @ p["in_dt"]).float() + p["dt_bias"])   # (b,nh)
     A = -torch.exp(p["A_log"])
-    h = cache["ssm"]
-    h.mul_(torch.exp(dt * A)[:, :, None, None])
-    h.addcmul_((dt[:, :, None] * xs)[:, :, :, None], Bh[:, :, None, :])
-    y = torch.einsum("bhds,bhs->bhd", h, Ch) + xs * p["D"][:, None]
+    args = (cache["ssm"], dt, A, xs, Bh, Ch, p["D"])
+    y = (_ssm_step_mesh(*args) if is_dtensor(cache["ssm"])
+         else _ssm_step(*args))
     out = _gated_out(p, x, y.reshape(b, 1, d_in), z[:, None])
     return out, cache
+
+
+def _ssm_step(h, dt, A, xs, Bh, Ch, D):
+    """The recurrence's step on the state ``h (B, nh, hd, ds)``, in place;
+    returns y ``(B, nh, hd)`` with the D term."""
+    h.mul_(torch.exp(dt * A)[:, :, None, None])
+    h.addcmul_((dt[:, :, None] * xs)[:, :, :, None], Bh[:, :, None, :])
+    return torch.einsum("bhds,bhs->bhd", h, Ch) + xs * D[:, None]
+
+
+def _ssm_step_mesh(h, dt, A, xs, Bh, Ch, D):
+    """``_ssm_step`` on each rank's own rows and heads of the state
+    (``local_map``), laid out as the state is (``launch.sharding``: the
+    batch over the data axes, the heads over "model")."""
+    lay = [p if p in (Shard(0), Shard(1)) else Replicate()
+           for p in h.placements]
+    heads = [Shard(0) if p == Shard(1) else Replicate() for p in lay]
+    return local_call(_ssm_step, h.device_mesh,
+                      (lay, lay, heads, lay, lay, lay, heads), lay, h, dt,
+                      A, xs, Bh, Ch, D, out_shapes=xs.shape)

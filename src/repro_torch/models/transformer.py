@@ -49,6 +49,7 @@ runs twice a checkpointed layer.
 
 Public API (used by registry / serving / training):
     init_params(cfg, generator)                -> Transformer
+    abstract_params(cfg)                       -> Transformer on ``meta``
     forward(cfg, params, batch, window=0, remat=False)
                                                -> (logits, aux_loss)
     forward_hidden(cfg, params, batch, window=0, remat=False)
@@ -73,14 +74,17 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels._mesh import is_dtensor
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as ssm
 from repro_torch.models.layers import (_dtype, _init_w, apply_mlp,
                                        apply_norm, embed, init_embedding,
-                                       init_mlp, init_norm, unembed)
+                                       init_mlp, init_norm, shard_hint,
+                                       unembed, batch_rows)
 from repro_torch.models.moe import apply_moe, init_moe
 
-__all__ = ["Transformer", "Encoder", "init_params", "init_cache", "forward",
+__all__ = ["Transformer", "Encoder", "init_params", "abstract_params",
+           "init_cache", "forward",
            "forward_hidden", "prefill", "decode_step", "encode",
            "encoder_cfg", "layer_specs", "split_pattern",
            "require_supported"]
@@ -141,6 +145,26 @@ def _remat_group(r: int) -> int:
     while r % g:
         g -= 1
     return g
+
+
+def _like(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A block's output ``a`` laid out as the residual ``x`` it is added
+    to (on DTensors: a sequence-sharded residual takes a reduce-scatter
+    here, and its gradient an all-gather back, the sequence-parallel
+    pair); a plain tensor as it is."""
+    if not is_dtensor(a) or a.placements == x.placements:
+        return a
+    return a.redistribute(a.device_mesh, x.placements)
+
+
+def _shard_seq(x: torch.Tensor) -> torch.Tensor:
+    """The reference's §Perf T3 hint (sequence parallelism): between the
+    repeated blocks the residual stream's sequence axis over
+    ``REPRO_SHARD_SEQ_AXIS`` (read at each call), on DTensors whose
+    sequence is a multiple of 16; a plain tensor as it is."""
+    if x.dim() != 3 or x.shape[1] % 16:
+        return x
+    return shard_hint(x, 1, os.environ.get("REPRO_SHARD_SEQ_AXIS"))
 
 
 def _checkpoint(fn, *args):
@@ -248,6 +272,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
             init_embedding(gen, cfg.encoder.n_ctx, ecfg.d_model, dtype),
             blocks, init_norm(gen, ecfg.d_model, cfg.norm, dtype))
     return Transformer(table, norm_f, layers, unembed_w, pos_embed, encoder)
+
+
+class _MetaDraw:
+    """Stands in for a generator on the ``meta`` device, which torch does
+    not have: ``layers._gen_kw`` draws nothing for it."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """The ``Transformer`` of ``init_params`` on the ``meta`` device: the
+    same names, shapes and dtypes, no values, no memory.  The port's
+    ``jax.eval_shape(init_params)``; the sharding rules and the dry run
+    read it."""
+    return init_params(cfg, _MetaDraw())
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -364,7 +402,7 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
         elif mode == "prefill":
             new_cache = {"k": _pad_time(k, cache_len),
                          "v": _pad_time(v, cache_len)}
-    x = x + a
+    x = x + _like(a, x)
     if "xattn" in bp:
         hx = apply_norm(bp["norm_x"], x, cfg.norm)
         if mode == "decode":
@@ -373,15 +411,16 @@ def apply_block(cfg: ModelConfig, bp: nn.ModuleDict, kind: str,
             ck, cv = attn.cross_kv(bp["xattn"], cross_enc)
             if mode == "prefill":
                 new_cache["cross_k"], new_cache["cross_v"] = ck, cv
-        x = x + attn.cross_attend(bp["xattn"], hx, ck, cv,
-                                  decode=mode == "decode")
+        a = attn.cross_attend(bp["xattn"], hx, ck, cv,
+                              decode=mode == "decode")
+        x = x + _like(a, x)
     if "ffn" in bp:
         h2 = apply_norm(bp["norm2"], x, cfg.norm)
         if moe_flag:
             f, aux = apply_moe(bp["ffn"], cfg.moe, h2, cfg.activation)
         else:
             f = apply_mlp(bp["ffn"], h2, cfg.activation)
-        x = x + f
+        x = x + _like(f, x)
     return x, new_cache, aux
 
 
@@ -391,9 +430,12 @@ def _run_layers(cfg: ModelConfig, params: Transformer, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layers ``lo … hi - 1`` in full mode; returns (x, their aux sum)."""
     specs = layer_specs(cfg)
+    lead = split_pattern(cfg)[0]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(lo, hi):
         kind, moe_flag = specs[i]
+        if i >= lead:
+            x = _shard_seq(x)
         x, _, aux = apply_block(cfg, params.layers[i], kind, moe_flag, x,
                                 mode="full", positions=positions,
                                 window=window, cross_enc=cross_enc)
@@ -443,9 +485,12 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                                   cross_enc)
         return x, None, aux
     new_cache: Cache = []
+    lead = split_pattern(cfg)[0]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, ((kind, moe_flag), bp) in enumerate(zip(layer_specs(cfg),
                                                    params.layers)):
+        if i >= lead:
+            x = _shard_seq(x)
         x, nc, aux = apply_block(
             cfg, bp, kind, moe_flag, x, mode=mode, positions=positions,
             lengths=lengths, cache=cache[i] if cache is not None else None,
@@ -458,7 +503,7 @@ def _run_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
 
 def _logits(cfg: ModelConfig, params: Transformer,
             x: torch.Tensor) -> torch.Tensor:
-    x = apply_norm(params.norm_f, x, cfg.norm)
+    x = apply_norm(params.norm_f, batch_rows(x), cfg.norm)
     if cfg.tie_embeddings:
         return unembed(params.embed, x, tied=True)
     return unembed(params.unembed, x, tied=False)

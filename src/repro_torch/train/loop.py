@@ -25,9 +25,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels._mesh import (is_dtensor, local_call,
+                                       seq_offset)
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import batch_rows
 from repro_torch.train.data import DataConfig, SyntheticCorpus
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          apply_updates, decay_names,
@@ -45,9 +50,59 @@ CE_CHUNK_THRESHOLD = 1 << 26     # S·V at and above which the loss chunks
 def _nll(logits: torch.Tensor, labels: torch.Tensor,
          z_loss: float) -> torch.Tensor:
     """Per-position softmax cross-entropy with z-loss, in float32."""
+    if is_dtensor(logits):
+        return _nll_mesh(logits, labels, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
+def _nll_mesh(logits, labels, z_loss: float):
+    """``_nll`` on DTensor logits ``(B, S, V)``.  Where no mesh dimension
+    of more than one rank splits the vocabulary, each rank runs ``_nll``
+    on its own rows (``local_map``: on one rank the plain path's bits).
+    Where one does (``unembed`` sharded on V), the vocab-parallel form:
+    the log-sum-exp from the local maxima and sums of exponentials, which
+    DTensor merges with a max and a sum all-reduce of ``(B, S)`` values,
+    and the gold logit from the rank that holds the label, summed across
+    the vocabulary shards — never an all-gather of the logits."""
+    mesh = logits.device_mesh
+    if not is_dtensor(labels):
+        labels = distribute_tensor(labels, mesh,
+                                   [Replicate()] * mesh.ndim)
+    vocab = [i for i, p in enumerate(logits.placements)
+             if p == Shard(2) and mesh.size(i) > 1]
+    rows = [p if p in (Shard(0), Shard(1)) else Replicate()
+            for p in logits.placements]
+    if not vocab:
+        return local_call(lambda lg, lb: _nll(lg, lb, z_loss), mesh,
+                          (rows, rows), rows, logits, labels,
+                          out_shapes=labels.shape)
+    logits = logits.float()
+    lay = [Shard(2) if i in vocab else p for i, p in enumerate(rows)]
+    logits = logits.redistribute(mesh, lay)
+    # the (B, S) statistics are all-reduced to the rows' own layout, so
+    # their gradients reach the vocabulary-sharded logits with no gather
+    m = logits.detach().amax(dim=-1, keepdim=True).redistribute(mesh, rows)
+    se = torch.exp(logits - m).sum(dim=-1, keepdim=True).redistribute(
+        mesh, rows)
+    lse = (torch.log(se) + m)[..., 0]
+    v_all = logits.shape[-1]
+
+    def gold_part(lg, lb):
+        idx = lb.long() - seq_offset(mesh, vocab, v_all)
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(ok, g[..., 0], 0.0)
+
+    gold = local_call(gold_part, mesh, (lay, rows),
+                      [Partial() if i in vocab else p
+                       for i, p in enumerate(rows)], logits, labels,
+                      out_shapes=labels.shape).redistribute(mesh, rows)
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()
@@ -70,6 +125,8 @@ def chunked_cross_entropy(cfg: ModelConfig, params: tfm.Transformer,
     at most ``(B, chunk, V)`` logits alive."""
     chunk = chunk or CE_CHUNK
     b, s, _ = hidden.shape
+    # on a mesh, gather a sequence-sharded hidden once, not once a chunk
+    hidden = batch_rows(hidden)
 
     def body(h, lab):
         return _nll(tfm._logits(cfg, params, h), lab, z_loss).sum()
@@ -146,8 +203,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             m = b // microbatches
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: p.new_zeros(p.shape, dtype=torch.float32)
                      for n, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=model.embed.device)

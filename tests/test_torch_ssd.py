@@ -210,7 +210,17 @@ def test_wrappers_refuse(bad):
     elif bad == "shape":
         dt = dt[:, :-1]
     elif bad == "meta":
-        x, dt, a, bm, cm = (t.to("meta") for t in (x, dt, a, bm, cm))
+        # since the launch slice a meta tensor takes the kernel's shape
+        # function (the dry run): no arithmetic, no launch counted
+        launches = ss.ssd_scan.launches
+        meta = tuple(t.to("meta") for t in (x, dt, a, bm, cm))
+        y, h = ss.ssd_chunked(*meta, chunk)
+        want = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk)
+        assert (y.shape, h.shape) == (want[0].shape, want[1].shape)
+        assert y.device.type == h.device.type == "meta"
+        assert ss.ssd_scan(*meta, chunk=chunk).shape == x.shape
+        assert ss.ssd_scan.launches == launches
+        return
     elif bad == "chunk":
         chunk = 0
     for fn in (lambda: ss.ssd_chunked(x, dt, a, bm, cm, chunk),

@@ -227,9 +227,14 @@ def test_vlm_zero_patch_rows_overflow_the_gradient_in_both(patches):
 
 @pytest.mark.parametrize("flag", ["--production", "--multi-pod"])
 def test_meshes_are_a11(flag):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """A11 landed: the production meshes need a group of 256 / 512 ranks
+    (under torchrun); one process is refused by the world size, and no
+    process group is left behind."""
+    need = 512 if flag == "--multi-pod" else 256
+    with pytest.raises(ValueError, match=f"{need} ranks.*world size of 1"):
         launch_train.run(launch_train.parse_args(["--reduced", flag]),
                          device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_launch_train_needs_a_gpu_unless_asked_for_the_cpu():
