@@ -4670,7 +4670,8 @@ def _check_flash_backward(dev, dtype, b, s, h, kv, hd, *, causal=True,
     """B3's backward on the forward kernel's own ``out`` and ``lse``:
     against its plain version and autograd of the plain forward, dq, dk
     and dv apart, launched twice and held bitwise; ``timed``: kernel,
-    plain, SDPA forward + backward and bound times."""
+    plain, SDPA forward + backward, SDPA backward alone and bound
+    times."""
     q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, hdv=hdv,
                            sk=sk)
     sk, hdv = k.shape[1], v.shape[3]
@@ -4739,6 +4740,15 @@ def _check_flash_backward(dev, dtype, b, s, h, kv, hd, *, causal=True,
             "scaled_dot_product_attention forward + backward ("
             + ", ".join(sorted(k for k in extra)) + ") on (B, H, S, hd) "
             "copies made beforehand")
+        # SDPA's backward alone, on the saved state of one forward
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                             **extra)
+        case["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+        case["library_bwd_note"] = (
+            "scaled_dot_product_attention's backward alone: "
+            "autograd.grad of one forward's output, its graph retained")
+        del o
     return case
 
 
@@ -5050,7 +5060,7 @@ def _check_ssd_backward(dev, dtype, b, s, *, g=1, seed=0, timed=False,
         # flops a multiply-add, a step and head
         flops = 8 * b * s * nh * hd * ds
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         case.update(bytes=bytes_moved, flops=flops,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -5685,9 +5695,13 @@ def _main() -> int:
             launches_per_step=trained["launches_per_step"][
                 "flash_attention_backward"],
             library_note=bwd["train"]["library_note"],
+            library_bwd_ms=bwd["train"]["library_bwd_ms"],
+            library_bwd_note=bwd["train"]["library_bwd_note"],
             **{f"{case}_{k}": bwd[case][key]
                for case in ("long", "batch1", "f32")
-               for k, key in batch1_keys + (("bound_by", "bound_by"),)}),
+               for k, key in batch1_keys + (("bound_by", "bound_by"),
+                                            ("library_bwd_ms",
+                                             "library_bwd_ms"))}),
         # a kernel of the port with no TPU counterpart: the reference
         # trains Mamba2 through jax.grad of its _ssd_chunked; timed at
         # mamba2-2.7b's training shape, with the float32, long and

@@ -19,42 +19,100 @@
 // head j's group.  A row with no admitted key has lse = +inf, P = 0
 // and o = 0, so its gradients are 0.
 //
-// Three kernels, all on the CUDA cores in float32 whatever the inputs'
-// type (bf16 inputs are widened when staged; the outputs are rounded
-// once, to the inputs' type):
-//   1. delta_kernel: D, one warp a (b, position, head) row.
-//   2. dkdv_kernel: one block per (key tile, kv head, b).  Each key row
-//      is held by LANES threads, each with a 1/LANES slice of k_j, v_j
-//      and the dk_j, dv_j accumulators in registers.  The block walks
-//      the group's query heads and, for each, the query tiles that can
-//      see the key tile (from the tile's first key under the causal
-//      mask, to its last key + window - 1 under a window), staging q,
-//      dO, lse and D of 32 rows in shared memory as float32; for every
-//      row a thread forms its partial dots of q_i . k_j and dO_i . v_j,
-//      xor-shuffles complete them across the row's lanes, and each lane
-//      updates its slices.
-//   3. dq_kernel: one block per (query tile, head, b), the forward
-//      float32 kernel's shape: LANES threads a query row holding slices
-//      of q_i, dO_i and dq_i; 32-key tiles of k and v staged in shared
-//      memory over the keys the forward's mask admits for the tile.
-// Both main kernels recompute P and dP (the score and dO . v products)
-// from q, k, v, dO and lse.  Each gradient element is written by one
-// thread after a loop of fixed order, with no atomics, so two launches
-// give the same bits.  LANES is 4 when hd + hdv <= 128 and 8 above, so
-// that a thread's slices fit its registers at (192, 128).
+// Three launches, FlashAttention-2's backward written by hand, with no
+// atomics: delta_kernel (D, one warp a (b, position, head) row, float32
+// arithmetic), then a dK/dV kernel over key tiles and a dQ kernel over
+// query tiles, both recomputing P and dP from q, k, v, dO and lse.  Each
+// gradient element is written once, after a loop of fixed order, so two
+// launches give the same bits.  The dtype picks the two main kernels.
+//
+// bf16 design (tensor cores).  4 warps a block, each owning 16 of the
+// block's 64 resident rows; every product is mma.sync m16n8k16 bf16 ->
+// float32 with ldmatrix fragments from shared tiles padded by 16 bytes
+// a row (the 8 rows of an ldmatrix phase in distinct banks), all
+// staged as the bf16 they arrive in by 16-byte cp.async.
+//   dkdv_kernel_bf16: one block per (kv head, b, 64-key tile); the key
+//     tiles run in order, so under the causal mask the tiles that see
+//     the most query rows start first.  K and V of the tile are staged
+//     once; the block walks the group's G query heads and, for each, the
+//     64-row query tiles the mask admits (from the tile's first key
+//     under the causal mask, to its last key + window - 1 under a
+//     window), staging q, dO, lse and D through a ring of two cp.async
+//     stages, the next step's copies in flight while this one computes.
+//     S^T = K q^T and dP^T = V dO^T (K and V as A fragments, q and dO
+//     as B); P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T o
+//     (dP^T - D) in registers, masked only in a tile the mask cuts; then
+//     dV += P^T dO and dK += dS^T q straight from the score registers
+//     (the accumulators of two n-tiles are the A fragment of a 16-row
+//     k-step), dO and q by transposing ldmatrix.  dK and dV stay in
+//     float32 registers until the one write.
+//   dq_kernel_bf16: one block per (head, b, 64-row query tile), the
+//     query tiles of a head heaviest first under the causal mask, as the
+//     forward runs them.  q and dO are staged once; the block walks the
+//     key tiles the forward's mask admits, K and V through a two-stage
+//     ring; S = q K^T, dP = dO V^T, P and dS as above, and dQ += dS K.
+// Columns of S are scored kSub at a time (64 at (32, 32) and (64, 64),
+// 32 at (128, 128), 16 at (192, 128)), so that S, dP and the float32
+// accumulators fit the registers: at (192, 128) dK and dV alone take 160
+// floats a thread, the forward's ceiling, so the narrower score step
+// (not a smaller key tile: m16n8k16 fixes 16 key rows a warp) keeps the
+// tile at 64 keys.
+//
+// Rounding.  q, k, v and dO are bf16 already, so S and dP are exact
+// products summed in float32; only P and dS are rounded to enter the
+// next products.  CPU estimate at the training shape (B 8, S 512, 16 x
+// 64, causal; tests/test_torch_flash_backward_tiles.py emulates the
+// tiles): one bf16 term of P moves the rounded dv by up to 4.9e-3 of its
+// largest magnitude, one term of dS the rounded dk and dq by 4.4e-3 and
+// 3.8e-3, each over half the 2^-7 = 7.8e-3 gate; with both carried as
+// hi + lo (two mma each, ~16 bits) the worst is 2.4e-3, one bf16
+// rounding flip.  So P and dS both go to the tensor cores as hi + lo.
+//
+// Registers and shared memory (ptxas -v, sm_90a, CUDA 12 on the H100;
+// dK/dV kernel, dQ kernel):
+//   (32, 32)    184, 164 registers, no spill; 31,744, 30,720 bytes;
+//               2 blocks an SM (the launch bound)
+//   (64, 64)    234, 216 registers, no spill; 56,320, 55,296 bytes;
+//               2 blocks an SM (registers)
+//   (128, 128)  255, 234 registers, no spill; 105,472, 104,448 bytes;
+//               2 blocks an SM
+//   (192, 128)  255 registers each, spilling 148 and 76 bytes a thread
+//               (the forward's ceiling at this pair); 130,048, 129,024
+//               bytes; 1 block an SM
+//
+// float32 design (the first version, kept for float32: the tensor cores
+// would round float32 through TF32, ~1e-3, far outside the 2e-5 gate).
+//   dkdv_kernel: one block per (key tile, kv head, b).  Each key row is
+//     held by LANES threads, each with a 1/LANES slice of k_j, v_j and
+//     the dk_j, dv_j accumulators in registers.  The block walks the
+//     group's query heads and, for each, the query tiles that can see
+//     the key tile, staging q, dO, lse and D of 32 rows in shared memory
+//     as float32; for every row a thread forms its partial dots of q_i .
+//     k_j and dO_i . v_j, xor-shuffles complete them across the row's
+//     lanes, and each lane updates its slices.
+//   dq_kernel: one block per (query tile, head, b), the forward float32
+//     kernel's shape: LANES threads a query row holding slices of q_i,
+//     dO_i and dq_i; 32-key tiles of k and v staged in shared memory
+//     over the keys the forward's mask admits for the tile.
+// LANES is 4 when hd + hdv <= 128 and 8 above, so that a thread's slices
+// fit its registers at (192, 128).  It issues 3.5 times the forward's
+// products on the CUDA cores (67 TFLOP/s).
 //
 // Bound.  At the training shape (B 8, S 512, 16 x 64, causal, bf16) the
 // work must read q, k, v, o, dO and lse and write dq, dk, dv (~67 MB,
 // 0.020 ms at 3.35 TB/s) and multiply 2.5 times the forward's products
-// (~10.7 GFLOP, 0.011 ms at 989 TFLOP/s).  These kernels issue 3.5
-// times the forward's products (the dk/dv pass recomputes S and dP, the
-// dq pass both again) on the CUDA cores (67 TFLOP/s), so they are
-// slower than that bound by design: right first.
+// (~10.7 GFLOP, 0.011 ms at 989 TFLOP/s): bytes bound it.  The bf16
+// kernels issue S and dP twice (once in each main kernel) and the three
+// gradient products twice (hi and lo): 10 products a pair where the
+// bound counts 5, ~0.022 ms at the tensor cores' peak, about the bytes'
+// time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -82,15 +140,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -375,6 +424,374 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------- bfloat16
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWarpThreads = 128;          // 4 warps, 16 resident rows each
+constexpr int kBlockRows = 64;             // resident rows a block
+constexpr int kStepRows = 64;              // streamed rows a step
+
+// Shared memory of the bf16 kernels, in bytes.  Rows are padded by 16
+// bytes (8 bf16), so the 8 rows an ldmatrix phase reads fall in
+// distinct banks.  dkdv: the resident K and V tile, then two stages of
+// (q, dO, lse in log2 units, D); dq: the resident q and dO tile, then
+// two stages of (K, V).
+template <int HDQ, int HDV>
+struct Bf16Bwd {
+  static constexpr int kQS = HDQ + 8;      // bf16 per padded q / k row
+  static constexpr int kVS = HDV + 8;      // bf16 per padded v / dO row
+  static constexpr int kQBytes = 64 * kQS * 2;
+  static constexpr int kVBytes = 64 * kVS * 2;
+  static constexpr int kRowStage = kQBytes + kVBytes + 2 * 64 * 4;
+  static constexpr int kDkdvBytes = kQBytes + kVBytes + 2 * kRowStage;
+  static constexpr int kDqBytes = 3 * (kQBytes + kVBytes);
+  // streamed columns a warp scores at once: S and dP of 16 x kSub in
+  // float32 registers beside the accumulators (dK and dV: (HDQ + HDV) /
+  // 2 floats a thread; dQ: HDQ / 2)
+  static constexpr int kSub = HDQ + HDV <= 128 ? 64 : HDQ + HDV <= 256 ? 32
+                                                                         : 16;
+  static constexpr int kMinBlocks = HDQ + HDV >= 256 ? 1 : 2;
+  static_assert(kQBytes % 16 == 0 && kVBytes % 16 == 0, "16-byte rows");
+};
+
+// 64 rows of head `head` from row `row0` of a (B, len, heads, HD) tensor
+// into a padded shared tile; rows at or past len are zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, int b,
+                                           int len, int heads, int head,
+                                           int row0) {
+  constexpr int kChunks = HD / 8;          // 16-byte chunks per row
+  constexpr int kStride = HD + 8;
+  static_assert(64 * kChunks % kWarpThreads == 0, "tile split");
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / kWarpThreads; ++i) {
+    const int c = threadIdx.x + i * kWarpThreads;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const int pos = row0 + r;
+    const bool ok = pos < len;
+    const __nv_bfloat16* g =
+        src + ((static_cast<int64_t>(b) * len + (ok ? pos : 0)) * heads +
+               head) * HD + ch * 8;
+    cp_async16(dst + r * kStride + ch * 8, g, ok);
+  }
+}
+
+// S (or S^T) and dP (or dP^T) of this warp's 16 resident rows against
+// streamed columns [c0, c0 + N): s += X . U^T over HDQ, dp += Y . W^T
+// over HDV, with X, Y the resident tiles and U, W the streamed ones
+template <int HDQ, int HDV, int N>
+__device__ __forceinline__ void score_tiles(
+    float (&s)[N / 8][4], float (&dp)[N / 8][4], const __nv_bfloat16* xs,
+    const __nv_bfloat16* ys, const __nv_bfloat16* us,
+    const __nv_bfloat16* ws, int m0, int c0) {
+  using L = Bf16Bwd<HDQ, HDV>;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HDQ / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, xs, L::kQS, m0, 16 * kk);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      uint32_t bb[2];
+      frag_b(bb, us, L::kQS, c0 + 8 * n, 16 * kk);
+      mma_bf16(s[n], a, bb[0], bb[1]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < HDV / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, ys, L::kVS, m0, 16 * kk);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      uint32_t bb[2];
+      frag_b(bb, ws, L::kVS, c0 + 8 * n, 16 * kk);
+      mma_bf16(dp[n], a, bb[0], bb[1]);
+    }
+  }
+}
+
+// acc (16 x HD) += T . Z, T (16 x N) the float32 accumulators t of a
+// score tile as hi + lo A fragments, Z the streamed rows [c0, c0 + N)
+// of a shared tile stored [row][HD]
+template <int HD, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
+                                           const float (&t)[N / 8][4],
+                                           const __nv_bfloat16* zs, int c0) {
+  constexpr int kStride = HD + 8;
+#pragma unroll
+  for (int js = 0; js < N / 16; ++js) {
+    uint32_t hi[4], lo[4];
+    split_bf16(t[2 * js][0], t[2 * js][1], hi[0], lo[0]);
+    split_bf16(t[2 * js][2], t[2 * js][3], hi[1], lo[1]);
+    split_bf16(t[2 * js + 1][0], t[2 * js + 1][1], hi[2], lo[2]);
+    split_bf16(t[2 * js + 1][2], t[2 * js + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      uint32_t bb[2];
+      frag_b_t(bb, zs, kStride, c0 + 16 * js, 8 * dn);
+      mma_split(acc[dn], hi, lo, bb[0], bb[1]);
+    }
+  }
+}
+
+// rows r0 and r0 + 8 of a (len, heads, HD) slab at (b, head): acc * mul
+// as bf16 pairs, rows at or past len not written
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[HD / 8][4],
+                                           int b, int len, int heads,
+                                           int head, int r0, float mul) {
+  const int c = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + 8 * hf;
+    if (r >= len) continue;
+    __nv_bfloat16* row =
+        dst + ((static_cast<int64_t>(b) * len + r) * heads + head) * HD + c;
+#pragma unroll
+    for (int t = 0; t < HD / 8; ++t)
+      *reinterpret_cast<uint32_t*>(row + 8 * t) =
+          pack_bf16(acc[t][2 * hf] * mul, acc[t][2 * hf + 1] * mul);
+  }
+}
+
+// dK and dV of one (key tile, kv head, b): blockIdx = (b * KV + kv head,
+// key tile), key tiles in order, so under the causal mask the tiles that
+// see the most query rows start first
+template <int HDQ, int HDV>
+__global__ void __launch_bounds__(kWarpThreads, Bf16Bwd<HDQ, HDV>::kMinBlocks)
+dkdv_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int S, int SK, int H,
+                 int KV, float scale, int causal, int window) {
+  using L = Bf16Bwd<HDQ, HDV>;
+  constexpr int kSub = L::kSub;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kQBytes);
+  unsigned char* ring = smem_raw + L::kQBytes + L::kVBytes;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int kvh = blockIdx.x % KV;
+  const int b = blockIdx.x / KV;
+  const int t0 = blockIdx.y * kBlockRows;
+  const int G = H / KV;
+  const float scale_log2 = scale * kLog2e;
+
+  // query rows any key of this tile is admitted by: [qlo, qhi)
+  const int qlo = causal ? t0 : 0;
+  int qhi = S;
+  if (window != 0) {
+    const int64_t reach = static_cast<int64_t>(t0) + kBlockRows - 1 + window;
+    qhi = reach < qhi ? static_cast<int>(reach) : qhi;
+  }
+  const int nq = qhi > qlo ? (qhi - qlo + kStepRows - 1) / kStepRows : 0;
+  const int steps = G * nq;
+
+  // step i: query head kvh G + i / nq, query rows qlo + 64 (i % nq)
+  auto stage = [&](int i) {
+    unsigned char* st = ring + (i & 1) * L::kRowStage;
+    const int h = kvh * G + i / nq;
+    const int r0 = qlo + (i % nq) * kStepRows;
+    stage_rows<HDQ>(reinterpret_cast<__nv_bfloat16*>(st), q, b, S, H, h, r0);
+    stage_rows<HDV>(reinterpret_cast<__nv_bfloat16*>(st + L::kQBytes), dout,
+                    b, S, H, h, r0);
+    float* rowv = reinterpret_cast<float*>(st + L::kQBytes + L::kVBytes);
+    const int r = threadIdx.x % 64;
+    const bool ok = r0 + r < S;
+    const int64_t at =
+        (static_cast<int64_t>(b) * H + h) * S + (ok ? r0 + r : 0);
+    cp_async4(rowv + threadIdx.x, (threadIdx.x < 64 ? lse : delta) + at, ok);
+  };
+
+  stage_rows<HDQ>(ks, k, b, SK, KV, kvh, t0);
+  stage_rows<HDV>(vs, v, b, SK, KV, kvh, t0);
+  if (steps > 0) stage(0);
+  cp_async_commit();
+
+  float dka[HDQ / 8][4], dva[HDV / 8][4];
+#pragma unroll
+  for (int t = 0; t < HDQ / 8; ++t)
+    dka[t][0] = dka[t][1] = dka[t][2] = dka[t][3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < HDV / 8; ++t)
+    dva[t][0] = dva[t][1] = dva[t][2] = dva[t][3] = 0.f;
+  // this thread's key rows
+  const int pk0 = t0 + 16 * warp + lane / 4;
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < steps) stage(i + 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (i & 1) * L::kRowStage;
+    const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* dot =
+        reinterpret_cast<const __nv_bfloat16*>(st + L::kQBytes);
+    const float* lse_t =
+        reinterpret_cast<const float*>(st + L::kQBytes + L::kVBytes);
+    const float* d_t = lse_t + 64;
+    const int r0 = qlo + (i % nq) * kStepRows;
+    // mask only a tile the mask cuts (rows past S: zero q and dO)
+    const bool cut = r0 + kStepRows > S ||
+                     (causal && t0 + kBlockRows - 1 > r0) ||
+                     (window != 0 && r0 + kStepRows - 1 - t0 >= window);
+#pragma unroll
+    for (int c0 = 0; c0 < kStepRows; c0 += kSub) {
+      // S^T = K q^T and dP^T = V dO^T: rows keys, columns query rows
+      float s[kSub / 8][4], dp[kSub / 8][4];
+      score_tiles<HDQ, HDV, kSub>(s, dp, ks, vs, qt, dot, 16 * warp, c0);
+#pragma unroll
+      for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * n + 2 * (lane & 3) + (e & 1);
+          float p = fast_exp2(
+              fmaf(s[n][e], scale_log2, -lse_t[col] * kLog2e));
+          if (cut) {
+            const int pq = r0 + col;
+            const int pk = pk0 + (e < 2 ? 0 : 8);
+            bool ok = pq < S;
+            if (causal) ok = ok && pk <= pq;
+            if (window != 0) ok = ok && pq - pk < window;
+            p = ok ? p : 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - d_t[col]);
+        }
+      // dV += P^T dO and dK += dS^T q, P and dS as hi + lo
+      accumulate<HDV, kSub>(dva, s, dot, c0);
+      accumulate<HDQ, kSub>(dka, dp, qt, c0);
+    }
+  }
+  cp_async_wait_all();
+  store_rows<HDQ>(dk, dka, b, SK, KV, kvh, pk0, scale);
+  store_rows<HDV>(dv, dva, b, SK, KV, kvh, pk0, 1.f);
+}
+
+// dQ of one (query tile, head, b): blockIdx = (b * H + h, query tile),
+// the tiles of a head heaviest first under the causal mask, as the
+// forward runs them
+template <int HDQ, int HDV>
+__global__ void __launch_bounds__(kWarpThreads, Bf16Bwd<HDQ, HDV>::kMinBlocks)
+dq_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int S, int SK, int H, int KV,
+               float scale, int causal, int window) {
+  using L = Bf16Bwd<HDQ, HDV>;
+  constexpr int kSub = L::kSub;
+  constexpr int kKV = L::kQBytes + L::kVBytes;   // one stage of (K, V)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kQBytes);
+  unsigned char* ring = smem_raw + kKV;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kBlockRows;
+  const int kvh = h / (H / KV);
+  const float scale_log2 = scale * kLog2e;
+
+  // keys any row of this block admits: [lo, hi), as in the forward
+  const int hi = causal ? min(SK, q0 + kBlockRows) : SK;
+  int lo = 0;
+  if (window != 0) {
+    const int64_t reach = static_cast<int64_t>(q0) - window + 1;
+    lo = reach <= 0 ? 0 : reach >= SK ? SK : static_cast<int>(reach);
+  }
+  const int n_tiles = hi > lo ? (hi - lo + kStepRows - 1) / kStepRows : 0;
+
+  auto stage = [&](int i) {
+    unsigned char* st = ring + (i & 1) * kKV;
+    stage_rows<HDQ>(reinterpret_cast<__nv_bfloat16*>(st), k, b, SK, KV, kvh,
+                    lo + i * kStepRows);
+    stage_rows<HDV>(reinterpret_cast<__nv_bfloat16*>(st + L::kQBytes), v, b,
+                    SK, KV, kvh, lo + i * kStepRows);
+  };
+  stage_rows<HDQ>(qs, q, b, S, H, h, q0);
+  stage_rows<HDV>(dos, dout, b, S, H, h, q0);
+  if (n_tiles > 0) stage(0);
+  cp_async_commit();
+
+  // this thread's rows pq0 and pq0 + 8: their lse (log2 units) and D
+  const int pq0 = q0 + 16 * warp + lane / 4;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int pq = pq0 + 8 * hf;
+    const int64_t at = (static_cast<int64_t>(b) * H + h) * S + pq;
+    l2[hf] = pq < S ? lse[at] * kLog2e : INFINITY;
+    dd[hf] = pq < S ? delta[at] : 0.f;
+  }
+  float dqa[HDQ / 8][4];
+#pragma unroll
+  for (int t = 0; t < HDQ / 8; ++t)
+    dqa[t][0] = dqa[t][1] = dqa[t][2] = dqa[t][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < n_tiles) stage(i + 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (i & 1) * kKV;
+    const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* vt =
+        reinterpret_cast<const __nv_bfloat16*>(st + L::kQBytes);
+    const int t0 = lo + i * kStepRows;
+    const bool cut =
+        t0 + kStepRows > SK || (causal && t0 + kStepRows - 1 > q0) ||
+        (window != 0 && static_cast<int64_t>(t0) <=
+                            static_cast<int64_t>(q0) + kBlockRows - 1 -
+                                window);
+#pragma unroll
+    for (int c0 = 0; c0 < kStepRows; c0 += kSub) {
+      // S = q K^T and dP = dO V^T: rows query rows, columns keys
+      float s[kSub / 8][4], dp[kSub / 8][4];
+      score_tiles<HDQ, HDV, kSub>(s, dp, qs, dos, kt, vt, 16 * warp, c0);
+#pragma unroll
+      for (int n = 0; n < kSub / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1;
+          float p = fast_exp2(fmaf(s[n][e], scale_log2, -l2[hf]));
+          if (cut) {
+            const int pk = t0 + c0 + 8 * n + 2 * (lane & 3) + (e & 1);
+            const int pq = pq0 + 8 * hf;
+            bool ok = pk < SK;
+            if (causal) ok = ok && pk <= pq;
+            if (window != 0) ok = ok && pq - pk < window;
+            p = ok ? p : 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dd[hf]);
+        }
+      // dQ += dS K, dS as hi + lo
+      accumulate<HDQ, kSub>(dqa, dp, kt, c0);
+    }
+  }
+  cp_async_wait_all();
+  store_rows<HDQ>(dq, dqa, b, S, H, h, pq0, scale);
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename T, int HDQ, int HDV>
@@ -401,19 +818,53 @@ int launch(const void* q, const void* k, const void* v, const void* out,
                                    B, S, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (SK > 0) {
-    dkdv_kernel<T, HDQ, HDV><<<dim3(static_cast<unsigned>(key_tiles), KV, B),
-                               kThreads, 0, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), S, SK, H, KV, scale, causal, window);
-    err = cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    using L = Bf16Bwd<HDQ, HDV>;
+    const auto dkdv = dkdv_kernel_bf16<HDQ, HDV>;
+    const auto dqk = dq_kernel_bf16<HDQ, HDV>;
+    const int64_t kb_tiles = (static_cast<int64_t>(SK) + kBlockRows - 1) /
+                             kBlockRows;
+    const int64_t qb_tiles = (static_cast<int64_t>(S) + kBlockRows - 1) /
+                             kBlockRows;
+    if (kb_tiles > 65535 || qb_tiles > 65535 ||
+        static_cast<int64_t>(B) * H > 0x7fffffff)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (SK > 0) {
+      err = cudaFuncSetAttribute(
+          dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDkdvBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      dkdv<<<dim3(static_cast<unsigned>(B) * KV,
+                  static_cast<unsigned>(kb_tiles)),
+             kWarpThreads, L::kDkdvBytes, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), S, SK, H, KV, scale, causal, window);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDqBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    dqk<<<dim3(static_cast<unsigned>(B) * H, static_cast<unsigned>(qb_tiles)),
+          kWarpThreads, L::kDqBytes, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, SK, H, KV,
+        scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    if (SK > 0) {
+      dkdv_kernel<T, HDQ, HDV><<<dim3(static_cast<unsigned>(key_tiles), KV,
+                                      B),
+                                 kThreads, 0, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), S, SK, H, KV, scale, causal, window);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    dq_kernel<T, HDQ, HDV><<<dim3(static_cast<unsigned>(q_tiles), H, B),
+                             kThreads, 0, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, SK, H, KV,
+        scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
   }
-  dq_kernel<T, HDQ, HDV><<<dim3(static_cast<unsigned>(q_tiles), H, B),
-                           kThreads, 0, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, SK, H, KV, scale,
-      causal, window);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -446,7 +897,9 @@ int launch_widths(int hd, int hdv, const void* q, const void* k,
 // S, H, hdv), its lse (B, H, S) float32; delta is a float32 workspace of
 // B * H * S; dq, dk, dv are written in full (shapes of q, k, v), in the
 // inputs' type (dtype 0 float32, 1 bfloat16).  Launches delta_kernel,
-// dkdv_kernel and dq_kernel on `stream`, in that order.  Returns the
+// the dK/dV kernel (when SK > 0) and the dQ kernel on `stream`, in that
+// order: dkdv_kernel_bf16 and dq_kernel_bf16 for bfloat16, dkdv_kernel
+// and dq_kernel for float32.  Returns the
 // first CUDA error of a launch, 0 if none.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* out,

@@ -38,8 +38,9 @@ float32 (``m · scale + log l``, ``+inf`` on a row with no admitted key),
 it saves ``q, k, v, out, lse``, and its backward runs the hand-written
 kernels of ``csrc/flash_attention_backward.cu`` (a ``D = rowsum(dO ∘
 out)`` pass, a dK/dV kernel over key tiles and a dQ kernel over query
-tiles, float32 arithmetic, no atomics), which return ``dq, dk, dv`` in
-the inputs' dtype; a row with no admitted key gets zero gradients.  It
+tiles, no atomics: on the tensor cores for bfloat16, P and dS carried
+as two bf16 terms, on the CUDA cores for float32), which return ``dq,
+dk, dv`` in the inputs' dtype; a row with no admitted key gets zero gradients.  It
 replaces XLA's autodiff of the reference's ``sdpa``
 (``src/repro/models/attention.py:142``); the Pallas kernel has no
 backward.  Under ``no_grad`` / ``inference_mode``, or with no input

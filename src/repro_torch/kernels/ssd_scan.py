@@ -46,12 +46,16 @@ it is.  On CUDA tensors with grad enabled and an input that requires
 grad, ``ssd_chunked`` (and ``ssd_scan``) go through ``_SSDChunkedFn``:
 its forward is the same single launch, it saves ``x, dt, A, B, C``, and
 its backward runs the hand-written kernels of
-``csrc/ssd_scan_backward.cu`` through ``ssd_scan_backward``: a state
-pass that recomputes, in float32, the state entering each 64-step tile,
-a reverse pass over the tiles per (batch, head) that carries the state's
-gradient and writes dx, ddt and each head's part of dB, dC and dA, and a
-fixed-order sum over a group's heads and the batch (float32 arithmetic
-on the CUDA cores, no atomics: repeats are bitwise).  Nothing of the
+``csrc/ssd_scan_backward.cu`` through ``ssd_scan_backward``, with no
+atomics (repeats are bitwise).  bfloat16: a state kernel writes the
+state entering and the state's gradient leaving every 64-step tile, a
+tile kernel forms each tile's dx, ddt and dB, dC, dA parts on its own
+for a block of ``backward_heads`` heads of one group (sharing B, C and
+C·Bᵀ; tensor-core products, each float32 operand as two bf16 terms),
+and a fixed-order sum adds the head blocks and tiles.  float32: a state
+pass, a reverse pass over the tiles per (batch, head) that carries the
+state's gradient, and a fixed-order sum over a group's heads and the
+batch, on the CUDA cores.  Nothing of the
 forward is kept for it, so serving's launches stay as they were, and the
 split time axis needs no backward of its own.  It replaces XLA's
 autodiff of the reference's ``_ssd_chunked``
@@ -93,7 +97,7 @@ from repro_torch.kernels._mesh import (head_placements, is_dtensor,
 __all__ = ["WIDTHS", "launchable", "ssd_chunked", "ssd_scan",
            "ssd_scan_plain", "ssd_scan_backward", "ssd_scan_backward_plain",
            "ssd_splits", "ssd_piece_states_plain", "ssd_combine_plain",
-           "ssd_piece_plain"]
+           "ssd_piece_plain", "backward_heads"]
 
 # (head_dim, d_state) pairs the CUDA kernel is compiled for:
 # mamba2-2.7b's, jamba-v0.1-52b's and their reduced configs'
@@ -104,6 +108,8 @@ TILE = 64
 # the split aims at this many blocks per SM
 BLOCKS_PER_SM = 2
 MAX_SPLITS = 16
+# heads a block of the bf16 backward's tile kernel serves at most
+MAX_BACKWARD_HEADS = 8
 
 # per device: the split workspace (piece states and totals)
 _WORK: Dict[torch.device, torch.Tensor] = {}
@@ -444,6 +450,20 @@ def _launch(x, dt, A, B, C, y, h_out) -> None:
                            f"{err}")
 
 
+def backward_heads(b: int, s: int, nh: int, g: int, sms: int) -> int:
+    """Heads a block of the bf16 backward's tile kernel serves: the most,
+    up to ``MAX_BACKWARD_HEADS``, that divide a group's ``nh // g`` heads
+    while the ``(nh / heads, tiles, b)`` grid still gives each of ``sms``
+    SMs ``BLOCKS_PER_SM`` blocks; 1 when none does.  From the shapes
+    only: no device read."""
+    tiles = max(1, -(-s // TILE))
+    rep = nh // g
+    for hpb in range(min(MAX_BACKWARD_HEADS, rep), 0, -1):
+        if rep % hpb == 0 and (nh // hpb) * tiles * b >= BLOCKS_PER_SM * sms:
+            return hpb
+    return 1
+
+
 def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
                      dC) -> None:
     from repro_torch.kernels._build import library
@@ -452,15 +472,20 @@ def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
     b, s, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]
     tiles = -(-s // TILE)
-    # transient: the state entering each tile, and each head's own part
-    # of dB, dC and dA before the sums over a group's heads and the batch
+    # transient: the state entering each tile (and, in bf16, the
+    # gradient of the state leaving it), and the partials of dB, dC (a
+    # head's, or in bf16 a head block's) and dA (a batch row's, or in
+    # bf16 a (batch row, tile)'s) before the fixed-order sums
     f32 = dict(dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    hpb = backward_heads(b, s, nh, g, sm_count(x.device)) if bf16 else 1
     states = torch.empty(b * nh * tiles * hd * ds, **f32)
-    db_part = torch.empty(b * s * nh * ds, **f32)
-    dc_part = torch.empty(b * s * nh * ds, **f32)
-    da_part = torch.empty(b * nh, **f32)
+    dstates = torch.empty_like(states) if bf16 else None
+    db_part = torch.empty(b * s * (nh // hpb) * ds, **f32)
+    dc_part = torch.empty_like(db_part)
+    da_part = torch.empty(b * nh * (tiles if bf16 else 1), **f32)
     fn = library("ssd_scan_backward").ssd_scan_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -470,8 +495,9 @@ def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
                  None if dh_end is None else dh_end.data_ptr(),
                  dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                  dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
+                 None if dstates is None else dstates.data_ptr(),
                  db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
-                 b, s, nh, g, hd, ds, DTYPE_CODE[x.dtype], B.stride(0),
+                 b, s, nh, g, hd, ds, DTYPE_CODE[x.dtype], hpb, B.stride(0),
                  B.stride(1), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "

@@ -10,8 +10,8 @@ the forward of the autograd path (which also writes ``lse``).
 Builds the parent's ``src/repro_torch/kernels/csrc/flash_attention.cu``
 with the port's ``nvcc`` flags into ``build/parent_flash/``, calls its
 ``flash_attention_launch`` with the argument list it exports (with a
-key length and no ``lse``: q, k, v, out, B, S, SK, H, KV, hd, hdv,
-dtype, scale, causal, window, stream) and the current
+key length and a null ``lse``: q, k, v, out, lse, B, S, SK, H, KV, hd,
+hdv, dtype, scale, causal, window, stream) and the current
 ``flash_attention`` on the same random inputs, once under
 ``inference_mode`` and once with grad on inputs that require it, and
 requires the outputs equal bit for bit: the serve, long, batch-1 and
@@ -92,7 +92,7 @@ def parent_launch(parent: Path):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(src)], check=True)
     fn = ctypes.CDLL(str(so)).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -124,7 +124,7 @@ def main() -> int:
                                   window=window).detach()
         ref = torch.empty_like(served)
         err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), ref.data_ptr(),
-                  b, s, sk, h, kv, hd, hdv, DTYPE_CODE[dt], hd ** -0.5,
+                  None, b, s, sk, h, kv, hd, hdv, DTYPE_CODE[dt], hd ** -0.5,
                   int(causal), window, stream)
         torch.cuda.synchronize()
         ok = (err == 0 and torch.equal(served, ref)

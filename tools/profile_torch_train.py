@@ -16,12 +16,13 @@ three on the host clock (each ended by reading its loss) and one under
 - ``kernel_ms``, ``device_busy_share`` (kernel time over the unprofiled
   wall; one stream), ``kernels`` (launches a step), ``top_kernels``;
 - ``b3_forward_*`` / ``b3_backward_*`` — B3's forward kernels and its
-  backward's three (``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``):
+  backward's three (``delta_kernel``, ``dkdv_kernel*``, ``dq_kernel*``):
   ms, launches and share of the kernel time;
 - ``b5_forward_*`` / ``b5_backward_*`` — B5's forward kernel and its
-  backward's three (``ssd_state_kernel``, ``ssd_backward_kernel``,
-  ``ssd_reduce_kernel``): ms, launches and share (on SSM and hybrid
-  models);
+  backward's three (float32: ``ssd_state_kernel``,
+  ``ssd_backward_kernel``; bf16: ``ssd_bwd_state_kernel_bf16``,
+  ``ssd_bwd_tile_kernel_bf16``; then ``ssd_reduce_kernel``): ms,
+  launches and share (on SSM and hybrid models);
 - ``products_*`` — the matrix products (cuBLAS / CUTLASS kernels, by
   name), forward and backward: the projections, the MLP and the tied
   unembedding;
@@ -74,6 +75,7 @@ B3_FORWARD = ("flash_attention_kernel",)
 B3_BACKWARD = ("delta_kernel", "dkdv_kernel", "dq_kernel")
 B5_FORWARD = ("ssd_scan_kernel",)
 B5_BACKWARD = ("ssd_state_kernel", "ssd_backward_kernel",
+               "ssd_bwd_state_kernel", "ssd_bwd_tile_kernel",
                "ssd_reduce_kernel")
 PRODUCTS = ("gemm", "cutlass", "xmma", "nvjet", "sm90_")
 
