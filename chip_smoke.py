@@ -14,7 +14,11 @@ printing one JSON line per phase:
                    ``decode_attention_int8.cu``, ``ssd_scan.cu``,
                    ``ssd_scan_backward.cu``, ``mla_decode.cu`` and
                    ``campaign_fold.cu``; the card's name and power limit
-                   from nvidia-smi.
+                   from nvidia-smi.  Then the dry runs (below) and, in
+                   three spawned worker processes, the host mirrors'
+                   seed ladders (numpy loops, no device) that
+                   gen_user_size and the loss, failure and fleet
+                   contracts gate on, read by those phases.
 2. kernel        — the CUDA ``hist_update`` against its plain torch
                    version on random blocks (lognormal latencies, an
                    i.i.d. 50% mask) of each path's user-size shape: the
@@ -56,11 +60,12 @@ printing one JSON line per phase:
                    points (8,160 run), n_batches=3000, q_cap=768,
                    seed=0: no drops, the example's Theorem 2 / Remark 5
                    checks, wall time (first call and warm), jobs/s, peak
-                   memory, kernel launches.  A third run, not timed,
-                   stops after superstep 60 of 94, whose block is cloned
-                   as the kernel received it, and a ``path_kernel``
-                   line times ``hist_update`` on that block as
-                   ``kernel`` does on random ones.
+                   memory, kernel launches.  The first run clones the
+                   block of superstep 60 of 94 as the kernel received it
+                   (a further run, as deterministic, would stop there
+                   with the same bits), and a ``path_kernel`` line
+                   times ``hist_update`` on that block as ``kernel``
+                   does on random ones.
 8. gen_contracts — the generate sweep on the card: split dispatch
                    bitwise equal to the whole one, the two disciplines
                    bitwise equal at max_active = 1, and a hist_every=3
@@ -78,7 +83,7 @@ printing one JSON line per phase:
                    warm), requests/s, peak memory, launches of both
                    kernels (one each per 16-step superstep).  Both
                    kernels' inputs at superstep 160 of 256 are cloned
-                   from a third run as in ``user_size``, and timed in
+                   from the first run as in ``user_size``, and timed in
                    two ``path_kernel`` lines.
 10. loss_contracts — the loss paths on the card: the neutral points of a
                    mixed loss grid bitwise equal to the loss-free path
@@ -99,7 +104,7 @@ printing one JSON line per phase:
                    the benchmark's frontier and retry tax as tile means
                    with standard errors; wall time (first and warm),
                    jobs/s, peak memory.  Superstep 60's hist_update
-                   block, from a third untimed run, timed as a
+                   block, cloned in the first run, timed as a
                    ``path_kernel`` line.
 12. gen_loss_user_size — ``gen_user_size``'s grid with loss tiles (0–3
                    neutral, 4–7 reject at q_max 20, 8–11 drop at q_max 20
@@ -137,7 +142,7 @@ printing one JSON line per phase:
                    latency ratio per discipline at ρ 0.75 and the chain
                    cells' |z| against the port's chain, as tile means;
                    wall time (first and warm), jobs/s, peak memory.
-                   Superstep 60's hist_update block, from a third untimed
+                   Superstep 60's hist_update block, cloned in the first
                    run, timed as a ``path_kernel`` line.
 15. gen_fail_user_size — ``gen_user_size``'s grid with failure tiles
                    (0–3 failure-free, 4–7 resume and 12–15 drop at mtbf
@@ -178,8 +183,8 @@ printing one JSON line per phase:
                    equal, no drops, first and warm wall, jobs/s, peak
                    memory, the JSQ/random E[W] ratio at k 16 and the
                    ρ1 0.8 curve as tile means; superstep 60's
-                   hist_update block (8,448 × 8 × 256), from a third
-                   untimed run, as a ``path_kernel`` line.
+                   hist_update block (8,448 × 8 × 256), cloned in the
+                   first run, as a ``path_kernel`` line.
 18. fleet_fail_user_size — benchmarks/availability.py's fleet half (2 ρ
                    × k 1, 4 × 3 (mtbf, mttr) pairs × 3 disciplines = 36
                    JSQ points, b_max 8) tiled 228 times into 8,208,
@@ -245,11 +250,17 @@ printing one JSON line per phase:
                    phi4-mini's GQA heads (24 over 8, hd 128), with a
                    window, ragged lengths (at batch 1 on the long cache
                    lengths that leave splits empty, and -1), and in
-                   float32: bf16 within 2e-2 and float32 within 2e-5
-                   max abs, a row of length -1 exactly 0, and every case
-                   launched twice with bitwise equal outputs; kernel,
-                   plain, library (``scaled_dot_product_attention``) and
-                   bound times at the serve, long and batch-1 shapes.
+                   float32 at every width pair (GQA 32 over 8 × 128,
+                   MLA's (192, 128), (32, 32), 32 queries over 1,500
+                   keys, and a batch-1 prompt whose key axis splits):
+                   bf16 within 2e-2 and float32 within 2e-5 max abs, a
+                   row of length -1 exactly 0, and every case launched
+                   twice with bitwise equal outputs; kernel, plain,
+                   library (``scaled_dot_product_attention``) and bound
+                   times at the serve, long and batch-1 shapes.  B3's
+                   float32 operations are bounded at the 3xTF32 rate
+                   (494.7 / 3 TFLOP/s), ``bound_ms_cuda_cores`` the same
+                   work at the CUDA cores' 67.
 24. serve        — ``python -m repro_torch.launch.serve --arch
                    qwen1.5-0.5b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
@@ -317,7 +328,7 @@ printing one JSON line per phase:
 31. continuous_serve — ``ContinuousEngine`` on qwen1.5-0.5b at full
                    width and depth, bf16: prompt 128, 32 tokens, 64
                    slots (examples/continuous_batching.py's PROMPT and
-                   CAP), 400 Poisson jobs at half the capacity measured
+                   CAP), 300 Poisson jobs at half the capacity measured
                    in warm-up, 1 / (prefill + 32 × step / 64): every job
                    served, 1 ≤ mean_active ≤ 64, exactly 24
                    ``flash_attention`` launches per admission and 24
@@ -398,8 +409,11 @@ printing one JSON line per phase:
                    every case twice bitwise: B3 unmasked at the
                    encoder's S 1,500 (16 × 64, float32 as the engine's
                    frames make it; B 32 and 1 timed against SDPA), B3
-                   with 32 queries over 1,500 keys (B 32 and 1 timed)
-                   and a ragged 7 over 1,499 in both dtypes, B4 over
+                   with 32 queries over 1,500 keys (B 32, 4, 2 and 1
+                   timed; at B 1, 2 and 4 the float32 key axis splits,
+                   and each also runs with ``lse``, held within 2e-5 of
+                   ``flash_attention_lse_plain``) and a ragged 7 over
+                   1,499 in both dtypes, B4 over
                    the float32 cross cache at lengths 1,499 (B 32 and B
                    1, which splits, timed against SDPA with no mask),
                    B3 causal at InternVL2's 288 positions (14 over 2 ×
@@ -435,8 +449,9 @@ printing one JSON line per phase:
                    apart, each case launched twice and held bitwise:
                    qwen's training shape (B 8, S 512, 16 × 64, causal,
                    bf16, and in float32), B 1 at S 4,096 and at 512,
-                   GQA (32 over 8 × 128, window 64), OLMoE's 16 × 128,
-                   MLA's (192, 128), 32 queries over 1,500 keys
+                   GQA (32 over 8 × 128, window 64, bf16 and float32),
+                   OLMoE's 16 × 128, MLA's (192, 128), 32 queries over
+                   1,500 keys
                    (unmasked, float32), ragged S 500 and 1,023; each
                    timed against its plain version and SDPA's forward +
                    backward; bound: q, k, v, o, dO, dq, dk, dv and lse
@@ -574,11 +589,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -622,8 +639,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_backward,
-    flash_attention_backward_plain, flash_attention_plain,
-    flash_attention_with_lse)
+    flash_attention_backward_plain, flash_attention_lse_plain,
+    flash_attention_plain, flash_attention_with_lse, flash_splits)
 from repro_torch.kernels.mla_decode import (  # noqa: E402
     mla_decode_attention, mla_decode_attention_plain, mla_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -646,8 +663,13 @@ from repro_torch.train.data import DataConfig, SyntheticCorpus  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
 # H100 SXM dense peaks: bf16 on the tensor cores, float32 on the CUDA
-# cores (the float32 kernels must not round through TF32)
+# cores (B4's, B5's and MLA decode's float32 kernels)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# B3's float32 kernels, forward and backward, run on the TF32 tensor
+# cores as 3xTF32: three TF32 products (494.7 TFLOP/s dense) a float32
+# product; the 67 TFLOP/s figure is reported beside as
+# bound_ms_cuda_cores
+FLASH_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 V100 = (0.1438, 1.8874)            # README's V100 (α, τ0)
 P4 = (0.5833, 1.4284)              # README's P4 (α, τ0)
 # name: (source, TPU kernel it replaces as file:line and as function)
@@ -700,6 +722,9 @@ SERVE_ARGS = ["--arch", SERVE_ARCH, "--full", "--workload", "generate",
 SERVE_PROMPT, SERVE_GEN = 32, 4
 LONG_PROMPT, LONG_GEN = 1024, 32
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# B3's rows' log-sum-exp (float32 whatever the dtype; ~10 at 1,500 keys)
+# against its plain version
+LSE_TOL = 2e-5
 # B4 over the int8 cache against its plain version's float32 result,
 # (relative, absolute): both do float32 arithmetic on the same codes and
 # scales, so a bf16 output is that result rounded (half an ulp, at most
@@ -713,8 +738,9 @@ SSM_ARGS = ["--arch", SSM_ARCH, "--full", "--workload", "generate",
 SSM_PROMPT, SSM_LONG = 32, 1024
 SSD_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 # the continuous engine: examples/continuous_batching.py's PROMPT and
-# CAP, 32 generated tokens, 400 Poisson jobs at half the capacity
-CONT_PROMPT, CONT_GEN, CONT_CAP, CONT_JOBS = 128, 32, 64, 400
+# CAP, 32 generated tokens, 300 Poisson jobs (the serve phases' count) at
+# half the capacity
+CONT_PROMPT, CONT_GEN, CONT_CAP, CONT_JOBS = 128, 32, 64, 300
 # the MoE serve path: launch.serve's arguments on olmoe-1b-7b
 MOE_ARCH = "olmoe-1b-7b"
 MOE_ARGS = ["--arch", MOE_ARCH, "--full", "--workload", "generate",
@@ -1094,14 +1120,15 @@ class _Stop(Exception):
     """Ends a capture run at the captured call."""
 
 
-def capture_blocks(run, at: int, stop_after: str) -> dict:
-    """Run ``run()`` with ``ss.hist_update`` and ``ss.fifo_compact``
+def _captured(run, at: int, stop_after):
+    """``run()`` with ``ss.hist_update`` and ``ss.fifo_compact``
     wrapped: each clones the inputs of its ``at``-th call (the histogram
     rows as they were before it) into the returned dict, as ``(args,
     kwargs)`` under its name, and passes every call on to the kernel.
-    The run ends right after the ``at``-th call of ``stop_after``.  The
-    kernels count their launches on the module's names, which are the
-    wrappers meanwhile: the counts carry over and back."""
+    With ``stop_after`` the run ends right after the ``at``-th call of
+    that kernel.  The kernels count their launches on the module's
+    names, which are the wrappers meanwhile: the counts carry over and
+    back.  Returns ``(run's result, or None where it stopped, blocks)``."""
     blocks, kernels = {}, {}
     for name in CAPTURED:
         kernel = kernels[name] = getattr(ss, name)
@@ -1120,16 +1147,34 @@ def capture_blocks(run, at: int, stop_after: str) -> dict:
             return out
         wrapped.launches = kernel.launches
         setattr(ss, name, wrapped)
+    result = None
     try:
-        run()
+        result = run()
     except _Stop:
         pass
     finally:
         for name, kernel in kernels.items():
             kernel.launches = getattr(ss, name).launches
             setattr(ss, name, kernel)
-    check(stop_after in blocks, f"the run made no {at}-th {stop_after} call")
-    return blocks
+    want = stop_after or "hist_update"
+    check(want in blocks, f"the run made no {at}-th {want} call")
+    return result, blocks
+
+
+def capture_blocks(run, at: int, stop_after: str) -> dict:
+    """The inputs of the ``at``-th call of ``hist_update`` and
+    ``fifo_compact`` in ``run()``, which ends right after that call of
+    ``stop_after``."""
+    return _captured(run, at, stop_after)[1]
+
+
+def run_captured(run, at: int) -> tuple:
+    """``(run(), blocks)``: the run to its end, the inputs of the
+    ``at``-th call of each kernel cloned on the way (a device copy of
+    one block each).  A run's supersteps are deterministic (each
+    user-size phase checks that two runs give the same bits), so these
+    are the blocks a further run stopped there would give."""
+    return _captured(run, at, None)
 
 
 def compact_report(dev, buf, k, now, block: str,
@@ -1275,13 +1320,14 @@ def phase_user_size(dev, target_points: int = 8192, n_batches: int = 3000,
                     q_cap: int = 768, capture_at: int = 60) -> tuple:
     """Returns the run's hist_update launches and the path block: the
     inputs of superstep ``capture_at`` (past the warm-up), cloned as the
-    kernel received them in a third run that is not timed."""
+    kernel received them in the first run (``run_captured``)."""
     grid = build_grid(target_points)
     kw = dict(n_batches=n_batches, q_cap=q_cap, seed=0, device=dev)
     ss.hist_update.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = sweep(grid, **kw)
+    r, blocks = run_captured(
+        lambda: sweep(grid, **kw), capture_at)
     first_s = time.perf_counter() - t0
     launches = ss.hist_update.launches
     supersteps = -(-n_batches // 32)
@@ -1317,8 +1363,6 @@ def phase_user_size(dev, target_points: int = 8192, n_batches: int = 3000,
          launches=launches, supersteps=supersteps,
          theorem2_mean_excess=float(excess.mean()),
          theorem2_frac_within=frac_ok, remark5_min_def=eb_def)
-    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
-                            "hist_update")
     return launches, blocks["hist_update"]
 
 
@@ -1412,12 +1456,12 @@ def phase_gen_contracts(dev) -> None:
     before = checked.launches = kernel.launches
     ss.hist_update = checked
     try:
-        th = gen_sweep(g, n_steps=4096, seed=5, hist_every=3, device=dev)
+        th = gen_sweep(g, n_steps=2048, seed=5, hist_every=3, device=dev)
     finally:
         ss.hist_update = kernel
         kernel.launches = checked.launches
     th_launches = kernel.launches - before
-    check(th_launches == 4096 // 16,
+    check(th_launches == 2048 // 16,
           f"thinned run launched hist_update {th_launches} times")
     check(len(same) == th_launches and all(same),
           f"thinned run: {same.count(False)} of {len(same)} CUDA "
@@ -1442,15 +1486,15 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
                         sweep_batches: int = 4000,
                         capture_at: int = 160) -> tuple:
     """Returns the phase's record and the path blocks of both kernels:
-    their inputs at superstep ``capture_at``, cloned in a third run that
-    is not timed."""
+    their inputs at superstep ``capture_at``, cloned in the first run."""
     caps = gen_caps(grid)
     kw = dict(n_steps=n_steps, seed=29, device=dev)
     ss.hist_update.launches = 0
     ss.fifo_compact.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = gen_sweep(grid, **kw)
+    r, blocks = run_captured(
+        lambda: gen_sweep(grid, **kw), capture_at)
     first_s = time.perf_counter() - t0
     launches = {"hist_update": ss.hist_update.launches,
                 "fifo_compact": ss.fifo_compact.launches}
@@ -1499,13 +1543,10 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
     # which is more than the kernels' standard error
     cont = []
     n_base = len(GEN_RHOS) * len(GEN_GENS) * len(GEN_CAPS) * len(GEN_DISCS)
-    for rho, gen, cap in ((GEN_RHOS[7], 32, 64), (GEN_RHOS[13], 8, 16)):
+    for ci, (rho, gen, cap) in enumerate(GEN_CONT_POINTS):
         i = gen_index(rho, gen, cap, "continuous")
         ladder = r.mean_latency[i::n_base]
-        ref = np.array([simulate_continuous_numpy(
-            float(grid.lam[i]), GEN_MODEL, prompt_len=GEN_PROMPT,
-            gen_tokens=gen, max_active=cap, n_jobs=60_000,
-            seed=s).mean_latency for s in range(3)])
+        ref = np.array(host_ladder("gen_continuous", ci))
         se = _ladder_se(ladder, ref)
         check(abs(ladder.mean() - ref.mean()) < 3.0 * se,
               f"continuous rho={rho} gen={gen} cap={cap}: "
@@ -1526,8 +1567,7 @@ def phase_gen_user_size(dev, grid: GenGrid, n_steps: int = 4096,
                    gap / rs.mean_latency)),
                continuous_vs_numpy=cont)
     emit("gen_user_size", **out)
-    return out, capture_blocks(lambda: gen_sweep(grid, **kw), capture_at,
-                               "fifo_compact"), r
+    return out, blocks, r
 
 
 # tests/test_backpressure.py's seed ladders: (q_max, deadline, overflow,
@@ -1602,7 +1642,7 @@ def phase_loss_contracts(dev) -> None:
                               b_max=8, q_max=[10, 0, 0],
                               deadline=[6.0, 0.0, 0.0],
                               retry_rate=[0.5, 0.0, 0.0])
-    kw = dict(n_batches=1024, q_cap=64, a_cap=64, seed=11, device=dev)
+    kw = dict(n_batches=256, q_cap=64, a_cap=64, seed=11, device=dev)
     mixed = sweep(g, r_cap=32, **kw)
     base = sweep(g.take(slice(1, None)), key_offset=1, **kw)
     gg = GenGrid.from_points(
@@ -1643,7 +1683,7 @@ def phase_loss_contracts(dev) -> None:
         overflow=["reject", "drop", "drop", "reject"],
         retry_rate=[0.05, 0.0, 0.1, 0.0])
     for name, run, grid, kw in (
-            ("sweep", sweep, g, dict(n_batches=512, seed=11,
+            ("sweep", sweep, g, dict(n_batches=128, seed=11,
                                      **sweep_caps(g))),
             ("gen", gen_sweep, gg, dict(n_steps=1024, seed=13,
                                         **gen_caps(gg)))):
@@ -1671,11 +1711,8 @@ def phase_loss_contracts(dev) -> None:
     check(bool(np.all(r.retry_inflation > 1.01)),
           "sweep ladder: retries inflate every point's arrivals")
     ladders = {}
-    for ci, (qm, dl, ov, rate, lam) in enumerate(SW_CFG):
-        refs = [simulate_loss_numpy(lam, MODEL_BP, 8, q_max=qm, deadline=dl,
-                                    overflow=ov, retry_rate=rate, q_cap=64,
-                                    r_cap=64, n_batches=20_000, seed=s)
-                for s in range(3)]
+    for ci in range(len(SW_CFG)):
+        refs = host_ladder("loss_sweep", ci)
         sl = slice(ci * 6, (ci + 1) * 6)
         ladders[f"sweep_{ci}"] = {f: _gate_ladder(
             np.asarray(getattr(r, f)[sl], float),
@@ -1694,12 +1731,8 @@ def phase_loss_contracts(dev) -> None:
                                    r_cap=64, seed=5, device=dev),
                  -(-6000 // 2048) * 2048 // 16, "gen ladder", compact=True)
     check_accounting(r, "gen ladder")
-    for ci, (disc, ov, qm, dl, rate) in enumerate(GEN_CFG):
-        refs = [simulate_gen_loss_numpy(
-            GEN_BP_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
-            max_active=64, discipline=disc, q_max=qm, deadline=dl,
-            overflow=ov, retry_rate=rate, q_cap=64, r_cap=64,
-            n_steps=20_000, seed=s) for s in range(3)]
+    for ci in range(len(GEN_CFG)):
+        refs = host_ladder("loss_gen", ci)
         sl = slice(ci * 6, (ci + 1) * 6)
         ladders[f"gen_{ci}"] = {f: _gate_ladder(
             np.asarray(getattr(r, f)[sl], float),
@@ -1740,7 +1773,9 @@ def phase_loss_user_size(dev, tiles: int = 43, n_batches: int = 3000,
     supersteps = -(-n_batches // 32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: sweep(grid, **kw), supersteps, "loss user-size sweep")
+    r, blocks = run_captured(lambda: _counted(
+        lambda: sweep(grid, **kw), supersteps, "loss user-size sweep"),
+        capture_at)
     first_s = time.perf_counter() - t0
     launches = ss.hist_update.launches
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1798,8 +1833,6 @@ def phase_loss_user_size(dev, tiles: int = 43, n_batches: int = 3000,
                goodput_frac_mean=float(r.goodput_frac.mean()),
                retry_inflation_max=float(r.retry_inflation.max()))
     emit("loss_user_size", **out)
-    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
-                            "hist_update")
     return out, launches, blocks["hist_update"]
 
 
@@ -1835,8 +1868,9 @@ def phase_gen_loss_user_size(dev, grid: GenGrid, base, n_steps: int = 4096,
     supersteps = n_steps // 16
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: gen_sweep(lgrid, **kw), supersteps,
-                 "gen loss user-size sweep", compact=True)
+    r, blocks = run_captured(lambda: _counted(
+        lambda: gen_sweep(lgrid, **kw), supersteps,
+        "gen loss user-size sweep", compact=True), capture_at)
     first_s = time.perf_counter() - t0
     launches = {"hist_update": ss.hist_update.launches,
                 "fifo_compact": ss.fifo_compact.launches}
@@ -1884,8 +1918,7 @@ def phase_gen_loss_user_size(dev, grid: GenGrid, base, n_steps: int = 4096,
                launches=launches, supersteps=supersteps,
                neutral_tiles_bitwise=True, bands=bands)
     emit("gen_loss_user_size", **out)
-    return out, capture_blocks(lambda: gen_sweep(lgrid, **kw), capture_at,
-                               "fifo_compact")
+    return out, blocks
 
 
 # tests/test_failures.py's seed ladders: (fail_disc, mtbf, mttr,
@@ -1974,7 +2007,7 @@ def phase_fail_contracts(dev) -> None:
             [4.0, 3.0, 2.0], MODEL_BP.alpha, MODEL_BP.tau0, b_max=8,
             fail_disc=discs, mtbf=[8.0, 0.0, 0.0], mttr=[0.5, 0.0, 0.0],
             throttle=[0.85, 1.0, 1.0])
-        kw = dict(n_batches=1024, q_cap=64, a_cap=64, seed=11, device=dev)
+        kw = dict(n_batches=256, q_cap=64, a_cap=64, seed=11, device=dev)
         gg = GenGrid.from_points(
             [FAIL_GEN_LAM, 0.8 * FAIL_GEN_LAM, 0.6 * FAIL_GEN_LAM],
             m.alpha_decode, m.tau0_decode, m.alpha_prefill, m.tau0_prefill,
@@ -2014,7 +2047,7 @@ def phase_fail_contracts(dev) -> None:
         fail_disc=discs, mtbf=[200.0, 200.0, 200.0, 0.0],
         mttr=[5.0, 5.0, 5.0, 0.0], throttle=[0.85, 1.0, 1.0, 1.0])
     for name, run, grid, kw in (
-            ("sweep", sweep, g, dict(n_batches=512, seed=11,
+            ("sweep", sweep, g, dict(n_batches=128, seed=11,
                                      **sweep_caps(g))),
             ("gen", gen_sweep, gg, dict(n_steps=1024, seed=13,
                                         **gen_caps(gg)))):
@@ -2050,11 +2083,8 @@ def phase_fail_contracts(dev) -> None:
     blocks = {"sweep": check_fail_block(
         r, g.mtbf, np.array([c[0] for c in cfg]) == "resume",
         "sweep failure ladder")}
-    for ci, (disc, mtbf, mttr, thr, lam) in enumerate(FAIL_SW_CFG):
-        refs = [simulate_loss_numpy(lam, MODEL_BP, 8, mtbf=mtbf, mttr=mttr,
-                                    fail_disc=disc, throttle=thr, q_cap=64,
-                                    r_cap=64, n_batches=15_000, seed=s)
-                for s in range(3)]
+    for ci, (disc, *_) in enumerate(FAIL_SW_CFG):
+        refs = host_ladder("fail_sweep", ci)
         sl = slice(ci * 6, (ci + 1) * 6)
         ladders[f"sweep_{disc}"] = {f: _gate_ladder(
             np.asarray(getattr(r, f)[sl], float),
@@ -2073,11 +2103,8 @@ def phase_fail_contracts(dev) -> None:
     blocks["gen"] = check_fail_block(
         r, gg.mtbf, np.array([c[0] for c in cfg]) == "resume",
         "gen failure ladder")
-    for ci, (disc, mtbf, mttr) in enumerate(FAIL_GEN_CFG):
-        refs = [simulate_gen_loss_numpy(
-            FAIL_GEN_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
-            max_active=64, mtbf=mtbf, mttr=mttr, fail_disc=disc, q_cap=96,
-            r_cap=64, n_steps=20_000, seed=s) for s in range(3)]
+    for ci, (disc, *_) in enumerate(FAIL_GEN_CFG):
+        refs = host_ladder("fail_gen", ci)
         sl = slice(ci * 6, (ci + 1) * 6)
         ladders[f"gen_{disc}"] = {f: _gate_ladder(
             np.asarray(getattr(r, f)[sl], float),
@@ -2150,8 +2177,9 @@ def phase_fail_user_size(dev, tiles: int = 316, n_batches: int = 3000,
     supersteps = -(-n_batches // 32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: sweep(grid, **kw), supersteps,
-                 "failure user-size sweep")
+    r, blocks = run_captured(lambda: _counted(
+        lambda: sweep(grid, **kw), supersteps, "failure user-size sweep"),
+        capture_at)
     first_s = time.perf_counter() - t0
     launches = ss.hist_update.launches
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2231,8 +2259,6 @@ def phase_fail_user_size(dev, tiles: int = 316, n_batches: int = 3000,
                    abs(c["availability"] - c["chain_availability"])
                    for c in chain))
     emit("fail_user_size", **out)
-    blocks = capture_blocks(lambda: sweep(grid, **kw), capture_at,
-                            "hist_update")
     return out, launches, blocks["hist_update"]
 
 
@@ -2284,8 +2310,9 @@ def phase_gen_fail_user_size(dev, grid: GenGrid, n_steps: int = 4096,
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: gen_sweep(fgrid, **kw), supersteps,
-                 "gen failure user-size sweep", compact=True)
+    r, blocks = run_captured(lambda: _counted(
+        lambda: gen_sweep(fgrid, **kw), supersteps,
+        "gen failure user-size sweep", compact=True), capture_at)
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {"hist_update": ss.hist_update.launches,
@@ -2352,8 +2379,7 @@ def phase_gen_fail_user_size(dev, grid: GenGrid, n_steps: int = 4096,
                neutral_tiles_bitwise=True, bands=bands,
                fail_block=fail_block, long_resume_vs_mirror=long_run)
     emit("gen_fail_user_size", **out)
-    return out, capture_blocks(lambda: gen_sweep(fgrid, **kw), capture_at,
-                               "fifo_compact")
+    return out, blocks
 
 
 # -- the k-replica fleet (fleet_sweep) and the chain grid solver --------------
@@ -2432,8 +2458,8 @@ def phase_fleet_contracts(dev) -> dict:
         mtbf=[0.0, 8.0, 8.0, 0.0, 0.0, 0.0], mttr=[0.0, 0.5, 0.5, 0, 0, 0],
         throttle=[1.0, 0.85, 1.0, 1.0, 1.0, 1.0])
     caps = fleet_caps(g)
-    kw = dict(n_steps=512, a_cap=16, seed=13, device=dev, **caps)
-    whole = _counted(lambda: fleet_sweep(g, **kw), 16, "fleet mixed grid")
+    kw = dict(n_steps=256, a_cap=16, seed=13, device=dev, **caps)
+    whole = _counted(lambda: fleet_sweep(g, **kw), 8, "fleet mixed grid")
     a = fleet_sweep(g.take(slice(0, 2)), **kw)
     b = fleet_sweep(g.take(slice(2, None)), key_offset=2, **kw)
     for f in ("mean_latency", "mean_batch", "utilization", "n_jobs", "hist",
@@ -2458,7 +2484,7 @@ def phase_fleet_contracts(dev) -> dict:
         check(False, "fleet: an unpinned chunk ran")
     # the neutral points (no q_max, deadline, retry or mtbf) give the
     # loss- and failure-free path's bits at the same caps and indices
-    base = fleet_sweep(g.take(slice(3, None)), key_offset=3, n_steps=512,
+    base = fleet_sweep(g.take(slice(3, None)), key_offset=3, n_steps=256,
                        a_cap=16, q_cap=caps["q_cap"], seed=13, device=dev)
     check(not g.take(slice(3, None)).has_loss, "the neutral slice is plain")
     for f in NEUTRAL_FIELDS + ("jobs_by_replica", "mean_service"):
@@ -2500,9 +2526,7 @@ def phase_fleet_contracts(dev) -> dict:
             z=_z_gate(float(r.mean_latency[i]), float(r.stderr[i]),
                       float(s.mean_latency[j]), float(s.stderr[j]), name))
     jsq = r.mean_latency[6:6 + FLEET_JSQ]
-    legacy = np.array([simulate_jsq_numpy(4 * lam1, LinearServiceModel(*V100),
-                                          4, n_jobs=40_000, seed=sd)
-                       for sd in range(3)])
+    legacy = np.array(host_ladder("fleet_jsq", 0))
     se = max(_ladder_se(jsq, legacy), 0.01 * legacy.mean())
     check(abs(jsq.mean() - legacy.mean()) < 3.0 * se,
           f"fleet JSQ {jsq.mean()} vs the numpy loop {legacy.mean()}")
@@ -2546,21 +2570,15 @@ def phase_fleet_contracts(dev) -> dict:
     fail_rate = check_fail_block(lr, lg.mtbf, discs == "resume",
                                  "fleet ladders")
     ladders = {}
-    for ci, (route, ov, qm, dl, rr) in enumerate(FLEET_BP_CFG):
-        refs = [simulate_fleet_loss_numpy(
-            lb, m, bb, k=kb, routing=route, q_max=qm, deadline=dl,
-            overflow=ov, retry_rate=rr, q_cap=64, r_cap=64,
-            n_events=25_000, seed=sd) for sd in range(3)]
+    for ci, (route, ov, *_) in enumerate(FLEET_BP_CFG):
+        refs = host_ladder("fleet_loss", ci)
         sl = slice(ci * FLEET_REPS, (ci + 1) * FLEET_REPS)
         ladders[f"loss_{route}_{ov}"] = {f: _gate_ladder(
             np.asarray(getattr(lr, f)[sl], float),
             np.array([getattr(x, f) for x in refs]), f"fleet {route} {f}")
             for f in LADDER_FIELDS}
     for ci, (disc, route) in enumerate(FLEET_FAIL_CFG):
-        refs = [simulate_fleet_loss_numpy(
-            lf, m, bf, k=kf, routing=route, mtbf=mtbf, mttr=mttr,
-            fail_disc=disc, q_cap=64, r_cap=64, n_events=25_000, seed=sd)
-            for sd in range(3)]
+        refs = host_ladder("fleet_fail", ci)
         sl = slice(n_l + ci * FLEET_REPS, n_l + (ci + 1) * FLEET_REPS)
         ladders[f"fail_{disc}_{route}"] = {f: _gate_ladder(
             np.asarray(getattr(lr, f)[sl], float),
@@ -2601,14 +2619,15 @@ def phase_fleet_user_size(dev, tiles: int = 16, n_steps: int = 4000,
     ``fleet_caps``): two calls, bitwise equal; warm wall, jobs/s, peak
     memory; the JSQ/random E[W] ratio at k 16 as tile means.  Returns
     the record, the hist_update launches and the path block of
-    superstep ``capture_at`` (a third run, not timed, stopped there)."""
+    superstep ``capture_at``, cloned in the first run."""
     grid, n_base = replicas_grid(tiles)
     kw = dict(n_steps=n_steps, a_cap=32, hist_every=4, seed=17, device=dev)
     supersteps = -(-n_steps // 32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: fleet_sweep(grid, **kw), supersteps,
-                 "fleet user-size run")
+    r, blocks = run_captured(lambda: _counted(
+        lambda: fleet_sweep(grid, **kw), supersteps, "fleet user-size run"),
+        capture_at)
     first_s = time.perf_counter() - t0
     launches = ss.hist_update.launches
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2642,8 +2661,6 @@ def phase_fleet_user_size(dev, tiles: int = 16, n_steps: int = 4000,
                launches=launches, supersteps=supersteps, buffer_dropped=0,
                jsq_over_random_k16=ratio, ew_rho1_0_8=curve)
     emit("fleet_user_size", **out)
-    blocks = capture_blocks(lambda: fleet_sweep(grid, **kw), capture_at,
-                            "hist_update")
     return out, launches, blocks["hist_update"]
 
 
@@ -2684,8 +2701,9 @@ def phase_fleet_fail_user_size(dev, tiles: int = 228, n_steps: int = 6000,
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = _counted(lambda: fleet_sweep(grid, **kw), supersteps,
-                 "fleet failure user-size run")
+    r, blocks = run_captured(lambda: _counted(
+        lambda: fleet_sweep(grid, **kw), supersteps,
+        "fleet failure user-size run"), capture_at)
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = ss.hist_update.launches
@@ -2731,8 +2749,6 @@ def phase_fleet_fail_user_size(dev, tiles: int = 228, n_steps: int = 6000,
                buffer_dropped=0, fail_truncated=0, fail_rate=fail_rate,
                frontier_rho_0_75_k4=frontier, availability=availability)
     emit("fleet_fail_user_size", **out)
-    blocks = capture_blocks(lambda: fleet_sweep(grid, **kw), capture_at,
-                            "hist_update")
     return out, launches, blocks["hist_update"]
 
 
@@ -3041,8 +3057,8 @@ def phase_campaign_contracts(dev) -> dict:
     # resume and the three faults
     fgrid = SweepGrid.from_points(np.linspace(0.3, 0.9, 32), 0.05, 1.0,
                                   b_max=4)
-    kw = dict(chunk_size=8, n_batches=256, fault_backoff_s=0.0, **d)
-    clean = _counted_campaign(fgrid, 8, "fault grid, clean", **kw)
+    kw = dict(chunk_size=8, n_batches=128, fault_backoff_s=0.0, **d)
+    clean = _counted_campaign(fgrid, 4, "fault grid, clean", **kw)
     with tempfile.TemporaryDirectory() as tmp:
         w = verify_resume(fgrid, out_dir=f"{tmp}/kill",
                           kill_after_chunks=2, checkpoint_every=1, **kw)
@@ -3061,7 +3077,7 @@ def phase_campaign_contracts(dev) -> dict:
         bad = {q["chunk"] for q in r.quarantined_chunks}
         keep = np.concatenate([np.arange(8 * c, 8 * c + 8)
                                for c in range(4) if c not in bad])
-        per_point = sweep(fgrid, n_batches=256, device=dev)
+        per_point = sweep(fgrid, n_batches=128, device=dev)
         check(bad and all(q["reason"] == "nonfinite"
                           for q in r.quarantined_chunks)
               and np.array_equal(per_point.hist[keep].sum(0), r.hist)
@@ -3283,18 +3299,27 @@ def _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, decode=False,
     return q, k, v
 
 
-def _attn_bound(dtype, io_elems: int, pairs: int, hd: int) -> dict:
+def _bound(nbytes: float, flops: float, dtype, peaks=PEAK_FLOPS) -> dict:
+    """The least time for moving ``nbytes`` once and doing ``flops`` at
+    ``peaks[dtype]``; at another rate than the CUDA cores' float32 one,
+    that figure too (``bound_ms_cuda_cores``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peaks[dtype] * 1e3
+    out = dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if dtype == torch.float32 and peaks[dtype] != PEAK_FLOPS[dtype]:
+        out["bound_ms_cuda_cores"] = max(
+            t_bytes, flops / PEAK_FLOPS[dtype] * 1e3)
+    return out
+
+
+def _attn_bound(dtype, io_elems: int, pairs: int, hd: int,
+                peaks=PEAK_FLOPS) -> dict:
     """Least time for attention over ``pairs`` admitted (query head,
     key) pairs: ``io_elems`` elements read once or written once, and
     2·hd multiply-adds (q·k and p·v) per admitted pair."""
     elt = torch.finfo(dtype).bits // 8
-    bytes_moved = elt * io_elems
-    flops = 4 * hd * pairs
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return dict(bytes=bytes_moved, flops=flops,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return _bound(elt * io_elems, 4 * hd * pairs, dtype, peaks)
 
 
 def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
@@ -3310,9 +3335,13 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     case = dict(kernel="flash_attention", dtype=str(dtype), batch=b, seq=s,
                 heads=h, kv_heads=kv, head_dim=hd, value_dim=v.shape[3],
-                causal=causal, window=window, max_abs_err=err)
+                causal=causal, window=window, max_abs_err=err,
+                # float32 pieces of the key axis (bf16 never splits)
+                splits=flash_splits(b, h, s, sk, sms)[0]
+                if dtype == torch.float32 else 1)
     if sk != s:
         case["key_seq"] = sk
     check(bool(torch.isfinite(got).all()) and err <= ATTN_TOL[dtype],
@@ -3330,7 +3359,7 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
         # p·v over the value width per admitted pair
         case.update(_attn_bound(dtype, q.numel() + k.numel() + v.numel()
                                 + got.numel(), b * h * int(adm.sum()),
-                                (hd + v.shape[3]) / 2))
+                                (hd + v.shape[3]) / 2, FLASH_PEAK_FLOPS))
         case["kernel_ms"] = time_ms(lambda: flash_attention(
             q, k, v, causal=causal, window=window))
         case["plain_ms"] = time_ms(lambda: flash_attention_plain(
@@ -3343,6 +3372,37 @@ def _check_flash(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
         case["library_note"] = (f"scaled_dot_product_attention(is_causal="
                                 f"{causal}) on (B, H, S, hd) copies made "
                                 f"beforehand")
+    return case
+
+
+def _check_flash_lse(dev, dtype, b, s, h, kv, hd, *, causal=True, window=0,
+                     seed=0, sk=None) -> dict:
+    """B3 asked for ``lse`` (one call; split under one wave of blocks in
+    float32, its merge writing out and lse) against its plain versions,
+    twice, bitwise: the output within ATTN_TOL, the rows' log-sum-exp
+    within LSE_TOL and +inf exactly where no key is admitted."""
+    q, k, v = _attn_inputs(dev, dtype, b, s, h, kv, hd, seed, sk=sk)
+    mode = dict(causal=causal, window=window)
+    out, lse = flash_attention_with_lse(q, k, v, **mode)
+    again, lse_again = flash_attention_with_lse(q, k, v, **mode)
+    want = flash_attention_plain(q, k, v, **mode)
+    want_lse = flash_attention_lse_plain(q, k, **mode)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want_lse)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    case = dict(kernel="flash_attention_with_lse", dtype=str(dtype),
+                batch=b, seq=s, key_seq=k.shape[1], heads=h, kv_heads=kv,
+                head_dim=hd, causal=causal, window=window,
+                splits=flash_splits(b, h, s, k.shape[1], sms)[0],
+                max_abs_err=float((out.float() - want.float()).abs().max()),
+                lse_max_abs_err=float((lse - want_lse)[fin].abs().max())
+                if bool(fin.any()) else 0.0)
+    check(case["max_abs_err"] <= ATTN_TOL[dtype]
+          and case["lse_max_abs_err"] <= LSE_TOL
+          and torch.equal(fin, torch.isfinite(lse)),
+          f"flash_attention_with_lse vs plain: {case}")
+    check(torch.equal(out, again) and torch.equal(lse, lse_again),
+          f"flash_attention_with_lse repeats bitwise: {case}")
     return case
 
 
@@ -3493,6 +3553,16 @@ def phase_attn_kernel(dev) -> dict:
     cases += [out[k] for k in ("flash_continuous", "decode_continuous",
                                "flash_moe", "decode_moe")]
     cases.append(_check_flash(dev, f32, 2, 303, mh, mkv, mhd, seed=95))
+    # float32 at every width pair on the tensor cores (3xTF32): GQA 32
+    # over 8 x 128, MLA's (192, 128), (32, 32), the unmasked cross shape
+    # and a batch-1 prompt whose 80 query blocks split the key axis
+    cases += [_check_flash(dev, f32, 2, 300, 32, 8, 128, seed=97),
+              _check_flash(dev, f32, 2, 300, 16, 16, 192, hdv=128, seed=98),
+              _check_flash(dev, f32, 2, 61, 6, 2, 32, causal=False,
+                           window=9, seed=99),
+              _check_flash(dev, f32, 2, SERVE_PROMPT, h, kv, hd,
+                           causal=False, sk=1500, seed=100),
+              _check_flash(dev, f32, 1, 300, h, kv, hd, seed=101)]
     cases.append(_check_decode(dev, f32, 2, 303, mh, mkv, mhd, [300, 302],
                                seed=96))
     cases.append(_check_flash(dev, f32, 32, SERVE_PROMPT, h, kv, hd,
@@ -4515,6 +4585,12 @@ def phase_encdec_kernels(dev) -> dict:
         "audio_cross_batch1": _check_flash(dev, f32, 1, SERVE_PROMPT, h, h,
                                            hd, causal=False, sk=n_ctx,
                                            seed=303, timed=True),
+        "audio_cross_batch2": _check_flash(dev, f32, 2, SERVE_PROMPT, h, h,
+                                           hd, causal=False, sk=n_ctx,
+                                           seed=317, timed=True),
+        "audio_cross_batch4": _check_flash(dev, f32, 4, SERVE_PROMPT, h, h,
+                                           hd, causal=False, sk=n_ctx,
+                                           seed=318, timed=True),
         "audio_cross_decode": _check_decode(dev, f32, 32, n_ctx, h, h, hd,
                                             full * 32, seed=304, timed=True,
                                             unmasked=True),
@@ -4529,6 +4605,13 @@ def phase_encdec_kernels(dev) -> dict:
                                     [front + SERVE_GEN - 1] * 32, seed=308,
                                     timed=True)}
     cases = list(out.values())
+    # the split cross prefill (under one wave of query blocks the keys
+    # are cut into pieces and merged), also asked for lse
+    for b in (1, 2, 4):
+        cases.append(_check_flash_lse(dev, f32, b, SERVE_PROMPT, h, h, hd,
+                                      causal=False, sk=n_ctx, seed=320 + b))
+        check(cases[-1]["splits"] > 1, f"the cross prefill at B {b} "
+              f"splits its keys: {cases[-1]}")
     for dt in (bf16, f32):
         cases.append(_check_flash(dev, dt, 2, 7, h, h, hd, causal=False,
                                   sk=n_ctx - 1, seed=310))
@@ -4714,10 +4797,7 @@ def _check_flash_backward(dev, dtype, b, s, h, kv, hd, *, causal=True,
         nbytes = (elt * (2 * (q.numel() + k.numel() + v.numel())
                          + 2 * out.numel()) + 4 * lse.numel())
         flops = 2.5 * 4 * (hd + hdv) / 2 * pairs
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        case.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case.update(_bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS))
         case["kernel_ms"] = time_ms(
             lambda: flash_attention_backward(q, k, v, out, lse, do, **mode))
         case["plain_ms"] = time_ms(
@@ -4780,6 +4860,8 @@ def phase_attn_backward(dev) -> dict:
                               seed=76, **timed),
         _check_flash_backward(dev, f32, 2, 300, 16, 16, 192, hdv=128,
                               seed=77, **timed),
+        _check_flash_backward(dev, f32, 2, 300, 32, 8, 128, window=64,
+                              seed=82, **timed),
         _check_flash_backward(dev, f32, 2, 32, h, kv, hd, causal=False,
                               sk=1500, seed=78, **timed),
         _check_flash_backward(dev, bf16, 2, 500, h, kv, hd, seed=79,
@@ -5271,6 +5353,95 @@ def path_hist(dev, captured, block: str) -> dict:
                        emit_as="path_kernel")
 
 
+# the continuous points of gen_user_size held against the exact numpy
+# loop: (ρ, generated tokens, max_active)
+GEN_CONT_POINTS = ((GEN_RHOS[7], 32, 64), (GEN_RHOS[13], 8, 16))
+# the host mirrors' seed ladders the contracts phases gate on: kind →
+# configs (three seeds each); they run in worker processes beside the
+# card's phases (numpy loops, no device), started after the build
+HOST_LADDERS = {"gen_continuous": len(GEN_CONT_POINTS),
+                "loss_sweep": len(SW_CFG), "loss_gen": len(GEN_CFG),
+                "fail_sweep": len(FAIL_SW_CFG), "fail_gen": len(FAIL_GEN_CFG),
+                "fleet_jsq": 1, "fleet_loss": len(FLEET_BP_CFG),
+                "fleet_fail": len(FLEET_FAIL_CFG)}
+_LADDERS: dict = {}
+_POOLS: list = []
+
+
+def mirror_ladder(kind: str, ci: int) -> list:
+    """The three seeds of the host mirror behind config ``ci`` of
+    ``kind``'s seed ladder, as the phase that gates on them used to
+    compute them inline."""
+    m = GEN_MODEL
+    if kind == "gen_continuous":
+        rho, gen, cap = GEN_CONT_POINTS[ci]
+        lam = float(gen_grid().lam[gen_index(rho, gen, cap, "continuous")])
+        return [simulate_continuous_numpy(
+            lam, m, prompt_len=GEN_PROMPT, gen_tokens=gen, max_active=cap,
+            n_jobs=60_000, seed=s).mean_latency for s in range(3)]
+    if kind == "loss_sweep":
+        qm, dl, ov, rate, lam = SW_CFG[ci]
+        return [simulate_loss_numpy(lam, MODEL_BP, 8, q_max=qm, deadline=dl,
+                                    overflow=ov, retry_rate=rate, q_cap=64,
+                                    r_cap=64, n_batches=20_000, seed=s)
+                for s in range(3)]
+    if kind == "loss_gen":
+        disc, ov, qm, dl, rate = GEN_CFG[ci]
+        return [simulate_gen_loss_numpy(
+            GEN_BP_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
+            max_active=64, discipline=disc, q_max=qm, deadline=dl,
+            overflow=ov, retry_rate=rate, q_cap=64, r_cap=64,
+            n_steps=20_000, seed=s) for s in range(3)]
+    if kind == "fail_sweep":
+        disc, mtbf, mttr, thr, lam = FAIL_SW_CFG[ci]
+        return [simulate_loss_numpy(lam, MODEL_BP, 8, mtbf=mtbf, mttr=mttr,
+                                    fail_disc=disc, throttle=thr, q_cap=64,
+                                    r_cap=64, n_batches=15_000, seed=s)
+                for s in range(3)]
+    if kind == "fail_gen":
+        disc, mtbf, mttr = FAIL_GEN_CFG[ci]
+        return [simulate_gen_loss_numpy(
+            FAIL_GEN_LAM, m, prompt_len=GEN_PROMPT, gen_tokens=32,
+            max_active=64, mtbf=mtbf, mttr=mttr, fail_disc=disc, q_cap=96,
+            r_cap=64, n_steps=20_000, seed=s) for s in range(3)]
+    if kind == "fleet_jsq":
+        return [simulate_jsq_numpy(4 * FLEET_LAM1, LinearServiceModel(*V100),
+                                   4, n_jobs=40_000, seed=sd)
+                for sd in range(3)]
+    if kind == "fleet_loss":
+        route, ov, qm, dl, rr = FLEET_BP_CFG[ci]
+        lb, kb, bb = FLEET_BP
+        return [simulate_fleet_loss_numpy(
+            lb, MODEL_BP, bb, k=kb, routing=route, q_max=qm, deadline=dl,
+            overflow=ov, retry_rate=rr, q_cap=64, r_cap=64,
+            n_events=25_000, seed=sd) for sd in range(3)]
+    if kind == "fleet_fail":
+        disc, route = FLEET_FAIL_CFG[ci]
+        lf, kf, bf, mtbf, mttr = FLEET_FAIL
+        return [simulate_fleet_loss_numpy(
+            lf, MODEL_BP, bf, k=kf, routing=route, mtbf=mtbf, mttr=mttr,
+            fail_disc=disc, q_cap=64, r_cap=64, n_events=25_000, seed=sd)
+            for sd in range(3)]
+    raise KeyError(kind)
+
+
+def start_host_ladders(workers: int = 3) -> None:
+    """Every ``HOST_LADDERS`` task on a pool of ``workers`` spawned
+    processes (the card's context is not forked), in the order the
+    phases read them."""
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    _POOLS.append(pool)
+    for kind, n in HOST_LADDERS.items():
+        for ci in range(n):
+            _LADDERS[kind, ci] = pool.submit(mirror_ladder, kind, ci)
+
+
+def host_ladder(kind: str, ci: int) -> list:
+    """``mirror_ladder(kind, ci)``'s result from the pool."""
+    return _LADDERS[kind, ci].result()
+
+
 def start_dryruns() -> list:
     """``launch.dryrun`` for each of ``DRYRUNS`` in a process of its own,
     the GPU hidden from it, its records appended to a file of its own;
@@ -5385,6 +5556,8 @@ def main() -> int:
     try:
         return _main()
     finally:
+        for pool in _POOLS:
+            pool.shutdown(wait=True, cancel_futures=True)
         for proc in _CHILDREN:
             if proc.poll() is None:
                 proc.kill()
@@ -5408,6 +5581,7 @@ def _main() -> int:
     smi = phase("build", phase_build)
     # the dry runs need no GPU: they run beside the phases below
     dry = start_dryruns()
+    start_host_ladders()
     grid = gen_grid()
     # each path's own hist_update block: the sweep's 32 × 768 and the
     # generate sweep's 16 × s_cap (one 16-step superstep, hist_every=1)
@@ -5619,7 +5793,15 @@ def _main() -> int:
           for name, short, shapes, extra in (
               ("flash_attention", "flash",
                ("audio_encoder", "audio_encoder_batch1", "audio_cross",
-                "audio_cross_batch1", "vlm_prefill", "vlm_prefill_batch1"), {
+                "audio_cross_batch1", "audio_cross_batch2",
+                "audio_cross_batch4", "vlm_prefill", "vlm_prefill_batch1"), {
+                  # the float32 shapes' bound at the CUDA cores' rate,
+                  # beside their 3xTF32 bound_ms; their key-axis splits
+                  **{f"{shape}_{k}": encdec[shape][k]
+                     for shape in ("audio_encoder", "audio_encoder_batch1",
+                                   "audio_cross", "audio_cross_batch1",
+                                   "audio_cross_batch2", "audio_cross_batch4")
+                     for k in ("bound_ms_cuda_cores", "splits")},
                   # MLA's (192, 128) pair on serve_mla
                   "mla_launches": served_mla["launches"]["flash_attention"],
                   **{f"mla_{case}{k}": mla[f"flash_{shape}"][key]
@@ -5701,7 +5883,8 @@ def _main() -> int:
                for case in ("long", "batch1", "f32")
                for k, key in batch1_keys + (("bound_by", "bound_by"),
                                             ("library_bwd_ms",
-                                             "library_bwd_ms"))}),
+                                             "library_bwd_ms"))},
+            f32_bound_ms_cuda_cores=bwd["f32"]["bound_ms_cuda_cores"]),
         # a kernel of the port with no TPU counterpart: the reference
         # trains Mamba2 through jax.grad of its _ssd_chunked; timed at
         # mamba2-2.7b's training shape, with the float32, long and

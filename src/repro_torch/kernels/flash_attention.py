@@ -25,10 +25,15 @@ The wrapper launches a kernel for CUDA tensors and takes
 device, on a dtype other than float32 / bfloat16, on non-contiguous or
 misaligned inputs, on ``H % KV != 0`` and on ``causal`` with
 ``S_k != S``.  On the card the dtype picks
-the kernel: bfloat16 runs ``flash_attention_kernel_bf16`` (tensor-core
-tiles, P carried as two bf16 terms), float32 runs
-``flash_attention_kernel`` (CUDA cores, no TF32 rounding), at every
-width pair.  A failed build or launch raises: there is no fallback.
+the kernel, both on the tensor cores at every width pair: bfloat16 runs
+``flash_attention_kernel_bf16`` (P carried as two bf16 terms), float32
+``flash_attention_kernel_f32`` (3xTF32: each operand as a rounded and a
+remainder TF32 term, three products each, about 21 bits of every
+product).  Under one wave of 64-row query blocks the float32 launch
+splits each block's keys into ``flash_splits`` pieces, each writing
+float32 (m, l, acc) to a workspace that a merge kernel combines into
+the output and ``lse``: still one call, one count.  A failed build or
+launch raises: there is no fallback.
 
 Gradients.  On CPU tensors autograd differentiates the plain version as
 it is.  On CUDA tensors with grad enabled and an input that requires
@@ -38,8 +43,8 @@ float32 (``m · scale + log l``, ``+inf`` on a row with no admitted key),
 it saves ``q, k, v, out, lse``, and its backward runs the hand-written
 kernels of ``csrc/flash_attention_backward.cu`` (a ``D = rowsum(dO ∘
 out)`` pass, a dK/dV kernel over key tiles and a dQ kernel over query
-tiles, no atomics: on the tensor cores for bfloat16, P and dS carried
-as two bf16 terms, on the CUDA cores for float32), which return ``dq,
+tiles, no atomics, on the tensor cores: for bfloat16 P and dS carried
+as two bf16 terms, for float32 every product in 3xTF32), which return ``dq,
 dk, dv`` in the inputs' dtype; a row with no admitted key gets zero gradients.  It
 replaces XLA's autodiff of the reference's ``sdpa``
 (``src/repro/models/attention.py:142``); the Pallas kernel has no
@@ -74,12 +79,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._launch import (DTYPE_CODE, check_aligned,
-                                         kernel_device, shape_only)
+                                         kernel_device, shape_only, sm_count)
 from repro_torch.kernels._mesh import (head_placements, is_dtensor,
                                        local_call, remap)
 
 __all__ = ["NEG_INF", "Q_CHUNK", "HEAD_DIMS", "WIDTHS", "admitted_pairs",
-           "flash_attention",
+           "flash_attention", "flash_splits",
            "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_with_lse", "flash_attention_backward",
            "flash_attention_backward_plain"]
@@ -143,6 +148,20 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"causal flash_attention takes as many keys as "
                          f"queries, got S {s} and S_k {k.shape[1]}")
     check_attention_inputs(q, k, v)
+
+
+def flash_splits(b: int, h: int, s: int, sk: int, sms: int
+                 ) -> Tuple[int, int]:
+    """``(splits, chunk)`` of the float32 kernel's key axis: under one
+    wave of 64-row query blocks (``b · h · ⌈s/64⌉ < sms``) the keys of
+    each block are cut into ``splits`` pieces of ``chunk`` keys (whole
+    64-key tiles) so that about two blocks an SM run; else one piece."""
+    tiles = -(-sk // 64)
+    blocks = b * h * -(-s // 64)
+    if blocks >= sms or tiles <= 1:
+        return 1, max(tiles, 1) * 64
+    per = -(-tiles // min(-(-2 * sms // blocks), tiles))
+    return -(-tiles // per), per * 64
 
 
 def admitted_pairs(s: int, sk: int, causal: bool, window: int) -> int:
@@ -280,21 +299,29 @@ def _launch(q, k, v, out, causal: bool, window: int, lse=None) -> None:
         raise ValueError(f"the CUDA flash_attention is built for (head_dim, "
                          f"value width) in {WIDTHS}, got {(hd, hdv)}")
     check_aligned("flash_attention", q, k, v, out)
-    # grid limits: (B*H, ceil(S/64)) in bf16, (ceil(S/32), H, B) in f32
+    # grid limits: (B*H, ceil(S/64), splits)
     if (max(b, h) > 65535 or -(-s // 64) > 65535 or sk >= 1 << 31
             or abs(window) >= 1 << 31):
         raise ValueError(f"shape {tuple(q.shape)} / window {window} too "
                          f"large for one launch")
+    splits, chunk = 1, 0
+    part = None
+    if q.dtype == torch.float32:
+        splits, chunk = flash_splits(b, h, s, sk, sm_count(q.device))
+    if splits > 1:
+        part = torch.empty(splits * b * h * s * (2 + hdv),
+                           dtype=torch.float32, device=q.device)
     fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
+                 None if part is None else part.data_ptr(),
                  b, s, sk, h, kv, hd, hdv, DTYPE_CODE[q.dtype], hd ** -0.5,
-                 int(bool(causal)), int(window), stream)
+                 int(bool(causal)), int(window), splits, chunk, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
