@@ -633,7 +633,8 @@ from repro_torch.core.calibrate import fit_service_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import superstep as ss  # noqa: E402
 from repro_torch.kernels.campaign_fold import (  # noqa: E402
-    FoldAcc, campaign_fold, campaign_fold_plain, fold_min_bytes)
+    FoldAcc, campaign_fold, campaign_fold_plain, chain_floor,
+    fold_min_bytes)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_int8, decode_attention_int8_plain,
     decode_attention_plain, decode_splits)
@@ -663,9 +664,10 @@ from repro_torch.train.data import DataConfig, SyntheticCorpus  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
 # H100 SXM dense peaks: bf16 on the tensor cores, float32 on the CUDA
-# cores (B4's, B5's and MLA decode's float32 kernels)
+# cores (B4's and B5's float32 kernels)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# B3's float32 kernels, forward and backward, run on the TF32 tensor
+# B3's float32 kernels, forward and backward, and MLA decode's products
+# over a float32 cache run on the TF32 tensor
 # cores as 3xTF32: three TF32 products (494.7 TFLOP/s dense) a float32
 # product; the 67 TFLOP/s figure is reported beside as
 # bound_ms_cuda_cores
@@ -2826,9 +2828,10 @@ def phase_chain_grid(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def _fold_chunk(dev, rng, m: int, n_bins: int, has_loss: bool, sketch: bool,
-                poison: bool) -> dict:
+                poison: bool, tied: bool = False) -> dict:
     """A random chunk of sweep outputs: tied latencies and rates, NaN /
-    inf points where ``poison``."""
+    inf points where ``poison``, every latency and rate one value where
+    ``tied``."""
     c = {"hist": rng.integers(0, 50, (m, n_bins)).astype(np.int32),
          "n_jobs": rng.integers(0, 1000, m).astype(np.int32),
          "batches": rng.integers(0, 100, m).astype(np.int32),
@@ -2841,6 +2844,9 @@ def _fold_chunk(dev, rng, m: int, n_bins: int, has_loss: bool, sketch: bool,
          "lat_bm_n": rng.integers(0, 40, m).astype(np.int32)}
     c["mean_latency"][::5] = c["mean_latency"][0]
     c["lam"][1::7] = c["lam"][1]
+    if tied:
+        c["mean_latency"][:] = 3.0
+        c["lam"][:] = 2.0
     if sketch:
         c["hist_sums"] = (c["hist"] * rng.lognormal(0, 1, (m, n_bins))
                           ).astype(np.float32)
@@ -2848,6 +2854,8 @@ def _fold_chunk(dev, rng, m: int, n_bins: int, has_loss: bool, sketch: bool,
         for k in ("overflow_dropped", "abandoned", "n_in_slo", "n_fresh",
                   "n_retry"):
             c[k] = rng.integers(0, 200, m).astype(np.int32)
+        if tied:
+            c["n_in_slo"][:] = 0
     if poison:
         c["mean_latency"][2] = np.nan
         c["utilization"][m // 2] = np.inf
@@ -2855,6 +2863,26 @@ def _fold_chunk(dev, rng, m: int, n_bins: int, has_loss: bool, sketch: bool,
         if sketch:
             c["hist_sums"][m - 3, 3] = np.nan
     return {k: torch.as_tensor(v, device=dev) for k, v in c.items()}
+
+
+# the campaign_fold phase's chunks of m = 8,192 rows: name → (n_bins,
+# has_loss, sketch, poison, rows short of m that are padding (None: all
+# of them), k_top, tied); "loss" is the campaign_user_size path's own
+# fold (the row's headline): a loss grid at 8,192 × 512, every lane
+# valid, no NaN
+FOLD_CASES = {
+    "full": (512, False, False, False, 0, DEFAULT_TOP_K, False),
+    "full_loss_nan": (512, True, False, True, 192, DEFAULT_TOP_K, False),
+    "sketch": (64, False, True, False, 0, DEFAULT_TOP_K, False),
+    "sketch_loss_nan": (64, True, True, True, 93, DEFAULT_TOP_K, False),
+    "loss": (512, True, False, False, 0, DEFAULT_TOP_K, False),
+    "k_top_1": (512, True, False, True, 7, 1, False),
+    "k_top_256": (64, False, True, True, 0, 256, False),
+    "n_valid_0": (512, True, False, False, None, DEFAULT_TOP_K, False),
+    "tied": (512, True, False, False, 0, DEFAULT_TOP_K, True),
+}
+# the cases timed (the kernels line's headline and two more)
+FOLD_TIMED = ("loss", "full", "full_loss_nan", "sketch")
 
 
 def _acc_equal(a: FoldAcc, b: FoldAcc) -> bool:
@@ -2867,33 +2895,29 @@ def phase_campaign_fold(dev, m: int = 8192) -> dict:
     """The CUDA campaign_fold against its plain version, bit for bit:
     random chunks of the campaign path's shapes (8,192 × 512 counts;
     8,192 × 64 in sketch mode, with the per-bin sums), with and without
-    the loss counters, with NaN / inf points, tied values and a padded
-    tail (n_valid < m), two chunks in a row into a non-empty
-    accumulator; each fold launched twice from the same accumulator and
-    held bitwise.  Kernel, plain and bound times (bytes once over 3.35
-    TB/s); no single PyTorch call computes the fold."""
+    the loss counters, with NaN / inf points, tied values, every value
+    tied, a padded tail (n_valid < m, and 0), k_top 1, 16 and 256, two
+    chunks in a row into a non-empty accumulator; each fold launched
+    twice from the same accumulator and held bitwise.  Kernel, plain
+    and bound times (bytes once over 3.35 TB/s) of the timed cases, and
+    the chain floor: one thread's m dependent float64 additions, which
+    the ordered tail's sums cannot beat; no single PyTorch call
+    computes the fold."""
     cases = {}
-    # "loss" is the campaign_user_size path's own fold (the row's
-    # headline): a loss grid at 8,192 × 512, every lane valid, no NaN
-    for name, n_bins, has_loss, sketch, poison, n_valid in (
-            ("full", 512, False, False, False, m),
-            ("full_loss_nan", 512, True, False, True, m - 192),
-            ("sketch", 64, False, True, False, m),
-            ("sketch_loss_nan", 64, True, True, True, m - 93),
-            ("loss", 512, True, False, False, m)):
+    for name, (n_bins, has_loss, sketch, poison, short, k_top,
+               tied) in FOLD_CASES.items():
+        n_valid = 0 if short is None else m - short
         rng = np.random.default_rng(len(cases) + 17)
-        chunks = [_fold_chunk(dev, rng, m, n_bins, has_loss, sketch, poison)
-                  for _ in range(2)]
-        acc_k = FoldAcc.from_host(campaign_init_acc(n_bins, DEFAULT_TOP_K),
-                                  dev)
-        acc_p = FoldAcc.from_host(campaign_init_acc(n_bins, DEFAULT_TOP_K),
-                                  dev)
+        chunks = [_fold_chunk(dev, rng, m, n_bins, has_loss, sketch, poison,
+                              tied) for _ in range(2)]
+        acc_k = FoldAcc.from_host(campaign_init_acc(n_bins, k_top), dev)
+        acc_p = FoldAcc.from_host(campaign_init_acc(n_bins, k_top), dev)
         kw = dict(has_loss=has_loss, sketch=sketch)
         for j, c in enumerate(chunks):
             g = torch.arange(j * m, (j + 1) * m, dtype=torch.int64,
                              device=dev)
             again = FoldAcc(acc_k.ints.clone(), acc_k.floats.clone(),
-                            n_bins, DEFAULT_TOP_K)
+                            n_bins, k_top)
             s_k = campaign_fold(acc_k, c, g, n_valid, **kw)
             s_2 = campaign_fold(again, c, g, n_valid, **kw)
             s_p = campaign_fold_plain(acc_p, c, g, n_valid, **kw)
@@ -2908,22 +2932,36 @@ def phase_campaign_fold(dev, m: int = 8192) -> dict:
         if poison:
             check(int(acc_k.views()["quarantined_points"]) > 0,
                   f"campaign_fold quarantined the poisoned points ({name})")
+        if tied:
+            check(acc_k.views()["top_lat_idx"].tolist()
+                  == list(range(k_top)),
+                  f"campaign_fold: tied values keep the first points in "
+                  f"the first minimal slots ({name})")
+        if n_valid == 0:
+            check(int(acc_k.views()["points"]) == 0,
+                  f"campaign_fold: n_valid 0 folds nothing ({name})")
+        cases[name] = dict(m=m, n_bins=n_bins, n_valid=n_valid,
+                           has_loss=has_loss, sketch=sketch, poison=poison,
+                           k_top=k_top, tied=tied, max_abs_err=0.0)
+        if name not in FOLD_TIMED:
+            continue
         g = torch.arange(m, dtype=torch.int64, device=dev)
         scratch = FoldAcc(acc_k.ints.clone(), acc_k.floats.clone(), n_bins,
-                          DEFAULT_TOP_K)
+                          k_top)
         kernel_ms = time_ms(lambda: campaign_fold(scratch, chunks[0], g,
                                                   n_valid, **kw))
         plain_ms = time_ms(lambda: campaign_fold_plain(
             scratch, chunks[0], g, n_valid, **kw), reps=2, warm=1)
         nbytes = fold_min_bytes(m, n_bins, has_loss=has_loss, sketch=sketch,
-                                k_top=DEFAULT_TOP_K)
-        cases[name] = dict(m=m, n_bins=n_bins, n_valid=n_valid,
-                           has_loss=has_loss, sketch=sketch, poison=poison,
-                           kernel_ms=kernel_ms, plain_ms=plain_ms,
+                                k_top=k_top)
+        cases[name].update(kernel_ms=kernel_ms, plain_ms=plain_ms,
                            bytes=nbytes,
                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                           library_ms=None, max_abs_err=0.0)
-    emit("campaign_fold", cases=cases, k_top=DEFAULT_TOP_K)
+                           library_ms=None)
+    floor_ms = time_ms(lambda: chain_floor(dev, m))
+    for case in cases.values():
+        case["chain_floor_ms"] = floor_ms
+    emit("campaign_fold", cases=cases, chain_floor_ms=floor_ms)
     return cases
 
 
@@ -4425,11 +4463,10 @@ def _check_mla_decode(dev, dtype, b, s, lengths, *, window=0, seed=0,
         bytes_moved = (elt * 576 * sum(admitted) + 4 * (
             q_abs.numel() + q_pe.numel() + got.numel()) + 4 * b)
         flops = 2 * 16 * (576 + 512) * sum(admitted)
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        case.update(bytes=bytes_moved, flops=flops,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        # the products run on the tensor cores: a float32 cache's at
+        # 3xTF32's rate (the CUDA cores' 67 TFLOP/s figure beside, as
+        # bound_ms_cuda_cores)
+        case.update(_bound(bytes_moved, flops, dtype, FLASH_PEAK_FLOPS))
         case["kernel_ms"] = time_ms(lambda: mla_decode_attention(
             *args, lens, scale=MLA_SCALE, window=window))
         case["plain_ms"] = time_ms(lambda: mla_decode_attention_plain(
@@ -4450,59 +4487,70 @@ def _check_mla_decode(dev, dtype, b, s, lengths, *, window=0, seed=0,
     return case
 
 
+def mla_decode_cases() -> tuple:
+    """The mla_kernel phase's MLA decode checks as (cache dtype, batch,
+    cache, lengths, window, seed): the timed ones by name (serve_mla's
+    last decode step, the long cache in bf16 and float32, batch 1 over
+    it), then the rest: the serve path's batches, windowed and ragged,
+    and the lengths -1, 0, 63, S - 1, S + 5 in both cache dtypes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cache = SERVE_PROMPT + SERVE_GEN + 1
+    long_cache = LONG_PROMPT + LONG_GEN + 1
+    last = LONG_PROMPT + LONG_GEN - 1
+    timed = {"serve": (bf16, 32, cache, [SERVE_PROMPT + SERVE_GEN - 1] * 32,
+                       0, 232),
+             "long": (bf16, 32, long_cache, [last] * 32, 0, 233),
+             "batch1": (bf16, 1, long_cache, [last], 0, 234),
+             "long_f32": (f32, 32, long_cache, [last] * 32, 0, 235)}
+    rest = [(bf16, b, cache, [SERVE_PROMPT + i % SERVE_GEN
+                              for i in range(b)], 0, 200 + b)
+            for b in (1, 2, 4, 8, 16)]
+    ragged = [0, 1, 250, 299, 511, 300, 17, 400]
+    edges = [-1, 0, 63, long_cache - 1, long_cache + 5]
+    for dt in (bf16, f32):
+        rest.append((dt, 8, 523, ragged, 100, 242))
+        rest += [(dt, 1, long_cache, [n], 0, 250 + i)
+                 for i, n in enumerate(edges)]
+        rest.append((dt, 6, long_cache, edges + [500], 0, 256))
+        rest.append((dt, 32, long_cache,
+                     [(37 * i) % (long_cache + 6) - 1 for i in range(32)], 0,
+                     257))
+    return timed, rest
+
+
 def phase_mla_kernel(dev) -> dict:
     """B3 at MLA's (192, 128) pair and the MLA decode kernel against
     their plain versions at DeepSeek-V2-Lite's shapes: the serve path's
-    batches, batch 32 at the serve and the long shapes and batch 1 at
-    the long one timed; windowed, ragged, lengths -1, 0, 63, S - 1,
-    S + 5; a bf16 and a float32 cache; every case twice, bitwise."""
+    batches, batch 32 at the serve and the long shapes (bf16 and float32
+    caches) and batch 1 at the long one timed; windowed, ragged, lengths
+    -1, 0, 63, S - 1, S + 5; a bf16 and a float32 cache; every case
+    twice, bitwise (``mla_decode_cases``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     h, qd, vd = 16, 192, 128
-    cache = SERVE_PROMPT + SERVE_GEN + 1
-    long_cache = LONG_PROMPT + LONG_GEN + 1
-    cases = []
-    for b in (1, 2, 4, 8, 16):
-        cases.append(_check_flash(dev, bf16, b, SERVE_PROMPT, h, h, qd,
-                                  hdv=vd, seed=200 + b))
-        cases.append(_check_mla_decode(dev, bf16, b, cache,
-                                       [SERVE_PROMPT + i % SERVE_GEN
-                                        for i in range(b)], seed=200 + b))
+    cases = [_check_flash(dev, bf16, b, SERVE_PROMPT, h, h, qd, hdv=vd,
+                          seed=200 + b) for b in (1, 2, 4, 8, 16)]
     out = {
         "flash_serve": _check_flash(dev, bf16, 32, SERVE_PROMPT, h, h, qd,
                                     hdv=vd, seed=232, timed=True),
         "flash_long": _check_flash(dev, bf16, 32, LONG_PROMPT, h, h, qd,
                                    hdv=vd, seed=233, timed=True),
         "flash_batch1": _check_flash(dev, bf16, 1, LONG_PROMPT, h, h, qd,
-                                     hdv=vd, seed=234, timed=True),
-        "decode_serve": _check_mla_decode(
-            dev, bf16, 32, cache, [SERVE_PROMPT + SERVE_GEN - 1] * 32,
-            seed=232, timed=True),
-        "decode_long": _check_mla_decode(
-            dev, bf16, 32, long_cache, [LONG_PROMPT + LONG_GEN - 1] * 32,
-            seed=233, timed=True),
-        "decode_batch1": _check_mla_decode(
-            dev, bf16, 1, long_cache, [LONG_PROMPT + LONG_GEN - 1],
-            seed=234, timed=True)}
+                                     hdv=vd, seed=234, timed=True)}
+    timed, rest = mla_decode_cases()
+    for name, (dt, b, s, lengths, window, seed) in timed.items():
+        out[f"decode_{name}"] = _check_mla_decode(
+            dev, dt, b, s, lengths, window=window, seed=seed, timed=True)
     cases += list(out.values())
-    ragged = [0, 1, 250, 299, 511, 300, 17, 400]
-    edges = [-1, 0, 63, long_cache - 1, long_cache + 5]
+    cases += [_check_mla_decode(dev, dt, b, s, lengths, window=window,
+                                seed=seed)
+              for dt, b, s, lengths, window, seed in rest]
     for dt in (bf16, f32):
         cases.append(_check_flash(dev, dt, 2, 200, h, h, qd, hdv=vd,
                                   window=64, seed=240))
         cases.append(_check_flash(dev, dt, 2, 303, h, h, qd, hdv=vd,
                                   seed=241))
-        cases.append(_check_mla_decode(dev, dt, 8, 523, ragged, window=100,
-                                       seed=242))
-        for i, n in enumerate(edges):
-            cases.append(_check_mla_decode(dev, dt, 1, long_cache, [n],
-                                           seed=250 + i))
-        cases.append(_check_mla_decode(dev, dt, 6, long_cache,
-                                       edges + [500], seed=256))
-        cases.append(_check_mla_decode(
-            dev, dt, 32, long_cache,
-            [(37 * i) % (long_cache + 6) - 1 for i in range(32)], seed=257))
     cases.append(_check_flash(dev, f32, 32, SERVE_PROMPT, h, h, qd, hdv=vd,
                               seed=260))
     emit("mla_kernel", arch=MLA_ARCH, cases=cases, worst=_worst(cases),
@@ -5758,6 +5806,7 @@ def _main() -> int:
                     note="no TPU kernel: replaces the reference's lax.scan "
                          "fold", shape=[fold["loss"]["m"],
                                         fold["loss"]["n_bins"]],
+                    chain_floor_ms=fold["loss"]["chain_floor_ms"],
                     **{f"{case}_{k}": fold[case][key]
                        for case in ("full", "sketch", "full_loss_nan")
                        for k, key in (("ms", "kernel_ms"),
@@ -5912,10 +5961,13 @@ def _main() -> int:
             library_note=mla["decode_serve"]["library_note"],
             **_path_keys(mla["decode_serve"]),
             **{f"{case}{k}": mla[f"decode_{shape}"][key]
-               for case, shape in (("long_", "long"), ("batch1_", "batch1"))
+               for case, shape in (("long_", "long"), ("batch1_", "batch1"),
+                                   ("long_f32_", "long_f32"))
                for k, key in batch1_keys + (("bound_by", "bound_by"),)},
+            long_f32_bound_ms_cuda_cores=mla["decode_long_f32"][
+                "bound_ms_cuda_cores"],
             splits={k: mla[f"decode_{k}"]["splits"]
-                    for k in ("serve", "long", "batch1")}),
+                    for k in ("serve", "long", "batch1", "long_f32")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

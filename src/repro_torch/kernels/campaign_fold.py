@@ -29,16 +29,19 @@ and the max are exact in any order.
 
 Backends:
 
-- the CUDA kernel ``csrc/campaign_fold.cu`` (CUDA tensors): one launch
+- the CUDA kernels ``csrc/campaign_fold.cu`` (CUDA tensors): one call
   a chunk, in place on the accumulator, on the current stream, no
-  synchronisation;
+  synchronisation: a wide pass that prepares every row into a workspace
+  kept per device, then the ordered tail (the float64 chains and the
+  top-K walks) beside the histogram counts;
 - ``campaign_fold_plain`` (any device; the wrapper takes it for CPU
   tensors): the integer fields and the max vectorised, ``hist_sums`` in
   a loop over points vectorised over bins, and the scalar sums and the
   top-K lists in a loop over points in Python floats, which are IEEE
   binary64 with the kernel's rounding.
 
-``campaign_fold.launches`` counts the kernel launches.
+``campaign_fold.launches`` counts the wrapper calls that launch the
+kernels, one a chunk.
 
 The accumulator lives in two flat tensors, ``FoldAcc.ints`` (int64)
 and ``FoldAcc.floats`` (float64), in the layout the kernel reads;
@@ -53,7 +56,8 @@ import numpy as np
 import torch
 
 __all__ = ["FoldAcc", "ACC_INT", "ACC_F64", "SUMMARY_KEYS", "Z95",
-           "campaign_fold", "campaign_fold_plain", "fold_min_bytes",
+           "campaign_fold", "campaign_fold_plain", "chain_floor",
+           "fold_min_bytes",
            "summary_dict", "K_TOP_MAX"]
 
 # the accumulator's scalar fields, in the reference's order
@@ -71,6 +75,11 @@ SUMMARY_KEYS = ("points", "jobs", "buffer_dropped", "quarantined",
 Z95 = 1.959963984540054
 # the kernel keeps both top-K lists in shared memory
 K_TOP_MAX = 256
+
+# per device: the kernels' row workspace (bytes), and chain_floor's
+# operands
+_WORK: Dict[torch.device, torch.Tensor] = {}
+_CHAIN: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class FoldAcc:
@@ -289,6 +298,10 @@ def _launch_cuda(acc: FoldAcc, chunk, gidx, n_valid: int, m: int,
                          f"slots, got k_top={acc.k_top}")
     if m >= 1 << 31:
         raise ValueError(f"too many points for one launch: {m}")
+    if sketch and (acc.n_bins % 4 or chunk["hist_sums"].data_ptr() % 16):
+        raise ValueError(f"the CUDA fold stages hist_sums 16 bytes at a "
+                         f"time: n_bins % 4 == 0 and 16-byte aligned rows, "
+                         f"got n_bins={acc.n_bins}")
     keys = list(_F32 + _I32) + (["hist_sums"] if sketch else [])
     keys += list(LOSS_KEYS) if has_loss else []
     for t in [chunk[k] for k in keys] + [gidx, acc.ints, acc.floats]:
@@ -311,12 +324,21 @@ def _launch_cuda(acc: FoldAcc, chunk, gidx, n_valid: int, m: int,
         summary=summary.data_ptr(), m=m, n_valid=int(n_valid),
         n_bins=acc.n_bins, k_top=acc.k_top, has_loss=int(has_loss),
         sketch=int(sketch))
-    fn = library("campaign_fold").campaign_fold_launch
-    fn.argtypes = [ctypes.POINTER(_FoldArgs), ctypes.c_void_p]
+    lib = library("campaign_fold")
+    size = lib.campaign_fold_work_bytes
+    size.argtypes, size.restype = [ctypes.c_int64], ctypes.c_int64
+    need = size(m)
+    work = _WORK.get(gidx.device)
+    if work is None or work.numel() < need:
+        work = _WORK[gidx.device] = torch.empty(need, dtype=torch.uint8,
+                                                device=gidx.device)
+    fn = lib.campaign_fold_launch
+    fn.argtypes = [ctypes.POINTER(_FoldArgs), ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(gidx.device).cuda_stream
     with torch.cuda.device(gidx.device):
-        err = fn(ctypes.byref(args), stream)
+        err = fn(ctypes.byref(args), work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"campaign_fold kernel launch failed: CUDA "
                            f"error {err}")
@@ -347,6 +369,31 @@ def campaign_fold(acc: FoldAcc, chunk: Dict[str, torch.Tensor],
 
 
 campaign_fold.launches = 0
+
+
+def chain_floor(dev: torch.device, m: int) -> torch.Tensor:
+    """Launch one thread's chain of ``m`` dependent float64 additions on
+    ``dev`` (``csrc/campaign_fold.cu``'s floor of the ordered tail, for
+    timing: the fold's sums cannot run faster); returns its result, 0 +
+    m in float64.  Its operands live on the device between calls, so a
+    call copies nothing from the host."""
+    from repro_torch.kernels._build import library
+
+    if dev not in _CHAIN:
+        _CHAIN[dev] = (torch.tensor([0.0, 1.0], dtype=torch.float64,
+                                    device=dev),
+                       torch.empty(1, dtype=torch.float64, device=dev))
+    x, out = _CHAIN[dev]
+    fn = library("campaign_fold").campaign_fold_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), out.data_ptr(), m,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chain_floor launch failed: CUDA error {err}")
+    return out
 
 
 def fold_min_bytes(m: int, n_bins: int, *, has_loss: bool, sketch: bool,

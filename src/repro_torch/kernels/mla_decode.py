@@ -22,11 +22,12 @@ dtypes it does not take and, on the card, on widths other than
 DeepSeek-V2-Lite's (``SHAPES``: 16 heads, rank 512, rope 64) and on
 misaligned pointers.  On the card the cache axis is split across blocks
 (``mla_splits``, from the shapes and the card's SM count, never from
-``lengths``) and a second kernel merges the splits' partials in split
-order, through a workspace kept per device.  A failed build or launch
-raises: there is no fallback.  ``mla_decode_attention.launches`` counts
-the wrapper calls that launch the kernel, one per call however many
-kernels it issues.  A ``meta`` tensor takes the shape function (the
+``lengths``) and each row's last block to finish merges the splits'
+partials in split order, through a workspace and an int32 arrival
+counter a row kept per device (the counters return to zero at the end
+of every launch).  A failed build or launch raises: there is no
+fallback.  ``mla_decode_attention.launches`` counts the wrapper calls
+that launch the kernel, one per call.  A ``meta`` tensor takes the shape function (the
 output, empty; ``meta_calls``); a DTensor (a device mesh) raises
 ``NotImplementedError``: the latent cache's merge is ROADMAP A11b.
 """
@@ -49,14 +50,17 @@ __all__ = ["SHAPES", "TILE", "mla_decode_attention",
 # (heads, kv_lora_rank, qk_rope_head_dim) the CUDA kernel is built for:
 # DeepSeek-V2-Lite's
 SHAPES = ((16, 512, 64),)
-# cache positions per tile of the CUDA kernel; a split is whole tiles
-TILE = 32
-# the split aims at this many blocks per SM
-BLOCKS_PER_SM = 2
+# cache positions per tile of the CUDA kernel (bf16; a float32 tile is
+# half of one); a split is whole tiles
+TILE = 64
+# a split's partial, read back by its row's last block, costs about
+# this share of a tile's work (mla_splits' cost)
+MERGE_COST = 1 / 16
 MAX_SPLITS = 64
 
-# per device: the split workspace
+# per device: the split workspace and the rows' arrival counters
 _WORK: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _check(q_abs, q_pe, c_kv, k_pe, lengths) -> None:
@@ -118,21 +122,36 @@ def mla_decode_attention_plain(q_abs: torch.Tensor, q_pe: torch.Tensor,
 
 def mla_splits(b: int, s: int, sms: int) -> Tuple[int, int]:
     """``(splits, chunk)`` for ``b`` rows of an ``s``-position cache on a
-    card with ``sms`` SMs: enough splits that the ``(splits, b)`` grid
-    gives every SM about ``BLOCKS_PER_SM`` blocks, but no more than the
-    cache has tiles nor ``MAX_SPLITS``; ``chunk`` is a whole number of
-    tiles and ``splits`` slices of it cover the cache, none of them
-    wholly past its end."""
+    card with ``sms`` SMs, which hold one block each: the split count
+    (at most the cache's tiles and ``MAX_SPLITS``) whose waves of
+    ``(splits, b)`` blocks times the tiles a block walks, plus
+    ``MERGE_COST`` a split merged, is least (the fewest splits on a
+    tie); ``chunk`` is a whole number of tiles and ``splits`` slices of
+    it cover the cache, none of them wholly past its end."""
     tiles = max(1, -(-s // TILE))
-    want = -(-BLOCKS_PER_SM * sms // max(1, b))
-    splits = max(1, min(want, tiles, MAX_SPLITS))
-    chunk = -(-tiles // splits) * TILE
+    best = None
+    for want in range(1, min(tiles, MAX_SPLITS) + 1):
+        per = -(-tiles // want)
+        n = -(-tiles // per)
+        cost = -(-b * n // sms) * per + (n - 1) * MERGE_COST
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    chunk = best[1] * TILE
     return max(1, -(-s // chunk)), chunk
 
 
 def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
     """This kernel's split workspace on ``dev`` (``_WORK``)."""
     return float_workspace(_WORK, dev, floats)
+
+
+def _counters(dev: torch.device, rows: int) -> torch.Tensor:
+    """The rows' int32 arrival counters on ``dev`` (``_COUNTERS``): zero
+    when made, and every launch leaves them zero."""
+    have = _COUNTERS.get(dev)
+    if have is None or have.numel() < rows:
+        _COUNTERS[dev] = torch.zeros(rows, dtype=torch.int32, device=dev)
+    return _COUNTERS[dev]
 
 
 def _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale: float,
@@ -145,23 +164,26 @@ def _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale: float,
         raise ValueError(f"the CUDA mla_decode_attention is built for "
                          f"(heads, rank, rope) in {SHAPES}, got "
                          f"{(h, r, p)}")
-    # the kernel stages the cache 16 bytes at a time
-    check_aligned("mla_decode_attention", c_kv, k_pe)
-    if b > 65535 or s >= 1 << 30 or abs(window) >= 1 << 31:
+    # the kernel reads q and stages the cache 16 bytes at a time
+    check_aligned("mla_decode_attention", q_abs, q_pe, c_kv, k_pe)
+    if b > 65535 or b * s >= 1 << 31 or abs(window) >= 1 << 31:
         raise ValueError(f"shape {tuple(c_kv.shape)} / window {window} too "
                          f"large for one launch")
     splits, chunk = mla_splits(b, s, sm_count(q_abs.device))
-    ws = (_workspace(q_abs.device, splits * b * h * (r + 2)).data_ptr()
-          if splits > 1 else None)
+    ws = cnt = None
+    if splits > 1:
+        ws = _workspace(q_abs.device, splits * b * h * (r + 2)).data_ptr()
+        cnt = _counters(q_abs.device, b).data_ptr()
     fn = library("mla_decode").mla_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     with torch.cuda.device(q_abs.device):
         err = fn(q_abs.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(),
-                 k_pe.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws, b,
+                 k_pe.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
+                 cnt, b,
                  s, h, r, p, DTYPE_CODE[c_kv.dtype], float(scale),
                  int(window), chunk, splits, stream)
     if err != 0:
