@@ -209,7 +209,9 @@ printing one JSON line per phase:
                    campaign path's shapes (8,192 × 512 counts; 8,192 ×
                    64 in sketch mode with the per-bin sums), with and
                    without the loss counters, NaN / inf points, tied
-                   values and a padded tail, and the campaign path's
+                   values and a padded tail, ``k_top`` up to 2,048 (the
+                   lists past 1,908 slots walked in the accumulator's
+                   device memory), and the campaign path's
                    own case (a loss grid, every lane valid), two
                    chunks in a row, each fold launched twice and held
                    bitwise; kernel, plain and bound times (bytes once
@@ -297,10 +299,13 @@ printing one JSON line per phase:
                    final state each within 2e-3 (bf16) and 1e-4
                    (float32) max abs, the reference API's y bit for bit
                    the model call's rounded to x's dtype, and every
-                   bf16 case launched twice with bitwise equal y and
+                   case launched twice with bitwise equal y and
                    state; each case's split count; kernel, plain and
                    bound times (no single PyTorch call computes the
-                   SSD, so no library time).
+                   SSD, so no library time) of the serve, long, batch-1
+                   and float32 (B 4 × 300) shapes; the float32 route
+                   runs 3xTF32 on the tensor cores, bounded at 494.7 /
+                   3 TFLOP/s with ``bound_ms_cuda_cores`` at 67 beside.
 28. serve_ssm    — ``python -m repro_torch.launch.serve --arch
                    mamba2-2.7b --full --workload generate --rho 0.5
                    --jobs 300 --max-batch 32`` through its ``run``: all
@@ -365,7 +370,7 @@ printing one JSON line per phase:
                    2e-3 (bf16) / 1e-4: the serve shape (B 32, S 32),
                    the long shape (S 1,024) and batch 1 at S 1,024
                    (split) timed, ragged S 1,000 at B 4 and B 1, float32
-                   at B 32 × 32 and B 2 × 300, every bf16 case twice
+                   at B 32 × 32 and B 2 × 300 (timed), every case twice
                    bitwise; B3 and B4 at Jamba's attention heads (32
                    over 8 of 128) at the serve batches, batch 32 timed,
                    and in float32.
@@ -489,8 +494,9 @@ printing one JSON line per phase:
                    512 (all timed against the plain backward; bound: x,
                    dt, B, C, dy in and dx, ddt, dB, dC out once over
                    3.35 TB/s, or 8 · hd · ds flops a step and head over
-                   the float32 CUDA cores' 67 TFLOP/s, whichever is
-                   larger), a ragged (32, 16) case at B 1 × 1,023 with 8
+                   the tensor cores' rate, 3xTF32's 494.7 / 3 TFLOP/s
+                   in float32 with ``bound_ms_cuda_cores`` at 67 beside,
+                   whichever is larger), a ragged (32, 16) case at B 1 × 1,023 with 8
                    heads over 2 groups, and a non-zero gradient of the
                    final state at both widths.
 49. train_ssm    — ``launch.train --arch mamba2-2.7b --steps 10 --batch
@@ -522,7 +528,9 @@ printing one JSON line per phase:
                    forward and backward counts from the
                    config (whisper: encoder self, decoder self and
                    cross), finite losses and grad norms, the peak under
-                   the card's.
+                   the card's; then whisper-medium whole through
+                   ``launch.train`` (its batches carry the zero frames,
+                   ROADMAP C-R6), two steps at 2 × 256.
 53. mesh_train   — ``launch.train``'s ``run(distribute=True)`` on the
                    one-rank NCCL host mesh (``make_host_mesh``: its own
                    group over a ``HashStore``, destroyed after), where
@@ -575,10 +583,13 @@ add ``audio_launches`` and ``vlm_launches`` from ``serve_audio`` and
 of the forward with ``lse`` at the training shape; the
 ``flash_attention_backward`` row, a kernel of the port with no TPU
 counterpart, is timed at the training shape with ``long_*``,
-``batch1_*`` and ``f32_*``; the ``ssd_scan_backward`` row, also with
-no TPU counterpart, takes its launches from ``train_ssm`` and its times
-at mamba2-2.7b's training shape, with ``f32_*``, ``long_*`` and
-``hybrid_*`` beside), the
+``batch1_*`` and ``f32_*``; the ``ssd_scan`` row adds ``f32_*``,
+``hybrid_f32_*`` and ``hybrid_f32_ragged_*`` (its
+float32 route, 3xTF32 on the tensor cores, bound at 3xTF32's rate with
+``*_bound_ms_cuda_cores`` at 67 TFLOP/s beside); the
+``ssd_scan_backward`` row, also with no TPU counterpart, takes its
+launches from ``train_ssm`` and its times at mamba2-2.7b's training
+shape, with ``f32_*``, ``long_*`` and ``hybrid_*`` beside), the
 nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -664,10 +675,10 @@ from repro_torch.train.data import DataConfig, SyntheticCorpus  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 40_000_000          # ≈ 20 ms at the H100's 1.98 GHz
 # H100 SXM dense peaks: bf16 on the tensor cores, float32 on the CUDA
-# cores (B4's and B5's float32 kernels)
+# cores (B4's float32 kernel)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# B3's float32 kernels, forward and backward, and MLA decode's products
-# over a float32 cache run on the TF32 tensor
+# B3's and B5's float32 kernels, forward and backward, and MLA decode's
+# products over a float32 cache run on the TF32 tensor
 # cores as 3xTF32: three TF32 products (494.7 TFLOP/s dense) a float32
 # product; the 67 TFLOP/s figure is reported beside as
 # bound_ms_cuda_cores
@@ -826,6 +837,9 @@ _CHILDREN: list = []
 # bytes a parameter) with the activations under 80 GB: OLMoE's 16 layers
 # hold 6.9 B parameters (83 GB), DeepSeek-V2-Lite's 27 hold 15.7 B
 # (188 GB); its first layer is the dense lead, then two MoE layers
+# whisper through launch.train (its batches carry zero frames)
+TRAIN_AUDIO_ARGS = ["--arch", AUDIO_ARCH, "--steps", "2", "--batch", "2",
+                    "--seq", "256"]
 TRAIN_FAMILIES = (("olmoe-1b-7b", 4), ("deepseek-v2-lite-16b", 3),
                   ("whisper-medium", 0), ("internvl2-1b", 0))
 
@@ -2880,6 +2894,9 @@ FOLD_CASES = {
     "k_top_256": (64, False, True, True, 0, 256, False),
     "n_valid_0": (512, True, False, False, None, DEFAULT_TOP_K, False),
     "tied": (512, True, False, False, 0, DEFAULT_TOP_K, True),
+    "k_top_257": (64, True, False, True, 5, 257, False),
+    "k_top_2048": (64, False, False, False, 0, 2048, False),
+    "k_top_1024": (512, True, False, False, 0, 1024, False),
 }
 # the cases timed (the kernels line's headline and two more)
 FOLD_TIMED = ("loss", "full", "full_loss_nan", "sketch")
@@ -2896,7 +2913,8 @@ def phase_campaign_fold(dev, m: int = 8192) -> dict:
     random chunks of the campaign path's shapes (8,192 × 512 counts;
     8,192 × 64 in sketch mode, with the per-bin sums), with and without
     the loss counters, with NaN / inf points, tied values, every value
-    tied, a padded tail (n_valid < m, and 0), k_top 1, 16 and 256, two
+    tied, a padded tail (n_valid < m, and 0), k_top 1, 16, 256, 257 and
+    1,024 (lists in shared memory) and 2,048 (in device memory), two
     chunks in a row into a non-empty accumulator; each fold launched
     twice from the same accumulator and held bitwise.  Kernel, plain
     and bound times (bytes once over 3.35 TB/s) of the timed cases, and
@@ -3904,8 +3922,7 @@ def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False,
           f"ssd_scan vs plain: {case}")
     check(torch.equal(api, y.to(dtype)),
           f"ssd_scan's y is the model call's, rounded: {case}")
-    check(dtype != torch.bfloat16
-          or (torch.equal(y, again[0]) and torch.equal(h, again[1])),
+    check(torch.equal(y, again[0]) and torch.equal(h, again[1]),
           f"ssd_scan repeats bitwise (split combine included): {case}")
     if timed:
         elt = torch.finfo(dtype).bits // 8
@@ -3917,10 +3934,14 @@ def _check_ssd(dev, dtype, b, s, *, g=1, seed=0, timed=False,
         # the state, and the state against C
         flops = 4 * b * s * nh * hd * ds
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        # both routes run on the tensor cores (float32 as 3xTF32)
+        t_ops = flops / FLASH_PEAK_FLOPS[dtype] * 1e3
         case.update(bytes=bytes_moved, flops=flops,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if dtype == torch.float32:
+            case["bound_ms_cuda_cores"] = max(
+                t_bytes, flops / PEAK_FLOPS[dtype] * 1e3)
         case["kernel_ms"] = time_ms(lambda: ssd_chunked(*args,
                                                         cfg.chunk_size))
         case["plain_ms"] = time_ms(lambda: ssd_scan_plain(
@@ -3937,8 +3958,8 @@ def phase_ssd_kernel(dev) -> dict:
     """B5 against its plain version on the card at the Mamba2 serve
     path's shapes (timed), the batches around the split rule's steps
     (B 1, 2, 4 at S 1,024), ragged lengths split and unsplit, batch 1
-    at the serve prompt, float32 and two groups; every bf16 case twice,
-    bitwise."""
+    at the serve prompt, float32 (timed, B 4 × 300) and two groups;
+    every case twice, bitwise."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3948,12 +3969,13 @@ def phase_ssd_kernel(dev) -> dict:
            "batch1": _check_ssd(dev, bf16, 1, SSM_LONG, seed=3, timed=True)}
     cases = list(out.values()) + [
         _check_ssd(dev, bf16, 32, 1000, seed=4),
-        _check_ssd(dev, f32, 4, 300, seed=5),
+        _check_ssd(dev, f32, 4, 300, seed=5, timed=True),
         _check_ssd(dev, bf16, 4, 1000, g=2, seed=6),
         _check_ssd(dev, bf16, 2, SSM_LONG, seed=7),
         _check_ssd(dev, bf16, 4, SSM_LONG, seed=8),
         _check_ssd(dev, bf16, 1, 1000, seed=9),
         _check_ssd(dev, bf16, 1, SSM_PROMPT, seed=10)]
+    out["f32"] = cases[4]
     emit("ssd_kernel", cases=cases,
          worst_bf16=max(c["max_abs_err"] for c in cases
                         if c["dtype"] == str(bf16)),
@@ -4369,8 +4391,9 @@ def _worst(cases) -> dict:
 def phase_hybrid_kernels(dev) -> dict:
     """B5 at Jamba's widths (128 heads of 64, d_state 16, one group)
     against its plain version: the serve shape, the long shape and batch
-    1 at S 1,024 (split) timed, ragged S 1,000 at B 4 and B 1, float32;
-    every bf16 case twice, bitwise.  B3 and B4 at Jamba's attention heads
+    1 at S 1,024 (split) timed, ragged S 1,000 at B 4 and B 1, float32
+    at the serve shape and ragged B 2 × 300 (timed); every case twice,
+    bitwise.  B3 and B4 at Jamba's attention heads
     (32 over 8 kv heads of 128) at the serve path's batches, batch 32
     timed, and in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4386,8 +4409,10 @@ def phase_hybrid_kernels(dev) -> dict:
     cases = list(out.values()) + [
         _check_ssd(dev, bf16, 4, 1000, seed=104, model=model),
         _check_ssd(dev, bf16, 1, 1000, seed=105, model=model),
-        _check_ssd(dev, f32, 32, SSM_PROMPT, seed=106, model=model),
-        _check_ssd(dev, f32, 2, 300, seed=107, model=model)]
+        _check_ssd(dev, f32, 32, SSM_PROMPT, seed=106, model=model,
+                   timed=True),
+        _check_ssd(dev, f32, 2, 300, seed=107, model=model, timed=True)]
+    out["ssd_f32_serve"], out["ssd_f32"] = cases[-2], cases[-1]
     h, kv, hd = model.num_heads, model.num_kv_heads, model.head_dim
     cache = SERVE_PROMPT + SERVE_GEN + 1
     for b in (1, 2, 4, 8, 16):
@@ -5190,10 +5215,14 @@ def _check_ssd_backward(dev, dtype, b, s, *, g=1, seed=0, timed=False,
         # flops a multiply-add, a step and head
         flops = 8 * b * s * nh * hd * ds
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        # both routes run on the tensor cores (float32 as 3xTF32)
+        t_ops = flops / FLASH_PEAK_FLOPS[dtype] * 1e3
         case.update(bytes=bytes_moved, flops=flops,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if dtype == torch.float32:
+            case["bound_ms_cuda_cores"] = max(
+                t_bytes, flops / PEAK_FLOPS[dtype] * 1e3)
         case["kernel_ms"] = time_ms(lambda: ssd_scan_backward(*args))
         case["plain_ms"] = time_ms(lambda: ssd_scan_backward_plain(*args),
                                    reps=3, warm=1)
@@ -5320,7 +5349,10 @@ def phase_train_families(dev, steps: int = 2, b: int = 2,
     them: on the reference trainer's zero rows every one of its 48
     RMSNorms multiplies those rows' gradient by rsqrt(1e-6) = 1,000,
     which overflows float32 and leaves NaN weight gradients, in the
-    reference as in the port (ROADMAP C-R5)."""
+    reference as in the port (ROADMAP C-R5).  Then whisper-medium whole
+    through ``launch.train`` (``TRAIN_AUDIO_ARGS``), whose batches carry
+    the zero frames (``launch_batch``; C-R6): 72 B3 forward and backward
+    calls a step."""
     total = torch.cuda.get_device_properties(dev).total_memory
     out = {}
     for arch, layers in TRAIN_FAMILIES:
@@ -5366,6 +5398,14 @@ def phase_train_families(dev, steps: int = 2, b: int = 2,
                          aux=float(m["aux"]))
         del model, state, m
         torch.cuda.empty_cache()
+    # whisper through the launcher as a user runs it: its batches carry
+    # the reference trainer's zero frames (launch_batch)
+    n = _attention_calls(get_config(AUDIO_ARCH))
+    launcher = _train_model(
+        dev, "train_families launch.train whisper", TRAIN_AUDIO_ARGS,
+        _launch_counts(flash_attention=n, flash_attention_backward=n),
+        falling=False)
+    out["whisper_launcher"] = launcher
     emit("train_families", device_mem_bytes=total, runs=out)
     return out
 
@@ -5913,7 +5953,16 @@ def _main() -> int:
                                    ("batch1_", "batch1"))
                for k, key in batch1_keys + (("bound_by", "bound_by"),)},
             hybrid_splits={k: hybrid[f"ssd_{k}"]["splits"]
-                           for k in ("serve", "long", "batch1")}),
+                           for k in ("serve", "long", "batch1")},
+            # float32 (3xTF32 tensor-core tiles): ssd_kernel's B 4 × 300
+            # and Jamba's serve and ragged shapes
+            **{f"{case}{k}": src[key]
+               for case, src in (("f32_", ssd["f32"]),
+                                 ("hybrid_f32_", hybrid["ssd_f32_serve"]),
+                                 ("hybrid_f32_ragged_", hybrid["ssd_f32"]))
+               for k, key in batch1_keys + (
+                   ("bound_by", "bound_by"),
+                   ("bound_ms_cuda_cores", "bound_ms_cuda_cores"))}),
         # a kernel of the port with no TPU counterpart: the reference
         # trains through jax.grad of its sdpa; timed at the training
         # shape, with the long, batch-1 and float32 shapes beside
@@ -5950,7 +5999,8 @@ def _main() -> int:
                                for k in ssd_bwd),
             **{f"{case}_{k}": ssd_bwd[case][key]
                for case in ("f32", "long", "hybrid")
-               for k, key in batch1_keys + (("bound_by", "bound_by"),)}),
+               for k, key in batch1_keys + (("bound_by", "bound_by"),)},
+            f32_bound_ms_cuda_cores=ssd_bwd["f32"]["bound_ms_cuda_cores"]),
         # a kernel of the port with no TPU counterpart: the reference's
         # float32 einsum chain of MLA decode, timed at serve_mla's last
         # decode step (B 32 over the 37-slot cache)

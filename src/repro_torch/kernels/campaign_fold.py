@@ -33,7 +33,9 @@ Backends:
   a chunk, in place on the accumulator, on the current stream, no
   synchronisation: a wide pass that prepares every row into a workspace
   kept per device, then the ordered tail (the float64 chains and the
-  top-K walks) beside the histogram counts;
+  top-K walks) beside the histogram counts; any ``k_top >= 1``: lists
+  of up to 1,908 slots are walked in shared memory, longer ones in the
+  accumulator's own slots, in the same order;
 - ``campaign_fold_plain`` (any device; the wrapper takes it for CPU
   tensors): the integer fields and the max vectorised, ``hist_sums`` in
   a loop over points vectorised over bins, and the scalar sums and the
@@ -58,7 +60,7 @@ import torch
 __all__ = ["FoldAcc", "ACC_INT", "ACC_F64", "SUMMARY_KEYS", "Z95",
            "campaign_fold", "campaign_fold_plain", "chain_floor",
            "fold_min_bytes",
-           "summary_dict", "K_TOP_MAX"]
+           "summary_dict"]
 
 # the accumulator's scalar fields, in the reference's order
 ACC_INT = ("points", "jobs", "batches", "buffer_dropped",
@@ -73,8 +75,6 @@ SUMMARY_KEYS = ("points", "jobs", "buffer_dropped", "quarantined",
                 "overflow_dropped", "abandoned")
 # two-sided 95% normal quantile (repro_torch.core.variance.Z95)
 Z95 = 1.959963984540054
-# the kernel keeps both top-K lists in shared memory
-K_TOP_MAX = 256
 
 # per device: the kernels' row workspace (bytes), and chain_floor's
 # operands
@@ -293,9 +293,6 @@ def _launch_cuda(acc: FoldAcc, chunk, gidx, n_valid: int, m: int,
                  has_loss: bool, sketch: bool, summary) -> None:
     from repro_torch.kernels._build import library
 
-    if acc.k_top > K_TOP_MAX:
-        raise ValueError(f"the CUDA fold keeps at most {K_TOP_MAX} top-K "
-                         f"slots, got k_top={acc.k_top}")
     if m >= 1 << 31:
         raise ValueError(f"too many points for one launch: {m}")
     if sketch and (acc.n_bins % 4 or chunk["hist_sums"].data_ptr() % 16):

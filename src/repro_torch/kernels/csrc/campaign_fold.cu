@@ -50,6 +50,13 @@
 //       slot found again by a shuffle reduction (ties to the lowest
 //       slot).  Skipping a row that does not beat the running minimum is
 //       exact: the minimum never falls, so the row could never enter.
+//       The two lists live in the block's shared memory, beside the
+//       three staging tiles, up to kTopSmem slots each (1,908: the room
+//       the sketch blocks' larger stages leave, so the launch's shared
+//       memory does not grow with k); a longer list is walked in place
+//       in the accumulator's own slots in device memory, in the same
+//       order (a replacement is lane 0's store, made visible to the
+//       warp's next scan by __syncwarp).
 //       Warp 3 combines the blocks' max_ci in block order.
 //     sketch blocks, one per 64 bins: thread b runs bin b's hist_sums
 //       chain over rows that the block's other threads stage the same
@@ -86,7 +93,6 @@ constexpr int kTailRows = 256;     // rows a tail tile
 constexpr int kTailWalkers = 96;   // the tail's warps 0-2 walk, the rest
                                    // stage (a sketch block: past its bins)
 constexpr int kStages = 3;
-constexpr int kTopMax = 256;       // top-K slots kept in shared memory
 constexpr int kNumInt = 10;        // the accumulator's int64 counters
 constexpr int kNumF64 = 5;         // its float64 sums and max_ci
 constexpr double kZ95 = 1.959963984540054;
@@ -288,17 +294,6 @@ __global__ void __launch_bounds__(kRowThreads)
 
 // ----------------------------------------------------------- fold_tail
 
-struct TailSmem {
-  static constexpr int kT = 0;                               // 4 x rows
-  static constexpr int kVl = kT + 4 * kTailRows * 8;
-  static constexpr int kVg = kVl + kTailRows * 8;
-  static constexpr int kOk = kVg + kTailRows * 8;
-  static constexpr int kStage = kOk + kTailRows;
-  static constexpr int kVals = kStages * kStage;              // 2 x K
-  static constexpr int kIdx = kVals + 2 * kTopMax * 8;
-  static constexpr int kBytes = kIdx + 2 * kTopMax * 8;
-};
-
 struct SumSmem {
   static constexpr int kV = 0;                               // rows x bins
   static constexpr int kOk = kV + kSumRows * kSumBins * 4;
@@ -306,8 +301,24 @@ struct SumSmem {
   static constexpr int kBytes = kStages * kStage;
 };
 
-constexpr int kTailSmem =
-    TailSmem::kBytes > SumSmem::kBytes ? TailSmem::kBytes : SumSmem::kBytes;
+// The launch's dynamic shared memory, the sketch blocks' stages; the
+// tail block's stages, then its two lists (values, then indices, k
+// apart) in what is left.
+constexpr int kTailSmem = SumSmem::kBytes;
+
+struct TailSmem {
+  static constexpr int kT = 0;                               // 4 x rows
+  static constexpr int kVl = kT + 4 * kTailRows * 8;
+  static constexpr int kVg = kVl + kTailRows * 8;
+  static constexpr int kOk = kVg + kTailRows * 8;
+  static constexpr int kStage = kOk + kTailRows;
+  static constexpr int kVals = kStages * kStage;              // 2 x k
+};
+
+// the longest lists kept in shared memory: 2 x k values and 2 x k
+// indices of 8 bytes
+constexpr int kTopSmem = (kTailSmem - TailSmem::kVals) / 32;
+static_assert(kTopSmem >= 256, "the lists of the default k_top fit");
 
 // the prepared rows [i0, i0 + kTailRows) into a tail stage; nothing is
 // read at or past m
@@ -367,13 +378,20 @@ __device__ void tail_block(const FoldArgs& a, const Work& w, int n_blocks,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nb = a.n_bins, k = a.k_top;
   double* f64 = a.floats + nb;
-  double* vals = reinterpret_cast<double*>(smem + TailSmem::kVals);
-  long long* idxs = reinterpret_cast<long long*>(smem + TailSmem::kIdx);
-  for (int j = tid; j < k; j += kThreads) {
-    idxs[j] = a.ints[nb + kNumInt + j];
-    idxs[kTopMax + j] = a.ints[nb + kNumInt + k + j];
-    vals[j] = a.floats[nb + kNumF64 + j];
-    vals[kTopMax + j] = a.floats[nb + kNumF64 + k + j];
+  // the two lists, values then indices, k apart: in shared memory when
+  // they fit, else the accumulator's own slots
+  const bool in_smem = k <= kTopSmem;
+  double* vals = in_smem ? reinterpret_cast<double*>(smem + TailSmem::kVals)
+                         : a.floats + nb + kNumF64;
+  long long* idxs = in_smem ? reinterpret_cast<long long*>(
+                                  smem + TailSmem::kVals + 16 * k)
+                            : reinterpret_cast<long long*>(a.ints) + nb +
+                                  kNumInt;
+  if (in_smem) {
+    for (int j = tid; j < 2 * k; j += kThreads) {
+      idxs[j] = a.ints[nb + kNumInt + j];
+      vals[j] = a.floats[nb + kNumF64 + j];
+    }
   }
   const int n_tiles = static_cast<int>((a.m + kTailRows - 1) / kTailRows);
 #pragma unroll
@@ -389,8 +407,8 @@ __device__ void tail_block(const FoldArgs& a, const Work& w, int n_blocks,
   // warp 0 lanes 0-3: the sums; warps 1, 2: the lists
   double acc = lane < 4 && warp == 0 ? f64[lane] : 0.0;
   const int list = warp - 1;
-  double* lv = vals + (list & 1) * kTopMax;
-  long long* li = idxs + (list & 1) * kTopMax;
+  double* lv = vals + (list & 1) * k;
+  long long* li = idxs + (list & 1) * k;
   int am = 0;
   double cur = 0.0;
   if (warp == 1 || warp == 2) first_min(lv, k, am, cur);
@@ -451,11 +469,11 @@ __device__ void tail_block(const FoldArgs& a, const Work& w, int n_blocks,
     f64[4] = mx;
   }
   __syncthreads();
-  for (int j = tid; j < k; j += kThreads) {
-    a.ints[nb + kNumInt + j] = idxs[j];
-    a.ints[nb + kNumInt + k + j] = idxs[kTopMax + j];
-    a.floats[nb + kNumF64 + j] = vals[j];
-    a.floats[nb + kNumF64 + k + j] = vals[kTopMax + j];
+  if (in_smem) {
+    for (int j = tid; j < 2 * k; j += kThreads) {
+      a.ints[nb + kNumInt + j] = idxs[j];
+      a.floats[nb + kNumF64 + j] = vals[j];
+    }
   }
 }
 
@@ -599,11 +617,13 @@ extern "C" int64_t campaign_fold_work_bytes(int64_t m) {
 
 // Fold on `stream`: fold_rows, then fold_tail.  work: the workspace of
 // campaign_fold_work_bytes(m) bytes, 16-byte aligned; the summary zero;
-// in sketch mode n_bins % 4 == 0 and hist_sums 16-byte aligned.
+// in sketch mode n_bins % 4 == 0 and hist_sums 16-byte aligned.  Any
+// k_top >= 1: the lists of more than kTopSmem slots are walked in the
+// accumulator's device memory.
 extern "C" int campaign_fold_launch(const FoldArgs* args, void* work,
                                     void* stream) {
   const FoldArgs a = *args;
-  if (a.k_top < 1 || a.k_top > kTopMax || a.m < 0 || a.n_bins < 1 ||
+  if (a.k_top < 1 || a.m < 0 || a.n_bins < 1 ||
       work == nullptr || reinterpret_cast<uintptr_t>(work) % 16 != 0 ||
       (a.sketch && (a.n_bins % 4 != 0 ||
                     reinterpret_cast<uintptr_t>(a.hist_sums) % 16 != 0)))

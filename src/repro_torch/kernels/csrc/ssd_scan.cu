@@ -23,10 +23,10 @@
 // and C are read through a batch and a time stride, so the model's
 // slices of one (B, S, 2 g ds) activation need no copy.
 //
-// Which kernel runs.  bfloat16 inputs run ssd_scan_kernel_bf16, on the
-// tensor cores; float32 inputs run ssd_scan_kernel, on the CUDA cores
-// (the tensor cores would round float32 through TF32, far outside the
-// float32 gate of 1e-4).
+// Which kernel runs.  bfloat16 inputs run ssd_scan_kernel_bf16 and
+// float32 inputs ssd_scan_kernel_f32, both on the tensor cores; float32
+// takes each product as 3xTF32 (one TF32 term would round float32 far
+// outside the float32 gate of 1e-4).
 //
 // bf16 design.  One block of hd / 16 warps (4 at hd 64) serves one
 // (piece, head, batch row); warp w owns rows [16 w, 16 w + 16) of h and
@@ -75,20 +75,35 @@
 // and h_S once moves ~1.12 GB: ~0.33 ms at 3.35 TB/s, so bytes bound
 // it.  The bf16 kernel's dual form issues ~260 GFLOP of mma.sync, 3x
 // the bound's operations, still under the bytes at the tensor cores'
-// rate.
+// rate.  In float32 the operations bound it: at B 4 x 300 on mamba2,
+// 3.15 GFLOP at 3xTF32's 164.9 TFLOP/s, 0.019 ms, over ~61 MB (0.018
+// ms at 3.35 TB/s); at the CUDA cores' 67 TFLOP/s it would be 0.047.
 //
-// float32 design (the port's first SSD kernel, instantiated for float32
-// only).  One block of 256 threads serves one (head, batch row) in
-// tiles of 64 steps, everything in float32 on the CUDA cores:
-//   1. stage x, B, C and dt of the tile in shared memory as float32;
-//   2. one warp takes the prefix sum cum of dt*A, and the weights w;
-//   3. G_ij = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0;
-//   4. y_i = sum_j G_ij x_j + exp(cum_i) C_i . h, straight to global;
-//   5. h <- h exp(total) + sum_j w_j x_j (x) B_j.
-// Each thread keeps its 2-D register tile of each product, and its
-// share of h lives in registers across the whole walk, mirrored in
-// shared memory (rows padded by one float against bank conflicts) for
-// step 4.
+// float32 design (tensor cores, 3xTF32).  The same shape as the bf16
+// kernel: one block of hd / 16 warps per (head, batch row), warp w
+// owning rows [16 w, 16 w + 16) of h and of y's columns, h in float32
+// accumulators across the whole walk; x, B and C staged as float32 by
+// 16-byte cp.async, two stages deep, in tiles of T = 32 steps (at 64 a
+// block would take 187 KB and run alone on its SM; at 32, 93,952 bytes
+// at (64, 128), two blocks an SM; 36,608 at (64, 16)).  Rows are padded
+// to 8 mod 32 floats, so that both fragment loads below meet 32
+// distinct banks.  Every product is mma.sync m16n8k8 tf32 -> float32 as
+// 3xTF32 (tensor_core.cuh: each operand split into a TF32 big term and
+// a small term as it is loaded, small . big + big . small + big . big):
+//   (a) scores = C B^T over the block triangle's three 16 x 16 blocks,
+//       a k-step's columns relabelled in pairs (one float2 a row); M =
+//       scores o exp(cum_i - cum_j) o dt_j for j <= i (the exponent only
+//       there), else 0, in shared memory as float32;
+//   (c) C h^T: h's B fragments are the state update's accumulators in
+//       registers, whose column pairs the relabelled k-step matches;
+//       skipped while h is 0, then scaled by exp(cum_i);
+//   (b) M x, x read in its natural [step][column] layout;
+//   (d) h <- h exp(total) + (w o x)^T B, (w o x)^T's fragments formed
+//       once a tile in registers.
+// Each of y's two parts and each tile's state update is summed in
+// zeroed fragments (the tensor cores' float32 sums truncate), and they
+// are added to each other and to h in round-to-nearest.  The tile's
+// 16-row blocks and 8-step k-steps wholly past the end are skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,255 +113,296 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;                // time steps per tile
-constexpr int kSide = 16;                // 16 x 16 threads over T x T, T x hd
-constexpr int kRows = kTile / kSide;     // rows of a thread's tile
-static_assert(kTile == 64, "the prefix sum gives each lane two steps");
-static_assert(kSide * kSide == kThreads, "thread grid");
+// ------------------------------------------------------------------ f32
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-// Shared-memory layout, in floats.
+// Shared-memory layout of the float32 kernel, in bytes: two stages of
+// (x, B, C rows padded to 8 mod 32 floats; dt), then M of the tile
+// (rows padded to 4 mod 32: its natural A loads), then each warp's own
+// prefix sum cum and weights w.
 template <int HD, int DS>
-struct Smem {
-  static constexpr int kPitch = DS + 1;          // h, B and C rows
-  static constexpr int kGPitch = kTile + 1;      // G rows
-  static constexpr int kH = 0;                   // h    HD x kPitch
-  static constexpr int kX = kH + HD * kPitch;    // x    kTile x HD
-  static constexpr int kB = kX + kTile * HD;     // B    kTile x kPitch
-  static constexpr int kC = kB + kTile * kPitch; // C    kTile x kPitch
-  static constexpr int kG = kC + kTile * kPitch; // G    kTile x kGPitch
-  static constexpr int kDt = kG + kTile * kGPitch;
-  static constexpr int kCum = kDt + kTile;
-  static constexpr int kW = kCum + kTile;
-  static constexpr int kFloats = kW + kTile;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
+struct F32Smem {
+  static constexpr int T = 32;                   // steps a tile
+  static constexpr int kWarps = HD / 16;         // one per 16 rows of h
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kXS = HD + 8;             // floats per padded row
+  static constexpr int kBS = DS + 8;
+  static constexpr int kMS = T + 4;
+  static constexpr int kB = 4 * T * kXS;         // offsets in a stage
+  static constexpr int kC = kB + 4 * T * kBS;
+  static constexpr int kDt = kC + 4 * T * kBS;
+  static constexpr int kStage = kDt + 4 * T;
+  static constexpr int kM = 2 * kStage;
+  static constexpr int kScan = kM + 4 * T * kMS;
+  static constexpr int kBytes = kScan + kWarps * 2 * 4 * T;
+  static_assert(kXS % 32 == 8 && (kBS % 32 == 8 || kBS % 32 == 24) &&
+                    kMS % 32 == 4,
+                "bank-conflict-free fragment loads");
+  static_assert(kB % 16 == 0 && kC % 16 == 0 && kDt % 16 == 0 &&
+                    kStage % 16 == 0 && kM % 16 == 0,
+                "16-byte aligned rows for cp.async");
 };
 
-template <typename T, int HD, int DS>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bm,
-                const T* __restrict__ cm, float* __restrict__ y32,
-                T* __restrict__ yt, float* __restrict__ h_out, int S, int nh,
-                int g, int64_t bc_sb, int64_t bc_ss) {
-  using L = Smem<HD, DS>;
-  constexpr int P = L::kPitch;
-  constexpr int kCols = HD / kSide;              // y columns a thread
-  // a thread's share of h: rows d = hr + kHStep r, columns s = hc +
-  // kHCols k
-  constexpr int kHCols = DS < 32 ? DS : 32;
-  constexpr int kHStep = kThreads / kHCols;
-  constexpr int kRD = HD / kHStep;
-  constexpr int kRS = DS / kHCols;
-  static_assert(HD % kSide == 0 && HD % kHStep == 0 && DS % kHCols == 0,
-                "state tile split");
+// Stage rows [t0, t0 + n) of x, B, C and dt as float32 (rows past n
+// zero-filled: dt = 0 makes them identity steps).
+template <int HD, int DS>
+__device__ __forceinline__ void load_tile_f32(
+    unsigned char* stage, const float* xb, const float* dtb, const float* bb,
+    const float* cb, int64_t x_step, int nh, int64_t bc_ss, int t0, int n) {
+  using L = F32Smem<HD, DS>;
+  float* xs = reinterpret_cast<float*>(stage);
+  float* bs = reinterpret_cast<float*>(stage + L::kB);
+  float* cs = reinterpret_cast<float*>(stage + L::kC);
+  float* dts = reinterpret_cast<float*>(stage + L::kDt);
+  constexpr int kXChunks = HD / 4;               // 16-byte chunks a row
+  constexpr int kBChunks = DS / 4;
+  for (int c = threadIdx.x; c < L::T * kXChunks; c += L::kThreads) {
+    const int r = c / kXChunks;
+    const int ch = c % kXChunks;
+    const bool ok = r < n;
+    cp_async16(xs + r * L::kXS + ch * 4,
+               xb + (t0 + (ok ? r : 0)) * x_step + ch * 4, ok);
+  }
+  for (int c = threadIdx.x; c < L::T * kBChunks; c += L::kThreads) {
+    const int r = c / kBChunks;
+    const int ch = c % kBChunks;
+    const bool ok = r < n;
+    const int64_t off = (t0 + (ok ? r : 0)) * bc_ss + ch * 4;
+    cp_async16(bs + r * L::kBS + ch * 4, bb + off, ok);
+    cp_async16(cs + r * L::kBS + ch * 4, cb + off, ok);
+  }
+  for (int r = threadIdx.x; r < L::T; r += L::kThreads)
+    cp_async4(dts + r, dtb + static_cast<int64_t>(t0 + (r < n ? r : 0)) * nh,
+              r < n);
+}
 
-  extern __shared__ float smem[];
-  float* h_s = smem + L::kH;
-  float* x_s = smem + L::kX;
-  float* b_s = smem + L::kB;
-  float* c_s = smem + L::kC;
-  float* g_s = smem + L::kG;
-  float* dt_s = smem + L::kDt;
-  float* cum_s = smem + L::kCum;
-  float* w_s = smem + L::kW;
+// One (head, batch row) per block: blockIdx = (head, b).  y (float32)
+// of every step and, when h_out is not null, the final state.
+template <int HD, int DS>
+__global__ void __launch_bounds__(2 * HD, 2)
+ssd_scan_kernel_f32(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ a, const float* __restrict__ bm,
+                    const float* __restrict__ cm, float* __restrict__ y,
+                    float* __restrict__ h_out, int S, int nh, int g,
+                    int64_t bc_sb, int64_t bc_ss) {
+  using L = F32Smem<HD, DS>;
+  constexpr int T = L::T;
+  constexpr int kMT = T / 16;                    // 16-row blocks a tile
+  constexpr int kKT = T / 8;                     // 8-step k-steps a tile
+  constexpr int kSN = DS / 8;                    // 8-column tiles of h
+  static_assert(T == 32, "the prefix sum gives each lane one step");
+  extern __shared__ __align__(16) unsigned char sbuf[];
 
-  const int tid = threadIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int c4 = lane % 4;
+  const int d0 = 16 * warp;                      // this warp's rows of h
   const int head = blockIdx.x;
   const int b = blockIdx.y;
-  const int grp = head / (nh / g);
   const float A = a[head];
   const int64_t x_step = static_cast<int64_t>(nh) * HD;
-  const T* xb = x + static_cast<int64_t>(b) * S * x_step +
-                static_cast<int64_t>(head) * HD;
+  const float* xb = x + static_cast<int64_t>(b) * S * x_step +
+                    static_cast<int64_t>(head) * HD;
   const float* dtb = dt + static_cast<int64_t>(b) * S * nh + head;
-  const T* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS;
-  const T* cb = cm + b * bc_sb + static_cast<int64_t>(grp) * DS;
+  const int grp = head / (nh / g);
+  const float* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS;
+  const float* cb = cm + b * bc_sb + static_cast<int64_t>(grp) * DS;
+  float* cum = reinterpret_cast<float*>(sbuf + L::kScan) + warp * 2 * T;
+  float* wgt = cum + T;
+  float* m_s = reinterpret_cast<float*>(sbuf + L::kM);
 
-  const int ti = tid / kSide;
-  const int tj = tid % kSide;
-  const int hr = tid / kHCols;
-  const int hc = tid % kHCols;
+  const int tiles = (S + T - 1) / T;
+  if (tiles > 0)
+    load_tile_f32<HD, DS>(sbuf, xb, dtb, bb, cb, x_step, nh, bc_ss, 0,
+                          min(T, S));
+  cp_async_commit();
 
-  float h[kRD][kRS];
+  // h[sn][e]: state row d0 + g4 + 8 (e / 2), column 8 sn + 2 c4 + e % 2,
+  // the accumulator layout of the state update's mma
+  float h[kSN][4];
 #pragma unroll
-  for (int r = 0; r < kRD; ++r)
-#pragma unroll
-    for (int k = 0; k < kRS; ++k) h[r][k] = 0.f;
-  for (int e = tid; e < HD * P; e += kThreads) h_s[e] = 0.f;
+  for (int sn = 0; sn < kSN; ++sn)
+    h[sn][0] = h[sn][1] = h[sn][2] = h[sn][3] = 0.f;
 
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    const int n = S - t0 < kTile ? S - t0 : kTile;
-
-    // 1. stage the tile as float32, zero past the end
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int i = e / HD;
-      x_s[e] = i < n ? to_f32(xb[(t0 + i) * x_step + e % HD]) : 0.f;
-    }
-    for (int e = tid; e < kTile * DS; e += kThreads) {
-      const int i = e / DS;
-      const int s = e % DS;
-      float bv = 0.f, cv = 0.f;
-      if (i < n) {
-        const int64_t off = (t0 + i) * bc_ss + s;
-        bv = to_f32(bb[off]);
-        cv = to_f32(cb[off]);
-      }
-      b_s[i * P + s] = bv;
-      c_s[i * P + s] = cv;
-    }
-    if (tid < kTile)
-      dt_s[tid] = tid < n ? dtb[static_cast<int64_t>(t0 + tid) * nh] : 0.f;
+  for (int it = 0; it < tiles; ++it) {
+    const int t0 = it * T;
+    const int n = min(T, S - t0);
+    const unsigned char* stage = sbuf + (it & 1) * L::kStage;
+    cp_async_wait_all();
     __syncthreads();
+    if (it + 1 < tiles)
+      load_tile_f32<HD, DS>(sbuf + ((it + 1) & 1) * L::kStage, xb, dtb, bb,
+                            cb, x_step, nh, bc_ss, t0 + T,
+                            min(T, S - t0 - T));
+    cp_async_commit();
+    const float* xs = reinterpret_cast<const float*>(stage);
+    const float* bs = reinterpret_cast<const float*>(stage + L::kB);
+    const float* cs = reinterpret_cast<const float*>(stage + L::kC);
+    const float* dts = reinterpret_cast<const float*>(stage + L::kDt);
 
-    // 2. cum = prefix sum of dt*A (lane l holds steps 2l and 2l+1), and
-    //    the state update's weights
-    if (tid < 32) {
-      const float d0 = __fmul_rn(dt_s[2 * tid], A);
-      const float v1 = d0 + __fmul_rn(dt_s[2 * tid + 1], A);
-      float incl = v1;
+    // cum = prefix sum of dt*A over the tile (lane l holds step l), and
+    // the state update's weights w_j = exp(total - cum_j) dt_j; every
+    // warp keeps its own copy
+    float total;
+    {
+      float incl = __fmul_rn(dts[lane], A);
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += up;
+        if (lane >= o) incl += up;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.f;
-      cum_s[2 * tid] = excl + d0;
-      cum_s[2 * tid + 1] = excl + v1;
+      cum[lane] = incl;
+      total = __shfl_sync(0xffffffffu, incl, 31);
+      wgt[lane] = expf(total - incl) * dts[lane];
       __syncwarp();
-      const float total = cum_s[n - 1];
-      w_s[2 * tid] = expf(total - cum_s[2 * tid]) * dt_s[2 * tid];
-      w_s[2 * tid + 1] = expf(total - cum_s[2 * tid + 1]) * dt_s[2 * tid + 1];
+    }
+
+    // (a) M = (C B^T) o exp(cum_i - cum_j) o dt_j on the triangle's
+    // blocks (0, 0), (1, 0), (1, 1), a warp each
+    for (int p = warp; p < 3; p += L::kWarps) {
+      const int ib = p == 0 ? 0 : 1;
+      const int jb = p == 2 ? 1 : 0;
+      if (16 * ib >= n) continue;
+      float lo[2][4] = {}, hi[2][4] = {};
+#pragma unroll 4
+      for (int ks = 0; ks < DS / 8; ++ks) {
+        uint32_t ab[4], as[4];
+        frag_a_pairs_tf32(ab, as, cs, L::kBS, 16 * ib, 8 * ks);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t bb2[2], bs2[2];
+          frag_b_pairs_tf32(bb2, bs2, bs, L::kBS, 16 * jb + 8 * q, 8 * ks);
+          mma_3xtf32_apart(lo[q], hi[q], ab, as, bb2, bs2);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * ib + g4 + 8 * hf;
+          const int j = 16 * jb + 8 * q + 2 * c4;
+          float m[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            m[e] = j + e <= i ? (hi[q][2 * hf + e] + lo[q][2 * hf + e]) *
+                                    expf(cum[i] - cum[j + e]) * dts[j + e]
+                              : 0.f;
+          *reinterpret_cast<float2*>(m_s + i * L::kMS + j) =
+              make_float2(m[0], m[1]);
+        }
     }
     __syncthreads();
 
-    // 3. G = (C B^T) o exp(cum_i - cum_j) o dt_j, lower triangle
-    {
-      float acc[kRows][kRows];
+    // y[:, d0 : d0 + 16] of the tile: (c) exp(cum_i) (C h^T) with h the
+    // state before the tile, then (b) M x, each in zeroed fragments
+    float yl[kMT][2][4], yh[kMT][2][4], ym[kMT][2][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+    for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-        for (int c = 0; c < kRows; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int s = 0; s < DS; ++s) {
-        float cv[kRows], bv[kRows];
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          cv[r] = c_s[(ti + kSide * r) * P + s];
-          bv[r] = b_s[(tj + kSide * r) * P + s];
+        for (int e = 0; e < 4; ++e)
+          yl[mi][q][e] = yh[mi][q][e] = ym[mi][q][e] = 0.f;
+    if (it > 0) {
+#pragma unroll
+      for (int ks = 0; ks < kSN; ++ks) {
+        // B (k = state column, pairs; n = row d of h): h's accumulators
+        uint32_t hb[2][2], hs[2][2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          split_tf32(h[ks][2 * q], hb[q][0], hs[q][0]);
+          split_tf32(h[ks][2 * q + 1], hb[q][1], hs[q][1]);
         }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+        for (int mi = 0; mi < kMT; ++mi) {
+          if (16 * mi >= n) break;
+          uint32_t ab[4], as[4];
+          frag_a_pairs_tf32(ab, as, cs, L::kBS, 16 * mi, 8 * ks);
 #pragma unroll
-          for (int c = 0; c < kRows; ++c)
-            acc[r][c] = fmaf(cv[r], bv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = ti + kSide * r;
-#pragma unroll
-        for (int c = 0; c < kRows; ++c) {
-          const int j = tj + kSide * c;
-          g_s[i * L::kGPitch + j] =
-              j <= i ? acc[r][c] * expf(cum_s[i] - cum_s[j]) * dt_s[j] : 0.f;
+          for (int q = 0; q < 2; ++q)
+            mma_3xtf32_apart(yl[mi][q], yh[mi][q], ab, as, hb[q], hs[q]);
         }
       }
     }
-    __syncthreads();
-
-    // 4. y = G x + exp(cum) (C h^T), with h the state before the tile
-    {
-      float intra[kRows][kCols], inter[kRows][kCols];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+    for (int kj = 0; kj < kKT; ++kj) {
+      if (8 * kj >= n) break;
+      uint32_t xb2[2][2], xs2[2][2];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) intra[r][c] = inter[r][c] = 0.f;
-      for (int j = 0; j < n; ++j) {
-        float gv[kRows], xv[kCols];
+      for (int q = 0; q < 2; ++q)
+        frag_b_kn_tf32(xb2[q], xs2[q], xs, L::kXS, 8 * kj, d0 + 8 * q);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          gv[r] = g_s[(ti + kSide * r) * L::kGPitch + j];
+      for (int mi = kj / 2; mi < kMT; ++mi) {
+        if (16 * mi >= n) break;
+        uint32_t ab[4], as[4];
+        frag_a_tf32(ab, as, m_s, L::kMS, 16 * mi, 8 * kj);
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) xv[c] = x_s[j * HD + tj + kSide * c];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            intra[r][c] = fmaf(gv[r], xv[c], intra[r][c]);
+        for (int q = 0; q < 2; ++q)
+          mma_3xtf32(ym[mi][q], ab, as, xb2[q], xs2[q]);
       }
-#pragma unroll 4
-      for (int s = 0; s < DS; ++s) {
-        float cv[kRows], hv[kCols];
+    }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) cv[r] = c_s[(ti + kSide * r) * P + s];
+    for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) hv[c] = h_s[(tj + kSide * c) * P + s];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            inter[r][c] = fmaf(cv[r], hv[c], inter[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = ti + kSide * r;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * mi + g4 + 8 * hf;
         if (i >= n) continue;
-        const float e = expf(cum_s[i]);
-        const int64_t row =
-            ((static_cast<int64_t>(b) * S + t0 + i) * nh + head) * HD;
+        const float ei = expf(cum[i]);
+        float* row = y + ((static_cast<int64_t>(b) * S + t0 + i) * nh +
+                          head) * HD + d0 + 2 * c4;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int d = tj + kSide * c;
-          const float v = intra[r][c] + e * inter[r][c];
-          if (y32 != nullptr) store(y32 + row + d, v);
-          if (yt != nullptr) store(yt + row + d, v);
-        }
+        for (int q = 0; q < 2; ++q)
+          *reinterpret_cast<float2*>(row + 8 * q) = make_float2(
+              fmaf(ei, yh[mi][q][2 * hf] + yl[mi][q][2 * hf],
+                   ym[mi][q][2 * hf]),
+              fmaf(ei, yh[mi][q][2 * hf + 1] + yl[mi][q][2 * hf + 1],
+                   ym[mi][q][2 * hf + 1]));
       }
-    }
-    __syncthreads();
 
-    // 5. h <- h exp(total) + sum_j w_j x_j (x) B_j
+    // (d) h <- h exp(total) + (w o x)^T B: (w o x)^T's A fragments (rows
+    // d, k = steps) once, then each 8-column tile of h in a zeroed
+    // fragment
     {
-      const float decay = expf(cum_s[n - 1]);
-      float acc[kRD][kRS];
+      const float decay = expf(total);
+      uint32_t wb[kKT][4], wsm[kKT][4];
 #pragma unroll
-      for (int r = 0; r < kRD; ++r)
-#pragma unroll
-        for (int k = 0; k < kRS; ++k) acc[r][k] = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float w = w_s[j];
-        float xv[kRD], bv[kRS];
-#pragma unroll
-        for (int r = 0; r < kRD; ++r) xv[r] = w * x_s[j * HD + hr + kHStep * r];
-#pragma unroll
-        for (int k = 0; k < kRS; ++k) bv[k] = b_s[j * P + hc + kHCols * k];
-#pragma unroll
-        for (int r = 0; r < kRD; ++r)
-#pragma unroll
-          for (int k = 0; k < kRS; ++k) acc[r][k] = fmaf(xv[r], bv[k], acc[r][k]);
+      for (int kj = 0; kj < kKT; ++kj) {
+        if (8 * kj >= n) break;
+        const int j = 8 * kj + c4;
+        const float w0 = wgt[j], w1 = wgt[j + 4];
+        const float* x0 = xs + j * L::kXS + d0 + g4;
+        const float* x1 = x0 + 4 * L::kXS;
+        split_tf32(w0 * x0[0], wb[kj][0], wsm[kj][0]);
+        split_tf32(w0 * x0[8], wb[kj][1], wsm[kj][1]);
+        split_tf32(w1 * x1[0], wb[kj][2], wsm[kj][2]);
+        split_tf32(w1 * x1[8], wb[kj][3], wsm[kj][3]);
       }
 #pragma unroll
-      for (int r = 0; r < kRD; ++r)
+      for (int sn = 0; sn < kSN; ++sn) {
+        float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < kRS; ++k) {
-          h[r][k] = h[r][k] * decay + acc[r][k];
-          h_s[(hr + kHStep * r) * P + hc + kHCols * k] = h[r][k];
+        for (int kj = 0; kj < kKT; ++kj) {
+          if (8 * kj >= n) break;
+          uint32_t bb2[2], bs2[2];
+          frag_b_kn_tf32(bb2, bs2, bs, L::kBS, 8 * kj, 8 * sn);
+          mma_3xtf32_apart(lo, hi, wb[kj], wsm[kj], bb2, bs2);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[sn][e] = fmaf(h[sn][e], decay, hi[e] + lo[e]);
+      }
     }
-    __syncthreads();
   }
 
   if (h_out != nullptr) {
-    float* hb = h_out + (static_cast<int64_t>(b) * nh + head) * HD * DS;
+    float* dst = h_out + (static_cast<int64_t>(b) * nh + head) * HD * DS;
 #pragma unroll
-    for (int r = 0; r < kRD; ++r)
+    for (int sn = 0; sn < kSN; ++sn)
 #pragma unroll
-      for (int k = 0; k < kRS; ++k)
-        hb[(hr + kHStep * r) * DS + hc + kHCols * k] = h[r][k];
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(dst + (d0 + g4 + 8 * hf) * DS + 8 * sn +
+                                   2 * c4) =
+            make_float2(h[sn][2 * hf], h[sn][2 * hf + 1]);
   }
 }
 
@@ -753,33 +809,32 @@ ssd_scan_kernel_bf16(const __nv_bfloat16* __restrict__ x,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int HD, int DS>
+template <int HD, int DS>
 int launch_shape(const void* x, const void* dt, const void* a,
-                 const void* bm, const void* cm, void* y, int y_f32,
-                 void* h_out, int B, int S, int nh, int g, int64_t bc_sb,
-                 int64_t bc_ss, cudaStream_t stream) {
-  const auto kernel = ssd_scan_kernel<T, HD, DS>;
-  const int bytes = static_cast<int>(Smem<HD, DS>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                 const void* bm, const void* cm, void* y, void* h_out, int B,
+                 int S, int nh, int g, int64_t bc_sb, int64_t bc_ss,
+                 cudaStream_t stream) {
+  using L = F32Smem<HD, DS>;
+  const auto kernel = ssd_scan_kernel_f32<HD, DS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(nh, B), kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), y_f32 ? static_cast<float*>(y) : nullptr,
-      y_f32 ? nullptr : static_cast<T*>(y), static_cast<float*>(h_out), S, nh,
-      g, bc_sb, bc_ss);
+  kernel<<<dim3(nh, B), L::kThreads, L::kBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<float*>(y),
+      static_cast<float*>(h_out), S, nh, g, bc_sb, bc_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(int hd, int ds, const void* x, const void* dt, const void* a,
-               const void* bm, const void* cm, void* y, int y_f32,
-               void* h_out, int B, int S, int nh, int g, int64_t bc_sb,
-               int64_t bc_ss, cudaStream_t st) {
-#define SSD_SHAPE(HD, DS)                                                    \
-  if (hd == HD && ds == DS)                                                  \
-    return launch_shape<float, HD, DS>(x, dt, a, bm, cm, y, y_f32, h_out, B, \
-                                       S, nh, g, bc_sb, bc_ss, st);
+               const void* bm, const void* cm, void* y, void* h_out, int B,
+               int S, int nh, int g, int64_t bc_sb, int64_t bc_ss,
+               cudaStream_t st) {
+#define SSD_SHAPE(HD, DS)                                                  \
+  if (hd == HD && ds == DS)                                                \
+    return launch_shape<HD, DS>(x, dt, a, bm, cm, y, h_out, B, S, nh, g,   \
+                                bc_sb, bc_ss, st);
   SSD_SHAPE(64, 128)  // mamba2-2.7b
   SSD_SHAPE(64, 16)   // jamba-v0.1-52b's Mamba layers
   SSD_SHAPE(32, 16)   // their reduced configs
@@ -842,16 +897,17 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* bm,
 }  // namespace
 
 // Launch on `stream`.  dtype is x's, B's and C's type: 0 float32 runs
-// ssd_scan_kernel over an (nh, B) grid; 1 bfloat16 runs
+// ssd_scan_kernel_f32 over an (nh, B) grid; 1 bfloat16 runs
 // ssd_scan_kernel_bf16, over an (nh, B, splits) grid after a state pass
 // over (nh, B, splits - 1) when splits > 1: pieces of `piece` steps (a
 // multiple of 64; splits pieces cover S, none wholly past it), their
 // states and totals in the workspace ws ((splits - 1) (B nh hd ds + B
 // nh) floats; unused when splits is 1).  float32 takes splits 1.  y is
 // float32 when y_f32 != 0, else of x's type; h_out (B, nh, hd, ds)
-// float32 may be null.  B and C share the strides bc_sb (batch) and
-// bc_ss (time step), in elements, with the group and state axes packed;
-// for bfloat16 every row of x, B and C starts 16-byte aligned.  (hd, ds)
+// float32 may be null (float32 writes y in float32: y_f32 != 0).  B
+// and C share the strides bc_sb (batch) and bc_ss (time step), in
+// elements, with the group and state axes packed; every row of x, B and
+// C starts 16-byte aligned.  (hd, ds)
 // is (64, 128), (64, 16) or (32, 16).  Returns the first CUDA error of setting the
 // shared-memory size or of a launch, 0 if none.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
@@ -865,9 +921,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_f32(hd, ds, x, dt, a, bm, cm, y, y_f32, h_out, B, S, nh, g,
-                      bc_sb, bc_ss, st);
+    if (splits != 1 || !y_f32) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_f32(hd, ds, x, dt, a, bm, cm, y, h_out, B, S, nh, g, bc_sb,
+                      bc_ss, st);
   }
   if (dtype == 1) {
     if (hd == 64 && ds == 128)

@@ -96,32 +96,38 @@
 // head (dh B, x^T dh, dy^T h, dy (x) C): 8 hd ds flops, 5.4 GFLOP at
 // B 2 x 512 on mamba2, 0.0055 ms at the tensor cores' 989 TFLOP/s, under
 // the bytes that must move (x, dt, B, C, dy in; dx, ddt, dB, dC out:
-// ~0.013 ms at 3.35 TB/s): bytes bound the bf16 case.  The float32 case
-// runs on the CUDA cores, 0.080 ms at 67 TFLOP/s.  The bf16 kernels
-// also move h_in and dh through a workspace (4 x 42 MB at the training
-// shape) and the head-block partials of dB and dC (2 x 2 x 10 MB), and
-// the dual form issues ~3x the bound's products, twice again for hi +
-// lo.
+// ~0.013 ms at 3.35 TB/s): bytes bound the bf16 case.  In float32 the
+// operations bound it: 0.0326 ms at 3xTF32's 164.9 TFLOP/s (0.080 at
+// the CUDA cores' 67).  Both routes also move h_in and dh through a
+// workspace (4 x 42 MB at the training shape) and the head-block
+// partials of dB and dC (2 x 2 x 10 MB), and the dual form issues ~3x
+// the bound's products, twice again for bf16 hi + lo, three times for
+// 3xTF32.
 //
-// float32 design (the first version, kept for float32: the tensor
-// cores would round float32 through TF32, far outside the 1e-4 gate).
-// Three kernels, float32 arithmetic on the CUDA cores:
-//   1. ssd_state_kernel: one block per (head, b) runs the forward's
-//      state recurrence over the tiles and writes the state entering
-//      each tile, h_in (B, nh, tiles, hd, ds) float32, to a workspace;
-//   2. ssd_backward_kernel: one block per (head, b) walks the tiles from
-//      the last to the first, carrying dh in shared memory from dh_S.
-//      Per tile it stages x, dy, B, C, dt and h_in as float32, forms the
-//      64 x 64 matrices S L dt, P L dt and S L P in shared memory, then
-//      runs the products above as 16 x 16 thread grids with 2-D
-//      register tiles (rows padded by one float: no bank conflicts in
-//      either orientation).  It writes dx and ddt, and each head's own
-//      dB, dC (B, S, nh, ds) and sum of dt da (B, nh) in float32;
-//   3. ssd_reduce_kernel: dB and dC as the sums over a group's heads,
-//      dA as the sum over the batch, each in head (or batch) order.
-// Its kernel 2 takes x, dy (64 x 65), B, C (64 x 129), h_in and dh (64
-// x 129), three 64 x 65 matrices and nine 64-vectors: 217,632 bytes at
-// (64, 128), one block an SM.
+// float32 design (tensor cores, 3xTF32).  The bf16 route's three
+// launches, each product as m16n8k8 TF32 mma with every float32 operand
+// split into a TF32 big term and a small term as it is loaded (small .
+// big + big . small + big . big; tensor_core.cuh):
+//   1. ssd_bwd_state_kernel_f32: one block per (head, b, 64 state
+//      columns) (two a (head, b) at mamba2's 128: half the registers,
+//      three blocks an SM), x and B, then dy and C staged as float32 by
+//      cp.async two stages deep; each tile's update summed in zeroed
+//      fragments, the small terms' products apart from big . big, and
+//      added to h (dh) in round-to-nearest;
+//   2. ssd_bwd_tile_kernel_f32: the bf16 tile kernel's walk in float32,
+//      its operands (B, C, x, dy, h_in, dh) staged as float32 rows
+//      padded to 8 mod 32 floats (each fragment load meets 32 distinct
+//      banks, or 2-way where one matrix is read both ways), G and E as
+//      float32.  S = C B^T is formed per head in registers beside P:
+//      kept in shared memory it would take 17 KB more than the 232,448
+//      bytes a block may have (the rest is 230,976 at (64, 128)).  dC
+//      and dB of a head start from its state terms (exp(cum) dy h_in,
+//      w x dh) in zeroed fragments, E B and E^T C continue them, and
+//      the head's sums are added to the block's in round-to-nearest;
+//   3. ssd_reduce_kernel, as for bf16.
+// Registers (ptxas -v, sm_90a; tools/ablate_torch_ssd.py): the tile
+// kernel 240 at (64, 128), 177 at (64, 16), 149 at (32, 16); the state
+// kernel 168, 165, 184; no spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,51 +137,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // the reduction's blocks
 constexpr int kTile = 64;                // time steps per tile
-constexpr int kSide = 16;                // 16 x 16 thread grid
-constexpr int kPT = kTile + 1;           // pitch of the tile matrices
-static_assert(kSide * kSide == kThreads, "thread grid");
+constexpr int kPT = kTile + 1;           // pitch of the K matrix
 static_assert(kTile == 64, "the prefix sum gives each lane two steps");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// acc[r][c] += sum_k a(ti + 16 r, k) b(k, tj + 16 c), k in order
-template <int RM, int RN, int K, typename FA, typename FB>
-__device__ __forceinline__ void product(float (&acc)[RM][RN], int ti, int tj,
-                                        FA a, FB b) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[RM], bv[RN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) av[r] = a(ti + kSide * r, k);
-#pragma unroll
-    for (int c = 0; c < RN; ++c) bv[c] = b(k, tj + kSide * c);
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < RN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-  }
-}
-
-template <int RM, int RN>
-__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
-}
-
-// the sum over the 16 lanes of a half-warp (the threads of one row of
-// the thread grid), in a fixed tree
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // cum = prefix sum of dt * A over the tile (one warp, two steps a
@@ -195,432 +164,6 @@ __device__ __forceinline__ void tile_cum(const float* dt_s, float A,
   cum_s[2 * lane] = excl + d0;
   cum_s[2 * lane + 1] = excl + v1;
   __syncwarp();
-}
-
-// ------------------------------------------------------------ state pass
-
-template <int HD, int DS>
-struct StateSmem {
-  static constexpr int kPitch = DS + 1;
-  static constexpr int kX = 0;                          // kTile x HD
-  static constexpr int kB = kX + kTile * HD;            // kTile x kPitch
-  static constexpr int kDt = kB + kTile * kPitch;
-  static constexpr int kCum = kDt + kTile;
-  static constexpr int kW = kCum + kTile;
-  static constexpr int kFloats = kW + kTile;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-// h_in[t] = the state entering tile t, from h = 0:
-//   h <- h exp(total) + sum_j w_j x_j (x) B_j
-template <typename T, int HD, int DS>
-__global__ void __launch_bounds__(kThreads)
-ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ a, const T* __restrict__ bm,
-                 float* __restrict__ states, int S, int nh, int g,
-                 int64_t bc_sb, int64_t bc_ss) {
-  using L = StateSmem<HD, DS>;
-  constexpr int P = L::kPitch;
-  constexpr int kHCols = DS < 32 ? DS : 32;
-  constexpr int kHStep = kThreads / kHCols;
-  constexpr int kRD = HD / kHStep;
-  constexpr int kRS = DS / kHCols;
-  static_assert(HD % kHStep == 0 && DS % kHCols == 0, "state tile split");
-
-  extern __shared__ float smem[];
-  float* x_s = smem + L::kX;
-  float* b_s = smem + L::kB;
-  float* dt_s = smem + L::kDt;
-  float* cum_s = smem + L::kCum;
-  float* w_s = smem + L::kW;
-
-  const int tid = threadIdx.x;
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int grp = head / (nh / g);
-  const float A = a[head];
-  const int tiles = (S + kTile - 1) / kTile;
-  const int64_t x_step = static_cast<int64_t>(nh) * HD;
-  const T* xb = x + static_cast<int64_t>(b) * S * x_step +
-                static_cast<int64_t>(head) * HD;
-  const float* dtb = dt + static_cast<int64_t>(b) * S * nh + head;
-  const T* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS;
-  float* out = states + (static_cast<int64_t>(b) * nh + head) * tiles * HD * DS;
-  const int hr = tid / kHCols;
-  const int hc = tid % kHCols;
-
-  float h[kRD][kRS];
-  zero(h);
-  for (int t = 0; t < tiles; ++t) {
-    const int t0 = t * kTile;
-    const int n = S - t0 < kTile ? S - t0 : kTile;
-    float* ht = out + static_cast<int64_t>(t) * HD * DS;
-#pragma unroll
-    for (int r = 0; r < kRD; ++r)
-#pragma unroll
-      for (int k = 0; k < kRS; ++k)
-        ht[(hr + kHStep * r) * DS + hc + kHCols * k] = h[r][k];
-    if (t == tiles - 1) break;     // the last tile's own update is unused
-
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int i = e / HD;
-      x_s[e] = i < n ? to_f32(xb[(t0 + i) * x_step + e % HD]) : 0.f;
-    }
-    for (int e = tid; e < kTile * DS; e += kThreads) {
-      const int i = e / DS;
-      const int s = e % DS;
-      b_s[i * P + s] = i < n ? to_f32(bb[(t0 + i) * bc_ss + s]) : 0.f;
-    }
-    if (tid < kTile)
-      dt_s[tid] = tid < n ? dtb[static_cast<int64_t>(t0 + tid) * nh] : 0.f;
-    __syncthreads();
-    if (tid < 32) {
-      tile_cum(dt_s, A, cum_s, tid);
-      const float total = cum_s[kTile - 1];
-      w_s[2 * tid] = expf(total - cum_s[2 * tid]) * dt_s[2 * tid];
-      w_s[2 * tid + 1] = expf(total - cum_s[2 * tid + 1]) * dt_s[2 * tid + 1];
-    }
-    __syncthreads();
-    const float decay = expf(cum_s[kTile - 1]);
-    float acc[kRD][kRS];
-    zero(acc);
-    for (int j = 0; j < n; ++j) {
-      const float w = w_s[j];
-      float xv[kRD], bv[kRS];
-#pragma unroll
-      for (int r = 0; r < kRD; ++r) xv[r] = w * x_s[j * HD + hr + kHStep * r];
-#pragma unroll
-      for (int k = 0; k < kRS; ++k) bv[k] = b_s[j * P + hc + kHCols * k];
-#pragma unroll
-      for (int r = 0; r < kRD; ++r)
-#pragma unroll
-        for (int k = 0; k < kRS; ++k) acc[r][k] = fmaf(xv[r], bv[k], acc[r][k]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRD; ++r)
-#pragma unroll
-      for (int k = 0; k < kRS; ++k) h[r][k] = h[r][k] * decay + acc[r][k];
-    __syncthreads();
-  }
-}
-
-// --------------------------------------------------------- reverse pass
-
-template <int HD, int DS>
-struct BwdSmem {
-  static constexpr int kPH = HD + 1;
-  static constexpr int kPS = DS + 1;
-  static constexpr int kX = 0;                          // kTile x kPH
-  static constexpr int kDy = kX + kTile * kPH;          // kTile x kPH
-  static constexpr int kB = kDy + kTile * kPH;          // kTile x kPS
-  static constexpr int kC = kB + kTile * kPS;           // kTile x kPS
-  static constexpr int kHin = kC + kTile * kPS;         // HD x kPS
-  static constexpr int kDh = kHin + HD * kPS;           // HD x kPS
-  static constexpr int kG = kDh + HD * kPS;             // kTile x kPT
-  static constexpr int kE = kG + kTile * kPT;           // kTile x kPT
-  static constexpr int kK = kE + kTile * kPT;           // kTile x kPT
-  static constexpr int kVec = kK + kTile * kPT;         // 9 x kTile
-  static constexpr int kRed = kVec + 9 * kTile;         // 8 warps
-  static constexpr int kFloats = kRed + kThreads / 32;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-template <typename T, int HD, int DS>
-__global__ void __launch_bounds__(kThreads)
-ssd_backward_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ a, const T* __restrict__ bm,
-                    const T* __restrict__ cm, const float* __restrict__ dy,
-                    const float* __restrict__ dh_end,
-                    const float* __restrict__ states, T* __restrict__ dx,
-                    float* __restrict__ ddt, float* __restrict__ db_part,
-                    float* __restrict__ dc_part, float* __restrict__ da_part,
-                    int S, int nh, int g, int64_t bc_sb, int64_t bc_ss) {
-  using L = BwdSmem<HD, DS>;
-  constexpr int PH = L::kPH;
-  constexpr int PS = L::kPS;
-  constexpr int RT = kTile / kSide;      // rows / cols of a tile index
-  constexpr int RH = HD / kSide;
-  constexpr int RS = DS / kSide;
-  static_assert(HD % kSide == 0 && DS % kSide == 0, "thread grid split");
-
-  extern __shared__ float smem[];
-  float* x_s = smem + L::kX;
-  float* dy_s = smem + L::kDy;
-  float* b_s = smem + L::kB;
-  float* c_s = smem + L::kC;
-  float* hin_s = smem + L::kHin;
-  float* dh_s = smem + L::kDh;
-  float* g_s = smem + L::kG;             // S L dt
-  float* e_s = smem + L::kE;             // P L dt
-  float* k_s = smem + L::kK;             // S L P, then Q's row prefix sums
-  float* dt_s = smem + L::kVec;
-  float* cum_s = dt_s + kTile;
-  float* ecum_s = cum_s + kTile;         // exp(cum_i)
-  float* edec_s = ecum_s + kTile;        // exp(total - cum_j)
-  float* w_s = edec_s + kTile;           // exp(total - cum_j) dt_j
-  float* v_s = w_s + kTile;              // exp(total - cum_j) x_j.(dh B_j)
-  float* r_s = v_s + kTile;              // exp(cum_i) dy_i.(h_in C_i)
-  float* colk_s = r_s + kTile;           // sum_i (S L P)_ij
-  float* dtda_s = colk_s + kTile;        // dt_m da_m
-  float* red_s = smem + L::kRed;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int ti = tid / kSide;
-  const int tj = tid % kSide;
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int grp = head / (nh / g);
-  const float A = a[head];
-  const int tiles = (S + kTile - 1) / kTile;
-  const int64_t x_step = static_cast<int64_t>(nh) * HD;
-  const int64_t row0 = static_cast<int64_t>(b) * S;   // (b, t) rows
-  const T* xb = x + row0 * x_step + static_cast<int64_t>(head) * HD;
-  const float* dyb = dy + row0 * x_step + static_cast<int64_t>(head) * HD;
-  T* dxb = dx + row0 * x_step + static_cast<int64_t>(head) * HD;
-  const float* dtb = dt + row0 * nh + head;
-  float* ddtb = ddt + row0 * nh + head;
-  const T* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS;
-  const T* cb = cm + b * bc_sb + static_cast<int64_t>(grp) * DS;
-  const int64_t part_step = static_cast<int64_t>(nh) * DS;
-  float* dbp = db_part + row0 * part_step + static_cast<int64_t>(head) * DS;
-  float* dcp = dc_part + row0 * part_step + static_cast<int64_t>(head) * DS;
-  const int64_t bh = static_cast<int64_t>(b) * nh + head;
-  const float* hb = states + bh * tiles * HD * DS;
-
-  for (int e = tid; e < HD * DS; e += kThreads)
-    dh_s[(e / DS) * PS + e % DS] =
-        dh_end != nullptr ? dh_end[bh * HD * DS + e] : 0.f;
-  float da_sum = 0.f;                    // thread 0: sum of dt da
-
-  for (int t = tiles - 1; t >= 0; --t) {
-    const int t0 = t * kTile;
-    const int n = S - t0 < kTile ? S - t0 : kTile;
-
-    // 1. stage the tile as float32, zero past the end, and h_in
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int i = e / HD;
-      const int d = e % HD;
-      const bool in = i < n;
-      const int64_t off = (t0 + i) * x_step + d;
-      x_s[i * PH + d] = in ? to_f32(xb[off]) : 0.f;
-      dy_s[i * PH + d] = in ? dyb[off] : 0.f;
-    }
-    for (int e = tid; e < kTile * DS; e += kThreads) {
-      const int i = e / DS;
-      const int s = e % DS;
-      float bv = 0.f, cv = 0.f;
-      if (i < n) {
-        const int64_t off = (t0 + i) * bc_ss + s;
-        bv = to_f32(bb[off]);
-        cv = to_f32(cb[off]);
-      }
-      b_s[i * PS + s] = bv;
-      c_s[i * PS + s] = cv;
-    }
-    const float* ht = hb + static_cast<int64_t>(t) * HD * DS;
-    for (int e = tid; e < HD * DS; e += kThreads)
-      hin_s[(e / DS) * PS + e % DS] = ht[e];
-    if (tid < kTile)
-      dt_s[tid] = tid < n ? dtb[static_cast<int64_t>(t0 + tid) * nh] : 0.f;
-    __syncthreads();
-
-    // 2. cum and its exponentials; steps past n add 0, so the last
-    //    value is the tile's total
-    if (tid < 32) {
-      tile_cum(dt_s, A, cum_s, tid);
-      const float total = cum_s[kTile - 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 2 * tid + h;
-        ecum_s[i] = expf(cum_s[i]);
-        edec_s[i] = expf(total - cum_s[i]);
-        w_s[i] = edec_s[i] * dt_s[i];
-      }
-    }
-    __syncthreads();
-    const float total = cum_s[kTile - 1];
-
-    // 3. S = C B^T and P = dy x^T, then S L dt, P L dt and S L P for
-    //    j <= i (the mask before the exp), 0 above
-    {
-      float sc[RT][RT], pc[RT][RT];
-      zero(sc);
-      zero(pc);
-      product<RT, RT, DS>(sc, ti, tj,
-                          [&](int i, int s) { return c_s[i * PS + s]; },
-                          [&](int s, int j) { return b_s[j * PS + s]; });
-      product<RT, RT, HD>(pc, ti, tj,
-                          [&](int i, int d) { return dy_s[i * PH + d]; },
-                          [&](int d, int j) { return x_s[j * PH + d]; });
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int i = ti + kSide * r;
-#pragma unroll
-        for (int c = 0; c < RT; ++c) {
-          const int j = tj + kSide * c;
-          float gv = 0.f, ev = 0.f, kv = 0.f;
-          if (j <= i) {
-            const float l = expf(cum_s[i] - cum_s[j]);
-            const float sl = sc[r][c] * l;
-            gv = sl * dt_s[j];
-            ev = pc[r][c] * l * dt_s[j];
-            kv = sl * pc[r][c];
-          }
-          g_s[i * kPT + j] = gv;
-          e_s[i * kPT + j] = ev;
-          k_s[i * kPT + j] = kv;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 4. the column sums of S L P; then each row of Q = (S L P) dt turned
-    //    into its exclusive prefix sums, in place
-    if (tid < kTile) {
-      float s = 0.f;
-      for (int i = tid; i < kTile; ++i) s += k_s[i * kPT + tid];
-      colk_s[tid] = s;
-    }
-    __syncthreads();
-    if (tid < kTile) {
-      float run = 0.f;
-      for (int m = 0; m <= tid; ++m) {
-        const float q = k_s[tid * kPT + m] * dt_s[m];
-        k_s[tid * kPT + m] = run;
-        run += q;
-      }
-    }
-
-    // 5. dx = (S L dt)^T dy + w (B dh^T), and v_j = exp(total - cum_j)
-    //    x_j.(dh B_j)
-    {
-      float acc[RT][RH], bdh[RT][RH];
-      zero(acc);
-      zero(bdh);
-      product<RT, RH, kTile>(acc, ti, tj,
-                             [&](int j, int i) { return g_s[i * kPT + j]; },
-                             [&](int i, int d) { return dy_s[i * PH + d]; });
-      product<RT, RH, DS>(bdh, ti, tj,
-                          [&](int j, int s) { return b_s[j * PS + s]; },
-                          [&](int s, int d) { return dh_s[d * PS + s]; });
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int j = ti + kSide * r;
-        float xv = 0.f;
-#pragma unroll
-        for (int c = 0; c < RH; ++c) {
-          const int d = tj + kSide * c;
-          xv = fmaf(x_s[j * PH + d], bdh[r][c], xv);
-          if (j < n) store(dxb + (t0 + j) * x_step + d,
-                           fmaf(w_s[j], bdh[r][c], acc[r][c]));
-        }
-        xv = row_sum(xv);
-        if (tj == 0) v_s[j] = edec_s[j] * xv;
-      }
-    }
-    // 6. dC = (P L dt) B + exp(cum) (dy h_in), and r_i = exp(cum_i)
-    //    dy_i.(h_in C_i)
-    {
-      float acc[RT][RS], dyh[RT][RS];
-      zero(acc);
-      zero(dyh);
-      product<RT, RS, kTile>(acc, ti, tj,
-                             [&](int i, int j) { return e_s[i * kPT + j]; },
-                             [&](int j, int s) { return b_s[j * PS + s]; });
-      product<RT, RS, HD>(dyh, ti, tj,
-                          [&](int i, int d) { return dy_s[i * PH + d]; },
-                          [&](int d, int s) { return hin_s[d * PS + s]; });
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int i = ti + kSide * r;
-        float cv = 0.f;
-#pragma unroll
-        for (int c = 0; c < RS; ++c) {
-          const int s = tj + kSide * c;
-          cv = fmaf(dyh[r][c], c_s[i * PS + s], cv);
-          if (i < n)
-            dcp[(t0 + i) * part_step + s] = fmaf(ecum_s[i], dyh[r][c],
-                                                 acc[r][c]);
-        }
-        cv = row_sum(cv);
-        if (tj == 0) r_s[i] = ecum_s[i] * cv;
-      }
-    }
-    // 7. dB = (P L dt)^T C + w (x dh)
-    {
-      float acc[RT][RS], xdh[RT][RS];
-      zero(acc);
-      zero(xdh);
-      product<RT, RS, kTile>(acc, ti, tj,
-                             [&](int j, int i) { return e_s[i * kPT + j]; },
-                             [&](int i, int s) { return c_s[i * PS + s]; });
-      product<RT, RS, HD>(xdh, ti, tj,
-                          [&](int j, int d) { return x_s[j * PH + d]; },
-                          [&](int d, int s) { return dh_s[d * PS + s]; });
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int j = ti + kSide * r;
-        if (j >= n) continue;
-#pragma unroll
-        for (int c = 0; c < RS; ++c)
-          dbp[(t0 + j) * part_step + tj + kSide * c] =
-              fmaf(w_s[j], xdh[r][c], acc[r][c]);
-      }
-    }
-    // 8. <dh, h_in>, a warp's part
-    {
-      float p = 0.f;
-      for (int e = tid; e < HD * DS; e += kThreads) {
-        const int o = (e / DS) * PS + e % DS;
-        p = fmaf(dh_s[o], hin_s[o], p);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (lane == 0) red_s[tid / 32] = p;
-    }
-    __syncthreads();
-
-    // 9. da, ddt and dt da for steps m of the tile
-    if (tid < kTile) {
-      const int m = tid;
-      float dh_hin = 0.f;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) dh_hin += red_s[w];
-      float pairs = 0.f, rsum = 0.f, usum = 0.f;
-      for (int i = m; i < kTile; ++i) {
-        pairs += k_s[i * kPT + m];
-        rsum += r_s[i];
-      }
-      for (int j = 0; j < m; ++j) usum = fmaf(dt_s[j], v_s[j], usum);
-      const float da = ((pairs + rsum) + usum) + expf(total) * dh_hin;
-      if (m < n) ddtb[static_cast<int64_t>(t0 + m) * nh] =
-          fmaf(A, da, colk_s[m] + v_s[m]);
-      dtda_s[m] = dt_s[m] * da;
-    }
-    // 10. dh <- exp(total) dh + (exp(cum) dy)^T C, each thread its own
-    //     elements (no one else reads dh in this phase)
-    {
-      float acc[RH][RS];
-      zero(acc);
-      product<RH, RS, kTile>(
-          acc, ti, tj,
-          [&](int d, int i) { return ecum_s[i] * dy_s[i * PH + d]; },
-          [&](int i, int s) { return c_s[i * PS + s]; });
-      const float decay = expf(total);
-#pragma unroll
-      for (int r = 0; r < RH; ++r)
-#pragma unroll
-        for (int c = 0; c < RS; ++c) {
-          const int o = (ti + kSide * r) * PS + tj + kSide * c;
-          dh_s[o] = fmaf(decay, dh_s[o], acc[r][c]);
-        }
-    }
-    __syncthreads();
-    if (tid == 0)
-      for (int m = 0; m < kTile; ++m) da_sum += dtda_s[m];
-  }
-  if (tid == 0) da_part[bh] = da_sum;
 }
 
 // ------------------------------------------------------------ reduction
@@ -1482,46 +1025,683 @@ ssd_bwd_tile_kernel_bf16(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------------------ launch
+// ------------------------------------------------------------- float32
 
-template <typename T, int HD, int DS>
-int launch_shape(const void* x, const void* dt, const void* a,
-                 const void* bm, const void* cm, const void* dy,
-                 const void* dh_end, void* dx, void* ddt, void* da, void* db,
-                 void* dc, void* states, void* db_part, void* dc_part,
-                 void* da_part, int B, int S, int nh, int g, int64_t bc_sb,
-                 int64_t bc_ss, cudaStream_t stream) {
-  const auto state = ssd_state_kernel<T, HD, DS>;
-  const auto back = ssd_backward_kernel<T, HD, DS>;
-  const int state_bytes = static_cast<int>(StateSmem<HD, DS>::kBytes);
-  const int back_bytes = static_cast<int>(BwdSmem<HD, DS>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      state, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(back, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             back_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nh, B);
-  state<<<grid, kThreads, state_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bm),
-      static_cast<float*>(states), S, nh, g, bc_sb, bc_ss);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  back<<<grid, kThreads, back_bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), static_cast<const float*>(dy),
-      static_cast<const float*>(dh_end), static_cast<const float*>(states),
-      static_cast<T*>(dx), static_cast<float*>(ddt),
-      static_cast<float*>(db_part), static_cast<float*>(dc_part),
-      static_cast<float*>(da_part), S, nh, g, bc_sb, bc_ss);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<T>(db_part, dc_part, da_part, db, dc, da,
-                          static_cast<int64_t>(B) * S, B, nh, nh, g, DS,
-                          stream);
+// Shared memory of the float32 state kernel, in bytes: two stages, each
+// holding walk 1's x and B or walk 2's dy and C as float32 (rows padded
+// to 8 mod 32 floats: the fragment loads meet 32 distinct banks), then
+// dt; then each warp's own cum and scale.  A block keeps kCols columns
+// of the state (64 of mamba2's 128: two blocks a (head, b), each with
+// half the registers, three blocks an SM).
+template <int HD, int DS>
+struct F32State {
+  static constexpr int kWarps = HD / 16;         // one per 16 rows of h
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kCols = DS < 64 ? DS : 64;  // state columns a block
+  static constexpr int kXS = HD + 8;             // floats per x / dy row
+  static constexpr int kBS = kCols + 8;          // of a B / C row
+  static constexpr int kN = 4 * kTile * kXS;     // B or C in a stage
+  static constexpr int kDt = kN + 4 * kTile * kBS;
+  static constexpr int kStage = kDt + 4 * kTile;
+  static constexpr int kScan = 2 * kStage;
+  static constexpr int kBytes = kScan + kWarps * 2 * 4 * kTile;
+  static_assert(kN % 16 == 0 && kDt % 16 == 0 && kStage % 16 == 0,
+                "16-byte aligned rows for cp.async");
+};
+
+// Stage rows [t0, t0 + n) of a tile as float32 (rows past n
+// zero-filled, dt = 0 making them identity steps): x and B (walk 1) or
+// dy and C (walk 2).
+template <int HD, int DS>
+__device__ __forceinline__ void state_tile_f32(
+    unsigned char* stage, const float* mb, const float* nb, const float* dtb,
+    int64_t x_step, int nh, int64_t bc_ss, int t0, int n) {
+  using L = F32State<HD, DS>;
+  float* ms = reinterpret_cast<float*>(stage);
+  float* ns = reinterpret_cast<float*>(stage + L::kN);
+  constexpr int kMChunks = HD / 4;               // 16-byte chunks a row
+  constexpr int kNChunks = L::kCols / 4;
+  for (int c = threadIdx.x; c < kTile * kMChunks; c += L::kThreads) {
+    const int r = c / kMChunks;
+    const int ch = c % kMChunks;
+    const bool ok = r < n;
+    cp_async16(ms + r * L::kXS + ch * 4,
+               mb + (t0 + (ok ? r : 0)) * x_step + ch * 4, ok);
+  }
+  for (int c = threadIdx.x; c < kTile * kNChunks; c += L::kThreads) {
+    const int r = c / kNChunks;
+    const int ch = c % kNChunks;
+    const bool ok = r < n;
+    cp_async16(ns + r * L::kBS + ch * 4,
+               nb + (t0 + (ok ? r : 0)) * bc_ss + ch * 4, ok);
+  }
+  float* dts = reinterpret_cast<float*>(stage + L::kDt);
+  for (int r = threadIdx.x; r < kTile; r += L::kThreads)
+    cp_async4(dts + r, dtb + static_cast<int64_t>(t0 + (r < n ? r : 0)) * nh,
+              r < n);
 }
+
+// h <- h decay + (scale o m)^T n over the tile's first n steps: A (rows
+// d of this warp, k = steps) formed once from the staged m rows, then
+// each 8-column tile of the block's columns of h summed in zeroed
+// fragments and added in round-to-nearest
+template <int HD, int DS>
+__device__ __forceinline__ void state_update_f32(
+    float (&h)[F32State<HD, DS>::kCols / 8][4],
+                                                 const float* ms,
+                                                 const float* ns,
+                                                 const float* scale,
+                                                 float decay, int n,
+                                                 int d0) {
+  using L = F32State<HD, DS>;
+  constexpr int kKT = kTile / 8;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int c4 = lane % 4;
+  uint32_t ab[kKT][4], as[kKT][4];
+#pragma unroll
+  for (int kj = 0; kj < kKT; ++kj) {
+    if (8 * kj >= n) break;
+    const int j = 8 * kj + c4;
+    const float s0 = scale[j], s1 = scale[j + 4];
+    const float* m0 = ms + j * L::kXS + d0 + g4;
+    const float* m1 = m0 + 4 * L::kXS;
+    split_tf32(s0 * m0[0], ab[kj][0], as[kj][0]);
+    split_tf32(s0 * m0[8], ab[kj][1], as[kj][1]);
+    split_tf32(s1 * m1[0], ab[kj][2], as[kj][2]);
+    split_tf32(s1 * m1[8], ab[kj][3], as[kj][3]);
+  }
+#pragma unroll
+  for (int sn = 0; sn < L::kCols / 8; ++sn) {
+    float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kj = 0; kj < kKT; ++kj) {
+      if (8 * kj >= n) break;
+      uint32_t bb[2], bs[2];
+      frag_b_kn_tf32(bb, bs, ns, L::kBS, 8 * kj, 8 * sn);
+      mma_3xtf32_apart(lo, hi, ab[kj], as[kj], bb, bs);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h[sn][e] = fmaf(h[sn][e], decay, hi[e] + lo[e]);
+  }
+}
+
+// h_in and dh of every tile, as the bf16 state kernel writes them, one
+// block per (head, b, column block of kCols), each walk's product in
+// 3xTF32 on the tensor cores:
+//   walk 1: h_in[t] = h, then h <- h exp(total) + (w o x)^T B
+//   walk 2 (t from the last): dh[t] = dh, then
+//           dh <- dh exp(total) + (exp(cum) o dy)^T C
+template <int HD, int DS>
+__global__ void __launch_bounds__(2 * HD, 3)
+ssd_bwd_state_kernel_f32(const float* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ a,
+                         const float* __restrict__ bm,
+                         const float* __restrict__ cm,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dh_end,
+                         float* __restrict__ states,
+                         float* __restrict__ dstates, int S, int nh, int g,
+                         int64_t bc_sb, int64_t bc_ss) {
+  using L = F32State<HD, DS>;
+  constexpr int kSN = L::kCols / 8;              // 8-column tiles of h
+  extern __shared__ __align__(16) unsigned char sbuf[];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g4 = lane / 4;
+  const int c4 = lane % 4;
+  const int d0 = 16 * warp;
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int s0 = blockIdx.z * L::kCols;          // the block's columns
+  const int grp = head / (nh / g);
+  const float A = a[head];
+  const int tiles = (S + kTile - 1) / kTile;
+  const int64_t x_step = static_cast<int64_t>(nh) * HD;
+  const int64_t row0 = static_cast<int64_t>(b) * S;
+  const float* xb = x + row0 * x_step + static_cast<int64_t>(head) * HD;
+  const float* dyb = dy + row0 * x_step + static_cast<int64_t>(head) * HD;
+  const float* dtb = dt + row0 * nh + head;
+  const float* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS + s0;
+  const float* cb = cm + b * bc_sb + static_cast<int64_t>(grp) * DS + s0;
+  const int64_t bh = static_cast<int64_t>(b) * nh + head;
+  float* cum = reinterpret_cast<float*>(sbuf + L::kScan) + warp * 2 * kTile;
+  float* scl = cum + kTile;
+
+  float h[kSN][4];
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int sn = 0; sn < kSN; ++sn)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(dst + (d0 + g4 + 8 * hf) * DS + s0 +
+                                   8 * sn + 2 * c4) =
+            make_float2(h[sn][2 * hf], h[sn][2 * hf + 1]);
+  };
+
+  // walk 1: the state entering each tile, from h = 0
+#pragma unroll
+  for (int sn = 0; sn < kSN; ++sn)
+    h[sn][0] = h[sn][1] = h[sn][2] = h[sn][3] = 0.f;
+  if (tiles > 1)
+    state_tile_f32<HD, DS>(sbuf, xb, bb, dtb, x_step, nh, bc_ss, 0,
+                           min(kTile, S));
+  cp_async_commit();
+  for (int t = 0; t + 1 < tiles; ++t) {
+    put(states + (bh * tiles + t) * HD * DS);
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 2 < tiles)
+      state_tile_f32<HD, DS>(sbuf + ((t + 1) & 1) * L::kStage, xb, bb, dtb,
+                             x_step, nh, bc_ss, (t + 1) * kTile,
+                             min(kTile, S - (t + 1) * kTile));
+    cp_async_commit();
+    const unsigned char* stage = sbuf + (t & 1) * L::kStage;
+    const float* dts = reinterpret_cast<const float*>(stage + L::kDt);
+    const float total = warp_cum(dts, A, cum, lane);
+    scl[2 * lane] = expf(total - cum[2 * lane]) * dts[2 * lane];
+    scl[2 * lane + 1] = expf(total - cum[2 * lane + 1]) * dts[2 * lane + 1];
+    __syncwarp();
+    state_update_f32<HD, DS>(
+        h, reinterpret_cast<const float*>(stage),
+        reinterpret_cast<const float*>(stage + L::kN), scl, expf(total),
+        kTile, d0);
+  }
+  put(states + (bh * tiles + tiles - 1) * HD * DS);
+  __syncthreads();
+
+  // walk 2: the gradient of the state leaving each tile, from dh_S
+#pragma unroll
+  for (int sn = 0; sn < kSN; ++sn)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float2 v = make_float2(0.f, 0.f);
+      if (dh_end != nullptr)
+        v = *reinterpret_cast<const float2*>(
+            dh_end + bh * HD * DS + (d0 + g4 + 8 * hf) * DS + s0 + 8 * sn +
+            2 * c4);
+      h[sn][2 * hf] = v.x;
+      h[sn][2 * hf + 1] = v.y;
+    }
+  if (tiles > 1) {
+    const int tl = (tiles - 1) * kTile;
+    state_tile_f32<HD, DS>(sbuf, dyb, cb, dtb, x_step, nh, bc_ss, tl,
+                           S - tl);
+  }
+  cp_async_commit();
+  for (int it = 0; it + 1 < tiles; ++it) {
+    const int t = tiles - 1 - it;
+    put(dstates + (bh * tiles + t) * HD * DS);
+    cp_async_wait_all();
+    __syncthreads();
+    if (t - 1 > 0)
+      state_tile_f32<HD, DS>(sbuf + ((it + 1) & 1) * L::kStage, dyb, cb, dtb,
+                             x_step, nh, bc_ss, (t - 1) * kTile, kTile);
+    cp_async_commit();
+    const unsigned char* stage = sbuf + (it & 1) * L::kStage;
+    const float* dts = reinterpret_cast<const float*>(stage + L::kDt);
+    const float total = warp_cum(dts, A, cum, lane);
+    scl[2 * lane] = expf(cum[2 * lane]);
+    scl[2 * lane + 1] = expf(cum[2 * lane + 1]);
+    __syncwarp();
+    state_update_f32<HD, DS>(
+        h, reinterpret_cast<const float*>(stage),
+        reinterpret_cast<const float*>(stage + L::kN), scl, expf(total),
+        min(kTile, S - t * kTile), d0);
+  }
+  put(dstates + bh * tiles * HD * DS);
+}
+
+// Shared memory of the float32 tile kernel, in bytes: B, C, h_in and dh
+// rows padded to 8 mod 32 floats, x and dy to 8 mod 32, G and E (the
+// L dt-weighted tile matrices) to 4 mod 32, K, 13 step vectors and the
+// warps' dots.  (64, 128): 230,976 bytes, one block an SM.
+template <int HD, int DS>
+struct F32Tile {
+  static constexpr int kXS = HD + 8;             // x, dy rows
+  static constexpr int kBS = DS + 8;             // B, C, h_in, dh rows
+  static constexpr int kMS = kTile + 4;          // G, E rows
+  static constexpr int kB = 0;
+  static constexpr int kC = kB + 4 * kTile * kBS;
+  static constexpr int kX = kC + 4 * kTile * kBS;
+  static constexpr int kDy = kX + 4 * kTile * kXS;
+  static constexpr int kHin = kDy + 4 * kTile * kXS;
+  static constexpr int kDh = kHin + 4 * HD * kBS;
+  static constexpr int kG = kDh + 4 * HD * kBS;
+  static constexpr int kE = kG + 4 * kTile * kMS;
+  static constexpr int kK = kE + 4 * kTile * kMS;
+  static constexpr int kVec = kK + 4 * kTile * kPT;
+  static constexpr int kVecs = 13;               // 64-float vectors
+  static constexpr int kRed = kVec + 4 * kVecs * kTile;
+  static constexpr int kBytes = kRed + 4 * 16;
+  static_assert(kC % 16 == 0 && kX % 16 == 0 && kDy % 16 == 0 &&
+                    kHin % 16 == 0 && kDh % 16 == 0 && kG % 16 == 0 &&
+                    kE % 16 == 0 && kK % 16 == 0 && kVec % 16 == 0,
+                "16-byte aligned regions");
+  static_assert(kBytes <= 232448, "one block's shared memory on an SM");
+};
+
+// One block per (head block, tile, b), as ssd_bwd_tile_kernel_bf16, its
+// products in 3xTF32: S = C B^T and P = dy x^T per head in registers
+// (S is not kept: its 17 KB would not fit beside float32 operands), G
+// and E in float32, dB and dC of each head summed in fragments that
+// start from the head's own state terms, then added to the block's
+// running sums in round-to-nearest.
+template <int HD, int DS>
+__global__ void __launch_bounds__(kTileThreads, 1)
+ssd_bwd_tile_kernel_f32(const float* __restrict__ x,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ a,
+                        const float* __restrict__ bm,
+                        const float* __restrict__ cm,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ states,
+                        const float* __restrict__ dstates,
+                        float* __restrict__ dx, float* __restrict__ ddt,
+                        float* __restrict__ db_part,
+                        float* __restrict__ dc_part,
+                        float* __restrict__ da_part, int S, int nh, int g,
+                        int hpb, int64_t bc_sb, int64_t bc_ss) {
+  using L = F32Tile<HD, DS>;
+  constexpr int kND = HD / 16;                   // n-tiles of a dx half
+  constexpr int kNC = DS / 16;                   // of a dB / dC half
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  float* b_s = reinterpret_cast<float*>(sbuf + L::kB);
+  float* c_s = reinterpret_cast<float*>(sbuf + L::kC);
+  float* x_s = reinterpret_cast<float*>(sbuf + L::kX);
+  float* dy_s = reinterpret_cast<float*>(sbuf + L::kDy);
+  float* hin_s = reinterpret_cast<float*>(sbuf + L::kHin);
+  float* dh_s = reinterpret_cast<float*>(sbuf + L::kDh);
+  float* g_s = reinterpret_cast<float*>(sbuf + L::kG);   // S L dt
+  float* e_s = reinterpret_cast<float*>(sbuf + L::kE);   // P L dt
+  float* k_s = reinterpret_cast<float*>(sbuf + L::kK);   // S L P, then Q
+  float* dt_s = reinterpret_cast<float*>(sbuf + L::kVec);
+  float* cum_s = dt_s + kTile;
+  float* ecum_s = cum_s + kTile;         // exp(cum_i)
+  float* edec_s = ecum_s + kTile;        // exp(total - cum_j)
+  float* w_s = edec_s + kTile;           // exp(total - cum_j) dt_j
+  float* v_s = w_s + kTile;              // exp(total - cum_j) x_j.(dh B_j)
+  float* r_s = v_s + kTile;              // exp(cum_i) dy_i.(h_in C_i)
+  float* colk_s = r_s + kTile;           // sum_i (S L P)_ij
+  float* dtda_s = colk_s + kTile;        // dt_m da_m
+  float* vp_s = dtda_s + kTile;          // two halves of x_j.(dh B_j)
+  float* rp_s = vp_s + 2 * kTile;        // two halves of dy_i.(h_in C_i)
+  float* red_s = reinterpret_cast<float*>(sbuf + L::kRed);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g4 = lane / 4;
+  const int c4 = lane % 4;
+  const int hb = blockIdx.x;
+  const int t = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tiles = gridDim.y;
+  const int t0 = t * kTile;
+  const int n = min(kTile, S - t0);
+  const int grp = hb * hpb / (nh / g);
+  // products: warp (rb, ch) takes rows [16 rb, 16 rb + 16) of its
+  // outputs and column half ch; the tile matrices: row block wb = warp /
+  // 2, column blocks 2 (warp % 2) and 2 (warp % 2) + 1 up to wb
+  const int rb = warp & 3;
+  const int ch = warp >> 2;
+  const int wb = warp >> 1;
+  const int wc = warp & 1;
+  const int scol = ch * DS / 2;
+  const int64_t x_step = static_cast<int64_t>(nh) * HD;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;  // (b, t0) row
+
+  // B and C of the tile (waited for with the first head's rows)
+  {
+    const float* bb = bm + b * bc_sb + static_cast<int64_t>(grp) * DS;
+    const float* cb = cm + b * bc_sb + static_cast<int64_t>(grp) * DS;
+    constexpr int kChunks = DS / 4;
+    for (int c = tid; c < kTile * kChunks; c += kTileThreads) {
+      const int r = c / kChunks;
+      const int cc = c % kChunks;
+      const bool ok = r < n;
+      const int64_t off = (t0 + (ok ? r : 0)) * bc_ss + cc * 4;
+      cp_async16(b_s + r * L::kBS + cc * 4, bb + off, ok);
+      cp_async16(c_s + r * L::kBS + cc * 4, cb + off, ok);
+    }
+    cp_async_commit();
+  }
+  float dba[kNC][4], dca[kNC][4];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[c][e] = dca[c][e] = 0.f;
+
+  for (int hh = 0; hh < hpb; ++hh) {
+    const int head = hb * hpb + hh;
+    const float A = a[head];
+    const int64_t bh = static_cast<int64_t>(b) * nh + head;
+    // 1. stage x, dy, h_in and dh (cp.async) and dt; then <dh, h_in>
+    {
+      const int64_t col = static_cast<int64_t>(head) * HD;
+      constexpr int kChunks = HD / 4;
+      for (int c = tid; c < kTile * kChunks; c += kTileThreads) {
+        const int r = c / kChunks;
+        const int cc = c % kChunks;
+        const bool ok = r < n;
+        const int64_t off = (row0 + (ok ? r : 0)) * x_step + col + cc * 4;
+        cp_async16(x_s + r * L::kXS + cc * 4, x + off, ok);
+        cp_async16(dy_s + r * L::kXS + cc * 4, dy + off, ok);
+      }
+      const float* hin = states + (bh * tiles + t) * HD * DS;
+      const float* dhv = dstates + (bh * tiles + t) * HD * DS;
+      constexpr int kHChunks = DS / 4;
+      for (int c = tid; c < HD * kHChunks; c += kTileThreads) {
+        const int r = c / kHChunks;
+        const int cc = c % kHChunks;
+        cp_async16(hin_s + r * L::kBS + cc * 4, hin + r * DS + cc * 4, true);
+        cp_async16(dh_s + r * L::kBS + cc * 4, dhv + r * DS + cc * 4, true);
+      }
+      cp_async_commit();
+      if (tid < kTile)
+        dt_s[tid] = tid < n ? dt[(row0 + tid) * nh + head] : 0.f;
+      cp_async_wait_all();
+      __syncthreads();
+      float p = 0.f;
+      for (int e = tid; e < HD * DS; e += kTileThreads) {
+        const int o = (e / DS) * L::kBS + e % DS;
+        p = fmaf(hin_s[o], dh_s[o], p);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+      if (lane == 0) red_s[warp] = p;
+    }
+
+    // 2. cum and its exponentials (steps past n add 0, so the last value
+    //    is the tile's total)
+    if (warp == 0) {
+      tile_cum(dt_s, A, cum_s, lane);
+      const float total = cum_s[kTile - 1];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 2 * lane + hf;
+        ecum_s[i] = expf(cum_s[i]);
+        edec_s[i] = expf(total - cum_s[i]);
+        w_s[i] = edec_s[i] * dt_s[i];
+      }
+    }
+    __syncthreads();
+    const float total = cum_s[kTile - 1];
+
+    // 3. S = C B^T and P = dy x^T on the lower block triangle, both with
+    //    pair-relabelled k-steps; then G = S L dt, E = P L dt and K = S
+    //    L P for j <= i (the mask before the exp), 0 above
+#pragma unroll
+    for (int q2 = 0; q2 < 2; ++q2) {
+      const int jb = 2 * wc + q2;
+      if (jb > wb) break;
+      float sl[2][4] = {}, sh[2][4] = {}, pc[2][4] = {};
+#pragma unroll 4
+      for (int ks = 0; ks < DS / 8; ++ks) {
+        uint32_t ab[4], as[4];
+        frag_a_pairs_tf32(ab, as, c_s, L::kBS, 16 * wb, 8 * ks);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t bb[2], bs[2];
+          frag_b_pairs_tf32(bb, bs, b_s, L::kBS, 16 * jb + 8 * q, 8 * ks);
+          mma_3xtf32_apart(sl[q], sh[q], ab, as, bb, bs);
+        }
+      }
+#pragma unroll 4
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        uint32_t ab[4], as[4];
+        frag_a_pairs_tf32(ab, as, dy_s, L::kXS, 16 * wb, 8 * kd);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t bb[2], bs[2];
+          frag_b_pairs_tf32(bb, bs, x_s, L::kXS, 16 * jb + 8 * q, 8 * kd);
+          mma_3xtf32(pc[q], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * wb + g4 + 8 * hf;
+          const int j = 16 * jb + 8 * q + 2 * c4;
+          float gv[2], ev[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float kv = 0.f;
+            gv[e] = ev[e] = 0.f;
+            if (j + e <= i) {
+              const float l = expf(cum_s[i] - cum_s[j + e]);
+              const float sv = (sh[q][2 * hf + e] + sl[q][2 * hf + e]) * l;
+              const float pv = pc[q][2 * hf + e];
+              gv[e] = sv * dt_s[j + e];
+              ev[e] = pv * l * dt_s[j + e];
+              kv = sv * pv;
+            }
+            k_s[i * kPT + j + e] = kv;
+          }
+          *reinterpret_cast<float2*>(g_s + i * L::kMS + j) =
+              make_float2(gv[0], gv[1]);
+          *reinterpret_cast<float2*>(e_s + i * L::kMS + j) =
+              make_float2(ev[0], ev[1]);
+        }
+    }
+    __syncthreads();
+
+    // 4. the column sums of K, then each row of Q = K dt turned into its
+    //    exclusive prefix sums in place (threads 0..63, which then pass
+    //    no barrier until step 6); meanwhile every warp's products
+    if (tid < kTile) {
+      float sum = 0.f;
+      for (int i = tid; i < kTile; ++i) sum += k_s[i * kPT + tid];
+      colk_s[tid] = sum;
+    }
+    __syncthreads();
+    if (tid < kTile) {
+      float run = 0.f;
+      for (int m = 0; m <= tid; ++m) {
+        const float qv = k_s[tid * kPT + m] * dt_s[m];
+        k_s[tid * kPT + m] = run;
+        run += qv;
+      }
+    }
+    // 5a. dx = G^T dy + w o (B dh^T) on rows j of block rb, half ch of the
+    //     columns d, each in a zeroed fragment; vp = this half of
+    //     x_j.(dh B_j)
+    {
+      float acc[kND][4] = {}, bdh[kND][4] = {};
+      const int dcol = ch * HD / 2;
+#pragma unroll
+      for (int ki = 0; ki < kTile / 8; ++ki) {
+        if (ki < 2 * rb) continue;
+        uint32_t ab[4], as[4];
+        frag_a_km_tf32(ab, as, g_s, L::kMS, 16 * rb, 8 * ki);
+#pragma unroll
+        for (int nd = 0; nd < kND; ++nd) {
+          uint32_t bb[2], bs[2];
+          frag_b_kn_tf32(bb, bs, dy_s, L::kXS, 8 * ki, dcol + 8 * nd);
+          mma_3xtf32(acc[nd], ab, as, bb, bs);
+        }
+      }
+#pragma unroll 4
+      for (int ks = 0; ks < DS / 8; ++ks) {
+        uint32_t ab[4], as[4];
+        frag_a_pairs_tf32(ab, as, b_s, L::kBS, 16 * rb, 8 * ks);
+#pragma unroll
+        for (int nd = 0; nd < kND; ++nd) {
+          uint32_t bb[2], bs[2];
+          frag_b_pairs_tf32(bb, bs, dh_s, L::kBS, dcol + 8 * nd, 8 * ks);
+          mma_3xtf32(bdh[nd], ab, as, bb, bs);
+        }
+      }
+      float* dxb = dx + row0 * x_step + static_cast<int64_t>(head) * HD;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = 16 * rb + g4 + 8 * hf;
+        const float wj = w_s[j];
+        float xv = 0.f;
+#pragma unroll
+        for (int nd = 0; nd < kND; ++nd) {
+          const int d = dcol + 8 * nd + 2 * c4;
+          const float2 xf =
+              *reinterpret_cast<const float2*>(x_s + j * L::kXS + d);
+          xv = fmaf(xf.x, bdh[nd][2 * hf], xv);
+          xv = fmaf(xf.y, bdh[nd][2 * hf + 1], xv);
+          if (j < n)
+            *reinterpret_cast<float2*>(dxb + j * x_step + d) = make_float2(
+                fmaf(wj, bdh[nd][2 * hf], acc[nd][2 * hf]),
+                fmaf(wj, bdh[nd][2 * hf + 1], acc[nd][2 * hf + 1]));
+        }
+        xv += __shfl_xor_sync(0xffffffffu, xv, 1);
+        xv += __shfl_xor_sync(0xffffffffu, xv, 2);
+        if (c4 == 0) vp_s[ch * kTile + j] = xv;
+      }
+    }
+    // 5b. dC += exp(cum) o (dy h_in) + E B on rows i of block rb, half ch
+    //     of the columns s: dy h_in in a zeroed fragment, scaled, then E B
+    //     on top; rp = this half of dy_i.(h_in C_i)
+    {
+      float t[kNC][4] = {};
+#pragma unroll 4
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        uint32_t ab[4], as[4];
+        frag_a_tf32(ab, as, dy_s, L::kXS, 16 * rb, 8 * kd);
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          uint32_t bb[2], bs[2];
+          frag_b_kn_tf32(bb, bs, hin_s, L::kBS, 8 * kd, scol + 8 * nc);
+          mma_3xtf32(t[nc], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * rb + g4 + 8 * hf;
+        const float ei = ecum_s[i];
+        float cv = 0.f;
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          const int s = scol + 8 * nc + 2 * c4;
+          const float2 cf =
+              *reinterpret_cast<const float2*>(c_s + i * L::kBS + s);
+          cv = fmaf(t[nc][2 * hf], cf.x, cv);
+          cv = fmaf(t[nc][2 * hf + 1], cf.y, cv);
+          t[nc][2 * hf] *= ei;
+          t[nc][2 * hf + 1] *= ei;
+        }
+        cv += __shfl_xor_sync(0xffffffffu, cv, 1);
+        cv += __shfl_xor_sync(0xffffffffu, cv, 2);
+        if (c4 == 0) rp_s[ch * kTile + i] = cv;
+      }
+#pragma unroll
+      for (int kj = 0; kj < kTile / 8; ++kj) {
+        if (kj > 2 * rb + 1) break;
+        uint32_t ab[4], as[4];
+        frag_a_tf32(ab, as, e_s, L::kMS, 16 * rb, 8 * kj);
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          uint32_t bb[2], bs[2];
+          frag_b_kn_tf32(bb, bs, b_s, L::kBS, 8 * kj, scol + 8 * nc);
+          mma_3xtf32(t[nc], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int nc = 0; nc < kNC; ++nc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dca[nc][e] += t[nc][e];
+    }
+    // 5c. dB += w o (x dh) + E^T C on rows j of block rb, half ch of s,
+    //     the same way
+    {
+      float t[kNC][4] = {};
+#pragma unroll 4
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        uint32_t ab[4], as[4];
+        frag_a_tf32(ab, as, x_s, L::kXS, 16 * rb, 8 * kd);
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          uint32_t bb[2], bs[2];
+          frag_b_kn_tf32(bb, bs, dh_s, L::kBS, 8 * kd, scol + 8 * nc);
+          mma_3xtf32(t[nc], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float wj = w_s[16 * rb + g4 + 8 * hf];
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          t[nc][2 * hf] *= wj;
+          t[nc][2 * hf + 1] *= wj;
+        }
+      }
+#pragma unroll
+      for (int ki = 0; ki < kTile / 8; ++ki) {
+        if (ki < 2 * rb) continue;
+        uint32_t ab[4], as[4];
+        frag_a_km_tf32(ab, as, e_s, L::kMS, 16 * rb, 8 * ki);
+#pragma unroll
+        for (int nc = 0; nc < kNC; ++nc) {
+          uint32_t bb[2], bs[2];
+          frag_b_kn_tf32(bb, bs, c_s, L::kBS, 8 * ki, scol + 8 * nc);
+          mma_3xtf32(t[nc], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int nc = 0; nc < kNC; ++nc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dba[nc][e] += t[nc][e];
+    }
+    __syncthreads();
+
+    // 6. v, r, then da, ddt and dt da for steps m of the tile
+    if (tid < kTile) {
+      v_s[tid] = edec_s[tid] * (vp_s[tid] + vp_s[kTile + tid]);
+      r_s[tid] = ecum_s[tid] * (rp_s[tid] + rp_s[kTile + tid]);
+    }
+    __syncthreads();
+    if (tid < kTile) {
+      const int m = tid;
+      float dh_hin = 0.f;
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w) dh_hin += red_s[w];
+      float pairs = 0.f, rsum = 0.f, usum = 0.f;
+      for (int i = m; i < kTile; ++i) {
+        pairs += k_s[i * kPT + m];
+        rsum += r_s[i];
+      }
+      for (int j = 0; j < m; ++j) usum = fmaf(dt_s[j], v_s[j], usum);
+      const float da = ((pairs + rsum) + usum) + expf(total) * dh_hin;
+      if (m < n)
+        ddt[(row0 + m) * nh + head] = fmaf(A, da, colk_s[m] + v_s[m]);
+      dtda_s[m] = dt_s[m] * da;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float sum = 0.f;
+      for (int m = 0; m < kTile; ++m) sum += dtda_s[m];
+      da_part[(static_cast<int64_t>(b) * tiles + t) * nh + head] = sum;
+    }
+  }
+
+  // dB and dC of the block's heads, one partial per (row, head block)
+  const int parts = nh / hpb;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = 16 * rb + g4 + 8 * hf;
+    if (r >= n) continue;
+    const int64_t base = ((row0 + r) * parts + hb) * DS + scol + 2 * c4;
+#pragma unroll
+    for (int nc = 0; nc < kNC; ++nc) {
+      *reinterpret_cast<float2*>(db_part + base + 8 * nc) =
+          make_float2(dba[nc][2 * hf], dba[nc][2 * hf + 1]);
+      *reinterpret_cast<float2*>(dc_part + base + 8 * nc) =
+          make_float2(dca[nc][2 * hf], dca[nc][2 * hf + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
 
 template <int HD, int DS>
 int launch_bf16(const void* x, const void* dt, const void* a, const void* bm,
@@ -1568,23 +1748,49 @@ int launch_bf16(const void* x, const void* dt, const void* a, const void* bm,
                            nh / hpb, g, DS, stream);
 }
 
-template <typename T>
-int launch_widths(int hd, int ds, const void* x, const void* dt,
-                  const void* a, const void* bm, const void* cm,
-                  const void* dy, const void* dh_end, void* dx, void* ddt,
-                  void* da, void* db, void* dc, void* states, void* db_part,
-                  void* dc_part, void* da_part, int B, int S, int nh, int g,
-                  int64_t bc_sb, int64_t bc_ss, cudaStream_t st) {
-#define SSD_BWD_SHAPE(HD, DS)                                               \
-  if (hd == HD && ds == DS)                                                 \
-    return launch_shape<T, HD, DS>(x, dt, a, bm, cm, dy, dh_end, dx, ddt,   \
-                                   da, db, dc, states, db_part, dc_part,    \
-                                   da_part, B, S, nh, g, bc_sb, bc_ss, st);
-  SSD_BWD_SHAPE(64, 128)  // mamba2-2.7b
-  SSD_BWD_SHAPE(64, 16)   // jamba-v0.1-52b's Mamba layers
-  SSD_BWD_SHAPE(32, 16)   // their reduced configs
-#undef SSD_BWD_SHAPE
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int HD, int DS>
+int launch_f32(const void* x, const void* dt, const void* a, const void* bm,
+               const void* cm, const void* dy, const void* dh_end, void* dx,
+               void* ddt, void* da, void* db, void* dc, void* states,
+               void* dstates, void* db_part, void* dc_part, void* da_part,
+               int B, int S, int nh, int g, int hpb, int64_t bc_sb,
+               int64_t bc_ss, cudaStream_t stream) {
+  const int tiles = (S + kTile - 1) / kTile;
+  if (hpb < 1 || (nh / g) % hpb != 0 || tiles > 65535 ||
+      dstates == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto state = ssd_bwd_state_kernel_f32<HD, DS>;
+  const auto tile = ssd_bwd_tile_kernel_f32<HD, DS>;
+  constexpr int state_bytes = F32State<HD, DS>::kBytes;
+  constexpr int tile_bytes = F32Tile<HD, DS>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      state, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tile_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  state<<<dim3(nh, B, DS / F32State<HD, DS>::kCols),
+          F32State<HD, DS>::kThreads, state_bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(dy),
+      static_cast<const float*>(dh_end), static_cast<float*>(states),
+      static_cast<float*>(dstates), S, nh, g, bc_sb, bc_ss);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile<<<dim3(nh / hpb, tiles, B), kTileThreads, tile_bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(dy),
+      static_cast<const float*>(states), static_cast<const float*>(dstates),
+      static_cast<float*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(db_part), static_cast<float*>(dc_part),
+      static_cast<float*>(da_part), S, nh, g, hpb, bc_sb, bc_ss);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce<float>(db_part, dc_part, da_part, db, dc, da,
+                              static_cast<int64_t>(B) * S, B * tiles, nh,
+                              nh / hpb, g, DS, stream);
 }
 
 }  // namespace
@@ -1594,16 +1800,14 @@ int launch_widths(int hd, int ds, const void* x, const void* dt,
 // nh) and dA (nh,) in float32.  dy (B, S, nh, hd) is float32 and
 // contiguous; dh_end (B, nh, hd, ds) float32 or null (zero).  B and C
 // share the strides bc_sb (batch) and bc_ss (time step), in elements,
-// with the group and state axes packed; dB and dC are contiguous.
-// Workspaces, float32, with tiles = ceil(S / 64): float32 runs
-// ssd_state_kernel, ssd_backward_kernel and ssd_reduce_kernel with
-// states B nh tiles hd ds, db_part and dc_part B S nh ds each, da_part
-// B nh (dstates and hpb unused); bfloat16 runs ssd_bwd_state_kernel_bf16,
-// ssd_bwd_tile_kernel_bf16 and ssd_reduce_kernel with states and dstates
-// B nh tiles hd ds each, db_part and dc_part B S (nh / hpb) ds each,
-// da_part B tiles nh, hpb heads a block (a divisor of nh / g).  (hd, ds)
-// is (64, 128), (64, 16) or (32, 16).  Returns the first CUDA error of
-// setting a shared-memory size or of a launch, 0 if none.
+// with the group and state axes packed; dB and dC are contiguous; in
+// float32 every row of x, dy, B and C starts 16-byte aligned.
+// Workspaces, float32, with tiles = ceil(S / 64): states and dstates B
+// nh tiles hd ds each, db_part and dc_part B S (nh / hpb) ds each,
+// da_part B tiles nh, hpb heads a block (a divisor of nh / g).  Either
+// dtype runs its state kernel, its tile kernel and ssd_reduce_kernel.
+// (hd, ds) is (64, 128), (64, 16) or (32, 16).  Returns the first CUDA
+// error of setting a shared-memory size or of a launch, 0 if none.
 extern "C" int ssd_scan_backward_launch(
     const void* x, const void* dt, const void* a, const void* bm,
     const void* cm, const void* dy, const void* dh_end, void* dx, void* ddt,
@@ -1614,20 +1818,25 @@ extern "C" int ssd_scan_backward_launch(
       nh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_widths<float>(hd, ds, x, dt, a, bm, cm, dy, dh_end, dx, ddt,
-                                da, db, dc, states, db_part, dc_part, da_part,
-                                B, S, nh, g, bc_sb, bc_ss, st);
-  if (dtype == 1) {
-#define SSD_BWD_BF16(HD, DS)                                                 \
-  if (hd == HD && ds == DS)                                                  \
-    return launch_bf16<HD, DS>(x, dt, a, bm, cm, dy, dh_end, dx, ddt, da, db, \
-                               dc, states, dstates, db_part, dc_part,        \
-                               da_part, B, S, nh, g, hpb, bc_sb, bc_ss, st);
-    SSD_BWD_BF16(64, 128)  // mamba2-2.7b
-    SSD_BWD_BF16(64, 16)   // jamba-v0.1-52b's Mamba layers
-    SSD_BWD_BF16(32, 16)   // their reduced configs
-#undef SSD_BWD_BF16
+#define SSD_BWD_WIDTHS(FN)                                                   \
+  if (hd == 64 && ds == 128) /* mamba2-2.7b */                               \
+    return FN<64, 128>(x, dt, a, bm, cm, dy, dh_end, dx, ddt, da, db, dc,    \
+                       states, dstates, db_part, dc_part, da_part, B, S, nh, \
+                       g, hpb, bc_sb, bc_ss, st);                            \
+  if (hd == 64 && ds == 16) /* jamba-v0.1-52b's Mamba layers */              \
+    return FN<64, 16>(x, dt, a, bm, cm, dy, dh_end, dx, ddt, da, db, dc,     \
+                      states, dstates, db_part, dc_part, da_part, B, S, nh,  \
+                      g, hpb, bc_sb, bc_ss, st);                             \
+  if (hd == 32 && ds == 16) /* their reduced configs */                      \
+    return FN<32, 16>(x, dt, a, bm, cm, dy, dh_end, dx, ddt, da, db, dc,     \
+                      states, dstates, db_part, dc_part, da_part, B, S, nh,  \
+                      g, hpb, bc_sb, bc_ss, st);
+  if (dtype == 0) {
+    SSD_BWD_WIDTHS(launch_f32)
   }
+  if (dtype == 1) {
+    SSD_BWD_WIDTHS(launch_bf16)
+  }
+#undef SSD_BWD_WIDTHS
   return static_cast<int>(cudaErrorInvalidValue);
 }

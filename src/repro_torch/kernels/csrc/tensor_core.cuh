@@ -4,7 +4,7 @@
 // as two bf16 terms (hi + lo, ~16 bits), and float32 products as 3xTF32
 // (m16n8k8 tf32 -> float32, each operand as big + small TF32 terms).
 // Included by flash_attention.cu, flash_attention_backward.cu,
-// ssd_scan.cu and ssd_scan_backward.cu.
+// mla_decode.cu, campaign_fold.cu, ssd_scan.cu and ssd_scan_backward.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + c, g = lane / 4,
 // c = lane % 4):
@@ -216,6 +216,20 @@ __device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ab,
   mma_tf32(c, ab, bb[0], bb[1]);
 }
 
+// The same three products with the small terms' two apart from big .
+// big: lo += as . bb + ab . bs, hi += ab . bb.  Two chains, each half as
+// long and truncating at its own magnitude (lo's ~2^-11 of hi's), for
+// the caller to add in round-to-nearest.
+__device__ __forceinline__ void mma_3xtf32_apart(float* lo, float* hi,
+                                                 const uint32_t* ab,
+                                                 const uint32_t* as,
+                                                 const uint32_t* bb,
+                                                 const uint32_t* bs) {
+  mma_tf32(lo, as, bb[0], bb[1]);
+  mma_tf32(hi, ab, bb[0], bb[1]);
+  mma_tf32(lo, ab, bs[0], bs[1]);
+}
+
 // Fragment loads from a float32 matrix in shared memory with rows
 // `stride` floats apart (stride = width + 4, so that the 32 lanes of one
 // 32-bit load, rows g and columns c or rows 2c and columns g, fall in
@@ -254,6 +268,66 @@ __device__ __forceinline__ void frag_b_rows_tf32(uint32_t* big,
   const float* p = m + (k0 + 2 * (lane % 4)) * stride + n0 + lane / 4;
   split_tf32(p[0], big[0], small[0]);
   split_tf32(p[stride], big[1], small[1]);
+}
+
+// The pair-relabelled loads: an 8-wide k-step whose k-index c holds
+// column k0 + 2c and c + 4 holds k0 + 2c + 1 (as an accumulator's pair
+// of columns does), so each lane reads one float2 a row; with stride
+// = 8 mod 32 the 16 lanes of each half-warp fall in distinct banks.
+//
+// A (16 x 8) at rows m0.. of M stored [m][k]
+__device__ __forceinline__ void frag_a_pairs_tf32(uint32_t* big,
+                                                  uint32_t* small,
+                                                  const float* m, int stride,
+                                                  int m0, int k0) {
+  const int lane = threadIdx.x % 32;
+  const float* p = m + (m0 + lane / 4) * stride + k0 + 2 * (lane % 4);
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  const float2 v = *reinterpret_cast<const float2*>(p + 8 * stride);
+  split_tf32(u.x, big[0], small[0]);
+  split_tf32(v.x, big[1], small[1]);
+  split_tf32(u.y, big[2], small[2]);
+  split_tf32(v.y, big[3], small[3]);
+}
+
+// B (8 x 8) at n0.. of a matrix stored [n][k] (B = M^T)
+__device__ __forceinline__ void frag_b_pairs_tf32(uint32_t* big,
+                                                  uint32_t* small,
+                                                  const float* m, int stride,
+                                                  int n0, int k0) {
+  const int lane = threadIdx.x % 32;
+  const float2 u = *reinterpret_cast<const float2*>(
+      m + (n0 + lane / 4) * stride + k0 + 2 * (lane % 4));
+  split_tf32(u.x, big[0], small[0]);
+  split_tf32(u.y, big[1], small[1]);
+}
+
+// The natural loads from a matrix stored with k as its row: lane (g, c)
+// reads row k0 + c (and + 4) at column g; with stride = 8 mod 32 the 32
+// lanes fall in distinct banks.
+//
+// B (8 x 8) at k0.., n0.. of a matrix stored [k][n]
+__device__ __forceinline__ void frag_b_kn_tf32(uint32_t* big,
+                                               uint32_t* small,
+                                               const float* m, int stride,
+                                               int k0, int n0) {
+  const int lane = threadIdx.x % 32;
+  const float* p = m + (k0 + lane % 4) * stride + n0 + lane / 4;
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[4 * stride], big[1], small[1]);
+}
+
+// A (16 x 8) = M^T at rows m0.., columns k0.., M stored [k][m]
+__device__ __forceinline__ void frag_a_km_tf32(uint32_t* big,
+                                               uint32_t* small,
+                                               const float* m, int stride,
+                                               int m0, int k0) {
+  const int lane = threadIdx.x % 32;
+  const float* p = m + (k0 + lane % 4) * stride + m0 + lane / 4;
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[8], big[1], small[1]);
+  split_tf32(p[4 * stride], big[2], small[2]);
+  split_tf32(p[4 * stride + 8], big[3], small[3]);
 }
 
 // the accumulators t of one n-tile as the A fragment of the next

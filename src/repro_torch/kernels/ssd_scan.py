@@ -28,13 +28,17 @@ do not start 16-byte aligned, and on head and state widths the kernel
 is not built for (``WIDTHS``: mamba2-2.7b's, jamba-v0.1-52b's and
 their reduced configs').
 B and C may be slices of one activation: the kernel takes their batch
-and time strides.  bfloat16 inputs run the tensor-core kernel
-``ssd_scan_kernel_bf16`` and float32 inputs the CUDA-core
-``ssd_scan_kernel``; both walk the time axis in tiles (64 steps, 32 for
-a row of at most 32) whatever ``chunk`` is (SSD is the same function
-for every chunk size, up to rounding), and a length that is no multiple
-of the tile is masked in the kernel.  At small batch the bf16 route
-cuts each row into ``ssd_splits`` pieces: a state pass over the pieces
+and time strides (float32 rows that do not start 16-byte aligned are
+copied first).  Both dtypes run on the tensor cores: bfloat16 inputs
+``ssd_scan_kernel_bf16`` (m16n8k16, each float32 operand as two bf16
+terms) and float32 inputs ``ssd_scan_kernel_f32`` (m16n8k8 TF32 as
+3xTF32: each operand split into a TF32 big term and a small term, three
+products a product); both walk the time axis in tiles (bf16: 64 steps,
+32 for a row of at most 32; float32: 32) whatever ``chunk`` is (SSD is
+the same function for every chunk size, up to rounding), and a length
+that is no multiple of the tile is masked in the kernel.  At small
+batch the bf16 route cuts each row into ``ssd_splits`` pieces: a state
+pass over the pieces
 and a second pass that combines their states in piece order, through a
 workspace kept per device (``ssd_piece_states_plain``,
 ``ssd_combine_plain`` and ``ssd_piece_plain`` are that algebra in plain
@@ -52,10 +56,9 @@ state entering and the state's gradient leaving every 64-step tile, a
 tile kernel forms each tile's dx, ddt and dB, dC, dA parts on its own
 for a block of ``backward_heads`` heads of one group (sharing B, C and
 C·Bᵀ; tensor-core products, each float32 operand as two bf16 terms),
-and a fixed-order sum adds the head blocks and tiles.  float32: a state
-pass, a reverse pass over the tiles per (batch, head) that carries the
-state's gradient, and a fixed-order sum over a group's heads and the
-batch, on the CUDA cores.  Nothing of the
+and a fixed-order sum adds the head blocks and tiles.  float32 runs the
+same three steps with every product in 3xTF32 (C·Bᵀ formed per head:
+its tile would not fit beside float32 operands).  Nothing of the
 forward is kept for it, so serving's launches stay as they were, and the
 split time axis needs no backward of its own.  It replaces XLA's
 autodiff of the reference's ``_ssd_chunked``
@@ -387,7 +390,8 @@ def launchable(x, dt, A, B, C) -> None:
     """Raise unless the CUDA kernel takes these (checked) inputs: head
     and state widths it is built for, contiguous x, dt and A, B and C in
     one layout whose (g, ds) axes are packed, and, in bf16, rows of x, B
-    and C that start 16-byte aligned."""
+    and C that start 16-byte aligned (float32 rows that do not are copied
+    by the launch: ``_aligned_f32``)."""
     b, s, nh, hd = x.shape
     ds = B.shape[3]
     if (hd, ds) not in WIDTHS:
@@ -404,14 +408,35 @@ def launchable(x, dt, A, B, C) -> None:
             raise ValueError(f"the CUDA ssd_scan takes B and C with one "
                              f"layout and packed (g, ds) axes, got "
                              f"strides {B.stride()} and {C.stride()}")
-    if x.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(n > 1 and st % 8 for n, st in zip(
-                t.shape[:2], t.stride()[:2])) for t in (x, B, C)):
+    if x.dtype == torch.bfloat16 and any(_misaligned(t) for t in (x, B, C)):
         raise ValueError("the bf16 CUDA ssd_scan copies rows of x, B and C "
                          "16 bytes at a time: their data and their batch "
                          "and time strides must be 16-byte aligned")
     if max(b, nh) > 65535 or s >= 1 << 31:
         raise ValueError(f"shape {tuple(x.shape)} too large for one launch")
+
+
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s data, or its batch or time stride, is not a whole
+    number of 16-byte chunks."""
+    per = 16 // t.element_size()
+    return bool(t.data_ptr() % 16 or any(
+        n > 1 and st % per for n, st in zip(t.shape[:2], t.stride()[:2])))
+
+
+def _aligned_f32(x, B, C):
+    """float32 x, B and C with rows the kernels can copy 16 bytes at a
+    time: a copy of x, or of B and C together (they share one layout),
+    where ``_misaligned``; bf16 inputs as they are (``launchable``
+    refuses such rows)."""
+    if x.dtype != torch.float32:
+        return x, B, C
+    if _misaligned(x):
+        x = x.clone(memory_format=torch.contiguous_format)
+    if _misaligned(B) or _misaligned(C):
+        B, C = (t.clone(memory_format=torch.contiguous_format)
+                for t in (B, C))
+    return x, B, C
 
 
 def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
@@ -422,6 +447,7 @@ def _workspace(dev: torch.device, floats: int) -> torch.Tensor:
 def _launch(x, dt, A, B, C, y, h_out) -> None:
     from repro_torch.kernels._build import library
 
+    x, B, C = _aligned_f32(x, B, C)
     launchable(x, dt, A, B, C)
     b, s, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]
@@ -451,7 +477,7 @@ def _launch(x, dt, A, B, C, y, h_out) -> None:
 
 
 def backward_heads(b: int, s: int, nh: int, g: int, sms: int) -> int:
-    """Heads a block of the bf16 backward's tile kernel serves: the most,
+    """Heads a block of the backward's tile kernel serves: the most,
     up to ``MAX_BACKWARD_HEADS``, that divide a group's ``nh // g`` heads
     while the ``(nh / heads, tiles, b)`` grid still gives each of ``sms``
     SMs ``BLOCKS_PER_SM`` blocks; 1 when none does.  From the shapes
@@ -468,22 +494,23 @@ def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
                      dC) -> None:
     from repro_torch.kernels._build import library
 
+    x, B, C = _aligned_f32(x, B, C)
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
     launchable(x, dt, A, B, C)
     b, s, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]
     tiles = -(-s // TILE)
-    # transient: the state entering each tile (and, in bf16, the
-    # gradient of the state leaving it), and the partials of dB, dC (a
-    # head's, or in bf16 a head block's) and dA (a batch row's, or in
-    # bf16 a (batch row, tile)'s) before the fixed-order sums
+    # transient: the state entering each tile and the gradient of the
+    # state leaving it, and the partials of dB, dC (a head block's) and
+    # dA (a (batch row, tile)'s) before the fixed-order sums
     f32 = dict(dtype=torch.float32, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
-    hpb = backward_heads(b, s, nh, g, sm_count(x.device)) if bf16 else 1
+    hpb = backward_heads(b, s, nh, g, sm_count(x.device))
     states = torch.empty(b * nh * tiles * hd * ds, **f32)
-    dstates = torch.empty_like(states) if bf16 else None
+    dstates = torch.empty_like(states)
     db_part = torch.empty(b * s * (nh // hpb) * ds, **f32)
     dc_part = torch.empty_like(db_part)
-    da_part = torch.empty(b * nh * (tiles if bf16 else 1), **f32)
+    da_part = torch.empty(b * nh * tiles, **f32)
     fn = library("ssd_scan_backward").ssd_scan_backward_launch
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
@@ -495,7 +522,7 @@ def _launch_backward(x, dt, A, B, C, dy, dh_end, dx, ddt, dA, dB,
                  None if dh_end is None else dh_end.data_ptr(),
                  dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                  dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
-                 None if dstates is None else dstates.data_ptr(),
+                 dstates.data_ptr(),
                  db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
                  b, s, nh, g, hd, ds, DTYPE_CODE[x.dtype], hpb, B.stride(0),
                  B.stride(1), stream)

@@ -12,8 +12,11 @@ production mesh.
 Port of the reference package's ``repro.launch.train`` with its options:
 the full config unless ``--reduced``, the port's seeded weights (seed 0),
 AdamW with a cosine schedule over ``--steps`` (warm-up a tenth of them),
-the synthetic corpus (tokens and labels only, as the reference's
-launcher feeds), ``--remat`` checkpointing the repeated layers.  The mesh
+the synthetic corpus (``launch_batch``: tokens and labels, and for an
+audio model the reference trainer's float32 zero ``frames``, without
+which whisper's encoder has no input; a VLM keeps tokens and labels
+only, as the reference's launcher feeds it), ``--remat`` checkpointing
+the repeated layers.  The mesh
 is ``launch.mesh.make_host_mesh()`` over the process group's world (a
 one-rank group of its own when none is initialised, destroyed at the
 end), or with ``--production`` / ``--multi-pod`` the 16 × 16 / 2 × 16 ×
@@ -52,8 +55,8 @@ from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      owned_group)
 from repro_torch.models import transformer as tfm
 from repro_torch.train.data import DataConfig, SyntheticCorpus
-from repro_torch.train.loop import (make_train_step, require_trainable,
-                                    resolve_device)
+from repro_torch.train.loop import (device_batch, make_train_step,
+                                    require_trainable, resolve_device)
 from repro_torch.train.optimizer import AdamWConfig, init_state
 
 
@@ -70,6 +73,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--remat", action="store_true")
     return ap.parse_args(argv)
+
+
+def launch_batch(cfg: ModelConfig, batch, dev: torch.device) -> dict:
+    """A corpus batch as the launcher feeds it: ``device_batch``'s
+    int64 tokens and labels and an audio model's float32 zero
+    ``frames``, but no VLM ``patch_embeds``: the reference's launcher
+    trains the VLM on its text alone, and zero patch rows overflow the
+    gradient at InternVL2's depth."""
+    out = device_batch(cfg, batch, dev)
+    out.pop("patch_embeds", None)
+    return out
 
 
 def _mesh(args: argparse.Namespace, dev: torch.device):
@@ -120,7 +134,6 @@ def _train(args: argparse.Namespace, cfg: ModelConfig, dev: torch.device,
         dst.shard_model(model, mesh, pspecs)
         opt_state = dst.shard_opt_state(
             opt_state, mesh, dst.moment_specs(model, pspecs, mesh))
-        bspec = shd.P(shd.batch_axes(mesh), None)
     opt = AdamWConfig(total_steps=args.steps,
                       warmup_steps=max(args.steps // 10, 1))
     step_fn = make_train_step(cfg, opt, remat=args.remat)
@@ -129,10 +142,12 @@ def _train(args: argparse.Namespace, cfg: ModelConfig, dev: torch.device,
                                       global_batch=args.batch))
     losses, norms, step_ms = [], [], []
     for i, batch in zip(range(args.steps), data.batches()):
-        jb = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
-              for k, v in batch.items()}
+        jb = launch_batch(cfg, batch, dev)
         if mesh is not None:
-            jb = dst.shard_batch(jb, mesh, {k: bspec for k in jb})
+            # the batch axis sharded, every other axis whole
+            jb = dst.shard_batch(jb, mesh, {
+                k: shd.P(shd.batch_axes(mesh), *[None] * (v.dim() - 1))
+                for k, v in jb.items()})
         t0 = time.perf_counter()
         with dst.step_scope(mesh):
             model, opt_state, m = step_fn(model, opt_state, jb)

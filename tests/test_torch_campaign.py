@@ -644,8 +644,7 @@ def test_operating_points_equal_the_reference():
 # against the reference, statistically and through its host fold
 # ---------------------------------------------------------------------------
 
-def _stat_grid(cls):
-    n = 24
+def _stat_grid(cls, n=24):
     fr = np.linspace(0.3, 0.8, n, dtype=np.float32)
     b = np.where(np.arange(n) % 2 == 0, 4, 8).astype(np.int32)
     lam = fr * b / (ALPHA * b + TAU0)
@@ -690,6 +689,44 @@ def test_reference_host_fold_on_the_port_results_equals_the_port():
             np.testing.assert_allclose(pt_acc[k], ref_acc[k], rtol=1e-12,
                                        err_msg=k)
     assert int(pt_acc["points"]) == 24
+
+
+def test_serial_campaign_past_256_top_k_slots_equals_the_reference():
+    """``k_top`` 257, past the 256 slots the card's fold once refused
+    (ROADMAP C-P4), in the reference's serial mode (the one that runs
+    on this host, C-R1) and the port's: the fields the grid decides
+    equal (points, batches, the loss-free goodput list bitwise, every
+    point in the latency list, the padding), and the reference's
+    ``_host_fold`` over the port's own chunk results at ``k_top`` 257
+    equal to the port's accumulator (integers exact, float sums 1e-12
+    rel)."""
+    n, k = 40, 257
+    kw = dict(chunk_size=16, n_batches=64, seed=5, k_top=k, mode="serial")
+    ref = ref_campaign.campaign(_stat_grid(RefGrid, n), **kw)
+    got = campaign(_stat_grid(SweepGrid, n), **kw, **CPU)
+    for key in ("points", "batches", "quarantined_points", "top_good_val",
+                "top_good_idx"):
+        assert np.array_equal(np.asarray(ref.acc[key]),
+                              np.asarray(got.acc[key])), key
+    for acc in (ref.acc, got.acc):
+        assert acc["top_lat_val"].shape == acc["top_lat_idx"].shape == (k,)
+        assert sorted(acc["top_lat_idx"][:n]) == list(range(n))
+        assert (acc["top_lat_idx"][n:] == -1).all()
+        assert np.isneginf(acc["top_lat_val"][n:]).all()
+    g = _stat_grid(SweepGrid, n)
+    caps_fn = pt_campaign._kind_fns("sweep")[1]
+    fold = ref_campaign._init_acc(512, k)
+    for start in range(0, n, 16):
+        cgrid, n_valid = pt_campaign._chunk_grid(g, start, 16, n)
+        r = sweep(cgrid, key_offset=start, n_batches=64, seed=5,
+                  **caps_fn(cgrid), **CPU)
+        ref_campaign._host_fold(fold, r, start, n_valid, k)
+    for key in fold:
+        if fold[key].dtype == np.int64:
+            assert np.array_equal(fold[key], got.acc[key]), key
+        else:
+            np.testing.assert_allclose(got.acc[key], fold[key], rtol=1e-12,
+                                       err_msg=key)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,10 @@ operations round to nearest like the kernel's ``__d*_rn`` intrinsics)
 is held bitwise against ``campaign_fold_plain`` (the sequential fold)
 and, at a few shapes, against the reference's ``_build_fold`` under
 ``jax.enable_x64``: ties, NaN and inf points, padded tails, ``n_valid``
-0, every latency and rate tied, ``k_top`` in {1, 4, 16, 256}, two chunks
-in a row.
+0, every latency and rate tied, ``k_top`` in {1, 4, 16, 256, 257, 1,024}
+(lists in shared memory) and 2,048 (past the 1,908 slots the kernel
+keeps there: walked in the accumulator's own slots, in the same order),
+two chunks in a row.
 """
 import jax
 import jax.numpy as jnp
@@ -97,14 +99,15 @@ def _block_max(ci):
 def _first_min(vals, k):
     """The first minimal slot of vals[0, k) and its value, as the tail's
     warp finds it: each lane's slots ascending (a strictly smaller value
-    replaces), then ``shfl_down`` by 16, 8, 4, 2, 1 on (value, slot)
-    with ties to the lower slot."""
+    replaces: the lane keeps its first minimum, numpy's ``argmin``, the
+    values never NaN), then ``shfl_down`` by 16, 8, 4, 2, 1 on (value,
+    slot) with ties to the lower slot."""
     best = [0.0] * LANES
     bi = [-1] * LANES
-    for lane in range(LANES):
-        for s in range(lane, k, LANES):
-            if bi[lane] < 0 or vals[s] < best[lane]:
-                best[lane], bi[lane] = vals[s], s
+    arr = np.asarray(vals[:k], np.float64)
+    for lane in range(min(LANES, k)):
+        j = int(np.argmin(arr[lane::LANES]))
+        best[lane], bi[lane] = float(arr[lane + LANES * j]), lane + LANES * j
     for off in (16, 8, 4, 2, 1):
         nb, ni = list(best), list(bi)
         for lane in range(LANES):
@@ -231,6 +234,10 @@ CASES = {
     "k1": (130, 120, 1, 8, False, False, "plain"),
     "k256": (600, 600, 256, 8, False, False, "plain"),
     "k256_loss": (333, 300, 256, 8, True, False, "poison"),
+    "k257": (300, 290, 257, 8, True, False, "plain"),
+    "k257_tied": (300, 300, 257, 8, False, False, "tied"),
+    "k1024": (600, 600, 1024, 8, True, False, "poison"),
+    "k2048_global": (1100, 1090, 2048, 8, False, True, "plain"),
     "one_row": (1, 1, 4, 8, False, False, "plain"),
 }
 
@@ -260,7 +267,7 @@ def test_two_passes_equal_the_sequential_fold(name):
 
 
 @pytest.mark.parametrize("name", ["poison_loss_tail", "sketch_poison",
-                                  "tied", "k256_loss"])
+                                  "tied", "k256_loss", "k257"])
 def test_two_passes_equal_the_reference_fold(name):
     """At a few shapes, against the reference's jitted fold
     (``repro.core.campaign._build_fold`` under ``jax.enable_x64``), two

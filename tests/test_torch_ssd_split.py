@@ -184,7 +184,8 @@ def test_bf16_launch_guard_wants_16_byte_rows():
     """The bf16 kernel stages x, B and C by 16-byte copies: B and C
     sliced out of the model's activation pass, a slice that starts off
     a 16-byte boundary or strides by a width no multiple of 8 is
-    refused before any launch (float32 takes both)."""
+    refused before any launch (float32 takes both: its launch copies
+    such rows first)."""
     x, dt, a, bm, cm = (torch.from_numpy(v) for v in
                         _inputs(17, 2, 40, 4, 1, 32, 16))
     x = x.bfloat16()
@@ -201,8 +202,11 @@ def test_bf16_launch_guard_wants_16_byte_rows():
             if dtype == torch.bfloat16:
                 with pytest.raises(ValueError, match="16-byte"):
                     ss.launchable(x, dt, a, bv, cv)
-            else:   # the CUDA-core kernel reads element by element
+            else:   # copied to 16-byte rows before the launch
                 ss.launchable(x.float(), dt, a, bv, cv)
+                xf, bf, cf = ss._aligned_f32(x.float(), bv, cv)
+                assert not any(ss._misaligned(t) for t in (xf, bf, cf))
+                assert torch.equal(bf, bv) and torch.equal(cf, cv)
 
 
 def test_split_workspace_is_kept_and_grown_not_allocated_per_call(
