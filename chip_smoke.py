@@ -541,20 +541,34 @@ printing one JSON line per phase:
                    of the same seed and steps in the same phase:
                    qwen1.5-0.5b whole, 5 steps at 8 × 512, and
                    mamba2-2.7b at full width cut to 8 of its 64 layers,
-                   3 steps at 2 × 512, both bf16.  Losses and grad norms
-                   bitwise equal, launches a step exactly the plain
-                   step's (24 B3 and 24 B3 backward; 8 B5 and 8 B5
-                   backward), the median warm step of each run beside
-                   the card's name and power limit.
-54. dryrun       — ``python -m repro_torch.launch.dryrun --mesh both``
-                   in three processes, started right after ``build``
-                   with the GPU hidden from them (they run on ``meta``
-                   tensors over a fake group of 256 / 512 ranks) and
-                   read here: qwen1.5-0.5b at decode_32k and train_4k,
-                   mamba2-2.7b at train_4k.  Every record ``ok``; at
-                   decode_32k the cache's bytes a device are the total
-                   over 256 (16 × 16) and over 512 (2 × 16 × 16); each
-                   record printed on a line of its own.
+                   3 steps at 2 × 512, both bf16; then, at
+                   train_families' sizes (2 steps at 2 × 256), OLMoE
+                   at 4 layers, DeepSeek-V2-Lite at 3, Jamba over
+                   train_hybrid's period (without its experts),
+                   whisper-medium (zero frames) and internvl2-1b (its
+                   text, as the launcher feeds it) whole.  Losses and
+                   grad norms bitwise equal, launches a step exactly
+                   the plain step's (24 B3 and 24 B3 backward; 8 B5 and
+                   8 B5 backward; each family's from its config), the
+                   median warm step of each run beside the card's name
+                   and power limit.  Then one ``prefill`` and one
+                   ``decode_step`` on the mesh against the plain pair,
+                   over a cache placed by ``cache_specs``: DeepSeek's
+                   3 layers (MLA decode under ``local_call`` on a
+                   latent cache of one shard) and whisper-medium whole
+                   (its cross cache's B4 over heads kept per rank):
+                   logits bitwise, launches exact.
+54. dryrun       — ``python -m repro_torch.launch.dryrun --mesh both``,
+                   one combo after another in one process, started
+                   right after ``build`` with the GPU hidden from it
+                   (it runs on ``meta`` tensors over a fake group of
+                   256 / 512 ranks) and read here: qwen1.5-0.5b at
+                   decode_32k and train_4k, mamba2-2.7b at train_4k,
+                   deepseek-v2-lite-16b and whisper-medium at
+                   decode_32k, olmoe-1b-7b at train_4k.  Every record
+                   ``ok``; at decode_32k the cache's bytes a device are
+                   the total over 256 (16 × 16) and over 512 (2 × 16 ×
+                   16); each record printed on a line of its own.
 
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
@@ -658,8 +672,11 @@ from repro_torch.kernels.mla_decode import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunked, ssd_scan, ssd_scan_backward, ssd_scan_backward_plain,
     ssd_scan_plain, ssd_splits)
+from repro_torch.launch import distribute as dst  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, owned_group  # noqa: E402
 from repro_torch.models import attention as attn_module  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_module  # noqa: E402
@@ -827,9 +844,15 @@ MESH_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "5", "--batch", "8",
 MESH_TRAIN_SSM_LAYERS = 8
 MESH_TRAIN_SSM_ARGS = ["--arch", SSM_ARCH, "--steps", "3", "--batch", "2",
                        "--seq", "512"]
-# the dry runs (launch.dryrun --mesh both), each in a process of its own
+# the dry runs (launch.dryrun --mesh both), one after another in a
+# process of their own
 DRYRUNS = (("qwen1.5-0.5b", "decode_32k"), ("qwen1.5-0.5b", "train_4k"),
-           ("mamba2-2.7b", "train_4k"))
+           ("mamba2-2.7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+           ("whisper-medium", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
+# mesh_train's other families: train_families' sizes through launch.train
+MESH_TRAIN_FAMILY_ARGS = ["--steps", "2", "--batch", "2", "--seq", "256"]
+# mesh_train's prefill + decode_step pairs: batch, prompt, cache length
+MESH_DECODE_SHAPE = (2, 64, 128)
 # the processes this script starts, stopped before it returns
 _CHILDREN: list = []
 # (arch, layers) trained two steps each in train_families; 0 = whole.
@@ -5530,39 +5553,40 @@ def host_ladder(kind: str, ci: int) -> list:
     return _LADDERS[kind, ci].result()
 
 
-def start_dryruns() -> list:
-    """``launch.dryrun`` for each of ``DRYRUNS`` in a process of its own,
-    the GPU hidden from it, its records appended to a file of its own;
-    returns the (combo, process, file) list."""
+def start_dryruns():
+    """``launch.dryrun``'s ``main`` for each of ``DRYRUNS`` in turn, in
+    one process with the GPU hidden from it, each combo's records
+    appended to a file of its own; returns the process and the (combo,
+    file) list."""
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    runs = []
-    for arch, shape in DRYRUNS:
-        path = out / f"{arch}_{shape}.jsonl"
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "both", "--out", str(path)],
-            env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True)
-        _CHILDREN.append(proc)
-        runs.append(((arch, shape), proc, path))
-    return runs
+    runs = [((arch, shape), out / f"{arch}_{shape}.jsonl")
+            for arch, shape in DRYRUNS]
+    argvs = [["--arch", arch, "--shape", shape, "--mesh", "both", "--out",
+              str(path)] for (arch, shape), path in runs]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys; from repro_torch.launch "
+         "import dryrun; [dryrun.main(a) for a in json.loads(sys.argv[1])]",
+         json.dumps(argvs)], env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, runs
 
 
-def phase_dryrun(runs, timeout: float = 900.0) -> dict:
-    """Wait for ``start_dryruns``' processes and gate their records."""
-    end = time.monotonic() + timeout
+def phase_dryrun(dry, timeout: float = 900.0) -> dict:
+    """Wait for ``start_dryruns``' process and gate its records."""
+    proc, runs = dry
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"dryrun: past {timeout} s")
+    check(proc.returncode == 0, f"dryrun: exit {proc.returncode}: "
+          f"{err[-2000:]}")
     records = []
-    for (arch, shape), proc, path in runs:
-        try:
-            _, err = proc.communicate(timeout=max(1.0, end - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            check(False, f"dryrun {arch} {shape}: past {timeout} s")
-        check(proc.returncode == 0, f"dryrun {arch} {shape}: exit "
-              f"{proc.returncode}: {err[-2000:]}")
+    for (arch, shape), path in runs:
         got = [json.loads(line) for line in path.read_text().splitlines()]
         check([r["mesh"] for r in got] == ["16x16", "2x16x16"],
               f"dryrun {arch} {shape}: records {[r['mesh'] for r in got]}")
@@ -5582,21 +5606,121 @@ def phase_dryrun(runs, timeout: float = 900.0) -> dict:
     return {"records": len(records)}
 
 
+def _train_launch_counts(cfg) -> dict:
+    """One train step's launches: B3 forward and backward on each
+    attention call, B5 forward and backward on each Mamba2 layer."""
+    n_attn = _attention_calls(cfg)
+    n_ssm = cfg.layer_kinds().count("ssm")
+    return _launch_counts(flash_attention=n_attn,
+                          flash_attention_backward=n_attn, ssd_scan=n_ssm,
+                          ssd_scan_backward=n_ssm)
+
+
+def _mesh_train_runs() -> list:
+    """mesh_train's (name, argv, cfg) runs: qwen whole and mamba2-2.7b's
+    first 8 layers, then the other families at train_families' sizes."""
+    runs = [("qwen", MESH_TRAIN_ARGS, None),
+            ("mamba2", MESH_TRAIN_SSM_ARGS,
+             dataclasses.replace(get_config(SSM_ARCH),
+                                 num_layers=MESH_TRAIN_SSM_LAYERS))]
+    for arch, layers in TRAIN_FAMILIES[:2]:
+        runs.append((arch, ["--arch", arch] + MESH_TRAIN_FAMILY_ARGS,
+                     dataclasses.replace(get_config(arch),
+                                         num_layers=layers)))
+    runs.append((HYBRID_ARCH, ["--arch", HYBRID_ARCH]
+                 + MESH_TRAIN_FAMILY_ARGS, hybrid_train_config()))
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        runs.append((arch, ["--arch", arch] + MESH_TRAIN_FAMILY_ARGS, None))
+    return runs
+
+
+def _mesh_decode(dev, name: str, cfg) -> dict:
+    """One ``prefill`` and one ``decode_step`` of ``cfg`` (bf16, seeded
+    weights, a whisper's frames N(0, 1) in float32) on the one-rank NCCL
+    host mesh against the plain pair: the mesh's cache re-placed by
+    ``cache_specs`` before the step, logits bitwise, the launches of each
+    exact (the prefill's B3 calls, the decode's one a layer: MLA decode
+    on DeepSeek, B4 over the self and the cross cache on whisper)."""
+    b, s, cache_len = MESH_DECODE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(b, cfg.encoder.n_ctx, cfg.d_model,
+                                      generator=gen, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=dev)
+    lengths = torch.tensor([s, s - 23], dtype=torch.int32, device=dev)
+    n_dec = cfg.layer_kinds().count("attn")
+    want_pre = _launch_counts(flash_attention=_attention_calls(cfg))
+    want_dec = (_launch_counts(mla_decode=n_dec) if cfg.mla is not None
+                else _launch_counts(decode_attention=n_dec * (
+                    2 if cfg.family == "audio" else 1)))
+
+    def fresh():
+        return transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+
+    runs = {}
+    for mode in ("plain", "mesh"):
+        with owned_group():
+            model = fresh()
+            mb, mt, ml = batch, tok, lengths
+            if mode == "mesh":
+                mesh = make_host_mesh(device_type=dev.type)
+                dst.shard_model(model, mesh, shd.param_specs(cfg, model,
+                                                             mesh))
+                mb = dst.shard_batch(batch, mesh, {
+                    k: shd.P(shd.batch_axes(mesh), *[None] * (v.dim() - 1))
+                    for k, v in batch.items()})
+                mt = dst.distribute(tok, mesh, shd.P("data", None))
+                ml = dst.distribute(lengths, mesh, shd.P("data"))
+            else:
+                mesh = None
+            with torch.no_grad(), dst.step_scope(mesh):
+                _reset_serve_launches()
+                pre, cache = transformer.prefill(cfg, model, mb, cache_len)
+                pre_launches = _serve_launches()
+                if mesh is not None:
+                    cache = [{k: dst.full(t) for k, t in c.items()}
+                             for c in cache]
+                    cache = dst.shard_cache(cache, mesh, shd.cache_specs(
+                        cfg, cache, mesh))
+                _reset_serve_launches()
+                logits, _ = transformer.decode_step(cfg, model, mt, cache,
+                                                    ml)
+                dec_launches = _serve_launches()
+            check(pre_launches == want_pre, f"mesh_train {name} {mode} "
+                  f"prefill: launched {pre_launches}, expected {want_pre}")
+            check(dec_launches == want_dec, f"mesh_train {name} {mode} "
+                  f"decode: launched {dec_launches}, expected {want_dec}")
+            runs[mode] = (dst.full(pre).float().cpu(),
+                          dst.full(logits).float().cpu())
+            del model, cache
+            torch.cuda.empty_cache()
+    (pre_p, dec_p), (pre_m, dec_m) = runs["plain"], runs["mesh"]
+    check(bool(torch.isfinite(dec_p).all()),
+          f"mesh_train {name}: non-finite decode logits")
+    check(torch.equal(pre_m, pre_p), f"mesh_train {name}: prefill logits "
+          f"differ by {float((pre_m - pre_p).abs().max())}")
+    check(torch.equal(dec_m, dec_p), f"mesh_train {name}: decode logits "
+          f"differ by {float((dec_m - dec_p).abs().max())}")
+    info = dict(arch=cfg.name, layers=cfg.num_layers, batch=b, prompt=s,
+                cache_len=cache_len, prefill_launches=want_pre,
+                decode_launches=want_dec, logits_bitwise=True)
+    emit("mesh_decode", **info)
+    return info
+
+
 def phase_mesh_train(dev, smi: str) -> dict:
     """``launch.train`` on the one-rank NCCL host mesh (every tensor a
     DTensor) against the plain run: losses and grad norms bitwise, the
-    same launches a step."""
+    same launches a step; then ``_mesh_decode`` for DeepSeek and
+    whisper."""
     out = {}
-    n_ssm = MESH_TRAIN_SSM_LAYERS
-    for name, argv, cfg, per_step in (
-            ("qwen", MESH_TRAIN_ARGS, None,
-             _launch_counts(flash_attention=get_config(
-                 TRAIN_ARCH).num_layers, flash_attention_backward=get_config(
-                     TRAIN_ARCH).num_layers)),
-            ("mamba2", MESH_TRAIN_SSM_ARGS,
-             dataclasses.replace(get_config(SSM_ARCH), num_layers=n_ssm),
-             _launch_counts(ssd_scan=n_ssm, ssd_scan_backward=n_ssm))):
+    for name, argv, cfg in _mesh_train_runs():
         args = train_cli.parse_args(argv)
+        per_step = _train_launch_counts(cfg or get_config(args.arch))
         runs = {}
         for mode in ("plain", "mesh"):
             _reset_serve_launches()
@@ -5637,6 +5761,10 @@ def phase_mesh_train(dev, smi: str) -> dict:
               f"({smi})", flush=True)
         emit("mesh_train", **info)
         out[name] = info
+    mla = dataclasses.replace(get_config(TRAIN_FAMILIES[1][0]),
+                              num_layers=TRAIN_FAMILIES[1][1])
+    out["decode"] = {cfg.name: _mesh_decode(dev, cfg.name, cfg)
+                     for cfg in (mla, get_config(AUDIO_ARCH))}
     return out
 
 

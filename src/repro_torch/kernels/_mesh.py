@@ -27,7 +27,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 __all__ = ["is_dtensor", "head_placements", "remap", "local_call",
-           "seq_dims", "seq_offset", "all_reduce"]
+           "seq_dims", "seq_offset", "ranks", "all_reduce", "merge_partials"]
 
 
 def is_dtensor(t: Any) -> bool:
@@ -117,6 +117,14 @@ def seq_offset(mesh, dims: Sequence[int], length: int) -> int:
     return idx * (length // n)
 
 
+def ranks(mesh, dims: Sequence[int]) -> int:
+    """The number of ranks over mesh ``dims``."""
+    n = 1
+    for d in dims:
+        n *= mesh.size(d)
+    return n
+
+
 def all_reduce(t: torch.Tensor, op: str, mesh, dims: Sequence[int]
                ) -> torch.Tensor:
     """``t`` reduced (``"max"`` or ``"sum"``) over the ranks of mesh
@@ -124,3 +132,16 @@ def all_reduce(t: torch.Tensor, op: str, mesh, dims: Sequence[int]
     for d in dims:
         t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
     return t
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   mesh, dims: Sequence[int]) -> torch.Tensor:
+    """The decode kernels' merge of each rank's float32 softmax partials
+    over its slice of the keys (running max ``m``, sum ``l``, unnormalised
+    ``acc``) across the ranks of mesh ``dims``: each rescaled by
+    ``exp(m - max m)``, then ``Σ acc / (Σ l + 1e-30)``."""
+    top = all_reduce(m, "max", mesh, dims)
+    w = torch.exp(m - top)
+    lsum = all_reduce(l * w, "sum", mesh, dims)
+    asum = all_reduce(acc * w, "sum", mesh, dims)
+    return asum / (lsum + 1e-30)

@@ -41,12 +41,15 @@ same split rule and merge.
 ``meta`` tensors (the dry run) take the kernels' shape function: the
 output, empty, counted in ``meta_calls`` and not as a launch.  DTensors
 (a device mesh) go through ``local_map`` (``kernels._mesh``): q and
-``lengths`` follow the cache's batch shards.  Where the cache's sequence
-is sharded (``launch.sharding.cache_specs``: over "model", or over
-"data" and "model" at long_500k) each rank attends its own slice of the
-keys, with ``lengths`` shifted by the slice's offset (the window needs
-no shift), into float32 partials ``m``, ``l``, ``acc``, and the ranks
-merge them with a max and two sum all-reduces: the arithmetic of
+``lengths`` follow the cache's batch shards, and q its kv-head shards
+where the cache shards its heads (whisper's cross cache, ``P(batch,
+None, "model", None)``), so that each rank reads its own heads.  Where
+the cache's sequence is sharded (``launch.sharding.cache_specs``: over
+"model", or over "data" and "model" at long_500k) each rank attends its
+own slice of the keys, with ``lengths`` shifted by the slice's offset
+(the window needs no shift), into float32 partials ``m``, ``l``,
+``acc``, and the ranks merge them with a max and two sum all-reduces
+(``kernels._mesh.merge_partials``): the arithmetic of
 ``decode_partials_plain`` and ``merge_partials_plain`` across ranks.
 That route runs the plain partials on the CPU and the shape function on
 ``meta``; the CUDA kernel has no partials entry, so a sequence split
@@ -63,8 +66,9 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels._launch import (DTYPE_CODE, kernel_device,
                                          shape_only, sm_count)
-from repro_torch.kernels._mesh import (all_reduce, is_dtensor, local_call,
-                                       seq_dims, seq_offset)
+from repro_torch.kernels._mesh import (head_placements, is_dtensor,
+                                       local_call, merge_partials, ranks,
+                                       remap, seq_dims, seq_offset)
 from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  check_attention_inputs,
                                                  launchable)
@@ -364,12 +368,16 @@ def _on_mesh(fn, q, k, v, lengths, window: int, scales=None):
     module's docstring."""
     mesh = k.device_mesh
     sd = seq_dims(k)
-    rows = [Shard(0) if p == Shard(0) else Replicate() for p in k.placements]
-    cache = [Shard(1) if i in sd else p for i, p in enumerate(rows)]
+    h, kv = q.shape[1], k.shape[2]
+    # a cache that shards its kv heads (whisper's cross cache) keeps them:
+    # each rank's query heads read its own kv heads
+    heads = head_placements(
+        k, 2, lambda n: (h % n == 0 and kv % n == 0) or h == kv)
+    rows = remap(heads, {0: 0, 2: 1})
+    cache = [Shard(1) if i in sd else p for i, p in enumerate(heads)]
+    lens = remap(heads, {0: 0})
     tail = () if scales is None else tuple(scales)
-    split = 1
-    for d in sd:
-        split *= mesh.size(d)
+    split = ranks(mesh, sd)
     if split == 1:
         def local(q, k, v, lengths, *sc):
             if sc:
@@ -397,12 +405,9 @@ def _on_mesh(fn, q, k, v, lengths, window: int, scales=None):
                 off = seq_offset(mesh, sd, s_all)
                 m, l, acc = _partials_plain(q, k, v, lengths - off, window,
                                             *sc)
-            top = all_reduce(m, "max", mesh, sd)
-            w = torch.exp(m - top)
-            lsum = all_reduce(l * w, "sum", mesh, sd)
-            asum = all_reduce(acc * w, "sum", mesh, sd)
-            return (asum / (lsum + 1e-30)).reshape(b, h, hd).to(q.dtype)
+            return merge_partials(m, l, acc, mesh, sd).reshape(
+                b, h, hd).to(q.dtype)
 
-    return local_call(local, mesh, (rows, cache, cache, rows)
+    return local_call(local, mesh, (rows, cache, cache, lens)
                       + (cache,) * len(tail), rows, q, k, v, lengths, *tail,
                       out_shapes=q.shape)

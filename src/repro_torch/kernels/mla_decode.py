@@ -28,8 +28,14 @@ counter a row kept per device (the counters return to zero at the end
 of every launch).  A failed build or launch raises: there is no
 fallback.  ``mla_decode_attention.launches`` counts the wrapper calls
 that launch the kernel, one per call.  A ``meta`` tensor takes the shape function (the
-output, empty; ``meta_calls``); a DTensor (a device mesh) raises
-``NotImplementedError``: the latent cache's merge is ROADMAP A11b.
+output, empty; ``meta_calls``).  A DTensor (a device mesh) goes through
+``local_map`` (``kernels._mesh``) as B4 does: on a cache sequence of one
+shard the wrapper runs on each rank's tensors (on the card one launch a
+rank, counted); where ``launch.sharding.cache_specs`` splits the
+sequence, each rank's ``mla_decode_partials_plain`` over its own slice
+are merged across the ranks on the CPU (the shape function on
+``meta``), and the CUDA kernel, which has no partials entry, raises
+``NotImplementedError`` (ROADMAP 3f).
 """
 from __future__ import annotations
 
@@ -37,15 +43,19 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels._launch import (DTYPE_CODE, check_aligned,
                                          float_workspace, kernel_device,
                                          shape_only, sm_count)
-from repro_torch.kernels._mesh import is_dtensor
+from repro_torch.kernels._mesh import (is_dtensor, local_call,
+                                       merge_partials, ranks, seq_dims,
+                                       seq_offset)
 from repro_torch.kernels.flash_attention import NEG_INF
 
 __all__ = ["SHAPES", "TILE", "mla_decode_attention",
-           "mla_decode_attention_plain", "mla_splits"]
+           "mla_decode_attention_plain", "mla_decode_partials_plain",
+           "mla_splits"]
 
 # (heads, kv_lora_rank, qk_rope_head_dim) the CUDA kernel is built for:
 # DeepSeek-V2-Lite's
@@ -102,6 +112,16 @@ def mla_decode_attention_plain(q_abs: torch.Tensor, q_pe: torch.Tensor,
     """The plain torch version, on any device: the reference's einsum
     chain in float32 (scores, masked softmax normalised before the
     product with c_kv)."""
+    m, e, c = _exp_scores(q_abs, q_pe, c_kv, k_pe, lengths, scale, window)
+    p = e / (e.sum(dim=-1, keepdim=True) + 1e-30)
+    return torch.einsum("bht,btr->bhr", p, c)
+
+
+def _exp_scores(q_abs, q_pe, c_kv, k_pe, lengths, scale: float,
+                window: int):
+    """The float32 scores' row max ``m`` ``(B, H, 1)``, ``exp(score - m)``
+    at the admitted positions and 0 elsewhere ``(B, H, S)``, and the
+    float32 cache ``c``."""
     _check(q_abs, q_pe, c_kv, k_pe, lengths)
     c = c_kv.float()
     sc = torch.einsum("bhr,btr->bht", q_abs, c)
@@ -115,9 +135,25 @@ def mla_decode_attention_plain(q_abs: torch.Tensor, q_pe: torch.Tensor,
     mask = mask[:, None, :]
     sc = torch.where(mask, sc, NEG_INF)
     m = sc.amax(dim=-1, keepdim=True)
-    e = torch.where(mask, torch.exp(sc - m), 0.0)
-    p = e / (e.sum(dim=-1, keepdim=True) + 1e-30)
-    return torch.einsum("bht,btr->bhr", p, c)
+    return m, torch.where(mask, torch.exp(sc - m), 0.0), c
+
+
+def mla_decode_partials_plain(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                              c_kv: torch.Tensor, k_pe: torch.Tensor,
+                              lengths: torch.Tensor, *, scale: float,
+                              window: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``mla_decode_attention_plain`` before its normalisation: the
+    float32 softmax statistics over the admitted positions of this cache,
+    ``m`` and ``l`` ``(B, H, 1)`` and the unnormalised context ``acc``
+    ``(B, H, R)`` (a row with no admitted position: ``m = NEG_INF``,
+    ``l = 0``, ``acc = 0``).  ``acc / (l + 1e-30)`` is the context; the
+    partials of the slices of a cache merge by rescaling each with
+    ``exp(m - max m)`` and summing, as the mesh route does across
+    ranks."""
+    m, e, c = _exp_scores(q_abs, q_pe, c_kv, k_pe, lengths, scale, window)
+    return m, e.sum(dim=-1, keepdim=True), torch.einsum("bht,btr->bhr", e, c)
 
 
 def mla_splits(b: int, s: int, sms: int) -> Tuple[int, int]:
@@ -198,18 +234,14 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
     """The latent context ``(B, H, R)`` in float32.  The CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
     if is_dtensor(c_kv):
-        raise NotImplementedError(
-            "MLA decode on a device mesh (the latent cache's merge across "
-            "ranks) is ROADMAP A11b, not ported")
+        return _on_mesh(q_abs, q_pe, c_kv, k_pe, lengths, scale, window)
     _check(q_abs, q_pe, c_kv, k_pe, lengths)
     if not kernel_device(q_abs, "mla_decode_attention"):
         return mla_decode_attention_plain(q_abs, q_pe, c_kv, k_pe, lengths,
                                           scale=scale, window=window)
     out = torch.empty_like(q_abs)
-    b, h, r = q_abs.shape
     if not shape_only(mla_decode_attention, q_abs, out,
-                      ops=2.0 * b * h * (2 * r + q_pe.shape[2])
-                      * c_kv.shape[1]):
+                      ops=_ops(q_abs, q_pe, c_kv)):
         _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale, window)
         mla_decode_attention.launches += 1
     return out
@@ -217,3 +249,54 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor,
 
 mla_decode_attention.launches = 0
 mla_decode_attention.meta_calls = 0
+
+
+def _ops(q_abs, q_pe, c_kv) -> float:
+    """The kernel's operation count with every cache position admitted:
+    the two score products and p·c_kv, two flops a multiply-add."""
+    b, h, r = q_abs.shape
+    return 2.0 * b * h * (2 * r + q_pe.shape[2]) * c_kv.shape[1]
+
+
+def _on_mesh(q_abs, q_pe, c_kv, k_pe, lengths, scale: float, window: int):
+    """MLA decode on DTensors, B4's route (``decode_attention._on_mesh``)
+    over the latent cache: the queries and ``lengths`` follow the cache's
+    batch shards, every rank holds all heads.  Where the cache's sequence
+    is one shard the wrapper runs on each rank's tensors; where it is
+    split each rank's float32 partials over its own slice (``lengths``
+    shifted by the slice's offset; the window needs no shift) are merged
+    with a max and two sum all-reduces, on the CPU and on ``meta``."""
+    mesh = c_kv.device_mesh
+    sd = seq_dims(c_kv)
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in c_kv.placements]
+    cache = [Shard(1) if i in sd else p for i, p in enumerate(rows)]
+    split = ranks(mesh, sd)
+    if split == 1:
+        def local(qa, qp, c, kp, lens):
+            return mla_decode_attention(qa, qp, c, kp, lens, scale=scale,
+                                        window=window)
+    elif c_kv.device.type == "cuda":
+        raise NotImplementedError(
+            f"MLA decode attention over a cache sequence split across "
+            f"{split} GPUs: the CUDA kernel has no partials entry (ROADMAP "
+            f"3f)")
+    else:
+        s_all = c_kv.shape[1]
+
+        def local(qa, qp, c, kp, lens):
+            if qa.device.type == "meta":
+                fn = mla_decode_attention
+                fn.meta_calls += 1
+                fn.meta_ops = getattr(fn, "meta_ops", 0.0) + _ops(qa, qp, c)
+                m = torch.empty(qa.shape[:2] + (1,), device="meta")
+                l, acc = torch.empty_like(m), torch.empty_like(qa)
+            else:
+                off = seq_offset(mesh, sd, s_all)
+                m, l, acc = mla_decode_partials_plain(
+                    qa, qp, c, kp, lens - off, scale=scale, window=window)
+            return merge_partials(m, l, acc, mesh, sd)
+
+    return local_call(local, mesh, (rows, rows, cache, cache, rows), rows,
+                      q_abs, q_pe, c_kv, k_pe, lengths,
+                      out_shapes=q_abs.shape)

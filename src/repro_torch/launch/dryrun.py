@@ -42,10 +42,12 @@ all-to-all into an all-gather and a chunk; the fake group's rank is 0, so
 where DTensor chunks a dimension unevenly (qwen1.5-4b's 20 heads over
 16) the bytes are rank 0's, the largest shard.
 
-This slice runs the dense families (qwen1.5-0.5b, qwen1.5-4b,
-codeqwen1.5-7b, phi4-mini-3.8b) and the SSM one (mamba2-2.7b); for the
-MoE, MLA, hybrid, enc-dec and VLM families ``build_lowerable`` raises
-``NotImplementedError`` (ROADMAP A11b) and the record says so.
+Every arch of the registry runs: the dense and SSM families, MoE
+(OLMoE; its groups of tokens whole on each rank, the experts over
+"model"), MLA (DeepSeek-V2-Lite; decode merges each rank's partials over
+its slice of the latent cache), the hybrid (Jamba), the enc-dec
+(whisper; its cross cache keeps its heads over "model") and the VLM
+(InternVL2; ``train_4k`` feeds its patch embeddings).
 
 ``REPRO_SHARD_HEADS_AXIS`` and ``REPRO_SHARD_SEQ_AXIS`` default to
 "model" inside ``main`` and ``run_one`` (the reference sets them at
@@ -90,11 +92,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, init_state
 
-__all__ = ["MESH_FAMILIES", "fake_group", "build_lowerable", "run_one",
-           "run_cost", "main"]
+__all__ = ["fake_group", "build_lowerable", "run_one", "run_cost", "main"]
 
-# the families this slice runs on a mesh; the others are ROADMAP A11b
-MESH_FAMILIES = ("dense", "ssm")
 _HINTS = ("REPRO_SHARD_HEADS_AXIS", "REPRO_SHARD_SEQ_AXIS")
 _KINDS = {"all_reduce": "all-reduce", "all_gather_into_tensor":
           "all-gather", "reduce_scatter_tensor": "reduce-scatter",
@@ -180,21 +179,12 @@ class _Count(TorchDispatchMode):
         return out
 
 
-def _require_mesh_family(cfg: ModelConfig) -> None:
-    if cfg.family not in MESH_FAMILIES or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a device mesh (MoE "
-            f"expert dispatch, MLA's latent cache, the hybrid, enc-dec and "
-            f"VLM stacks) is ROADMAP A11b, not ported")
-
-
 def build_lowerable(arch: str, shape_name: str, mesh,
                     cfg: Optional[ModelConfig] = None
                     ) -> Tuple[Any, Tuple, Tuple]:
     """Returns ``(fn, args, specs)``: the step function, its abstract
     (``meta``, unplaced) arguments and their partition specs."""
     cfg = cfg or get_config(arch)
-    _require_mesh_family(cfg)
     shape = SHAPES[shape_name]
     window = reg.decode_window(cfg, shape)
     inputs = reg.input_specs(cfg, shape)

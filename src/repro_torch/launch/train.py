@@ -26,7 +26,10 @@ end), or with ``--production`` / ``--multi-pod`` the 16 × 16 / 2 × 16 ×
 AdamW moments (``REPRO_ZERO1=1``: ZeRO-1's) and each batch are placed
 by their partition specs (``launch.sharding``) as DTensors, the step
 runs on them, its kernels through ``local_map``, and the loss and the
-grad norm are read with ``full_tensor()``; on a mesh of one device every
+grad norm are read with ``full_tensor()``.  Every family of the registry
+runs so: the dense and SSM stacks, MoE (each rank routes whole groups of
+tokens, the reference's, over experts sharded on "model"), MLA, the
+hybrid interleave, whisper and InternVL2.  On a mesh of one device every
 placement is the identity, so the run keeps plain tensors unless
 ``distribute=True`` asks for DTensors (``chip_smoke.py``'s
 ``mesh_train``).  On the card the attention layers train through B3 and

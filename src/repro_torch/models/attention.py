@@ -63,7 +63,10 @@ v over that mesh axis, and (§Perf T5) repeats k and v to the full head
 count before the attention kernel when KV < H and KV does not divide the
 axis, so every rank's query heads find their kv heads on the same rank;
 the cache keeps the compact k and v.  The cache write and the decode
-kernels follow the cache's own layout (``launch.sharding.cache_specs``).
+kernels follow the cache's own layout (``launch.sharding.cache_specs``):
+MLA's latent cache over its sequence (each rank's partials merged),
+whisper's cross cache over its heads, with the cross decode's lengths
+a replicated DTensor.
 """
 from __future__ import annotations
 
@@ -72,7 +75,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import (Partial, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
@@ -179,7 +182,8 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
         # (kv heads that are repeated take the hint after the repeat)
         k, v = _shard_heads(k), _shard_heads(v)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (_bias(t, p[n]) for t, n in ((q, "bq"), (k, "bk"),
+                                                (v, "bv")))
     if "q_norm" in p:
         q = apply_norm({"scale": p["q_norm"]}, q, "rmsnorm")
         k = apply_norm({"scale": p["k_norm"]}, k, "rmsnorm")
@@ -191,13 +195,24 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _bias(t: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``t (B, S, H, hd) + b (H, hd)``, the bias given its two leading
+    unit dimensions first: the broadcast's backward then sums ``t``'s
+    gradient to ``(1, 1, H, hd)`` and squeezes it, where DTensor refuses
+    the flattening view that a plain add's backward takes when one kv
+    head is sharded over a mesh axis of one rank (internvl2-1b's)."""
+    return t + b[None, None]
+
+
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd", out, wo) as one matrix product.  On a
-    DTensor ``out`` whose heads are sharded, each rank contracts its own
-    heads against its rows of ``wo`` and the ranks' products are summed
-    (``Partial``): DTensor cannot flatten (H, hd) when H is chunked
-    unevenly (qwen1.5-4b's 20 heads over 16 ranks)."""
-    if is_dtensor(out) and _head_dims(out):
+    DTensor ``out`` whose heads are sharded, or a DTensor ``wo`` that
+    shards its head width (InternVL2's 14 heads over 16 ranks), each rank
+    contracts its own heads (or head widths) against its rows of ``wo``
+    and the ranks' products are summed (``Partial``): DTensor cannot
+    flatten (H, hd) when H is chunked unevenly (qwen1.5-4b's 20 heads
+    over 16 ranks) nor, on the card's torch, when hd is sharded."""
+    if is_dtensor(out) and (_head_dims(out) or _width_dims(wo)):
         return _out_proj_mesh(out, wo)
     h, k, d = wo.shape
     return matmul(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
@@ -208,19 +223,31 @@ def _head_dims(t) -> list:
             if p == Shard(t.dim() - 2)]
 
 
+def _width_dims(wo) -> list:
+    """The mesh dimensions over which a DTensor ``wo (H, hd, d)`` shards
+    hd."""
+    if not is_dtensor(wo):
+        return []
+    return [i for i, p in enumerate(wo.placements) if p == Shard(1)]
+
+
 def _out_proj_mesh(out, wo):
     mesh = out.device_mesh
     heads = _head_dims(out)
+    width = [i for i in _width_dims(wo) if i not in heads]
+    split = heads + width
     lead = out.dim() - 2
-    rows = [p if isinstance(p, Shard) and p.dim < lead and i not in heads
+    rows = [p if isinstance(p, Shard) and p.dim < lead and i not in split
             else Replicate() for i, p in enumerate(out.placements)]
-    lay = [Shard(lead) if i in heads else p for i, p in enumerate(rows)]
-    wlay = [Shard(0) if i in heads else Replicate() for i in range(mesh.ndim)]
+    lay = [Shard(lead) if i in heads else Shard(lead + 1) if i in width
+           else p for i, p in enumerate(rows)]
+    wlay = [Shard(0) if i in heads else Shard(1) if i in width
+            else Replicate() for i in range(mesh.ndim)]
     # wo's gradient on a rank covers only its own rows of the batch
-    wgrad = [Shard(0) if i in heads else (Partial() if rows[i] != Replicate()
-                                          else Replicate())
+    wgrad = [wlay[i] if i in split else (Partial() if rows[i] != Replicate()
+                                         else Replicate())
              for i in range(mesh.ndim)]
-    res = [Partial() if i in heads else p for i, p in enumerate(rows)]
+    res = [Partial() if i in split else p for i, p in enumerate(rows)]
 
     def local(o, w):
         h, k, d = w.shape
@@ -335,7 +362,7 @@ def cross_kv(p, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     KV, hd)`` in the promoted dtype of ``enc`` and the weights."""
     k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
     if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
+        k, v = _bias(k, p["bk"]), _bias(v, p["bv"])
     return k.contiguous(), v.contiguous()
 
 
@@ -347,11 +374,16 @@ def cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     take q in K's dtype; the output returns to x's before ``wo``."""
     q = _proj(x, p["wq"])
     if "bq" in p:
-        q = q + p["bq"]
+        q = _bias(q, p["bq"])
     qk = q.to(k.dtype).contiguous()
     if decode:
         full = torch.full((x.shape[0],), k.shape[1] - 1, dtype=torch.int32,
                           device=x.device)
+        if is_dtensor(qk):
+            # every rank's whole copy: B4's mesh route takes its rows
+            mesh = qk.device_mesh
+            full = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
         out = decode_attention(qk[:, 0], k, v, full)[:, None]
     else:
         out = flash_attention(qk, k, v, causal=False)
@@ -399,6 +431,7 @@ def mla_forward(p, cfg: ModelConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence MLA in the expanded form, causal.  positions: (S,).
     Returns (out, (c_kv, k_pe))."""
+    x = batch_rows(x)           # on a mesh: one gather for q and the latent
     q_nope, q_pe = _mla_q(p, cfg, x, positions)
     c_kv, k_pe = _mla_latent(p, cfg, x, positions)
     k_nope = _proj(c_kv, p["w_uk"])

@@ -24,16 +24,30 @@ a prompt of 32 × 1,024 tokens (16 groups, C 324).
 ``lax.top_k`` returns the lowest index first among equal values and
 ``torch.topk`` promises no order there, so the top-k is a stable
 descending sort.
+
+On a device mesh (DTensors) the groups stay the reference's: each rank
+holds whole rows of its batch shard where the shard is a whole number of
+groups, and every token otherwise (``_whole_groups``), so the capacity
+drops the same tokens.  The grouping, the dispatch, the combine and the
+ungrouping run on each rank's own groups under ``local_map`` (the card's
+DTensor has no sharding rule for the index moves); the router and the
+routing run as DTensor propagates them, and the experts' products over
+their weights' own layout, sharded over "model" by
+``launch.sharding``.  The combine then gathers every expert's rows of
+the rank's groups; an expert-parallel dispatch that moves only the
+routed rows is ROADMAP A11g.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels._mesh import is_dtensor, local_call, ranks
 from repro_torch.models.layers import _init_w
 
 __all__ = ["DEFAULT_GROUP", "init_moe", "apply_moe"]
@@ -109,6 +123,71 @@ def _expert_mlp(p, xin: torch.Tensor, activation: str) -> torch.Tensor:
     return out.reshape(e, g, c, d).transpose(0, 1)
 
 
+def _whole_groups(x: torch.Tensor, tg: int) -> Optional[List[Any]]:
+    """On a DTensor ``x (B, S, d)``, the placements under which each rank
+    holds whole groups of ``tg`` consecutive tokens of the flattened
+    ``(B, S)``, the reference's groups, whose token sets decide what the
+    capacity drops: whole rows of its batch shard (the sequence and
+    ``d`` gathered, a ``Partial`` reduced) where each batch shard holds a
+    whole number of groups and none is padded, else every token on
+    every rank (a mesh dimension of one rank replicates, which is the
+    same).  None for a plain tensor."""
+    if not is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    b, s, _ = x.shape
+    dims = [i for i, p in enumerate(x.placements)
+            if p == Shard(0) and mesh.size(i) > 1]
+    shards = ranks(mesh, dims)
+    keep = b % shards == 0 and (b // shards) * s % tg == 0
+    return [Shard(0) if i in dims and keep else Replicate()
+            for i in range(mesh.ndim)]
+
+
+def _group(x: torch.Tensor, tg: int) -> torch.Tensor:
+    """``x (B, S, d)`` as ``(G, tg, d)`` groups of consecutive tokens, the
+    last one padded with zero rows."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    pad = (-xf.shape[0]) % tg
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros(pad, d)], dim=0)
+    return xf.reshape(-1, tg, d)
+
+
+def _ungroup(y: torch.Tensor, rows: int, s: int) -> torch.Tensor:
+    """``_group``'s inverse: ``(G, tg, d)`` back to ``(rows, s, d)``, the
+    padding cut."""
+    d = y.shape[-1]
+    return y.reshape(-1, d)[:rows * s].reshape(rows, s, d)
+
+
+def _dispatch(xg: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+              e: int, cap: int) -> torch.Tensor:
+    """Each (token, slot) row of ``xg (G, T, d)`` copied into its expert
+    slot of ``(G, E, cap + 1, d)`` (a dropped one into the spare slot
+    ``cap``, which is cut off)."""
+    g, tg, d = xg.shape
+    k = expert.shape[-1]
+    gi = torch.arange(g, device=xg.device)[:, None, None].expand_as(slot)
+    xin = xg.new_zeros(g, e, cap + 1, d)
+    xin[gi, expert, slot] = xg[:, :, None, :].expand(g, tg, k, d)
+    return xin
+
+
+def _combine(xout: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """Σ_k w_k · xout[expert_k, slot_k], k in order, in float32: ``(G, T,
+    d)`` (a dropped slot reads any row, at weight 0)."""
+    g, tg, k = expert.shape
+    gi = torch.arange(g, device=xout.device)[:, None, None].expand_as(slot)
+    yg = xout.new_zeros(g, tg, xout.shape[-1], dtype=torch.float32)
+    for i in range(k):
+        row = xout[gi[..., i], expert[..., i], slot[..., i]]    # (G,T,d)
+        yg = yg + row.float() * w[..., i, None]
+    return yg
+
+
 def apply_moe(p, moe: MoEConfig, x: torch.Tensor, activation: str,
               group_size: int = DEFAULT_GROUP
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,35 +195,37 @@ def apply_moe(p, moe: MoEConfig, x: torch.Tensor, activation: str,
     b, s, d = x.shape
     t_total = b * s
     tg = min(group_size, t_total)
-    pad = (-t_total) % tg
-    xf = x.reshape(t_total, d)
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros(pad, d)], dim=0)
-    g = xf.shape[0] // tg
-    xg = xf.reshape(g, tg, d)
-
-    logits = xg.float() @ p["router"]
-    cap = _capacity(tg, moe)
-    expert, pos, keep, weight, aux = _route(logits, moe, cap)
-
-    # dispatch: each kept (token, slot) row into its expert slot; the
-    # dropped ones go to a spare slot C that is cut off
+    g = -(-t_total // tg)
     e, k = moe.num_experts, moe.top_k
-    slot = torch.where(keep, pos, cap)
-    gi = torch.arange(g, device=x.device)[:, None, None].expand_as(slot)
-    xin = xg.new_zeros(g, e, cap + 1, d)
-    xin[gi, expert, slot] = xg[:, :, None, :].expand(g, tg, k, d)
-    xout = _expert_mlp(p, xin[:, :, :cap], activation)
+    cap = _capacity(tg, moe)
+    lay = _whole_groups(x, tg)
+    if lay is not None and list(x.placements) != lay:
+        x = x.redistribute(x.device_mesh, lay)
+    rows = b if lay is None else x.to_local().shape[0]
 
-    # combine: Σ_k weight_k · out[expert_k, pos_k], k in order, in
-    # float32 (a dropped slot reads any row, at weight 0)
+    def per_group(fn, shape, *args):
+        """``fn(*args)``; on a mesh, on each rank's whole groups
+        (``local_map``): the index moves have no DTensor sharding rule on
+        the card's torch, and the groups' gradients come back in the
+        same layout."""
+        if lay is None:
+            return fn(*args)
+        return local_call(fn, x.device_mesh, (lay,) * len(args), lay, *args,
+                          out_shapes=shape)
+
+    xg = per_group(lambda t: _group(t, tg), (g, tg, d), x)
+    logits = xg.float() @ p["router"]
+    expert, pos, keep, weight, aux = _route(logits, moe, cap)
+    slot = torch.where(keep, pos, cap)
+    xin = per_group(lambda a, ex, sl: _dispatch(a, ex, sl, e, cap),
+                    (g, e, cap + 1, d), xg, expert, slot)
+    # the experts' products over their weights' own layout ("model")
+    xout = _expert_mlp(p, xin[:, :, :cap], activation)
     w = weight.to(x.dtype).float()
-    slot = slot.clamp(max=cap - 1)
-    yg = xg.new_zeros(g, tg, d, dtype=torch.float32)
-    for i in range(k):
-        row = xout[gi[..., i], expert[..., i], slot[..., i]]    # (G,T,d)
-        yg = yg + row.float() * w[..., i, None]
-    y = yg.to(x.dtype).reshape(-1, d)[:t_total].reshape(b, s, d)
+    yg = per_group(_combine, (g, tg, d), xout, expert,
+                   slot.clamp(max=cap - 1), w)
+    y = per_group(lambda t: _ungroup(t, rows, s), (b, s, d),
+                  yg.to(x.dtype))
 
     if "shared" in p:
         sh = p["shared"]

@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels._mesh import is_dtensor
@@ -151,10 +152,15 @@ def _like(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A block's output ``a`` laid out as the residual ``x`` it is added
     to (on DTensors: a sequence-sharded residual takes a reduce-scatter
     here, and its gradient an all-gather back, the sequence-parallel
-    pair); a plain tensor as it is."""
+    pair); a plain tensor as it is.  Where the residual is still a
+    ``Partial`` sum that ``a`` is not (decode, whose one position takes
+    no sequence hint, after a vocabulary-sharded embedding) ``a`` is
+    replicated there and the add reduces the residual."""
     if not is_dtensor(a) or a.placements == x.placements:
         return a
-    return a.redistribute(a.device_mesh, x.placements)
+    want = [Replicate() if p.is_partial() and not q.is_partial() else p
+            for p, q in zip(x.placements, a.placements)]
+    return a.redistribute(a.device_mesh, want)
 
 
 def _shard_seq(x: torch.Tensor) -> torch.Tensor:

@@ -168,6 +168,47 @@ def test_mla_decode_plain_matches_reference_chain(dtype, window):
     assert bool((got[0] == 0).all())
 
 
+def _merged_partials(q_abs, q_pe, c_kv, k_pe, lens, scale, window,
+                     ranks):
+    """What the mesh route computes across ``ranks`` slices of the cache's
+    sequence: each slice's ``mla_decode_partials_plain`` at lengths
+    shifted by its offset, merged by the max and the two sums."""
+    s = c_kv.shape[1] // ranks
+    parts = [md.mla_decode_partials_plain(
+        q_abs, q_pe, c_kv[:, r * s:(r + 1) * s].contiguous(),
+        k_pe[:, r * s:(r + 1) * s].contiguous(), lens - r * s, scale=scale,
+        window=window) for r in range(ranks)]
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    w = [torch.exp(m - top) for m, _, _ in parts]
+    lsum = sum(l * wi for (_, l, _), wi in zip(parts, w))
+    asum = sum(acc * wi for (_, _, acc), wi in zip(parts, w))
+    return asum / (lsum + 1e-30)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("window", [0, 9])
+def test_mla_decode_partials_merge_to_the_plain_version(ranks, window):
+    """DeepSeek-V2-Lite's widths over a 40-position cache split into
+    ``ranks`` slices, at lengths −1, 0, the last position of the first
+    slice and the first of the second: within 2e-5 of
+    ``mla_decode_attention_plain`` over the whole cache; a row with no
+    admitted position gives 0."""
+    rng = np.random.default_rng(8)
+    b, s, h, r, p = 4, 40, 16, 512, 64
+    q_abs, q_pe, c_kv, k_pe = (
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        for shape in ((b, h, r), (b, h, p), (b, s, r), (b, s, p)))
+    edge = s // max(ranks, 2)
+    lens = torch.tensor([-1, 0, edge - 1, edge], dtype=torch.int32)
+    scale = 192 ** -0.5
+    want = md.mla_decode_attention_plain(q_abs, q_pe, c_kv, k_pe, lens,
+                                         scale=scale, window=window)
+    got = _merged_partials(q_abs, q_pe, c_kv, k_pe, lens, scale, window,
+                           ranks)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+    assert bool((got[0] == 0).all())
+
+
 def test_flash_plain_at_a_width_pair_matches_reference_sdpa():
     """B3's plain version at (qk 48, v 32), the reduced MLA's pair,
     against the reference model's ``sdpa`` under a causal and a
