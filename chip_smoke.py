@@ -570,6 +570,44 @@ printing one JSON line per phase:
                    the total over 256 (16 × 16) and over 512 (2 × 16 ×
                    16); each record printed on a line of its own.
 
+Slice 23's phases, in their places among the above:
+
+- multi_device (after campaign_user_size) — the dispatch over several
+                   devices: sweep (a 7-point grid of loss-free, loss and
+                   failure points in runs), generate (18 points),
+                   fleet (7 fleets, every routing) and campaign (48
+                   loss points in chunks of 16) over the device list
+                   [cuda:0, cuda:0] (``engine._over_devices``: the
+                   second slice in a worker process, as a further GPU's
+                   would run; tools/check_torch_multi_gpu.py runs four
+                   GPUs) against one
+                   dispatch: bitwise, B1 (and B2) launched exactly twice
+                   a superstep, the fold once a chunk.
+- decode_partials (after mla_kernel) — B4's partials entry in bf16,
+                   float32 and over the int8 cache at qwen's long shape
+                   (B 32, a 1,056-position cache, 16 × 64) on 2, 4 and 8
+                   ranks' slices, whisper's float32 cross cache (B 32,
+                   1,500) on 2 and 4, and MLA decode's at DeepSeek's
+                   long shape on 2, 4 and 8: each slice's lengths
+                   shifted by its offset (rows of length -1 after the
+                   shift; with and without a window across a boundary),
+                   the slices' float32 (m, l, acc) merged by
+                   ``merge_partials_plain`` within 2e-5 of the one-pass
+                   kernel and of the merged plain partials; the whole
+                   cache's B4 partials, divided, the one-pass output
+                   bit for bit; an empty slice m = NEG_INF, l = 0,
+                   acc = 0; twice, bitwise; one launch a call in the
+                   kernel's counter and in the entry's own; rank 0's
+                   call timed against the one-pass kernel and the plain
+                   partials.
+- serve_phi4, serve_codeqwen, serve_qwen4b (after vlm_consistency) —
+                   ``launch.serve --arch A --full --workload generate``
+                   at SERVE_ARGS' settings for phi4-mini-3.8b,
+                   codeqwen1.5-7b and qwen1.5-4b whole through
+                   ``_serve_model``'s gates (one B3 and 4 B4 a layer a
+                   batch), then each whole in float32: prefill + decode
+                   against its forward within 3e-4.
+
 Then a ``phase_seconds`` line (each phase's wall seconds), a
 ``{"kernels": [...]}`` line (one row per kernel and path: the
 launches of that path's user-size run beside the times at that path's
@@ -603,7 +641,14 @@ float32 route, 3xTF32 on the tensor cores, bound at 3xTF32's rate with
 ``*_bound_ms_cuda_cores`` at 67 TFLOP/s beside); the
 ``ssd_scan_backward`` row, also with no TPU counterpart, takes its
 launches from ``train_ssm`` and its times at mamba2-2.7b's training
-shape, with ``f32_*``, ``long_*`` and ``hybrid_*`` beside), the
+shape, with ``f32_*``, ``long_*`` and ``hybrid_*`` beside; the
+``flash_attention`` and ``decode_attention`` rows add
+``dense_launches`` from the three dense serve phases; the
+``decode_attention_partials`` and ``mla_decode_partials`` rows, whose
+entries run only on a sequence-split mesh, take their launches from
+their own counters over every serve and train phase (0 on one card) and
+their times from rank 0's call at 2 ranks, with the other
+splits, dtypes and whisper's cross cache beside as ``<case>_*``), the
 nvidia-smi line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises and the
 script exits non-zero; without a CUDA device it exits non-zero before
@@ -662,13 +707,15 @@ from repro_torch.kernels.campaign_fold import (  # noqa: E402
     fold_min_bytes)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_int8, decode_attention_int8_plain,
-    decode_attention_plain, decode_splits)
+    decode_attention_partials, decode_attention_plain, decode_splits,
+    merge_partials_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_backward,
+    NEG_INF, flash_attention, flash_attention_backward,
     flash_attention_backward_plain, flash_attention_lse_plain,
     flash_attention_plain, flash_attention_with_lse, flash_splits)
 from repro_torch.kernels.mla_decode import (  # noqa: E402
-    mla_decode_attention, mla_decode_attention_plain, mla_splits)
+    mla_decode_attention, mla_decode_attention_plain, mla_decode_partials,
+    mla_decode_partials_plain, mla_splits)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunked, ssd_scan, ssd_scan_backward, ssd_scan_backward_plain,
     ssd_scan_plain, ssd_splits)
@@ -739,6 +786,15 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/ssd_scan_backward.cu",
         "src/repro/models/mamba2.py:85",
         "src/repro/models/mamba2.py:_ssd_chunked (jax.grad)"),
+    # the partials entries of B4 (its float and int8 instantiations) and
+    # of MLA decode, in the same sources
+    "decode_attention_partials": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:27",
+        "src/repro/kernels/decode_attention.py:_kernel"),
+    "mla_decode_partials": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                            "src/repro/models/attention.py:380",
+                            "src/repro/models/attention.py:mla_decode"),
     # no TPU kernel: the reference folds a chunk with a jitted lax.scan
     "campaign_fold": ("src/repro_torch/kernels/csrc/campaign_fold.cu",
                       "src/repro/core/campaign.py:391",
@@ -3665,14 +3721,18 @@ def phase_attn_kernel(dev) -> dict:
 
 
 def _serve_launches() -> dict:
-    """The launch counts of every kernel a served model can run."""
+    """The launch counts of every kernel a served model can run; the
+    decode kernels' partials entries apart (their launches count in
+    their kernel's too)."""
     return {"flash_attention": flash_attention.launches,
             "flash_attention_backward": flash_attention.backward_launches,
             "decode_attention": decode_attention.launches,
             "decode_attention_int8": decode_attention_int8.launches,
             "ssd_scan": ssd_scan.launches,
             "ssd_scan_backward": ssd_scan.backward_launches,
-            "mla_decode": mla_decode_attention.launches}
+            "mla_decode": mla_decode_attention.launches,
+            "decode_attention_partials": decode_attention_partials.launches,
+            "mla_decode_partials": mla_decode_partials.launches}
 
 
 def _reset_serve_launches() -> None:
@@ -3683,6 +3743,8 @@ def _reset_serve_launches() -> None:
     ssd_scan.launches = 0
     ssd_scan.backward_launches = 0
     mla_decode_attention.launches = 0
+    decode_attention_partials.launches = 0
+    mla_decode_partials.launches = 0
 
 
 def _launch_counts(**counts) -> dict:
@@ -5433,6 +5495,364 @@ def phase_train_families(dev, steps: int = 2, b: int = 2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 23: the dispatch over several devices, the decode kernels'
+# partials entries, and the three dense archs served whole
+# ---------------------------------------------------------------------------
+
+# the dense archs of the registry served whole (A12): phi4-mini-3.8b (24
+# query heads over 8 kv heads of 128, rotary on 0.75 of each head),
+# codeqwen1.5-7b (32 × 128, MHA) and qwen1.5-4b (20 × 128, MHA), at
+# SERVE_ARGS' settings
+DENSE_ARCHS = (("serve_phi4", "phi4-mini-3.8b"),
+               ("serve_codeqwen", "codeqwen1.5-7b"),
+               ("serve_qwen4b", "qwen1.5-4b"))
+# the partials entries against the one-pass kernel: the merged float32
+# context of the ranks' slices, within this of the one-pass result
+PARTIALS_TOL = 2e-5
+# (ranks, cache) of the partials cases: qwen's long shape (B 32, 16 × 64,
+# a 1,056-position cache: 1,024 + 32) over 2, 4 and 8 ranks, whisper's
+# float32 cross cache (B 32, 1,500 positions) over 2 and 4 (seq_offset
+# needs an even split), DeepSeek's latent cache at the same long shape
+PARTIALS_LONG = 1056
+PARTIALS_RANKS = (2, 4, 8)
+CROSS_RANKS = (2, 4)
+
+
+def _same_result(a, b, what: str) -> None:
+    """Every array field of two results bit for bit (NaN where NaN)."""
+    for f in a.__dataclass_fields__:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, np.ndarray):
+            check(x.dtype == y.dtype and np.array_equal(x, y, equal_nan=True),
+                  f"{what}: {f} differs over two slices")
+
+
+def _regime_grid(n: int = 7, cls=SweepGrid, **extra):
+    """tests/test_torch_multi_device.py's mixed grid: loss-free points,
+    then a room, a deadline and a retry orbit, then failing points
+    (resume, restart, drop), so that the slices hold other regimes than
+    the whole grid."""
+    i = np.arange(n)
+    lossy, failing = (i >= 3) & (i < 5), i >= 5
+    b = np.where(i % 2 == 0, 4, 8).astype(np.int32)
+    lam = np.linspace(0.3, 0.8, n).astype(np.float32) * b / (
+        V100[0] * b + V100[1])
+    return cls.from_points(
+        lam, V100[0], V100[1], b_max=b,
+        dist=np.where(i % 3 == 1, 1, 0).astype(np.int32),
+        q_max=np.where(lossy, 16, 0).astype(np.int32),
+        deadline=np.where(lossy & (i % 2 == 1), 60.0, 0.0).astype(np.float32),
+        retry_rate=np.where(lossy, 0.25, 0.0).astype(np.float32),
+        mtbf=np.where(failing, 400.0, 0.0).astype(np.float32),
+        mttr=np.where(failing, 5.0, 0.0).astype(np.float32),
+        fail_disc=np.array(["resume", "restart", "drop"])[i % 3], **extra)
+
+
+def phase_multi_device(dev) -> dict:
+    """The dispatch over several devices on the card: sweep, generate,
+    fleet and campaign runs over the device list [cuda:0, cuda:0] (two
+    slices on one card, the second in a worker process as a further
+    GPU's: ``engine._over_devices``)
+    against one dispatch: bitwise, with B1 (and B2) launched exactly
+    twice a superstep, the campaign's fold once a chunk."""
+    pair = [dev, dev]
+    out = {}
+
+    def twice(name, run, supersteps, compact=False, folds=0):
+        times, runs = [], []
+        for devices in (None, pair):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if devices is None:
+                r = run()
+            else:
+                with engine._over_devices(devices, workers=True):
+                    r = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            k = 1 if devices is None else 2
+            want = {"hist_update": k * supersteps,
+                    "fifo_compact": k * supersteps if compact else 0,
+                    "campaign_fold": folds}
+            check(_launches() == want, f"multi_device {name} over "
+                  f"{k} slices: launches {_launches()}, expected {want}")
+            runs.append(r)
+        one, split = runs
+        if hasattr(one, "fingerprint"):
+            check(one.fingerprint() == split.fingerprint()
+                  and one.totals == split.totals,
+                  f"multi_device {name}: two slices = one dispatch")
+            _clean(split, f"multi_device {name}")
+        else:
+            _same_result(one, split, f"multi_device {name}")
+            check(int(split.buffer_dropped.sum()) == 0,
+                  f"multi_device {name}: no drops")
+        out[name] = dict(points=int(len(run.grid)), supersteps=supersteps,
+                         one_s=times[0], two_slices_s=times[1])
+
+    def runner(fn, grid, **kw):
+        def run():
+            return fn(grid, device=dev, **kw)
+        run.grid = grid
+        return run
+
+    twice("sweep", runner(sweep, _regime_grid(), n_batches=256, seed=5), 8)
+    gg = GenGrid.from_points(
+        np.linspace(0.05, 0.4, 18, dtype=np.float32), 0.02, 0.5, 0.01, 2.0,
+        prompt_len=32, gen_tokens=8, max_active=16,
+        q_max=np.where(np.arange(18) % 3 == 0, 0, 8).astype(np.int32))
+    twice("gen_sweep", runner(gen_sweep, gg, n_steps=64, seed=9),
+          2048 // 16, compact=True)
+    i = np.arange(7)
+    fg = _regime_grid(cls=FleetGrid, k=np.array([1, 2, 4])[i % 3],
+                      routing=np.array(["jsq", "random",
+                                        "round_robin"])[i % 3])
+    twice("fleet_sweep", runner(fleet_sweep, fg, n_steps=64, seed=7), 2)
+    cg = _campaign_loss_grid(48)
+    twice("campaign", runner(campaign, cg, chunk_size=16, n_batches=12,
+                             seed=3), 3, folds=3)
+    emit("multi_device", devices=[str(d) for d in pair],
+         note="two slices on one card, the second in a worker process: "
+              "a check of the dispatch, not a speed figure", **out)
+    return out
+
+
+def _rank_lengths(s: int, n: int, b: int, seed: int) -> list:
+    """Lengths of a ``b``-row batch over a cache of ``s`` split over
+    ``n`` ranks: -1 and 0, each rank boundary's last and first position
+    (so that a row's length is -1 after a rank's shift), the end, and
+    random lengths for the rest."""
+    c = s // n
+    picks = [-1, 0, s - 1] + [x for r in range(1, n) for x in (r * c - 1,
+                                                                r * c)]
+    rng = np.random.default_rng(seed)
+    fill = rng.integers(0, s, b).tolist()
+    return (picks + fill)[:b]
+
+
+def _merge_ranks(parts, g: int):
+    """The ranks' float32 partials merged by ``merge_partials_plain``:
+    B4's (m, l (B, KV, G, 1), acc (B, KV, G, hd)) stack on its split
+    axis as they are; MLA's (B, H, 1) and (B, H, R) as one kv head of
+    ``g`` = H query heads."""
+    if parts[0][0].dim() == 3:
+        parts = [tuple(t[:, None] for t in p) for p in parts]
+    m = torch.stack([p[0][..., 0] for p in parts], 2)
+    l = torch.stack([p[1][..., 0] for p in parts], 2)
+    acc = torch.stack([p[2] for p in parts], 2)
+    return merge_partials_plain(m, l, acc, torch.float32)
+
+
+def _check_partials(dev, kind: str, dtype, n: int, lengths, *, window=0,
+                    seed=0, timed=False, cross=False) -> dict:
+    """A decode kernel's partials entry on each of ``n`` ranks' slices of
+    the cache (``lengths`` shifted by each slice's offset), merged by
+    ``merge_partials_plain``, against the one-pass kernel: within
+    ``PARTIALS_TOL``; each rank's partials against its plain version's
+    (merged, within the same gate, ``m = NEG_INF``, ``l = 0`` and
+    ``acc = 0`` exactly where a slice admits no key); twice, bitwise.
+    ``kind``: ``"b4"``, ``"b4_int8"`` or ``"mla"``."""
+    b = 32
+    if cross:
+        s, h, kv, hd = 1500, 16, 16, 64
+    else:
+        s, h, kv, hd = PARTIALS_LONG, 16, 16, 64
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    if kind == "mla":
+        args = _mla_inputs(dev, dtype, b, s, seed)
+        q, cache = args[:2], args[2:]
+
+        def one_pass():
+            return mla_decode_attention(*args, lens, scale=MLA_SCALE,
+                                        window=window)
+
+        def partials(c, ln):
+            return mla_decode_partials(*q, *c, ln, scale=MLA_SCALE,
+                                       window=window)
+
+        def plain(c, ln):
+            return mla_decode_partials_plain(*q, *c, ln, scale=MLA_SCALE,
+                                             window=window)
+        g, counter = 16, mla_decode_attention
+    else:
+        q, k, v = _attn_inputs(dev, torch.float32 if kind == "b4_int8"
+                               else dtype, b, s, h, kv, hd, seed,
+                               decode=True)
+        q = q.to(dtype)
+        if kind == "b4_int8":
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            cache = (k, ks, v, vs)
+
+            def one_pass():
+                return decode_attention_int8(q, k, ks, v, vs, lens,
+                                             window=window)
+
+            def partials(c, ln):
+                return decode_attention_partials(
+                    q, c[0], c[2], ln, window=window, k_scale=c[1],
+                    v_scale=c[3])
+
+            def plain(c, ln):
+                return _decode_partials_plain(q, c[0], c[2], ln, window,
+                                              c[1], c[3])
+            counter = decode_attention_int8
+        else:
+            cache = (k, v)
+
+            def one_pass():
+                return decode_attention(q, k, v, lens, window=window)
+
+            def partials(c, ln):
+                return decode_attention_partials(q, *c, ln, window=window)
+
+            def plain(c, ln):
+                return _decode_partials_plain(q, *c, ln, window)
+            counter = decode_attention
+        g = h // kv
+    c = s // n
+    slices = [tuple(t[:, r * c:(r + 1) * c].contiguous() for t in cache)
+              for r in range(n)]
+    shifted = [lens - r * c for r in range(n)]
+    own = mla_decode_partials if kind == "mla" else decode_attention_partials
+    before, own_before = counter.launches, own.launches
+    whole = partials(cache, lens)
+    got = [partials(sl, ln) for sl, ln in zip(slices, shifted)]
+    again = [partials(sl, ln) for sl, ln in zip(slices, shifted)]
+    check(counter.launches - before == 1 + 2 * n
+          and own.launches - own_before == 1 + 2 * n,
+          f"partials {kind}: one launch a call, in both counters")
+    ref = one_pass()
+    torch.cuda.synchronize()
+    flat = (whole[2] / (whole[1] + 1e-30)).reshape(ref.shape)
+    merged = _merge_ranks(got, g).reshape(ref.shape)
+    want = _merge_ranks([plain(sl, ln) for sl, ln in zip(slices, shifted)],
+                        g).reshape(ref.shape)
+    err = float((merged - flat).abs().max())
+    err_plain = float((merged - want).abs().max())
+    case = dict(kernel=f"{counter.__name__}_partials", route=kind,
+                dtype=str(dtype), batch=b, cache=s, ranks=n, slice=c,
+                window=window, lengths=[min(lengths), max(lengths)],
+                max_abs_err=max(err, err_plain), max_abs_err_one_pass=err,
+                max_abs_err_plain=err_plain,
+                one_pass_err=float((flat - ref.float()).abs().max()))
+    check(all(all(torch.equal(x, y) for x, y in zip(p, a))
+              for p, a in zip(got, again)),
+          f"partials repeat bitwise: {case}")
+    check(bool(torch.isfinite(merged).all()) and err <= PARTIALS_TOL
+          and err_plain <= PARTIALS_TOL, f"partials merged vs one-pass: "
+          f"{case}")
+    if kind == "mla":
+        check(case["one_pass_err"] <= PARTIALS_TOL,
+              f"mla partials of the whole cache vs the one-pass kernel: "
+              f"{case}")
+    else:
+        # the whole cache's partials are the one-pass kernel's float32
+        # statistics: divided and rounded, its output bit for bit
+        check(torch.equal(flat.to(ref.dtype), ref),
+              f"partials of the whole cache divided = the one-pass output "
+              f"bitwise: {case}")
+    for sl, ln, p in zip(slices, shifted, got):
+        pm, pl, pa = plain(sl, ln)
+        empty = pl == 0
+        check(bool((p[0][empty] == NEG_INF).all() and (p[1][empty] == 0).all()
+                   and (p[2][empty.expand_as(p[2])] == 0).all()),
+              f"partials: an empty slice gives m = NEG_INF, l = 0, acc = 0: "
+              f"{case}")
+    case["empty_row_slices"] = int(sum(int((p[1] == 0).sum()) for p in got))
+    check(min(lengths) >= 0 or case["empty_row_slices"] > 0,
+          f"partials: a row of length -1 admits nothing: {case}")
+    if timed:
+        sl, ln = slices[0], shifted[0]
+        adm = sum(max(0, min(c, x + 1) - (max(0, x - window + 1)
+                                            if window else 0))
+                  for x in ln.tolist())
+        if kind == "mla":
+            # rank 0's admitted latent rows read once, q read and the
+            # float32 (m, l, acc) written once; a score (576) and a p·v
+            # (512) multiply-add a head and admitted position, on the
+            # tensor cores as in mla_kernel
+            case.update(_bound(
+                dtype.itemsize * 576 * adm + 4 * (q[0].numel() + q[1].numel())
+                + 4 * b * 16 * (512 + 2), 2 * 16 * (576 + 512) * adm, dtype,
+                FLASH_PEAK_FLOPS))
+        else:
+            # rank 0's admitted K and V rows (int8: the codes and both
+            # scales) read once, q read and the float32 statistics
+            # written once; q·k and p·v a multiply-add per head, key and
+            # width
+            row = 2 * hd + 8 if kind == "b4_int8" else 2 * hd * dtype.itemsize
+            case.update(_bound(q.element_size() * q.numel() + row * kv * adm
+                               + 4 * b * h * (hd + 2), 4 * hd * h * adm,
+                               dtype))
+        case["kernel_ms"] = time_ms(lambda: partials(sl, ln))
+        case["plain_ms"] = time_ms(lambda: plain(sl, ln))
+        case["one_pass_ms"] = time_ms(one_pass)
+        case["library_ms"] = None
+        case["library_note"] = ("no PyTorch call returns the unnormalised "
+                                "(m, l, acc) of a slice; one_pass_ms is the "
+                                "one-pass kernel over the whole cache")
+    return case
+
+
+def phase_decode_partials(dev) -> dict:
+    """The two partials entries (B4 in bf16, float32 and over the int8
+    cache; MLA decode) on ranks' slices of a cache, merged, against the
+    one-pass kernel; rank 0's call timed against it."""
+    out, cases = {}, []
+    bf16, f32 = torch.bfloat16, torch.float32
+    for kind, dtype in (("b4", bf16), ("b4", f32), ("b4_int8", bf16),
+                        ("mla", bf16)):
+        for n in PARTIALS_RANKS:
+            lengths = _rank_lengths(PARTIALS_LONG, n, 32, seed=n)
+            case = _check_partials(dev, kind, dtype, n, lengths, seed=n,
+                                   timed=True)
+            cases.append(case)
+            out[f"{kind}_{str(dtype)[6:]}_{n}"] = case
+            # a window across a rank boundary
+            cases.append(_check_partials(dev, kind, dtype, n, lengths,
+                                         window=100, seed=n + 10))
+    for n in CROSS_RANKS:
+        # whisper's cross cache: every row admits all 1,500 positions;
+        # then ragged lengths and a window on the same cache
+        case = _check_partials(dev, "b4", f32, n, [1499] * 32, seed=20 + n,
+                               timed=True, cross=True)
+        cases.append(case)
+        out[f"cross_f32_{n}"] = case
+        cases.append(_check_partials(dev, "b4", f32, n,
+                                     _rank_lengths(1500, n, 32, seed=n),
+                                     window=300, seed=30 + n, cross=True))
+    for c in cases:
+        emit("decode_partials_case", **c)
+    emit("decode_partials", cases=len(cases),
+         worst=max(c["max_abs_err"] for c in cases), tolerance=PARTIALS_TOL)
+    return out
+
+
+def _decode_partials_plain(q, k, v, lengths, window, k_scale=None,
+                           v_scale=None):
+    """B4's plain partials on the card (``decode_attention_partials``
+    takes them on CPU tensors only)."""
+    from repro_torch.kernels.decode_attention import _partials_plain
+    return _partials_plain(q, k, v, lengths, window,
+                           *(() if k_scale is None else (k_scale, v_scale)))
+
+
+def phase_dense_serve(dev, name: str, arch: str) -> dict:
+    """``launch.serve --arch <arch> --full --workload generate`` at
+    SERVE_ARGS' settings, whole: one B3 a layer and 4 B4 a layer a
+    batch, no other kernel; then the model whole in float32, prefill +
+    decode against its forward."""
+    argv = ["--arch", arch] + SERVE_ARGS[2:]
+    n = get_config(arch).num_layers
+    info = _serve_model(dev, name, argv, _launch_counts(
+        flash_attention=n, decode_attention=n * SERVE_GEN))
+    cons = _consistency(dev, arch, SERVE_PROMPT)
+    emit(f"{name}_consistency", **cons)
+    return dict(info, consistency=cons)
+
+
 def _kernel_row(name: str, path: str, launches: int, k: dict,
                 **extra) -> dict:
     source, replaces, tpu_ref = KERNELS[name]
@@ -5866,6 +6286,7 @@ def _main() -> int:
     camp_path = path_hist(dev, captured, "campaign_path")
     del captured
     torch.cuda.empty_cache()
+    phase("multi_device", phase_multi_device, dev)
     attn = phase("attn_kernel", phase_attn_kernel, dev)
     served = phase("serve", phase_serve, dev)
     phase("serve_long", phase_serve_long, dev)
@@ -5880,6 +6301,7 @@ def _main() -> int:
     served_int8 = phase("serve_int8", phase_serve_int8, dev)
     hybrid = phase("hybrid_kernels", phase_hybrid_kernels, dev)
     mla = phase("mla_kernel", phase_mla_kernel, dev)
+    partials = phase("decode_partials", phase_decode_partials, dev)
     served_mla = phase("serve_mla", phase_serve_mla, dev)
     phase("mla_consistency", phase_mla_consistency, dev)
     served_hybrid = phase("serve_hybrid", phase_serve_hybrid, dev)
@@ -5889,6 +6311,8 @@ def _main() -> int:
     served_vlm = phase("serve_vlm", phase_serve_vlm, dev)
     phase("audio_consistency", phase_audio_consistency, dev)
     phase("vlm_consistency", phase_vlm_consistency, dev)
+    dense = {name: phase(name, phase_dense_serve, dev, name, arch)
+             for name, arch in DENSE_ARCHS}
     bwd = phase("attn_backward", phase_attn_backward, dev)
     trained = phase("train", phase_train, dev)
     phase("train_consistency", phase_train_consistency, dev)
@@ -5900,6 +6324,14 @@ def _main() -> int:
     phase("mesh_train", phase_mesh_train, dev, smi)
     phase("dryrun", phase_dryrun, dry)
     emit("phase_seconds", **seconds)
+    # the partials entries' own counters over the main path's serve and
+    # train runs, each of which held every counter to its exact count
+    partials_launches = {
+        name: sum(r["launches"][name] for r in (
+            served, served_ssm, cont, served_moe, served_int8, served_mla,
+            served_hybrid, served_audio, served_vlm, *dense.values(),
+            trained, trained_ssm))
+        for name in ("decode_attention_partials", "mla_decode_partials")}
     long_keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
                  "max_abs_err")
     batch1_keys = (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
@@ -6003,6 +6435,8 @@ def _main() -> int:
             # whisper's and InternVL2's serve runs, and their shapes
             audio_launches=served_audio["launches"][name],
             vlm_launches=served_vlm["launches"][name],
+            # phi4-mini, codeqwen1.5-7b and qwen1.5-4b served whole
+            dense_launches={n: dense[n]["launches"][name] for n in dense},
             **{f"{shape}_{k}": encdec[shape][key]
                for shape in shapes
                for k, key in batch1_keys + (("bound_by", "bound_by"),)},
@@ -6146,6 +6580,30 @@ def _main() -> int:
                 "bound_ms_cuda_cores"],
             splits={k: mla[f"decode_{k}"]["splits"]
                     for k in ("serve", "long", "batch1", "long_f32")}),
+        # the two decode kernels' partials entries, which run only where
+        # a mesh splits a cache's sequence over several ranks (one launch
+        # a decode layer a rank; a two-rank mesh on one card cannot run:
+        # gloo's all-gather of CUDA tensors segfaults, ROADMAP); their
+        # launches counted over every serve and train run above; timed
+        # on rank 0's slice of qwen's long cache (B4) and DeepSeek's
+        # (MLA) over 2 ranks, with the other splits and dtypes beside
+        *(_kernel_row(
+            name, "decode_partials", partials_launches[name],
+            partials[main],
+            note="the partials entry: a rank's float32 (m, l, acc) over "
+                 "its slice of a sequence-split cache; launches counted "
+                 "by its own counter over this run's serve and train "
+                 "phases (none runs a split mesh on one card); one a "
+                 "decode layer a rank on a split mesh",
+            one_pass_ms=partials[main]["one_pass_ms"],
+            library_note=partials[main]["library_note"],
+            **{f"{key}_{k}": partials[key][k]
+               for key in partials if key != main and key.startswith(pre)
+               for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                         "one_pass_ms", "max_abs_err")})
+          for name, main, pre in (
+              ("decode_attention_partials", "b4_bfloat16_2", ("b4", "cross")),
+              ("mla_decode_partials", "mla_bfloat16_2", ("mla",)))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

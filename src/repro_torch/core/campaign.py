@@ -22,9 +22,16 @@ unless the caller asks for the CPU:
   slices and enqueues chunk i+1 while the card works; ``drain_one``
   waits on the oldest event.  ``pipeline_depth`` bounds the chunks in
   flight.  One stream keeps the fold order equal to the chunk order,
-  which the bitwise contract below needs.
+  which the bitwise contract below needs.  Where ``shard`` asks for
+  several GPUs (``True`` or a count; the default ``None`` keeps one:
+  the campaign's loop is bound by its host enqueue, and every slice
+  runs the whole loop), each chunk's run is cut into slices, one a GPU
+  (``engine.dispatch_device``), and the fold reads the slices' outputs
+  gathered in point order on ``device``: the same bits.  A further
+  GPU's slice runs in a worker process, so its per-point outputs cross
+  the host on their way to ``device``.
 - **Streaming reduction on the card.**  Per-point outputs never reach
-  the host: the CUDA kernel ``kernels.campaign_fold`` folds each
+  the host on one GPU: the CUDA kernel ``kernels.campaign_fold`` folds each
   chunk's outputs into a campaign accumulator on the card, in place
   (histogram counts, loss totals, float64 running sums, and top-K
   worst-latency / best-goodput cells with their global indices).  Host
@@ -106,7 +113,7 @@ from repro_torch.core import engine, prng
 from repro_torch.core.grid import FleetGrid, GenGrid, SweepGrid
 from repro_torch.core.hist import (SKETCH_BINS, hist_edges, hist_percentiles,
                                    sketch_edges)
-from repro_torch.core.sweep import _require_ported_options, resolve_device
+from repro_torch.core.sweep import resolve_device
 from repro_torch.core.variance import allocate_cycles, batch_means_stats
 from repro_torch.kernels.campaign_fold import (FoldAcc, campaign_fold,
                                                summary_dict)
@@ -710,7 +717,9 @@ def campaign(grid, *, chunk_size: int = 4096, mode: str = "pipelined",
     (``n_batches``/``n_steps``/``warmup``/``hist_every``/...) forwards
     to it.  ``caps`` overrides the full-grid pinned capacities
     (defaults to ``*_caps(grid)``).  ``superstep_backend`` is the
-    sweeps' (``"torch"`` / ``"cuda"`` / ``"auto"``).
+    sweeps' (``"torch"`` / ``"cuda"`` / ``"auto"``).  ``shard`` (``True``
+    or a device count) cuts each chunk's run over several GPUs; the
+    default ``None`` runs on ``device`` alone.
 
     ``mode="pipelined"`` is the streaming driver; ``mode="serial"`` is
     the pre-campaign baseline it is measured against — a blocking
@@ -762,10 +771,10 @@ def campaign(grid, *, chunk_size: int = 4096, mode: str = "pipelined",
     if fault_retries < 0:
         raise ValueError(f"fault_retries must be >= 0 "
                          f"(got {fault_retries})")
-    # raised here, never inside the dispatch retry (NotImplementedError
-    # and a missing device are RuntimeErrors it would quarantine)
-    _require_ported_options(shard, c_size, device)
+    # raised here, never inside the dispatch retry (a bad shard, and a
+    # missing device, a RuntimeError it would quarantine)
     dev = resolve_device(device)
+    engine.resolve_shards(shard, c_size, dev)
     if sketch:
         n_bins = SKETCH_BINS
     pinned = dict(caps) if caps is not None else caps_fn(grid)
@@ -832,8 +841,10 @@ def campaign(grid, *, chunk_size: int = 4096, mode: str = "pipelined",
                        if q["chunk"] < start_chunk]
         rows = store.truncate_rows(start_chunk)
 
+    # the default keeps the campaign on one device (module docstring)
     run_kw = dict(seed=int(seed), n_bins=int(n_bins), sketch=bool(sketch),
-                  shard=shard, superstep_backend=superstep_backend,
+                  shard=1 if shard is None else shard,
+                  superstep_backend=superstep_backend,
                   device=dev)
     t0 = time.perf_counter()
     try:
@@ -1008,8 +1019,7 @@ def _run_pipelined(grid, plan_fn, kind, n, c_size, n_chunks, padded,
                                metrics_tap=(metrics_tap if tap_this
                                             else None),
                                **run_kw, **pinned, **kernel_kw)
-                out = engine.dispatch_device(plan.kernel, plan.params,
-                                             plan.keys)
+                out = engine.dispatch_device(plan)
                 break
             except (CampaignFault, RuntimeError) as e:
                 if attempt >= fault_retries:
@@ -1161,8 +1171,7 @@ def _run_adaptive(grid, plan_fn, kind, n, c_size, n_chunks, padded,
             t0 = time.perf_counter()
             plan = plan_fn(cgrid, key_offset=start, **run_kw, **pinned,
                            **base_kw, **{steps_kw: pilot})
-            out = engine.dispatch_device(plan.kernel, plan.params,
-                                         plan.keys)
+            out = engine.dispatch_device(plan)
             limits = _limit_copy(hc, out)
             small_h = {k: hc.copy(out[src]) for k, src in (
                 ("m2", "lat_bm_m2"), ("nb", "lat_bm_n"),
@@ -1272,7 +1281,7 @@ def _run_adaptive(grid, plan_fn, kind, n, c_size, n_chunks, padded,
         gidx = torch.as_tensor(gsel, dtype=torch.int64, device=dev)
         plan = plan._replace(keys=prng.point_keys_at(int(run_kw["seed"]),
                                                      gidx))
-        out = engine.dispatch_device(plan.kernel, plan.params, plan.keys)
+        out = engine.dispatch_device(plan)
         limits = _limit_copy(hc, out)
         chunk = _fold_inputs(out, plan.params["lam"], plan.has_loss,
                              plan.sketch)

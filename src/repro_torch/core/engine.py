@@ -39,10 +39,29 @@ regime's sizing law), are numpy copies of the reference's, so both
 packages size their buffers alike.  ``fail_capacity`` and its two tail
 bounds are the port's own: the reference draws its failure counts
 unbounded, the port a fixed block a step, sized here.
+
+A run's plan (``KernelPlan``, made by ``sweep_plan`` / ``gen_plan`` /
+``fleet_plan``) holds the devices its points spread over
+(``resolve_shards``, the reference's rule, on CUDA's visible devices);
+``dispatch_device`` runs contiguous slices of the point axis on them,
+each further device's in a worker process of its own, and gathers the
+outputs in point order on the plan's device, bit for bit the one-device
+run's.  Every slice runs the whole superstep loop, so only a run whose
+kernels outlast their host loop gains from more devices: ``sweep``
+spreads over every visible GPU by default (``shard=None``, as in the
+reference); ``fleet_sweep``, ``gen_sweep`` and ``campaign``, which ran
+slower spread over four GPUs than on one, only when ``shard`` asks for
+it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+import atexit
+import contextlib
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -55,6 +74,7 @@ __all__ = ["exp_offsets", "fifo_append", "fifo_gather", "fifo_pop_shift",
            "scatter_hist_sums", "completion_inflation", "queue_capacity",
            "window_capacity", "orbit_capacity", "failure_count_bound",
            "restart_attempt_bound", "fail_capacity", "KernelPlan",
+           "resolve_shards", "plan_devices", "SliceKernel", "WorkerLost",
            "dispatch_device", "dispatch", "host_outputs"]
 
 
@@ -455,24 +475,115 @@ def fail_capacity(mtbf, span, kshape=np.inf, *, floor: int = 16,
 
 
 # ---------------------------------------------------------------------------
-# the plan / dispatch split (the campaign's entry to the three sweeps)
+# the plan / dispatch split (the campaign's entry to the three sweeps),
+# and the dispatch over several devices
 # ---------------------------------------------------------------------------
+
+# the private seam of the tests: a device list that every plan made
+# inside ``_over_devices`` takes instead of its resolved one, and whether
+# its slices past the first go to worker processes even where they name
+# the plan's own device
+_FORCED: Optional[List[torch.device]] = None
+_FORCE_WORKERS = False
+
+# one worker process a device that is not the plan's (spawned at first
+# use, kept for later dispatches, shut down at exit)
+_WORKERS: Dict[str, ProcessPoolExecutor] = {}
+
+
+def resolve_shards(shard, n_points: int, device) -> List[torch.device]:
+    """The devices a dispatch of ``n_points`` points runs on, counted as
+    the reference's ``engine.resolve_shards`` counts them: ``None`` or
+    ``True`` → every visible device of ``device``'s type, ``False`` → 1,
+    an int → that many, clamped to the visible devices; always clamped
+    to the point count.  The CPU counts as one device.  Several CUDA
+    devices are ``cuda:0 … cuda:n−1`` (the reference takes
+    ``jax.devices()[:n]``); one is ``device`` itself.  Raises
+    ``ValueError`` below 1."""
+    dev = torch.device(device)
+    if shard is False:
+        n_dev = 1
+    else:
+        avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if shard is None or shard is True:
+            n_dev = avail
+        else:
+            n_dev = int(shard)
+            if n_dev < 1:
+                raise ValueError(f"shard must be >= 1 (got {shard})")
+            n_dev = min(n_dev, avail)
+    n_dev = max(1, min(n_dev, int(n_points)))
+    if n_dev == 1:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(n_dev)]
+
+
+def plan_devices(shard, n_points: int, device, tap=None
+                 ) -> List[torch.device]:
+    """A plan's device list: ``resolve_shards``, or one device where a
+    ``metrics_tap`` reads the lanes back (as in the reference, whose
+    tapped runs take one device; the results do not depend on it)."""
+    devices = resolve_shards(shard, n_points, device)
+    if _FORCED is not None:
+        devices = _FORCED[:max(1, int(n_points))]
+    return [torch.device(device)] if tap is not None else devices
+
+
+@contextlib.contextmanager
+def _over_devices(devices: Sequence, workers: bool = False):
+    """Make every plan inside the block dispatch over ``devices``, which
+    may name one device more than once (the tests' seam: several slices
+    on one CPU or one card); with ``workers``, the slices past the first
+    run in worker processes even on the plan's own device."""
+    global _FORCED, _FORCE_WORKERS
+    saved = _FORCED, _FORCE_WORKERS
+    _FORCED, _FORCE_WORKERS = [torch.device(d) for d in devices], workers
+    try:
+        yield
+    finally:
+        _FORCED, _FORCE_WORKERS = saved
+
+
+class SliceKernel:
+    """A plan's kernel: the superstep loop ``fn(grid, keys, device=,
+    **cfg)`` over the validated grid with its pinned caps and grid-wide
+    flags, or over a slice of its points.  It is picklable (a module
+    function, a grid of numpy arrays, a dict of plain values), so that a
+    slice can run in a worker process on a device of its own."""
+
+    def __init__(self, fn: Callable, grid, cfg: Dict[str, Any],
+                 device: torch.device) -> None:
+        self.fn, self.grid, self.cfg, self.device = fn, grid, cfg, device
+
+    def __call__(self, keys, points=None, device=None):
+        grid = self.grid if points is None else self.grid.take(points)
+        return self.fn(grid, keys, device=self.device if device is None
+                       else device, **self.cfg)
+
+    def on(self, points) -> "SliceKernel":
+        """The kernel of the points ``points`` alone (the slice a worker
+        receives)."""
+        return SliceKernel(self.fn, self.grid.take(points), self.cfg,
+                           self.device)
+
 
 class KernelPlan(NamedTuple):
     """A fully resolved sweep run, before it starts: what ``sweep_plan``
     / ``fleet_plan`` / ``gen_plan`` return.
 
-    ``kernel(params, keys)`` runs the superstep loop on the plan's
-    device and returns the per-point outputs as device tensors (the
-    loop closes over the validated grid and its pinned caps);
-    ``params`` holds the per-point inputs the campaign's fold reads
-    (``lam``), ``keys`` the per-point Threefry keys
-    (``prng.point_keys``; the adaptive campaign swaps in
-    ``prng.point_keys_at`` of a compacted index set).  ``sketch`` /
-    ``has_loss`` record the output schema (``hist_sums``, the loss
+    ``kernel(keys)`` (a ``SliceKernel``) runs the superstep loop on the
+    plan's device and returns the per-point outputs as device tensors;
+    ``kernel(keys, points, device)`` runs the points ``points`` (a slice
+    of the grid) on ``device``, with ``keys`` that slice's.  ``params``
+    holds the per-point inputs the campaign's fold reads (``lam``),
+    ``keys`` the per-point Threefry keys (``prng.point_keys``; the
+    adaptive campaign swaps in ``prng.point_keys_at`` of a compacted
+    index set).  ``devices`` are the devices the run spreads its points
+    over (``plan_devices``: one where the plan runs on one).  ``sketch``
+    / ``has_loss`` record the output schema (``hist_sums``, the loss
     counters).  A run may add ``"_limits"`` to its outputs: name →
-    (device scalar, bound, message) invariants that ``host_outputs``
-    and the campaign check once the values reach the host."""
+    (device scalar, bound, message) invariants that ``host_outputs`` and
+    the campaign check once the values reach the host."""
 
     kernel: Callable
     params: Dict[str, Any]
@@ -480,13 +591,163 @@ class KernelPlan(NamedTuple):
     n: int
     sketch: bool
     has_loss: bool
+    devices: Sequence[torch.device]
 
 
-def dispatch_device(kernel: Callable, params: Dict[str, Any], keys):
-    """Run a plan's kernel and keep its outputs on the device (one
-    device: a ``shard`` that would use several devices is ROADMAP Queue
-    A item 3f and raises in the plan)."""
-    return kernel(params, keys)
+class WorkerLost(Exception):
+    """A device's worker process died twice on one slice.  Not a
+    ``RuntimeError``: the campaign's dispatch retry, which would run the
+    chunk again and then quarantine it, lets it through."""
+
+
+def _rows(x, lo: int, hi: int, device):
+    """Points ``[lo, hi)`` of a tensor, or of each tensor of a tuple
+    (the keys), on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(t[lo:hi].to(device) for t in x)
+    return x[lo:hi].to(device)
+
+
+def _gather(outs: List[Dict[str, Any]], home) -> Dict[str, Any]:
+    """The slices' outputs, in point order, on ``home``; each
+    ``"_limits"`` value is the max over the slices."""
+    out = {}
+    for name in outs[0]:
+        if name == "_limits":
+            out[name] = {
+                k: (torch.stack([o[name][k][0].to(home) for o in outs])
+                    .max(), bound, msg)
+                for k, (_, bound, msg) in outs[0][name].items()}
+        else:
+            out[name] = torch.cat([o[name].to(home) for o in outs])
+    return out
+
+
+def _counters() -> Dict[str, Callable]:
+    """The launch counters a sweep's loop advances: B1 and B2."""
+    from repro_torch.kernels import superstep as ss
+    return {"hist_update": ss.hist_update, "fifo_compact": ss.fifo_compact}
+
+
+def _worker_run(kernel: SliceKernel, keys, device: str):
+    """A slice in its worker process: the kernel on ``device``, its
+    outputs copied to the host, and the launches it counted."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    before = {k: f.launches for k, f in _counters().items()}
+    out = kernel(tuple(t.to(dev) for t in keys), None, dev)
+    host = {k: v.cpu() for k, v in out.items() if k != "_limits"}
+    if "_limits" in out:
+        host["_limits"] = {k: (v.cpu(), bound, msg)
+                           for k, (v, bound, msg) in out["_limits"].items()}
+    return host, {k: f.launches - before[k]
+                  for k, f in _counters().items()}
+
+
+def _worker(device: torch.device) -> ProcessPoolExecutor:
+    """The worker process of ``device`` (spawned: a CUDA context cannot
+    cross a fork)."""
+    key = str(device)
+    if key not in _WORKERS:
+        _WORKERS[key] = ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return _WORKERS[key]
+
+
+def _drop_worker(device: torch.device, pool: ProcessPoolExecutor) -> None:
+    """Forget ``device``'s worker if it is still ``pool`` (whose process
+    died), so that the next slice spawns a fresh one."""
+    if _WORKERS.get(str(device)) is pool:
+        del _WORKERS[str(device)]
+    pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _submit(device: torch.device, *args):
+    """``_worker_run(*args)`` on ``device``'s worker: the pool and the
+    future.  A pool that broke after its last slice is replaced once."""
+    pool = _worker(device)
+    try:
+        return pool, pool.submit(_worker_run, *args)
+    except BrokenProcessPool:
+        _drop_worker(device, pool)
+        pool = _worker(device)
+        return pool, pool.submit(_worker_run, *args)
+
+
+def _remote_result(device: torch.device, pool, fut, args):
+    """A worker's slice, awaited.  If its process died (killed, out of
+    memory, a fault in its CUDA context), the slice runs once more in a
+    fresh worker; a second death raises ``WorkerLost``."""
+    try:
+        return fut.result()
+    except BrokenProcessPool:
+        _drop_worker(device, pool)
+    pool, fut = _submit(device, *args)
+    try:
+        return fut.result()
+    except BrokenProcessPool as e:
+        _drop_worker(device, pool)
+        raise WorkerLost(f"the worker process of {device} died twice on "
+                         f"one slice") from e
+
+
+@atexit.register
+def _stop_workers() -> None:
+    for pool in _WORKERS.values():
+        pool.shutdown(wait=True, cancel_futures=True)
+    _WORKERS.clear()
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (a.index if a.index is not None else cur()) == (
+        b.index if b.index is not None else cur())
+
+
+def dispatch_device(plan: KernelPlan):
+    """Run a plan's kernel and keep its outputs on the plan's device
+    (where its keys lie).  Over several ``plan.devices`` the point axis
+    is cut into contiguous slices whose sizes differ by at most one,
+    slice i on ``devices[i]``.  The slices on the plan's own device run
+    in this process, one after another; every other device runs its
+    slices in a worker process of its own (``SliceKernel.on``: the
+    slice's grid, keys and caps are sent, its outputs and launch counts
+    come back through the host), all submitted before the first is
+    awaited, so that no host loop waits on another's (threads of one
+    process would: their host loops share the GIL).  The outputs are
+    gathered in point order on the plan's device.  A point's result
+    depends only on its parameters, the seed and its global index, so
+    the gathered outputs are the one-device run's bits."""
+    kernel, keys, devices = plan.kernel, plan.keys, plan.devices
+    if len(devices) <= 1:
+        return kernel(keys)
+    key0 = keys[0] if isinstance(keys, tuple) else keys
+    home, n, k = key0.device, key0.shape[0], len(devices)
+    cuts = [i * (n // k) + min(i, n % k) for i in range(k + 1)]
+    devs = [torch.device(d) for d in devices]
+    live = [i for i in range(k) if cuts[i + 1] > cuts[i]]
+    remote = {i: (kernel.on(slice(cuts[i], cuts[i + 1])),
+                  _rows(keys, cuts[i], cuts[i + 1], "cpu"), str(devs[i]))
+              for i in live if (_FORCE_WORKERS and i > 0)
+              or not _same_device(devs[i], home)}
+    futures = {i: _submit(devs[i], *args) for i, args in remote.items()}
+    outs: Dict[int, Any] = {}
+    for i in live:
+        if i not in futures:
+            lo, hi = cuts[i], cuts[i + 1]
+            outs[i] = kernel(_rows(keys, lo, hi, home), slice(lo, hi), home)
+    counters = _counters()
+    for i, (pool, fut) in futures.items():
+        # the worker's launches join this process's counts
+        outs[i], counted = _remote_result(devs[i], pool, fut, remote[i])
+        for name, launched in counted.items():
+            counters[name].launches += launched
+    return _gather([outs[i] for i in live], home)
 
 
 def host_outputs(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -500,7 +761,7 @@ def host_outputs(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def dispatch(kernel: Callable, params: Dict[str, Any], keys
-             ) -> Dict[str, np.ndarray]:
-    """Run a plan's kernel and return its outputs as host numpy arrays."""
-    return host_outputs(dispatch_device(kernel, params, keys))
+def dispatch(plan: KernelPlan) -> Dict[str, np.ndarray]:
+    """Run a plan (over its devices, as ``dispatch_device``) and return
+    its outputs as host numpy arrays."""
+    return host_outputs(dispatch_device(plan))

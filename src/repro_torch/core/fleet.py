@@ -42,9 +42,14 @@ and its global index.
 ``fleet_plan`` is the run's plan (``engine.KernelPlan``, device
 outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
 per-lane counters back once a superstep, the queue summed over a
-fleet's replicas.  ``shard`` is clamped as in ``sweep``: one that would
-use more than one device (ROADMAP Queue A 3f) raises
-``NotImplementedError``.
+fleet's replicas.  ``shard`` (``True`` or a device count) spreads the
+points over GPUs as in ``sweep``: each slice runs with the whole grid's
+caps and its grid-wide choices (``_grid_shape``: ``k_max``,
+``pop_cap``, the routings and regimes present), so ``jobs_by_replica``
+keeps one width.  The default ``None`` keeps one device, unlike
+``sweep``'s: every slice runs the whole superstep loop, and on four
+GPUs the replicas benchmark's grid ran slower spread than on one.  A
+``metrics_tap`` runs on one device.
 """
 from __future__ import annotations
 
@@ -61,7 +66,6 @@ from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges, thinned_rows)
 from repro_torch.core.sweep import (_MISC_WORDS, FailParams, LossParams,
                                     _fail_cap, _gamma, _require_pinned_caps,
-                                    _require_ported_options,
                                     fail_capacity_args, fail_fields,
                                     loss_fields, observe_summary,
                                     resolve_device)
@@ -218,8 +222,10 @@ def fleet_plan(grid: FleetGrid, *, n_steps: int = 6000,
                         "(see FleetGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
+    # the default keeps one device (module docstring)
+    devices = engine.plan_devices(1 if shard is None else shard,
+                                  len(grid), dev, metrics_tap)
     n_steps = -(-int(n_steps) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
         warmup = max(1, n_steps // 10)
@@ -260,18 +266,15 @@ def fleet_plan(grid: FleetGrid, *, n_steps: int = 6000,
                n_bins=int(n_bins), hist_every=int(hist_every),
                sketch=bool(sketch),
                ss_backend=_ss.resolve_backend(superstep_backend, dev),
-               tap=metrics_tap, device=dev)
-
-    def kernel(params, keys):
-        return _run(grid, keys, **cfg)
+               tap=metrics_tap, **_grid_shape(grid, q_cap))
 
     return engine.KernelPlan(
-        kernel=kernel,
+        kernel=engine.SliceKernel(_run, grid, cfg, dev),
         params={"lam": torch.as_tensor(np.asarray(grid.lam),
                                        dtype=torch.float32, device=dev)},
         keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
         n=len(grid), sketch=bool(sketch),
-        has_loss=grid.has_loss)
+        has_loss=grid.has_loss, devices=devices)
 
 
 def fleet_sweep(grid: FleetGrid, *, n_steps: int = 6000,
@@ -307,31 +310,46 @@ def fleet_sweep(grid: FleetGrid, *, n_steps: int = 6000,
                       hist_every=hist_every, shard=shard, sketch=sketch,
                       superstep_backend=superstep_backend,
                       metrics_tap=metrics_tap, device=device)
-    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    out = engine.dispatch(plan)
     r = _to_result(grid, out, sketch=plan.sketch)
     observe_summary(metrics_tap, "fleet", r)
     return r
 
 
-def _run(grid: FleetGrid, keys, *, n_steps: int, warmup: int, q_cap: int,
-         a_cap: int, r_cap: int, f_cap: int, n_bins: int, hist_every: int,
-         sketch: bool, ss_backend: str, tap, device: torch.device) -> dict:
-    """The superstep loop over every fleet at once, keyed by ``keys``;
-    returns the per-point outputs as device tensors."""
-    f32, i32 = torch.float32, torch.int32
-    n = len(grid)
-    R = _REBASE_EVERY
-    has_loss, has_fail = grid.has_loss, grid.has_fail
-    k_max = int(grid.k.max())
-    has_timeout = bool(np.any(grid.wait_max > 0.0))
-    all_det = bool(np.all(grid.dist == DIST_CODE["det"]))
-    routes = set(np.unique(grid.routing).tolist())
+def _grid_shape(grid: FleetGrid, q_cap: int) -> dict:
+    """The grid-wide choices of ``_run`` — the widest fleet, the slots
+    the per-job ops run on, the routings and regimes present — taken
+    from the whole grid, so that a slice of it runs the whole grid's
+    code and shapes."""
+    has_loss = grid.has_loss
     # the per-job latency ops run on pop_cap slots: b never exceeds it
     # (the largest b_max, or q_cap where a point batches unboundedly);
     # a deadline's renege scan must see the whole ring
     pop_cap = (q_cap if np.any(grid.b_max == 0)
                or (has_loss and np.any(grid.deadline > 0.0))
                else int(grid.b_max.max()))
+    return dict(k_max=int(grid.k.max()), pop_cap=int(pop_cap),
+                routes=frozenset(np.unique(grid.routing).tolist()),
+                has_timeout=bool(np.any(grid.wait_max > 0.0)),
+                all_det=bool(np.all(grid.dist == DIST_CODE["det"])),
+                has_loss=has_loss, has_fail=grid.has_fail,
+                has_deadline=has_loss and bool(np.any(grid.deadline > 0.0)),
+                has_retry=has_loss and bool(np.any(grid.retry_rate > 0.0)))
+
+
+def _run(grid: FleetGrid, keys, *, n_steps: int, warmup: int, q_cap: int,
+         a_cap: int, r_cap: int, f_cap: int, n_bins: int, hist_every: int,
+         sketch: bool, ss_backend: str, tap, k_max: int, pop_cap: int,
+         routes: frozenset, has_timeout: bool, all_det: bool,
+         has_loss: bool, has_fail: bool, has_deadline: bool,
+         has_retry: bool, device: torch.device) -> dict:
+    """The superstep loop over every fleet at once, keyed by ``keys``,
+    with the choices of ``_grid_shape`` (of the whole grid where
+    ``grid`` is a slice of it); returns the per-point outputs as device
+    tensors."""
+    f32, i32 = torch.float32, torch.int32
+    n = len(grid)
+    R = _REBASE_EVERY
     trash = k_max * q_cap               # the buffer slot masked writes hit
 
     def param(a, dt):
@@ -351,11 +369,10 @@ def _run(grid: FleetGrid, keys, *, n_steps: int, warmup: int, q_cap: int,
     ridx = _arange(k_max, device)
     active = ridx < k.unsqueeze(1)
     slots = _arange(pop_cap, device)
-    # the loss ops a grid runs: reneging only where a deadline is set,
-    # the retry orbit only where a retry rate is (a point without either
-    # gives the same bits through the ops as without them)
-    has_deadline = has_loss and bool(np.any(grid.deadline > 0.0))
-    has_retry = has_loss and bool(np.any(grid.retry_rate > 0.0))
+    # the loss ops a grid runs (``_grid_shape``): reneging only where a
+    # deadline is set, the retry orbit only where a retry rate is (a
+    # point without either gives the same bits through the ops as
+    # without them)
     if has_timeout:
         do_wait = (wait_max > 0.0) & (wait_target > 1)
     streams = [(_S_ROUTE, a_cap), (_S_GAPS, a_cap)]

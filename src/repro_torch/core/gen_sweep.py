@@ -64,9 +64,14 @@ whole-grid dispatch bit for bit.
 
 ``gen_plan`` is the run's plan (``engine.KernelPlan``, device
 outputs), as ``sweep_plan`` is the sweep's; a ``metrics_tap`` reads the
-per-lane counters back once a superstep.  ``shard`` is clamped as in
-``sweep``: a ``shard`` that would use more than one device raises
-``NotImplementedError`` naming ROADMAP Queue A item 3f.
+per-lane counters back once a superstep.  ``shard`` (``True`` or a
+device count) spreads the points over GPUs as in ``sweep``: each slice
+runs with the whole grid's caps, ``s_cap`` and ``has_fail``, and the
+buffer reach under ``"_limits"`` is the max over the slices.  The
+default ``None`` keeps one device, unlike ``sweep``'s: the generate
+loop is bound by its host enqueue, which every slice runs whole (on
+four GPUs the spread run was slower than one GPU's).  A
+``metrics_tap`` runs on one device.
 """
 from __future__ import annotations
 
@@ -82,7 +87,6 @@ from repro_torch.core.hist import (SKETCH_BINS, hist_percentiles,
                                    sketch_edges, thinned_rows)
 from repro_torch.core.sweep import (FailParams,
                                     LossParams, _require_pinned_caps,
-                                    _require_ported_options,
                                     fail_capacity_args, fail_fields,
                                     loss_fields, observe_summary,
                                     resolve_device)
@@ -232,8 +236,10 @@ def gen_plan(grid: GenGrid, *, n_steps: int = 4096,
                         "(see GenGrid.from_points/from_product)")
     if len(grid) == 0:
         raise ValueError("empty grid")
-    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
+    # the default keeps one device (module docstring)
+    devices = engine.plan_devices(1 if shard is None else shard,
+                                  len(grid), dev, metrics_tap)
     n_steps = -(-int(n_steps) // _STEP_BUCKET) * _STEP_BUCKET
     if warmup is None:
         warmup = max(1, n_steps // 10)
@@ -275,17 +281,15 @@ def gen_plan(grid: GenGrid, *, n_steps: int = 4096,
                n_bins=int(n_bins), hist_every=int(hist_every),
                sketch=bool(sketch),
                ss_backend=_ss.resolve_backend(superstep_backend, dev),
-               tap=metrics_tap, device=dev)
-
-    def kernel(params, keys):
-        return _run(grid, keys, **cfg)
+               tap=metrics_tap, has_fail=has_fail)
 
     return engine.KernelPlan(
-        kernel=kernel,
+        kernel=engine.SliceKernel(_run, grid, cfg, dev),
         params={"lam": torch.as_tensor(np.asarray(grid.lam),
                                        dtype=torch.float32, device=dev)},
         keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
-        n=len(grid), sketch=bool(sketch), has_loss=has_loss)
+        n=len(grid), sketch=bool(sketch), has_loss=has_loss,
+        devices=devices)
 
 
 
@@ -322,7 +326,7 @@ def gen_sweep(grid: GenGrid, *, n_steps: int = 4096,
                     shard=shard, sketch=sketch,
                     superstep_backend=superstep_backend,
                     metrics_tap=metrics_tap, device=device)
-    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    out = engine.dispatch(plan)
     r = _to_result(grid, out, sketch=plan.sketch)
     observe_summary(metrics_tap, "gen", r)
     return r
@@ -341,15 +345,17 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 def _run(grid: GenGrid, keys, *, n_steps: int, warmup: int, s_cap: int,
          q_cap: int, a_cap: int, r_cap: Optional[int], f_cap: int,
          n_bins: int, hist_every: int, sketch: bool, ss_backend: str, tap,
-         device: torch.device) -> dict:
+         has_fail: bool, device: torch.device) -> dict:
     """The superstep loop over every point at once, keyed by ``keys``;
     returns the per-point outputs as device tensors, with the buffer
     reach under ``"_limits"`` (checked where the outputs reach the
-    host).  ``r_cap`` is None on a loss-free grid."""
+    host).  ``r_cap`` is None on a loss-free grid; ``s_cap``, the caps
+    and ``has_fail`` are the whole grid's where ``grid`` is a slice of
+    it."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
     R = _REBASE_EVERY
-    has_loss, has_fail = r_cap is not None, grid.has_fail
+    has_loss = r_cap is not None
     buf_len = buffer_length(q_cap, a_cap, s_cap, r_cap)
     width = a_cap + 1
 

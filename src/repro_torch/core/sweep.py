@@ -59,10 +59,16 @@ The k-replica ``fleet_sweep`` and its ``fleet_caps`` live in
 ``core.fleet`` and are re-exported here, as the reference's module
 holds both kernels.
 
-``shard`` is resolved as the reference resolves it, clamped to the
-visible devices and the point count; one device runs every call, and a
-``shard`` that would use several raises ``NotImplementedError`` naming
-ROADMAP Queue A item 3f (multi-GPU dispatch).
+``shard`` spreads the points over GPUs as the reference's does
+(``engine.resolve_shards``: ``None`` / ``True`` every visible device,
+an int clamped to them and to the point count; ``fleet_sweep``,
+``gen_sweep`` and the campaign keep one device unless ``shard`` is
+given): contiguous slices of
+the grid run on ``cuda:0 … cuda:n−1``, each further GPU's in a worker
+process of its own, with the caps and the grid-wide flags
+(``_grid_flags``) of the whole grid, and the outputs gather in point
+order on the plan's device, bit for bit the one-device run's.  A
+``metrics_tap`` runs on one device.
 """
 from __future__ import annotations
 
@@ -226,28 +232,6 @@ class FailParams:
                     trunc=trunc.to(torch.int32))
 
 
-def _require_ported_options(shard, n_points: int, device=None) -> None:
-    """Resolve ``shard`` as the reference's ``engine.resolve_shards``
-    does for an integer: clamped to the visible devices
-    (``torch.cuda.device_count()`` on a CUDA request, 1 on the CPU) and
-    to ``n_points``, so ``shard=2`` on one device runs as one shard, bit
-    for bit.  ``None``, ``True`` and ``False`` run on one device.  Raises
-    ``ValueError`` below 1 and ``NotImplementedError`` (ROADMAP Queue A
-    item 3f) only where more than one device would be used."""
-    if shard is None or shard is True or shard is False:
-        return
-    n_dev = int(shard)
-    if n_dev < 1:
-        raise ValueError(f"shard must be >= 1 (got {shard})")
-    dev = torch.device("cuda" if device is None else device)
-    avail = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if min(n_dev, avail, n_points) > 1:
-        raise NotImplementedError(
-            f"shard={shard} would dispatch over {min(n_dev, avail, n_points)}"
-            f" devices: multi-GPU dispatch is not ported yet (ROADMAP "
-            f"Queue A item 3f)")
-
-
 def _require_pinned_caps(entry: str, key_offset: int, **pinned) -> None:
     """``key_offset != 0`` marks a chunk of a larger dispatch; every cap
     the defaults would size from this chunk's own grid must be pinned
@@ -263,6 +247,16 @@ def _require_pinned_caps(entry: str, key_offset: int, **pinned) -> None:
             f"adaptively from this chunk's own grid — chunks would run "
             f"different shapes than the whole-grid dispatch. Pin them "
             f"from the FULL grid, e.g. **{caps}(full_grid).")
+
+
+def _grid_flags(grid: SweepGrid) -> dict:
+    """The grid-wide choices of ``_run`` (which streams it draws, which
+    ops it runs), taken from the whole grid so that a slice of it runs
+    the whole grid's code: a point's bits and the output schema are then
+    the same in every slice."""
+    return dict(has_timeout=bool(np.any(grid.wait_max > 0.0)),
+                all_det=bool(np.all(grid.dist == DIST_CODE["det"])),
+                has_loss=grid.has_loss, has_fail=grid.has_fail)
 
 
 def _window_sized(grid: SweepGrid) -> bool:
@@ -370,8 +364,8 @@ def sweep_plan(grid: SweepGrid, *, n_batches: int = 3000,
         raise ValueError("empty grid")
     if warmup is not None and not 0 <= warmup < int(n_batches):
         raise ValueError(f"warmup {warmup} must lie in [0, {n_batches})")
-    _require_ported_options(shard, len(grid), device)
     dev = resolve_device(device)
+    devices = engine.plan_devices(shard, len(grid), dev, metrics_tap)
     n_batches = -(-int(n_batches) // _REBASE_EVERY) * _REBASE_EVERY
     if warmup is None:
         warmup = max(1, n_batches // 10)
@@ -406,17 +400,15 @@ def sweep_plan(grid: SweepGrid, *, n_batches: int = 3000,
                a_cap=a_cap, r_cap=r_cap, f_cap=f_cap, n_bins=int(n_bins),
                sketch=bool(sketch),
                ss_backend=_ss.resolve_backend(superstep_backend, dev),
-               tap=metrics_tap, device=dev)
-
-    def kernel(params, keys):
-        return _run(grid, keys, **cfg)
+               tap=metrics_tap, **_grid_flags(grid))
 
     return engine.KernelPlan(
-        kernel=kernel,
+        kernel=engine.SliceKernel(_run, grid, cfg, dev),
         params={"lam": torch.as_tensor(np.asarray(grid.lam),
                                        dtype=torch.float32, device=dev)},
         keys=prng.point_keys(int(seed), int(key_offset), len(grid), dev),
-        n=len(grid), sketch=bool(sketch), has_loss=has_loss)
+        n=len(grid), sketch=bool(sketch), has_loss=has_loss,
+        devices=devices)
 
 
 def sweep(grid: SweepGrid, *, n_batches: int = 3000,
@@ -451,7 +443,7 @@ def sweep(grid: SweepGrid, *, n_batches: int = 3000,
                       shard=shard, sketch=sketch,
                       superstep_backend=superstep_backend,
                       metrics_tap=metrics_tap, device=device)
-    out = engine.dispatch(plan.kernel, plan.params, plan.keys)
+    out = engine.dispatch(plan)
     r = _to_result(grid, out, sketch=plan.sketch)
     observe_summary(metrics_tap, "sweep", r)
     return r
@@ -470,14 +462,15 @@ def observe_summary(tap, kind: str, r) -> None:
 
 def _run(grid: SweepGrid, keys, *, n_batches: int, warmup: int,
          q_cap: int, a_cap: int, r_cap: int, f_cap: int, n_bins: int,
-         sketch: bool, ss_backend: str, tap, device: torch.device) -> dict:
-    """The superstep loop over every point at once, keyed by ``keys``;
-    returns the per-point outputs as device tensors."""
+         sketch: bool, ss_backend: str, tap, has_timeout: bool,
+         all_det: bool, has_loss: bool, has_fail: bool,
+         device: torch.device) -> dict:
+    """The superstep loop over every point at once, keyed by ``keys``,
+    with the flags of ``_grid_flags`` (of the whole grid where ``grid``
+    is a slice of it); returns the per-point outputs as device
+    tensors."""
     f32, i32 = torch.float32, torch.int32
     n = len(grid)
-    has_timeout = bool(np.any(grid.wait_max > 0.0))
-    all_det = bool(np.all(grid.dist == DIST_CODE["det"]))
-    has_loss, has_fail = grid.has_loss, grid.has_fail
 
     def param(a, dt):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)

@@ -54,7 +54,19 @@
 // each thread forms max m, the weights exp(m_s - max m) and l for its
 // head there, so the merge costs one memory latency and one barrier;
 // then it writes the output and resets the counter to 0 for the next
-// launch: one launch per call.  The wrapper owns the workspace and the
+// launch: one launch per call.
+//
+// The partials entry.  Where a device mesh splits the cache's sequence
+// over ranks, each rank attends its own slice (lengths shifted by the
+// slice's offset) and the ranks merge their statistics.  With the
+// partials pointers set, the kernel writes, in place of the output,
+// the float32 (m, l, acc) of the whole launch before its division: with
+// one split the block's own m, l and acc; with more, the last block's
+// merge (max m, sum w_s l_s, sum w_s acc_s) before dividing.  m and l
+// are (B, KV, G, 1) and acc (B, KV, G, hd), the layout of the plain
+// _partials_plain; a row whose slice holds no admitted position (the
+// whole slice past lengths[b] after the shift, or before the window)
+// writes m = NEG_INF, l = 0, acc = 0, which the ranks' merge weighs 0.  The wrapper owns the workspace and the
 // counters (one set per device, zeroed when allocated); two launches
 // that share them must not run concurrently.
 //
@@ -232,9 +244,11 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ ws,
-                        int* __restrict__ tickets, int S, int H, int KV,
-                        float scale, int window, int chunk) {
+                        T* __restrict__ out, float* __restrict__ pm,
+                        float* __restrict__ pl, float* __restrict__ pa,
+                        float* __restrict__ ws, int* __restrict__ tickets,
+                        int S, int H, int KV, float scale, int window,
+                        int chunk) {
   using Tile = DecodeTile<C, HD>;
   constexpr int kTile = Tile::kTile;
   constexpr int kStages = Tile::kStages;
@@ -419,7 +433,23 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
     __syncthreads();
   }
 
-  T* orow = out + (static_cast<int64_t>(b) * H + kvh * G) * HD;
+  // the partials entry (pa != null) writes m, l and acc where the plain
+  // entry writes acc / (l + 1e-30): the row's (b, kvh) heads at
+  // [b * H + kvh * G + g], acc at [(...) * HD + d]
+  const int64_t row0 = static_cast<int64_t>(b) * H + kvh * G;
+  T* orow = out + row0 * HD;
+  if (splits == 1 && pa != nullptr) {
+#pragma unroll
+    for (int r = 0; r < kMaxAcc; ++r) {
+      const int o = o0 + r * kThreads;
+      if (part == 0 && o < n_out) pa[row0 * HD + o] = acc[r];
+    }
+    if (tid < G) {
+      pm[row0 + tid] = m_s[tid];
+      pl[row0 + tid] = l_s[tid];
+    }
+    return;
+  }
   if (splits == 1) {
 #pragma unroll
     for (int r = 0; r < kMaxAcc; ++r) {
@@ -515,7 +545,16 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxAcc; ++r) {
     const int o = tid + r * kThreads;
-    if (o < n_out) orow[o] = from_f32(a[r] / (l[r] + 1e-30f), orow);
+    if (o >= n_out) continue;
+    if (pa == nullptr) {
+      orow[o] = from_f32(a[r] / (l[r] + 1e-30f), orow);
+      continue;
+    }
+    pa[row0 * HD + o] = a[r];
+    if (o % HD == 0) {
+      pm[row0 + o / HD] = top[r];
+      pl[row0 + o / HD] = l[r];
+    }
   }
   if (tid == 0) *ticket = 0;
 }
@@ -529,6 +568,9 @@ struct Args {
   const float* v_scale;
   const void* lengths;
   void* out;
+  float* pm;  // the partials entry's m, l, acc (null: the plain entry)
+  float* pl;
+  float* pa;
   void* ws;
   void* tickets;
   int B, S, H, KV;
@@ -549,9 +591,9 @@ int launch_typed(const Args& a) {
   decode_attention_kernel<T, C, HD><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k),
       static_cast<const C*>(a.v), a.k_scale, a.v_scale,
-      static_cast<const int32_t*>(a.lengths), static_cast<T*>(a.out),
-      static_cast<float*>(a.ws), static_cast<int*>(a.tickets), a.S, a.H,
-      a.KV, a.scale, a.window, a.chunk);
+      static_cast<const int32_t*>(a.lengths), static_cast<T*>(a.out), a.pm,
+      a.pl, a.pa, static_cast<float*>(a.ws), static_cast<int*>(a.tickets),
+      a.S, a.H, a.KV, a.scale, a.window, a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,11 +611,16 @@ int launch_hd(int hd, const Args& a) {
 }
 
 bool bad_shape(int B, int S, int H, int KV, int splits, int chunk,
-               const void* ws, const void* tickets) {
+               const void* ws, const void* tickets, const void* out,
+               const void* pm, const void* pl, const void* pa) {
+  // exactly one of the output and the partials triple
+  const bool part = pa != nullptr;
   return KV <= 0 || H % KV != 0 || H / KV > kMaxGroup || B > 65535 ||
          KV > 65535 || splits < 1 || splits > kMaxSplits || chunk < 1 ||
          static_cast<int64_t>(splits) * chunk < S ||
-         (splits > 1 && (ws == nullptr || tickets == nullptr));
+         (splits > 1 && (ws == nullptr || tickets == nullptr)) ||
+         (part ? (out != nullptr || pm == nullptr || pl == nullptr)
+               : (out == nullptr || pm != nullptr || pl != nullptr));
 }
 
 }  // namespace

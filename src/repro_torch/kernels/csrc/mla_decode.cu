@@ -74,6 +74,14 @@
 // (weights exp(m_s - max m), ctx = sum w_s acc_s / (sum w_s l_s +
 // 1e-30)), so the bits never depend on which block ran first, and resets
 // the counter for the next launch.
+// The partials entry.  Where a device mesh splits the latent cache's
+// sequence over ranks, each rank attends its own slice (lengths shifted
+// by its offset) and the ranks merge their statistics.  With pm and pl
+// set, the launch writes the float32 (m, l, acc) of its whole cache
+// before the division: acc (B, H, R) to out, m and l (B, H, 1) to pm and
+// pl; with one split the block's own, with more the last block's merge
+// (max m, sum w_s l_s, sum w_s acc_s).  A row whose slice admits no
+// position writes m = NEG_INF, l = 0, acc = 0, weighed 0 by the ranks.
 //
 // Bound.  Decoding reads the admitted cache once: at the long serve
 // shape (B 32, cache 1,057, bf16) 32 * 1,057 * 576 * 2 B = 39.0 MB,
@@ -343,6 +351,7 @@ mla_decode_kernel(const float* __restrict__ q_abs,
                   const float* __restrict__ q_pe, const T* __restrict__ c_kv,
                   const T* __restrict__ k_pe,
                   const int* __restrict__ lengths, float* __restrict__ out,
+                  float* __restrict__ pm, float* __restrict__ pl,
                   float* __restrict__ ws, int* __restrict__ counters, int S,
                   float scale, int window, int chunk, int splits) {
   using C = Cache<T>;
@@ -566,10 +575,21 @@ mla_decode_kernel(const float* __restrict__ q_abs,
     L1 += red[v * kH + g + 8];
   }
 
+  // the partials entry (pm != null): out is acc, unnormalised, and m, l
+  // go to pm, pl at [b * H + h]
+  const bool part = pm != nullptr;
   if (splits == 1) {
     float* orow = out + static_cast<int64_t>(b) * kH * kR;
-    write_cols<T>(orow + g * kR, o, w, c, 0, 1.f / (L0 + 1e-30f));
-    write_cols<T>(orow + (g + 8) * kR, o, w, c, 2, 1.f / (L1 + 1e-30f));
+    write_cols<T>(orow + g * kR, o, w, c, 0, part ? 1.f : 1.f / (L0 + 1e-30f));
+    write_cols<T>(orow + (g + 8) * kR, o, w, c, 2,
+                  part ? 1.f : 1.f / (L1 + 1e-30f));
+    if (part && w == 0 && c == 0) {
+      const int64_t row0 = static_cast<int64_t>(b) * kH;
+      pm[row0 + g] = m0;
+      pm[row0 + g + 8] = m1;
+      pl[row0 + g] = L0;
+      pl[row0 + g + 8] = L1;
+    }
     return;
   }
 
@@ -611,6 +631,10 @@ mla_decode_kernel(const float* __restrict__ q_abs,
       l = fmaf(__ldcg(l_w + z * rows + row0 + tid), wz, l);
     }
     lsum[tid] = l;
+    if (part) {
+      pm[row0 + tid] = top;
+      pl[row0 + tid] = l;
+    }
   }
   if (tid == 0) counters[b] = 0;
   __syncthreads();
@@ -638,6 +662,10 @@ mla_decode_kernel(const float* __restrict__ q_abs,
   float4* dst = reinterpret_cast<float4*>(out + row0 * kR) + col;
 #pragma unroll
   for (int h = 0; h < kHT; ++h) {
+    if (part) {
+      dst[(h0 + h) * (kR / 4)] = acc[h];
+      continue;
+    }
     const float d = lsum[h0 + h] + 1e-30f;
     dst[(h0 + h) * (kR / 4)] =
         make_float4(acc[h].x / d, acc[h].y / d, acc[h].z / d, acc[h].w / d);
@@ -646,9 +674,9 @@ mla_decode_kernel(const float* __restrict__ q_abs,
 
 template <typename T>
 int launch(const void* q_abs, const void* q_pe, const void* c_kv,
-           const void* k_pe, const void* lengths, void* out, void* ws,
-           void* counters, int B, int S, float scale, int window, int chunk,
-           int splits, cudaStream_t stream) {
+           const void* k_pe, const void* lengths, void* out, void* pm,
+           void* pl, void* ws, void* counters, int B, int S, float scale,
+           int window, int chunk, int splits, cudaStream_t stream) {
   const auto kernel = mla_decode_kernel<T>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::kBytes);
@@ -657,6 +685,7 @@ int launch(const void* q_abs, const void* q_pe, const void* c_kv,
       static_cast<const float*>(q_abs), static_cast<const float*>(q_pe),
       static_cast<const T*>(c_kv), static_cast<const T*>(k_pe),
       static_cast<const int*>(lengths), static_cast<float*>(out),
+      static_cast<float*>(pm), static_cast<float*>(pl),
       static_cast<float*>(ws), static_cast<int*>(counters), S, scale, window,
       chunk, splits);
   return static_cast<int>(cudaGetLastError());
@@ -672,27 +701,33 @@ int launch(const void* q_abs, const void* q_pe, const void* c_kv,
 // ws (splits B H (R + 2) floats; splits <= 64) and each row's last block
 // merges them, counted in `counters` (B int32, zero before the launch
 // and left zero after it).  q_abs, q_pe, c_kv and k_pe start 16-byte
-// aligned.  Returns the first CUDA error of setting the shared-memory
-// size or of the launch, 0 if none.
+// aligned.  The partials entry passes pm and pl (B, H, 1) float32: out
+// then receives the unnormalised acc (B, H, R) and pm, pl the softmax's
+// max and sum over the launch's cache, merged over the splits (an empty
+// row m = NEG_INF, l = 0, acc = 0); the plain entry passes both null.
+// Returns the first CUDA error of setting the shared-memory size or of
+// the launch, 0 if none.
 extern "C" int mla_decode_launch(const void* q_abs, const void* q_pe,
                                  const void* c_kv, const void* k_pe,
-                                 const void* lengths, void* out, void* ws,
-                                 void* counters, int B, int S, int H, int R,
-                                 int P, int dtype, float scale, int window,
-                                 int chunk, int splits, void* stream) {
+                                 const void* lengths, void* out, void* pm,
+                                 void* pl, void* ws, void* counters, int B,
+                                 int S, int H, int R, int P, int dtype,
+                                 float scale, int window, int chunk,
+                                 int splits, void* stream) {
   if (B == 0) return 0;
   if (H != kH || R != kR || P != kP || splits < 1 || splits > kMaxSplits ||
       B > 65535 || chunk <= 0 ||
       static_cast<int64_t>(chunk) * splits < S ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)))
+      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+      (pm == nullptr) != (pl == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q_abs, q_pe, c_kv, k_pe, lengths, out, ws, counters,
-                         B, S, scale, window, chunk, splits, st);
+    return launch<float>(q_abs, q_pe, c_kv, k_pe, lengths, out, pm, pl, ws,
+                         counters, B, S, scale, window, chunk, splits, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q_abs, q_pe, c_kv, k_pe, lengths, out, ws,
-                                 counters, B, S, scale, window, chunk, splits,
-                                 st);
+    return launch<__nv_bfloat16>(q_abs, q_pe, c_kv, k_pe, lengths, out, pm,
+                                 pl, ws, counters, B, S, scale, window, chunk,
+                                 splits, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,10 +51,13 @@ own slice of the keys, with ``lengths`` shifted by the slice's offset
 ``acc``, and the ranks merge them with a max and two sum all-reduces
 (``kernels._mesh.merge_partials``): the arithmetic of
 ``decode_partials_plain`` and ``merge_partials_plain`` across ranks.
-That route runs the plain partials on the CPU and the shape function on
-``meta``; the CUDA kernel has no partials entry, so a sequence split
-over more than one GPU raises ``NotImplementedError`` (ROADMAP 3f).  On a
-split of one the kernel runs on each rank's shard as it does today.
+Each rank's partials come from ``decode_attention_partials``: the
+kernel's partials entry on the card (one launch a rank, counted in
+``decode_attention.launches``, or ``decode_attention_int8.launches``
+over the int8 cache, and in ``decode_attention_partials.launches``), the
+plain ``_partials_plain`` on the CPU and the shape function on
+``meta``.  On a split of one the kernel runs on each
+rank's shard as it does on one device.
 """
 from __future__ import annotations
 
@@ -75,8 +78,8 @@ from repro_torch.kernels.flash_attention import (NEG_INF,
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_int8", "decode_attention_int8_plain",
-           "MAX_GROUP", "decode_splits", "decode_partials_plain",
-           "merge_partials_plain"]
+           "decode_attention_partials", "MAX_GROUP", "decode_splits",
+           "decode_partials_plain", "merge_partials_plain"]
 
 # query heads per kv head the CUDA kernel serves in one block
 MAX_GROUP = 8
@@ -272,14 +275,18 @@ def _ops(q, k, window: int) -> float:
     return 4.0 * hd * h * b * (min(s, window) if window else s)
 
 
-def _launch(q, k, v, lengths, out, window: int, scales=None) -> None:
+def _launch(q, k, v, lengths, out, window: int, scales=None,
+            partials=None) -> None:
     """One launch of the float kernel, or of the int8 one when
-    ``scales`` holds the cache's (k_scale, v_scale)."""
+    ``scales`` holds the cache's (k_scale, v_scale); with ``partials``
+    (float32 m, l, acc) the partials entry, which writes them in place
+    of ``out`` (None)."""
     from repro_torch.kernels._build import library
 
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
-    launchable("decode_attention", hd, q, k, v, out)
+    launchable("decode_attention", hd, q, k, v,
+               *((out,) if partials is None else partials))
     if h // kv > MAX_GROUP:
         raise ValueError(f"the CUDA decode_attention serves at most "
                          f"{MAX_GROUP} query heads per kv head, got "
@@ -300,13 +307,15 @@ def _launch(q, k, v, lengths, out, window: int, scales=None) -> None:
     else:
         fn = library("decode_attention_int8").decode_attention_int8_launch
         ptrs = (q, k, scales[0], v, scales[1])
-    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 4) + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 7) + [ctypes.c_int] * 6 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    outs = ((out.data_ptr(), None, None, None) if partials is None
+            else (None,) + tuple(t.data_ptr() for t in partials))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ptrs), lengths.data_ptr(),
-                 out.data_ptr(), ws, tickets, b, s, h, kv, hd,
+                 *outs, ws, tickets, b, s, h, kv, hd,
                  DTYPE_CODE[q.dtype], hd ** -0.5, int(window), splits, chunk,
                  stream)
     if err != 0:
@@ -363,6 +372,51 @@ decode_attention_int8.launches = 0
 decode_attention_int8.meta_calls = 0
 
 
+def _launch_partials(q, k, v, lengths, parts, window: int, scales=None):
+    """One launch of the partials entry into ``parts`` (float32 m, l,
+    acc); returns them."""
+    _launch(q, k, v, lengths, None, window, scales, partials=parts)
+    return parts
+
+
+def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lengths: torch.Tensor, *,
+                              window: int = 0, k_scale=None, v_scale=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """B4 before its division, over this cache (a rank's slice of a
+    sequence-split one, ``lengths`` shifted by the slice's offset): the
+    float32 softmax statistics ``m``, ``l`` ``(B, KV, G, 1)`` and the
+    unnormalised ``acc`` ``(B, KV, G, hd)``, a row with no admitted
+    position ``m = NEG_INF``, ``l = 0``, ``acc = 0``.  With ``k_scale``
+    and ``v_scale`` the cache is int8 codes.  The CUDA kernel's partials
+    entry for CUDA tensors (one launch, counted in
+    ``decode_attention.launches`` or ``decode_attention_int8.launches``,
+    and in ``decode_attention_partials.launches``), ``_partials_plain``
+    for CPU tensors, the shapes on ``meta``."""
+    scales = None if k_scale is None else (k_scale, v_scale)
+    fn = decode_attention if scales is None else decode_attention_int8
+    if scales is None:
+        _check(q, k, v, lengths)
+    else:
+        _check_int8(q, k, k_scale, v, v_scale, lengths)
+    if not kernel_device(q, fn.__name__):
+        return _partials_plain(q, k, v, lengths, window, *(scales or ()))
+    b, h, hd = q.shape
+    kv = k.shape[2]
+    parts = tuple(torch.empty(b, kv, h // kv, w, dtype=torch.float32,
+                              device=q.device) for w in (1, 1, hd))
+    if shape_only(fn, q, *parts, ops=_ops(q, k, window)):
+        return parts
+    parts = _launch_partials(q, k, v, lengths, parts, window, scales)
+    fn.launches += 1
+    decode_attention_partials.launches += 1
+    return parts
+
+
+decode_attention_partials.launches = 0
+
+
 def _on_mesh(fn, q, k, v, lengths, window: int, scales=None):
     """B4 (``fn``: the float or the int8 wrapper) on DTensors; see the
     module's docstring."""
@@ -383,28 +437,18 @@ def _on_mesh(fn, q, k, v, lengths, window: int, scales=None):
             if sc:
                 return fn(q, k, sc[0], v, sc[1], lengths, window=window)
             return fn(q, k, v, lengths, window=window)
-    elif k.device.type == "cuda":
-        raise NotImplementedError(
-            f"decode attention over a cache sequence split across "
-            f"{split} GPUs: the CUDA kernel has no partials entry (ROADMAP "
-            f"3f)")
     else:
         s_all = k.shape[1]
 
         def local(q, k, v, lengths, *sc):
+            # a rank whose slice lies wholly past lengths[b] (or before
+            # the window) writes m = NEG_INF, l = 0, acc = 0: weight 0
             b, h, hd = q.shape
-            kv = k.shape[2]
-            if q.device.type == "meta":
-                fn.meta_calls += 1
-                fn.meta_ops = getattr(fn, "meta_ops", 0.0) + _ops(q, k,
-                                                                  window)
-                m = torch.empty(b, kv, h // kv, 1, device="meta")
-                l, acc = torch.empty_like(m), torch.empty(
-                    b, kv, h // kv, hd, device="meta")
-            else:
-                off = seq_offset(mesh, sd, s_all)
-                m, l, acc = _partials_plain(q, k, v, lengths - off, window,
-                                            *sc)
+            if q.device.type != "meta":
+                lengths = lengths - seq_offset(mesh, sd, s_all)
+            m, l, acc = decode_attention_partials(
+                q, k, v, lengths, window=window,
+                **(dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}))
             return merge_partials(m, l, acc, mesh, sd).reshape(
                 b, h, hd).to(q.dtype)
 

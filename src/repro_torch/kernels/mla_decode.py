@@ -32,10 +32,11 @@ output, empty; ``meta_calls``).  A DTensor (a device mesh) goes through
 ``local_map`` (``kernels._mesh``) as B4 does: on a cache sequence of one
 shard the wrapper runs on each rank's tensors (on the card one launch a
 rank, counted); where ``launch.sharding.cache_specs`` splits the
-sequence, each rank's ``mla_decode_partials_plain`` over its own slice
-are merged across the ranks on the CPU (the shape function on
-``meta``), and the CUDA kernel, which has no partials entry, raises
-``NotImplementedError`` (ROADMAP 3f).
+sequence, each rank's ``mla_decode_partials`` over its own slice (the
+kernel's partials entry on the card, one counted launch a rank;
+``mla_decode_partials_plain`` on the CPU; the shape function on
+``meta``) are merged across the ranks.  ``mla_decode_partials.launches``
+counts the partials entry's launches alone.
 """
 from __future__ import annotations
 
@@ -54,8 +55,8 @@ from repro_torch.kernels._mesh import (is_dtensor, local_call,
 from repro_torch.kernels.flash_attention import NEG_INF
 
 __all__ = ["SHAPES", "TILE", "mla_decode_attention",
-           "mla_decode_attention_plain", "mla_decode_partials_plain",
-           "mla_splits"]
+           "mla_decode_attention_plain", "mla_decode_partials",
+           "mla_decode_partials_plain", "mla_splits"]
 
 # (heads, kv_lora_rank, qk_rope_head_dim) the CUDA kernel is built for:
 # DeepSeek-V2-Lite's
@@ -191,7 +192,9 @@ def _counters(dev: torch.device, rows: int) -> torch.Tensor:
 
 
 def _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale: float,
-            window: int) -> None:
+            window: int, stats=None) -> None:
+    """One launch into ``out``; with ``stats`` (float32 m, l) the
+    partials entry, which writes the unnormalised acc to ``out``."""
     from repro_torch.kernels._build import library
 
     b, h, r = q_abs.shape
@@ -211,14 +214,16 @@ def _launch(q_abs, q_pe, c_kv, k_pe, lengths, out, scale: float,
         ws = _workspace(q_abs.device, splits * b * h * (r + 2)).data_ptr()
         cnt = _counters(q_abs.device, b).data_ptr()
     fn = library("mla_decode").mla_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     with torch.cuda.device(q_abs.device):
         err = fn(q_abs.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(),
-                 k_pe.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
+                 k_pe.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 *((None, None) if stats is None
+                   else (stats[0].data_ptr(), stats[1].data_ptr())), ws,
                  cnt, b,
                  s, h, r, p, DTYPE_CODE[c_kv.dtype], float(scale),
                  int(window), chunk, splits, stream)
@@ -251,6 +256,49 @@ mla_decode_attention.launches = 0
 mla_decode_attention.meta_calls = 0
 
 
+def _launch_partials(q_abs, q_pe, c_kv, k_pe, lengths, parts, scale: float,
+                     window: int):
+    """One launch of the partials entry into ``parts`` (float32 m, l,
+    acc); returns them."""
+    _launch(q_abs, q_pe, c_kv, k_pe, lengths, parts[2], scale, window,
+            stats=parts[:2])
+    return parts
+
+
+def mla_decode_partials(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                        c_kv: torch.Tensor, k_pe: torch.Tensor,
+                        lengths: torch.Tensor, *, scale: float,
+                        window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MLA decode before its normalisation, over this cache (a rank's
+    slice of a sequence-split one, ``lengths`` shifted by the slice's
+    offset): float32 ``m``, ``l`` ``(B, H, 1)`` and the unnormalised
+    context ``acc`` ``(B, H, R)``, as ``mla_decode_partials_plain``.  The
+    CUDA kernel's partials entry for CUDA tensors (one launch, counted in
+    ``mla_decode_attention.launches`` and in
+    ``mla_decode_partials.launches``), the plain version for CPU
+    tensors, the shapes on ``meta``."""
+    _check(q_abs, q_pe, c_kv, k_pe, lengths)
+    if not kernel_device(q_abs, "mla_decode_attention"):
+        return mla_decode_partials_plain(q_abs, q_pe, c_kv, k_pe, lengths,
+                                         scale=scale, window=window)
+    stat = q_abs.shape[:2] + (1,)
+    parts = (torch.empty(stat, dtype=torch.float32, device=q_abs.device),
+             torch.empty(stat, dtype=torch.float32, device=q_abs.device),
+             torch.empty_like(q_abs))
+    if shape_only(mla_decode_attention, q_abs, *parts,
+                  ops=_ops(q_abs, q_pe, c_kv)):
+        return parts
+    parts = _launch_partials(q_abs, q_pe, c_kv, k_pe, lengths, parts, scale,
+                             window)
+    mla_decode_attention.launches += 1
+    mla_decode_partials.launches += 1
+    return parts
+
+
+mla_decode_partials.launches = 0
+
+
 def _ops(q_abs, q_pe, c_kv) -> float:
     """The kernel's operation count with every cache position admitted:
     the two score products and p·c_kv, two flops a multiply-add."""
@@ -264,8 +312,9 @@ def _on_mesh(q_abs, q_pe, c_kv, k_pe, lengths, scale: float, window: int):
     batch shards, every rank holds all heads.  Where the cache's sequence
     is one shard the wrapper runs on each rank's tensors; where it is
     split each rank's float32 partials over its own slice (``lengths``
-    shifted by the slice's offset; the window needs no shift) are merged
-    with a max and two sum all-reduces, on the CPU and on ``meta``."""
+    shifted by the slice's offset; the window needs no shift;
+    ``mla_decode_partials``) are merged with a max and two sum
+    all-reduces."""
     mesh = c_kv.device_mesh
     sd = seq_dims(c_kv)
     rows = [Shard(0) if p == Shard(0) else Replicate()
@@ -276,25 +325,14 @@ def _on_mesh(q_abs, q_pe, c_kv, k_pe, lengths, scale: float, window: int):
         def local(qa, qp, c, kp, lens):
             return mla_decode_attention(qa, qp, c, kp, lens, scale=scale,
                                         window=window)
-    elif c_kv.device.type == "cuda":
-        raise NotImplementedError(
-            f"MLA decode attention over a cache sequence split across "
-            f"{split} GPUs: the CUDA kernel has no partials entry (ROADMAP "
-            f"3f)")
     else:
         s_all = c_kv.shape[1]
 
         def local(qa, qp, c, kp, lens):
-            if qa.device.type == "meta":
-                fn = mla_decode_attention
-                fn.meta_calls += 1
-                fn.meta_ops = getattr(fn, "meta_ops", 0.0) + _ops(qa, qp, c)
-                m = torch.empty(qa.shape[:2] + (1,), device="meta")
-                l, acc = torch.empty_like(m), torch.empty_like(qa)
-            else:
-                off = seq_offset(mesh, sd, s_all)
-                m, l, acc = mla_decode_partials_plain(
-                    qa, qp, c, kp, lens - off, scale=scale, window=window)
+            if qa.device.type != "meta":
+                lens = lens - seq_offset(mesh, sd, s_all)
+            m, l, acc = mla_decode_partials(qa, qp, c, kp, lens, scale=scale,
+                                            window=window)
             return merge_partials(m, l, acc, mesh, sd)
 
     return local_call(local, mesh, (rows, rows, cache, cache, rows), rows,

@@ -757,7 +757,7 @@ def test_sweeps_equal_plan_run_result(which):
         entry, plan_fn, to_result = fleet_sweep, fleet_plan, fleet_result
         kw = dict(n_steps=64, seed=4)
     plan = plan_fn(g, **kw, **CPU)
-    out = engine.dispatch_device(plan.kernel, plan.params, plan.keys)
+    out = engine.dispatch_device(plan)
     assert all(isinstance(v, torch.Tensor) for k, v in out.items()
                if k != "_limits")
     assert ("_limits" in out) == (which == "gen")

@@ -27,9 +27,14 @@
   and the ranks merge their partials.  MLA decode on a latent cache split
   over "model" is also held against ``mla_decode_attention_plain`` at
   lengths -1, 0, the last position of rank 0's slice and the first of
-  rank 1's, with and without a window.  The workers also pin DTensor's
-  chunk order for a dimension over ("data", "model"): rank (d, m) holds
-  chunk 2·d + m.
+  rank 1's, with and without a window.  DeepSeek's and whisper's decode
+  step also runs through both decode kernels' CUDA route on the mesh
+  (``kernel_device`` true on the CPU tensors, the launchers stubbed by
+  their plain versions, as the backward tests stub ``_launch``): each
+  rank takes the partials entry over its slice, one counted launch a
+  decode layer, and the merged logits match one device's within 2e-5.
+  The workers also pin DTensor's chunk order for a dimension over
+  ("data", "model"): rank (d, m) holds chunk 2·d + m.
 """
 import dataclasses
 import os
@@ -231,6 +236,53 @@ WORKER = textwrap.dedent("""
     want = 2 * coord[0] + coord[1]
     assert seq.to_local().tolist() == [2.0 * want, 2.0 * want + 1], coord
 
+    from repro_torch.kernels import decode_attention as da, mla_decode as md
+
+    # one decode step through both decode kernels' CUDA route:
+    # kernel_device true on these CPU tensors, each launcher stubbed by
+    # its plain version; returns the logits and the launches
+    def cuda_route(cfg, net, tok, cache, lens):
+        def launch(q, k, v, lengths, out, window, scales=None,
+                   partials=None):
+            out.copy_(da._attend_plain(q, k, v, lengths, window,
+                                       *(scales or ())))
+
+        def partials(q, k, v, lengths, parts, window, scales=None):
+            return da._partials_plain(q, k, v, lengths, window,
+                                      *(scales or ()))
+
+        def mla_launch(qa, qp, c, kp, lens, out, scale, window,
+                       stats=None):
+            out.copy_(md.mla_decode_attention_plain(
+                qa, qp, c, kp, lens, scale=scale, window=window))
+
+        def mla_partials(qa, qp, c, kp, lens, parts, scale, window):
+            return md.mla_decode_partials_plain(qa, qp, c, kp, lens,
+                                                scale=scale, window=window)
+
+        stubs = {da: dict(kernel_device=lambda t, name: True, _launch=launch,
+                          _launch_partials=partials),
+                 md: dict(kernel_device=lambda t, name: True,
+                          _launch=mla_launch,
+                          _launch_partials=mla_partials)}
+        saved = {mod: {k: getattr(mod, k) for k in kw}
+                 for mod, kw in stubs.items()}
+        n0 = (da.decode_attention.launches,
+              md.mla_decode_attention.launches)
+        for mod, kw in stubs.items():
+            for k, f in kw.items():
+                setattr(mod, k, f)
+        try:
+            with torch.no_grad(), dst.step_scope(mesh):
+                logits, _ = tfm.decode_step(cfg, net, tok, cache, lens)
+        finally:
+            for mod, kw in saved.items():
+                for k, f in kw.items():
+                    setattr(mod, k, f)
+        return {"logits": dst.full(logits),
+                "launches": (da.decode_attention.launches - n0[0],
+                             md.mla_decode_attention.launches - n0[1])}
+
     inp = torch.load(out + "/inputs.pt")
     results = {}
     for arch, job in inp["jobs"].items():
@@ -278,6 +330,9 @@ WORKER = textwrap.dedent("""
                          "logits": dst.full(logits),
                          "cache_specs": [{k: tuple(v) for k, v in c.items()}
                                          for c in cspecs]}
+        if arch in ("deepseek-v2-lite-16b", "whisper-medium"):
+            results[arch]["cuda_route"] = cuda_route(cfg, net, tok, cache,
+                                                     lens)
 
     # MLA decode over a latent cache whose positions are split over "model"
     mla = inp["mla"]
@@ -443,14 +498,21 @@ def _matches_one_device(arch, job, got):
         assert float(diff.max()) <= 2 * OPT.lr, n
     assert held > total / 2
 
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               _one_device_logits(arch, job).numpy(),
+                               atol=2e-5, rtol=0)
+
+
+def _one_device_logits(arch, job):
+    """One decode step of the job's prompt on one device, plain."""
+    pcfg = _cfg(arch)
     plain = tfm.init_params(pcfg, torch.Generator().manual_seed(5))
     plain.load_state_dict(job["weights"])
     with torch.no_grad():
         _, cache = tfm.prefill(pcfg, plain, job["prompt"], job["cache_len"])
         want, _ = tfm.decode_step(pcfg, plain, job["next"], cache,
                                   job["lengths"])
-    np.testing.assert_allclose(got["logits"].numpy(), want.numpy(),
-                               atol=2e-5, rtol=0)
+    return want
 
 
 def test_two_by_two_gloo_mesh_matches_one_device(two_by_two):
@@ -471,6 +533,24 @@ def test_two_by_two_gloo_mesh_matches_one_device_every_family(two_by_two,
     if arch == "whisper-medium":
         assert specs[0]["cross_k"] == ("data", None, "model", None)
     _matches_one_device(arch, inp["jobs"][arch], got[arch])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-medium"])
+def test_two_by_two_decode_kernels_cuda_route(two_by_two, arch):
+    """The decode kernels' CUDA route on a sequence-split cache: each rank
+    launches the partials entry over its slice (one launch a decode
+    layer: DeepSeek's latent decode; whisper's self-attention B4, beside
+    its cross cache's one-pass B4 over the heads it holds) and the ranks'
+    merge gives one device's logits within 2e-5."""
+    inp, got = two_by_two
+    route = got[arch]["cuda_route"]
+    layers = _cfg(arch).num_layers
+    assert route["launches"] == ((0, layers) if arch.startswith("deepseek")
+                                 else (2 * layers, 0))
+    np.testing.assert_allclose(
+        route["logits"].numpy(),
+        _one_device_logits(arch, inp["jobs"][arch]).numpy(), atol=2e-5,
+        rtol=0)
 
 
 def test_two_by_two_moe_groups_drop_tokens():

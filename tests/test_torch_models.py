@@ -40,10 +40,12 @@ from repro_torch.models import rope as pt_rope
 from repro_torch.models import transformer as tfm
 
 # MHA + QKV bias; GQA + 0.75 rope; attention-free SSD; MLA + MoE; the
-# Mamba2 / attention hybrid
+# Mamba2 / attention hybrid; and the two other dense archs the card
+# serves whole (serve_codeqwen, serve_qwen4b: MHA at 32 and 20 heads)
 ARCHS = ["qwen1.5-0.5b", "phi4-mini-3.8b", "mamba2-2.7b",
-         "deepseek-v2-lite-16b", "jamba-v0.1-52b"]
-ATTN_ARCHS = ARCHS[:2]
+         "deepseek-v2-lite-16b", "jamba-v0.1-52b", "codeqwen1.5-7b",
+         "qwen1.5-4b"]
+ATTN_ARCHS = ARCHS[:2] + ARCHS[5:]
 ATOL = 1e-4
 B, EXTRA = 2, 3
 # prompt length per arch: the SSM layers' crosses their reduced chunk

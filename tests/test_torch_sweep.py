@@ -262,34 +262,6 @@ def test_unported_features_raise(what):
                           np.asarray(r2.mean_latency))
 
 
-@pytest.mark.parametrize("entry", ["sweep", "gen_sweep", "fleet_sweep",
-                                   "campaign"])
-def test_shard_over_two_visible_gpus_raises_3f(monkeypatch, entry):
-    """With two CUDA devices visible, ``shard=2`` would dispatch over
-    both: multi-GPU dispatch is ROADMAP 3f and raises before any run
-    (and before the missing device is noticed); on the CPU the same
-    call runs on one device."""
-    from repro_torch.core import fleet_sweep, gen_sweep
-    from repro_torch.core.campaign import campaign
-    from repro_torch.core.grid import FleetGrid, GenGrid
-    grids = {"sweep": SweepGrid.from_rhos([0.3, 0.5], V100.alpha,
-                                          V100.tau0),
-             "gen_sweep": GenGrid.from_points([0.05, 0.06], 0.1, 1.0, 0.1,
-                                              1.0),
-             "fleet_sweep": FleetGrid.from_points([1.0, 1.2], 0.1, 1.0,
-                                                  k=2)}
-    fns = {"sweep": sweep, "gen_sweep": gen_sweep,
-           "fleet_sweep": fleet_sweep, "campaign": campaign}
-    g = grids.get(entry, grids["sweep"])
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="3f"):
-        fns[entry](g, shard=2)
-    with pytest.raises(NotImplementedError, match="3f"):
-        fns[entry](g, shard=2, device="cuda")
-    with pytest.raises(ValueError, match="shard must be >= 1"):
-        fns[entry](g, shard=0, device="cpu")
-
-
 def test_default_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = SweepGrid.from_rhos([0.5], V100.alpha, V100.tau0)

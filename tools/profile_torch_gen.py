@@ -102,7 +102,7 @@ def main() -> int:
     R = gen_mod._REBASE_EVERY
     kw = dict(n_steps=R * args.supersteps, warmup=0, s_cap=s_cap,
               n_bins=512, hist_every=1, sketch=False, ss_backend="cuda",
-              tap=None, device=dev, **caps)
+              tap=None, has_fail=grid.has_fail, device=dev, **caps)
     keys = prng.point_keys(29, 0, len(grid), dev)
 
     def run():
